@@ -1,0 +1,187 @@
+"""Attention operators: flash-attention forward with a hand-written CUDA
+kernel, and rotary position embedding.
+
+Counterpart of ``mxnet_tpu/ops/attention.py``.  The Pallas TPU kernel
+``_flash_fwd_kernel`` becomes ``csrc/flash_fwd.cu``; :func:`flash_fwd` is
+its wrapper, and :func:`_flash_forward_plain` is the plain PyTorch version
+of the same function.  The wrapper chooses by the tensor's device alone: a
+CPU tensor gets the plain version, a CUDA tensor gets the kernel or an
+error.  Unlike the JAX dispatch gate, which falls back to a dense lowering
+unless S divides into 128-row blocks, the kernel takes any S, so every
+CUDA call launches it.
+
+Layouts follow the JAX package: ``[B, H, S, D]``, or packed ``[B, S, H*D]``
+with ``num_heads``.  The key-padding path (``key_valid_len``) and the
+backward wait for the slices that need them.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..base import MXNetError
+from . import _build
+
+__all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
+
+# Kernel launches made by flash_fwd (the count shows that a run went through
+# the kernel; nothing else touches it).
+flash_fwd_launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK = -1e30
+
+
+def attention_reference(q, k, v, causal=False, sm_scale=None):
+    """Dense softmax(q k^T) v with fp32 scores; ``[B, H, S, D]`` layout."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * sm_scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(q.dtype), v)
+
+
+def _flash_forward_plain(q, k, v, causal: bool, sm_scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash forward: ``(O, lse)`` for
+    ``[..., S, D]`` inputs, lse fp32 ``[..., S_q]``.  Scores are the
+    product in the input dtype cast to fp32, masked with -1e30, as in the
+    JAX package's XLA lowering."""
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * sm_scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, _MASK)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul((p / l).to(q.dtype), v)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+_lib = None
+
+
+def _kernel_lib():
+    """The built ``csrc/flash_fwd.cu`` library, its C signatures declared
+    on first use."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_fwd")
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.flash_fwd.restype = ctypes.c_int
+        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+    global flash_fwd_launches
+    if q.dim() != 3:
+        raise MXNetError(f"flash_fwd takes [BH, S, D] tensors, q is "
+                         f"{tuple(q.shape)}")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (bh, sk, d) or v.shape != k.shape:
+        raise MXNetError(f"flash_fwd: q {tuple(q.shape)}, k {tuple(k.shape)}"
+                         f", v {tuple(v.shape)} do not form [BH, S, D]")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise MXNetError(f"flash_fwd: {name} is {t.dtype} on {t.device}, "
+                             f"q is {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise MXNetError(f"flash_fwd: {name} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise MXNetError(f"flash_fwd takes float32 or bfloat16, not {q.dtype}")
+    if not 0 < d <= 128:
+        raise MXNetError(f"flash_fwd takes head dims 1..128, not {d}")
+    if not (0 < bh <= 65535 and sq > 0 and sk > 0):
+        raise MXNetError(f"flash_fwd: unsupported sizes BH={bh}, S_q={sq}, "
+                         f"S_k={sk}")
+    lib = _kernel_lib()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
+                            int(causal), float(sm_scale),
+                            _DTYPE_CODES[q.dtype],
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise MXNetError("flash_fwd launch failed: "
+                         + lib.flash_fwd_error_string(err).decode())
+    flash_fwd_launches += 1
+    return out, lse
+
+
+def flash_fwd(q, k, v, causal: bool, sm_scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash-attention forward on ``[BH, S, D]`` tensors: ``(O, lse)``, O
+    in the input dtype, lse fp32 ``[BH, S_q]``.  CUDA tensors launch the
+    kernel (contiguous fp32/bf16, D <= 128, or an error); CPU tensors run
+    :func:`_flash_forward_plain`."""
+    if q.device.type == "cpu":
+        return _flash_forward_plain(q, k, v, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_fwd: no kernel for device {q.device}")
+    return _flash_fwd_cuda(q, k, v, causal, sm_scale)
+
+
+def _forward_with_lse(q, k, v, causal: bool, sm_scale: float):
+    """``[B, H, S, D]`` -> (out ``[B, H, S_q, D]``, lse ``[B, H, S_q]``)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    out, lse = flash_fwd(q.reshape(b * h, sq, d).contiguous(),
+                         k.reshape(b * h, sk, d).contiguous(),
+                         v.reshape(b * h, sk, d).contiguous(),
+                         causal, sm_scale)
+    return out.view(b, h, sq, d), lse.view(b, h, sq)
+
+
+def rope(x, cos, sin, num_heads: Optional[int] = None):
+    """Rotary position embedding: ``x`` is ``[B, S, H*D]`` (with
+    ``num_heads``) or ``[B, H, S, D]``; cos/sin are ``[S, D/2]`` tables.
+    Rotates each head's feature halves (x1, x2) by the position angle."""
+    if x.dim() == 3:
+        if not num_heads:
+            raise MXNetError("num_heads required for packed [B, S, H*D] input")
+        b, s, hd = x.shape
+        xr = x.reshape(b, s, num_heads, hd // num_heads)
+        c, sn = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        xr = x
+        c, sn = cos[None, None], sin[None, None]
+    d = xr.shape[-1]
+    x1, x2 = xr[..., : d // 2], xr[..., d // 2:]
+    out = torch.cat([x1 * c - x2 * sn, x2 * c + x1 * sn], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def flash_attention(q, k, v, num_heads: Optional[int] = None,
+                    causal: bool = False, sm_scale: Optional[float] = None):
+    """Fused multi-head scaled-dot-product attention over ``[B, H, S, D]``
+    inputs, or ``[B, S, H*D]`` with ``num_heads`` (returning that layout)."""
+    packed = q.dim() == 3
+    if packed:
+        if not num_heads:
+            raise MXNetError("num_heads required for [B, S, H*D] inputs")
+        b, _, hd = q.shape
+        d = hd // num_heads
+        q, k, v = (t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2)
+                   for t in (q, k, v))
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    out, _ = _forward_with_lse(q, k, v, bool(causal), float(sm_scale))
+    if packed:
+        b, h, s, d = out.shape
+        out = out.transpose(1, 2).reshape(b, s, h * d)
+    return out

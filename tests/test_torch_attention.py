@@ -1,0 +1,154 @@
+"""Port parity: mxnet_tpu_torch.ops.attention against mxnet_tpu.ops.attention.
+
+The same numpy inputs (seeded) go through the JAX functions, on the CPU,
+and through the port's CPU path, which is the plain version of the CUDA
+flash kernel.  Tolerance: float32, summed in other orders by XLA and
+PyTorch; 2e-6 absolute on outputs of magnitude ~1, as the JAX package's own
+attention tests use, and 1e-5 on lse (magnitude up to ~6).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import mxnet_tpu as mx
+from mxnet_tpu.ops import attention as jattn
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.ops import attention as tattn
+
+ATOL_O = 2e-6
+ATOL_LSE = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors gain nothing from torch's thread pool; one thread keeps
+    this file from crowding the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(shape, seed, scale=0.3):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*shape) * scale).astype(np.float32) for _ in range(3)]
+
+
+def _jax_with_lse(q, k, v, causal):
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = jattn._forward_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal, sm)
+    return np.asarray(o), np.asarray(lse)
+
+
+def _port_with_lse(q, k, v, causal):
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = tattn._flash_forward_plain(torch.from_numpy(q),
+                                        torch.from_numpy(k),
+                                        torch.from_numpy(v), causal, sm)
+    return o.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_jax_xla_path(causal):
+    q, k, v = _qkv((2, 2, 96, 32), seed=0)
+    jo, jl = _jax_with_lse(q, k, v, causal)
+    to, tl = _port_with_lse(q, k, v, causal)
+    np.testing.assert_allclose(to, jo, atol=ATOL_O)
+    np.testing.assert_allclose(tl, jl, atol=ATOL_LSE)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_jax_pallas_kernel_interpret(causal, monkeypatch):
+    """The JAX side runs the Pallas flash kernel in interpret mode (blocks
+    of 128 over S=256), the port side its plain version."""
+    monkeypatch.setenv("MXNET_KERNEL_BACKEND", "interpret")
+    q, k, v = _qkv((2, 2, 256, 64), seed=1)
+    jo, jl = _jax_with_lse(q, k, v, causal)
+    to, tl = _port_with_lse(q, k, v, causal)
+    np.testing.assert_allclose(to, jo, atol=ATOL_O)
+    np.testing.assert_allclose(tl, jl, atol=ATOL_LSE)
+
+
+@pytest.mark.parametrize("seq", [64, 300])
+def test_flash_attention_packed_layout(seq):
+    """Packed [B, S, H*D] causal attention, including a ragged S=300 that
+    the JAX dispatch sends to its dense lowering."""
+    b, h, d = 2, 4, 16
+    q, k, v = _qkv((b, seq, h * d), seed=2)
+    ref = mx.nd.flash_attention(mx.nd.array(q), mx.nd.array(k),
+                                mx.nd.array(v), num_heads=h,
+                                causal=True).asnumpy()
+    out = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), num_heads=h, causal=True)
+    assert out.shape == (b, seq, h * d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL_O)
+
+
+def test_flash_attention_bhsd_layout_matches_reference():
+    q, k, v = _qkv((1, 3, 40, 24), seed=3)
+    ref = np.asarray(jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        sm_scale=0.3))
+    out = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=True, sm_scale=0.3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL_O)
+    port_ref = tattn.attention_reference(torch.from_numpy(q),
+                                         torch.from_numpy(k),
+                                         torch.from_numpy(v), causal=True,
+                                         sm_scale=0.3)
+    np.testing.assert_allclose(port_ref.numpy(), ref, atol=ATOL_O)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_rope_matches_jax(packed):
+    rng = np.random.RandomState(4)
+    b, h, s, d = 2, 3, 10, 8
+    shape = (b, s, h * d) if packed else (b, h, s, d)
+    x = rng.randn(*shape).astype(np.float32)
+    cos = rng.randn(s, d // 2).astype(np.float32)
+    sin = rng.randn(s, d // 2).astype(np.float32)
+    heads = h if packed else None
+    ref = np.asarray(jattn.rope(jnp.asarray(x), jnp.asarray(cos),
+                                jnp.asarray(sin), num_heads=heads))
+    out = tattn.rope(torch.from_numpy(x), torch.from_numpy(cos),
+                     torch.from_numpy(sin), num_heads=heads)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+
+
+def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
+    monkeypatch.setattr(tattn, "flash_fwd_launches", 0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv((4, 32, 16), seed=5))
+    out, lse = tattn.flash_fwd(q, k, v, True, 0.25)
+    assert out.shape == (4, 32, 16) and lse.shape == (4, 32)
+    assert lse.dtype == torch.float32
+    assert tattn.flash_fwd_launches == 0
+
+
+def test_no_fallback_on_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA gets an error, never
+    the plain version."""
+    q = torch.empty(2, 8, 16, device="meta")
+    with pytest.raises(MXNetError):
+        tattn.flash_fwd(q, q, q, False, 0.25)
+
+
+@pytest.mark.parametrize("bad", ["float16", "noncontiguous", "head_dim_256",
+                                 "rank4", "k_shape"])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """The CUDA wrapper validates before it builds or launches anything."""
+    q = k = v = torch.zeros(2, 8, 16)
+    if bad == "float16":
+        q = k = v = q.half()
+    elif bad == "noncontiguous":
+        k = torch.zeros(2, 16, 8).transpose(1, 2)
+    elif bad == "head_dim_256":
+        q = k = v = torch.zeros(2, 8, 256)
+    elif bad == "rank4":
+        q = k = v = torch.zeros(1, 2, 8, 16)
+    else:
+        k = torch.zeros(3, 8, 16)
+    with pytest.raises(MXNetError):
+        tattn._flash_fwd_cuda(q, k, v, True, 0.25)

@@ -1,0 +1,38 @@
+"""The port stands alone: importing ``mxnet_tpu_torch`` (and the chip smoke
+script) loads no JAX module and nothing of the JAX package, and no source
+file of the port imports either."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^(jax|jaxlib)(\.|$)|^mxnet_tpu(\.|$)")
+IMPORT = re.compile(r"^\s*(from|import)\s+(jax\w*|mxnet_tpu)(\.|\s|,|$)",
+                    re.MULTILINE)
+
+_PROBE = """
+import sys
+before = set(sys.modules)
+import mxnet_tpu_torch, mxnet_tpu_torch.serving, chip_smoke
+print("\\n".join(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert "mxnet_tpu_torch" in loaded and "torch" in loaded
+    bad = [m for m in loaded if FORBIDDEN.search(m)]
+    assert not bad, bad
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in IMPORT.finditer(f.read_text())]
+    assert not hits, hits
