@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time of the port's ResNet-50 v1 training step goes, on one
+NVIDIA H100.
+
+    python3 chip_profile.py [--seed N] [--steps N]
+
+Run from the root of a checkout on a machine with one CUDA card (after or
+instead of ``chip_smoke.py``; it builds the kernels it needs the same way).
+For each of ``chip_smoke.py``'s three training runs (a) fused fp32, (b)
+unfused fp32 and (c) unfused bf16 (full-width resnet50_v1, 224 px, batch
+256, TF32 off) it takes 3 warm-up steps, then traces ``--steps`` steps with
+``torch.profiler`` and prints one JSON line: device time per step by kernel
+family (the fused kernel, cuDNN convolutions, cuBLAS matrix products,
+reductions, elementwise passes, pooling, other), the device's idle share of
+the traced wall time, and the ten kernels that took longest.  The last line
+names the card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# Kernel families, first match wins, by kernel name.
+FAMILIES = (
+    ("fused_conv_bn", re.compile(r"mm_bn_stats_kernel")),
+    ("conv_cudnn", re.compile(r"conv|cudnn|xmma|implicit|fprop|dgrad|wgrad",
+                              re.I)),
+    ("matmul_cublas", re.compile(r"gemm|cutlass|sm90_|ampere_|cublas", re.I)),
+    ("pooling", re.compile(r"pool", re.I)),
+    ("reduce", re.compile(r"reduce", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized|unrolled|copy|fill",
+                               re.I)),
+)
+
+
+def family(name):
+    for fam, pattern in FAMILIES:
+        if pattern.search(name):
+            return fam
+    return "other"
+
+
+def profile_run(torch, smoke, seed, name, fused, dtype, steps):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.empty_cache()
+    net = smoke._resnet50(torch, fused, seed, dtype)
+    step = smoke._train_step(net, smoke.TRAIN["batch"])
+    x, y = smoke._images(torch, seed + 7, smoke.TRAIN["batch"],
+                         smoke.TRAIN["px"], smoke.TRAIN["classes"],
+                         torch.bfloat16 if dtype else None)
+    for _ in range(smoke.TRAIN["warmup"]):
+        step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(x, y)
+        loss.item()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    by_family, top = {}, []
+    for e in kernels:
+        ms = e.self_device_time_total / 1e3 / steps
+        fam = family(e.key)
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        top.append((ms, e.count // steps, e.key[:90]))
+    busy = sum(by_family.values())
+    top.sort(reverse=True)
+    out = {"run": name, "fused": fused, "dtype": dtype or "float32",
+           "traced_steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy,
+           "idle_share": 1.0 - busy * steps / wall_ms,
+           "ms_per_step_by_family": dict(sorted(
+               by_family.items(), key=lambda kv: -kv[1])),
+           "top_kernels": [{"ms_per_step": ms, "launches_per_step": n,
+                            "name": k} for ms, n, k in top[:10]],
+           "kernel_events": len(kernels)}
+    print(json.dumps(out), flush=True)
+    del net, step, x, y
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--steps", type=int, default=2)
+    args = parser.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: CUDA is not available")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke as smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, fused, dtype in (("a_fused_fp32", True, None),
+                               ("b_unfused_fp32", False, None),
+                               ("c_unfused_bf16", False, "bfloat16")):
+        profile_run(torch, smoke, args.seed, name, fused, dtype, args.steps)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

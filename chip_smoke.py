@@ -5,20 +5,30 @@
 
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  It builds every CUDA kernel of the port from ``csrc/``,
-holds each against its plain PyTorch version on the card, checks the
-Llama model's two attention paths against each other, and then serves
-full-width llama_7b (32 layers, bf16, random weights from ``--seed``)
-through ``ModelServer`` on both generation engines.  Each phase prints one
-JSON line; any failed phase ends the run with a non-zero exit code.  The
-line before the last is the kernel table; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
-the repository beside it, the script exits non-zero and prints no result.
+holds each against its plain PyTorch version on the card and times it
+beside its bound, then drives the port's two paths:
+
+- serving (slice 1): checks the Llama model's two attention paths against
+  each other, then serves full-width llama_7b (32 layers, bf16, random
+  weights from ``--seed``) through ``ModelServer`` on both generation
+  engines;
+- training (slice 2): holds the fused resnet50_v1 against the unfused one
+  for one step at 64 px, then trains full-width resnet50_v1 (224 px, 1000
+  classes, batch 256, SGD as bench.py) fused in fp32, unfused in fp32 and
+  unfused in bf16.
+
+Each phase prints one JSON line; any failed phase ends the run with a
+non-zero exit code.  The line before the last is the kernel table; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+rest of the repository beside it, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +60,43 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
        "bfloat16": {"o": 2e-2, "lse": 1e-4}}
 BF16_O_REL = 2.0 ** -8
 BF16_O_ABS = 1e-5
+
+# Fused 1x1-conv + BN-statistics kernel: the (K, N) of every bottleneck 1x1
+# conv of resnet50_v1, by stage, with its output side at 224 px; the
+# kernel's M is batch * side^2.  Checked at batch 32, timed at the largest
+# stage-1 shape at batch 256 (the training phase's batch).
+FUSED_STAGES = ((56, ((64, 64), (256, 64), (64, 256))),
+                (28, ((256, 128), (512, 128), (128, 512), (256, 512))),
+                (14, ((512, 256), (1024, 256), (256, 1024), (512, 1024))),
+                (7, ((1024, 512), (2048, 512), (512, 2048), (1024, 2048))))
+FUSED_CHECK_BATCH = 32
+FUSED_RAGGED = (300, 130, 70)
+FUSED_TIMED = (256 * 56 * 56, 256, 64)
+FUSED_MODES = {"plain": (False, False), "affine": (True, False),
+               "affine_relu": (True, True)}
+# Gates, each against the plain version evaluated in fp32 on the same
+# values: fp32 y within 1e-4 of max |ref| (the two sum K in other orders);
+# bf16 y per element within half a bf16 ulp plus the fp32 summation order,
+# |y - ref| <= 2^-8 |ref| + 1e-5 (the kernel rounds its fp32 accumulator
+# once); the statistics of each column within 1e-5 of its sum of |y| and of
+# its sum of y^2 (800k-row sums taken in other orders).
+FUSED_TOL = {"y_fp32_rel": 1e-4, "y_bf16_rel": 2.0 ** -8,
+             "y_bf16_abs": 1e-5, "stats_rel": 1e-5}
+
+# Training: resnet50_v1 as bench.py trains it (lr 0.1, momentum 0.9, wd
+# 1e-4, images uniform in [0, 1), 1000 classes).  The parity step runs at 64
+# px, batch 8, fp32.  The fused step and the unfused one differ only in
+# rounding (BN cancels the unfused conv bias, set to 0 here), so the loss
+# must agree within 1e-4 of itself.  The step's weight updates are
+# ill-conditioned at this size: the unfused step in fp32 against the same
+# step in fp64 (on the CPU, same weights and batch) moves every 1x1
+# weight's update by 1.3-3.4% in norm and up to 27% in its largest element,
+# since a ReLU gate that rounding flips changes one of only 32 rows per
+# channel at stage 4.  So each fused 1x1 weight's update must lie within
+# 10% in norm of the unfused one's; the largest elementwise gap is printed.
+TRAIN = dict(batch=256, px=224, classes=1000, warmup=3, steps=10)
+PARITY = dict(batch=8, px=64, loss_rel=1e-4, update_rel_norm=0.1)
+FUSED_LAUNCHES_PER_STEP = 36
 
 LLAMA_7B = dict(vocab_size=32000, units=4096, hidden=11008, num_heads=32,
                 max_length=2048)
@@ -390,6 +437,277 @@ def phase_serving(torch, seed):
     return launches["llama_dense"]
 
 
+def fused_bound_ms(m, k, n, dtype_bytes):
+    """Least time on the card for y = x @ w with the column statistics:
+    2MKN flops for the product and 3MN for the sums, at the fp32 CUDA-core
+    peak (bf16 at its tensor-core peak); bytes are x, w read once, y
+    written once and the two fp32 [N] statistics written once."""
+    flops = 2.0 * m * k * n + 3.0 * m * n
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_FP32_FLOPS
+    nbytes = dtype_bytes * (m * k + k * n + m * n) + 8.0 * n
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _fused_inputs(torch, gen, m, k, n, dtype, affine, w_nk=True):
+    """x [M, K] ~ N(0, 1) and w with entries ~ N(0, 1/K), so y is O(1);
+    w is the transpose of a contiguous [N, K] (the conv layout the model
+    hands the kernel) or, for a direct call, a contiguous [K, N] that the
+    wrapper copies to the conv layout; the affine's scale is in
+    [0.5, 1.5) and its shift ~ N(0, 0.25)."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(n, k, generator=gen, device="cuda") / math.sqrt(k)
+    w = (w.to(dtype).t() if w_nk else w.t().contiguous().to(dtype))
+    sc = sh = None
+    if affine:
+        sc = torch.rand(k, generator=gen, device="cuda") + 0.5
+        sh = 0.5 * torch.randn(k, generator=gen, device="cuda")
+    return x, w, sc, sh
+
+
+def _fused_case(torch, FC, x, w, sc, sh, relu):
+    """Run the kernel and its plain version (fp32, same values) once;
+    the errors and whether they pass the gates."""
+    y, s1, s2 = FC.fused_matmul_bn_stats(x, w, sc, sh, relu)
+    ry, r1, r2 = FC._reference_conv1x1(x.float(), w.float(), sc, sh, relu)
+    torch.cuda.synchronize()
+    d = (y.float() - ry).abs()
+    case = {"max_abs_err": d.max().item(),
+            "sum_err_ratio": ((s1 - r1).abs() / ry.abs().sum(0)
+                              .clamp_min(1e-30)).max().item() /
+            FUSED_TOL["stats_rel"],
+            "sumsq_err_ratio": ((s2 - r2).abs() / r2.clamp_min(1e-30))
+            .max().item() / FUSED_TOL["stats_rel"]}
+    if x.dtype == torch.float32:
+        case["y_err_ratio"] = case["max_abs_err"] / (
+            FUSED_TOL["y_fp32_rel"] * ry.abs().max().item())
+    else:
+        # 1 at the half-ulp bound; above 1 fails the case
+        case["y_err_ratio"] = (d / (FUSED_TOL["y_bf16_rel"] * ry.abs()
+                                    + FUSED_TOL["y_bf16_abs"])).max().item()
+    case["ok"] = all(case[r] <= 1.0 for r in
+                     ("y_err_ratio", "sum_err_ratio", "sumsq_err_ratio"))
+    return case
+
+
+def phase_fused_kernel(torch, seed):
+    """The fused 1x1-conv + BN-statistics kernel against its plain version
+    at every resnet50_v1 shape (batch 32) and one ragged shape, fp32 and
+    bf16, in its three modes (the model's shapes with w in the conv layout,
+    the ragged one as a direct call's contiguous [K, N]); then the timings
+    at FUSED_TIMED, fp32, in the mode the model runs (no affine, w in the
+    conv layout)."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(FUSED_CHECK_BATCH * side * side, k, n)
+              for side, kns in FUSED_STAGES for k, n in kns]
+    cases = []
+    for (m, k, n) in shapes + [FUSED_RAGGED]:
+        w_nk = (m, k, n) != FUSED_RAGGED
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode, (affine, relu) in FUSED_MODES.items():
+                x, w, sc, sh = _fused_inputs(torch, gen, m, k, n, dtype,
+                                             affine, w_nk)
+                case = _fused_case(torch, FC, x, w, sc, sh, relu)
+                case.update(shape=[m, k, n], mode=mode,
+                            dtype=str(dtype).replace("torch.", ""),
+                            w_layout="nk" if w_nk else "kn")
+                cases.append(case)
+                del x, w, sc, sh
+    bad = [c for c in cases if not c["ok"]]
+    emit({"phase": "fused_kernel", "ok": not bad, "tolerance": FUSED_TOL,
+          "cases": len(cases),
+          "worst": {r: max(c[r] for c in cases) for r in
+                    ("y_err_ratio", "sum_err_ratio", "sumsq_err_ratio")},
+          "failed": bad})
+    check(not bad, f"fused_conv_bn_stats disagrees with its plain version: "
+          f"{bad}")
+
+    m, k, n = FUSED_TIMED
+    x, w, _, _ = _fused_inputs(torch, gen, m, k, n, torch.float32, False)
+    timed = _fused_case(torch, FC, x, w, None, None, False)
+    check(timed["ok"], f"fused_conv_bn_stats at {FUSED_TIMED}: {timed}")
+    fns = {"kernel": lambda: FC.fused_matmul_bn_stats(x, w),
+           "plain": lambda: FC._reference_conv1x1(x, w, None, None, False),
+           "library": lambda: torch.matmul(x, w)}
+    times = {key: [] for key in fns}
+    for order in (("kernel", "plain", "library"),
+                  ("library", "plain", "kernel")):
+        for key in order:
+            times[key].append(cuda_ms(torch, fns[key], iters=10))
+    bound, bound_by = fused_bound_ms(m, k, n, 4)
+    result = {"shape": list(FUSED_TIMED), "dtype": "float32",
+              "mode": "plain", "max_abs_err": timed["max_abs_err"],
+              "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+              "library_ms": min(times["library"]), "bound_ms": bound,
+              "bound_by": bound_by, "runs_ms": times,
+              "tf32": _tf32(torch)}
+    emit({"phase": "fused_kernel_timing", "ok": True,
+          "fused_conv_bn_stats": result})
+    return result
+
+
+def _tf32(torch):
+    return {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+
+
+def _resnet50(torch, fused, seed, dtype=None):
+    """resnet50_v1 on the card (1000 classes), weights from ``seed``;
+    converted to ``dtype`` with amp.convert_block when given."""
+    from mxnet_tpu_torch.contrib.amp import convert_block
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    os.environ["MXNET_TPU_FUSE_CONV_BN"] = str(int(fused))
+    net = resnet50_v1(classes=TRAIN["classes"], device="cuda")
+    initialize(net, generator(seed, "cuda"))
+    if dtype is not None:
+        convert_block(net, dtype)
+    return net
+
+
+def _train_step(net, batch):
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return CompiledTrainStep(net, SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9, wd=1e-4),
+                             batch_size=batch)
+
+
+def _images(torch, seed, batch, px, classes, dtype=None):
+    """A batch of images uniform in [0, 1) and labels, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(batch, 3, px, px, generator=gen, device="cuda")
+    y = torch.randint(0, classes, (batch,), generator=gen, device="cuda")
+    return (x if dtype is None else x.to(dtype)), y.float()
+
+
+def phase_resnet_parity(torch, seed):
+    """One training step of resnet50_v1 fused and unfused from the same
+    weights (the unfused 1x1 conv biases, which BN cancels, at 0) at 64 px,
+    batch 8, fp32 with TF32 off: the losses and every fused 1x1 weight's
+    update against its unfused counterpart's."""
+    from mxnet_tpu_torch.gluon.contrib.nn import FusedConv1x1BN
+    from mxnet_tpu_torch.gluon.nn import Conv2D
+    unfused = _resnet50(torch, False, seed)
+    fused = _resnet50(torch, True, seed)
+    src = unfused.state_dict()
+    biases = {f"{name}.bias" for name, mod in unfused.named_modules()
+              if isinstance(mod, Conv2D) and mod.bias is not None
+              and mod.weight.shape[2:] == (1, 1)}
+    for key in biases:
+        src[key].zero_()
+    pairs = list(zip(fused.state_dict(), [k for k in src if k not in biases]))
+    check(len(pairs) == len(src) - len(biases) == len(fused.state_dict())
+          and all(src[u].shape == v.shape for (f, u), v in
+                  zip(pairs, fused.state_dict().values())),
+          "fused and unfused resnet50_v1 do not pair up")
+    fused.load_state_dict({f: src[u] for f, u in pairs})
+    fused_weights = {f"{name}.weight" for name, mod in fused.named_modules()
+                     if isinstance(mod, FusedConv1x1BN)}
+    w_pairs = [(f, u) for f, u in pairs if f in fused_weights]
+    before = {f: src[u].clone() for f, u in w_pairs}
+    x, y = _images(torch, seed + 5, PARITY["batch"], PARITY["px"],
+                   TRAIN["classes"])
+    loss_f = _train_step(fused, PARITY["batch"])(x, y).item()
+    loss_u = _train_step(unfused, PARITY["batch"])(x, y).item()
+    fsd, usd = fused.state_dict(), unfused.state_dict()
+    worst_norm = worst_max = 0.0
+    for f, u in w_pairs:
+        du = usd[u] - before[f]
+        gap = fsd[f] - before[f] - du
+        worst_norm = max(worst_norm, (gap.norm() / du.norm()).item())
+        worst_max = max(worst_max, (gap.abs().max() / du.abs().max()).item())
+    loss_rel = abs(loss_f - loss_u) / abs(loss_u)
+    ok = (math.isfinite(loss_f) and loss_rel <= PARITY["loss_rel"]
+          and worst_norm <= PARITY["update_rel_norm"]
+          and len(w_pairs) == FUSED_LAUNCHES_PER_STEP)
+    emit({"phase": "resnet_parity", "ok": ok, "px": PARITY["px"],
+          "batch": PARITY["batch"], "loss_fused": loss_f,
+          "loss_unfused": loss_u, "loss_rel_diff": loss_rel,
+          "fused_weights": len(w_pairs),
+          "worst_update_rel_diff_norm": worst_norm,
+          "worst_update_rel_diff_max": worst_max,
+          "tolerance": {k: PARITY[k] for k in ("loss_rel",
+                                               "update_rel_norm")},
+          "tf32": _tf32(torch)})
+    check(ok, "fused and unfused resnet50_v1 steps disagree")
+
+
+def _train_run(torch, seed, name, fused, dtype):
+    """``TRAIN["warmup"]`` + ``TRAIN["steps"]`` steps of full-width
+    resnet50_v1 with the launch counts set to 0 just before and read just
+    after; images per second from the host clock over the timed steps,
+    ending in a ``loss.item()``."""
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    torch.cuda.empty_cache()
+    bf16 = dtype == "bfloat16"
+    net = _resnet50(torch, fused, seed, dtype)
+    step = _train_step(net, TRAIN["batch"])
+    x, y = _images(torch, seed + 7, TRAIN["batch"], TRAIN["px"],
+                   TRAIN["classes"], torch.bfloat16 if bf16 else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FC.fused_conv_bn_launches = 0
+    A.flash_fwd_launches = 0
+    first = step(x, y).item()
+    for _ in range(TRAIN["warmup"] - 1):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["steps"]):
+        loss = step(x, y)
+    last = loss.item()
+    wall = time.perf_counter() - t0
+    launches = FC.fused_conv_bn_launches
+    flash = A.flash_fwd_launches
+    steps = TRAIN["warmup"] + TRAIN["steps"]
+    out = {"run": name, "fused": fused, "dtype": dtype or "float32",
+           "batch": TRAIN["batch"], "px": TRAIN["px"], "steps": steps,
+           "timed_steps": TRAIN["steps"],
+           "imgs_per_sec": TRAIN["batch"] * TRAIN["steps"] / wall,
+           "step_ms": 1e3 * wall / TRAIN["steps"], "first_loss": first,
+           "last_loss": last,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tf32": _tf32(torch), "fused_conv_bn_launches": launches,
+           "flash_fwd_launches": flash}
+    want = FUSED_LAUNCHES_PER_STEP * steps if fused else 0
+    out["gates"] = {"losses_finite": math.isfinite(first)
+                    and math.isfinite(last),
+                    "launches": launches == want and flash == 0}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"training run {name} failed: {out['gates']}")
+    del net, step, x, y
+    return out
+
+
+def phase_training(torch, seed):
+    """Full-width resnet50_v1 training: (a) fused fp32, (b) unfused fp32,
+    (c) unfused bf16 (bench.py's main configuration); TF32 off."""
+    runs = [_train_run(torch, seed, "a_fused_fp32", True, None),
+            _train_run(torch, seed, "b_unfused_fp32", False, None),
+            _train_run(torch, seed, "c_unfused_bf16", False, "bfloat16")]
+    emit({"phase": "training", "ok": True,
+          "fused_over_unfused_step_ms": runs[0]["step_ms"]
+          / runs[1]["step_ms"]})
+    return runs[0]["fused_conv_bn_launches"]
+
+
+def _kernel_line(name, source, replaces, launches, timing):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -405,16 +723,16 @@ def main(argv=None):
     phase_build()
     phase_device(torch)
     timing = phase_kernels(torch, args.seed)
+    fused = phase_fused_kernel(torch, args.seed)
     phase_model_parity(torch, args.seed)
     launches = phase_serving(torch, args.seed)
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mxnet_tpu/ops/attention.py:51",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+    phase_resnet_parity(torch, args.seed)
+    fused_launches = phase_training(torch, args.seed)
+    emit({"kernels": [_kernel_line(
+        "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
+        "mxnet_tpu/ops/attention.py:51", launches, timing), _kernel_line(
+        "fused_conv_bn_stats", "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
+        "mxnet_tpu/ops/fused_conv_bn.py:48", fused_launches, fused)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

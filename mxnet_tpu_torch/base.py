@@ -1,5 +1,5 @@
 """Base utilities of the port: the framework error, the typed environment
-flags the serving slice reads, and the shape-bucket helper.
+flags the serving and training slices read, and the shape-bucket helper.
 
 Counterpart of ``mxnet_tpu/base.py``, reduced to what this package uses.
 Every runtime flag is declared once in a typed registry and read live
@@ -74,6 +74,15 @@ env.declare("MXNET_SERVING_PREFIX_CACHE", True, bool,
             "Content-hash completed KV-cache pages so a later request with "
             "the same prompt prefix maps the same physical pages; 0 "
             "disables sharing.")
+env.declare("MXNET_TPU_FAST_VARIANCE", 1, int,
+            "Norm layers compute the variance one-pass as E[x^2]-E[x]^2, "
+            "clamped at 0.  For activations with |mean| >> std the "
+            "subtraction cancels; set 0 for the centred E[(x-mean)^2].")
+env.declare("MXNET_TPU_FUSE_CONV_BN", 0, int,
+            "1 = the model-zoo ResNet bottlenecks build their 1x1 conv+BN "
+            "pairs as FusedConv1x1BN (the CUDA matmul with a BN-statistics "
+            "epilogue, ops/fused_conv_bn.py) instead of Conv2D+BatchNorm.  "
+            "Read when the block is constructed.")
 
 
 def row_bucket(n: int, minimum: int = 16) -> int:

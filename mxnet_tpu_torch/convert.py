@@ -6,6 +6,12 @@ numpy arrays keyed by their ``collect_params()`` names (for example
 them into a :class:`~mxnet_tpu_torch.gluon.model_zoo.language.LlamaModel`.
 The port's module names follow the JAX ones, so ``layers.0.attn.wq.weight``
 is ``layer0_attn_wq_weight`` after the model's name prefix.
+
+:func:`resnet_state_dict_from_mxnet` maps by order instead: the JAX
+ResNet's names count layers per stage and type
+(``resnetv10_stage1_fusedconv1x1bn0_running_var``), and the port's
+modules register their tensors in the JAX package's order, so the two
+lists pair up one to one.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["llama_state_dict_from_mxnet"]
+__all__ = ["llama_state_dict_from_mxnet", "resnet_state_dict_from_mxnet"]
 
 
 def _mxnet_suffix(key: str) -> str:
@@ -46,6 +52,47 @@ def llama_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
         state[key] = torch.tensor(arr, dtype=ref.dtype, device=ref.device)
         used.add(name)
     extra = sorted(set(params) - used)
+    if extra:
+        raise MXNetError(f"parameters with no place in the model: {extra}")
+    model.load_state_dict(state)
+    return state
+
+
+_ROLES = ("weight", "bias", "gamma", "beta", "running_mean", "running_var")
+
+
+def _role(name: str, sep: str) -> str:
+    for role in _ROLES:
+        if name.endswith(sep + role):
+            return role
+    return "?"
+
+
+def resnet_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
+                                 ) -> Dict[str, torch.Tensor]:
+    """Map ``params`` (the JAX ResNet's ``collect_params()`` as numpy, in
+    its order) onto ``model``'s state dict in order, load it (cast to each
+    entry's dtype and device) and return it.  Each pair must agree in shape
+    and role (weight, bias, gamma, beta, running_mean, running_var); raises
+    on a mismatch and on a tensor missing or left over on either side."""
+    own = model.state_dict()
+    names = list(params)
+    state = {}
+    for i, (key, ref) in enumerate(own.items()):
+        if i >= len(names):
+            raise MXNetError(f"no parameter for {key!r} (and "
+                             f"{len(own) - i - 1} more): the JAX model has "
+                             f"only {len(names)}")
+        name = names[i]
+        arr = np.asarray(params[name])
+        if _role(name, "_") != _role(key, "."):
+            raise MXNetError(f"{name} does not pair with {key}: roles "
+                             f"{_role(name, '_')} and {_role(key, '.')}")
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise MXNetError(f"{name}: shape {arr.shape} != "
+                             f"{tuple(ref.shape)} of {key}")
+        state[key] = torch.tensor(arr, dtype=ref.dtype, device=ref.device)
+    extra = names[len(own):]
     if extra:
         raise MXNetError(f"parameters with no place in the model: {extra}")
     model.load_state_dict(state)

@@ -1,4 +1,5 @@
-"""Gluon-side modules of the port (model zoo)."""
-from . import model_zoo
+"""Gluon-side modules of the port: layers, contrib layers, losses and the
+model zoo."""
+from . import contrib, loss, model_zoo, nn
 
-__all__ = ["model_zoo"]
+__all__ = ["contrib", "loss", "model_zoo", "nn"]

@@ -1,4 +1,4 @@
 """Model zoo of the port."""
-from . import language
+from . import language, vision
 
-__all__ = ["language"]
+__all__ = ["language", "vision"]
