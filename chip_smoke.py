@@ -15,10 +15,19 @@ beside its bound, then drives the port's two paths:
 - training (slice 2): holds the fused resnet50_v1 against the unfused one
   for one step at 64 px, then trains full-width resnet50_v1 (224 px, 1000
   classes, batch 256, SGD as bench.py) fused in fp32, unfused in fp32 and
-  unfused in bf16.
+  unfused in bf16;
+- runtime kernels (slice 3): compiles CUDA C with ``mx.rtc.CudaModule``
+  (NVRTC) and holds each kernel, launched on ``mx.gpu(0)`` NDArrays,
+  against its ``mx.rtc.PallasModule`` twin on CPU copies; then runs
+  llama_7b's FFN (bf16, 8192 tokens) for 3 + 10 imperative training steps
+  through ``mx.nd`` and ``mx.autograd``, its SwiGLU an
+  ``autograd.Function`` over two rtc kernels, held against plain torch
+  autograd.
 
 Each phase prints one JSON line; any failed phase ends the run with a
-non-zero exit code.  The line before the last is the kernel table; the last
+non-zero exit code.  ``--only a,b`` runs only the named phases (build,
+device, flash, fused, model_parity, serving, resnet_parity, training,
+rtc_kernels, rtc_ffn), for a short call while a kernel is brought up.  The line before the last is the kernel table; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -699,6 +708,653 @@ def phase_training(torch, seed):
     return runs[0]["fused_conv_bn_launches"]
 
 
+# ---------------------------------------------------------------------------
+# slice 3: mx.nd / mx.autograd / mx.rtc.CudaModule
+# ---------------------------------------------------------------------------
+# Each rtc kernel below is user code, as an MXNet user writes it for
+# mx.rtc.CudaModule, beside its plain twin for mx.rtc.PallasModule (the JAX
+# package's rtc test sources, in torch).  Gates against the twin run on CPU
+# copies of the same inputs: int32 equal bit for bit; float32 within 1 ulp
+# of the magnitude of the terms (NVRTC may contract a*x+y into an FMA,
+# which rounds once where the twin rounds twice); bf16 outputs, computed in
+# fp32 and rounded once, against the twin's fp32 result on the same values:
+# |k - ref| <= 2^-8 |ref| (half a bf16 ulp) + 2^-20 * terms (the fp32
+# evaluation order and expf against torch's exp).
+RTC_SOURCES = {
+    "axpy": r'''
+extern "C" __global__ void axpy(const float *x, const float *y, float *o,
+                                const float a, const int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) o[i] = a * x[i] + y[i];
+}''',
+    "double2d": r'''
+extern "C" __global__ void double2d(const float *x, float *o, const int rows,
+                                    const int cols) {
+    int c = blockIdx.x * blockDim.x + threadIdx.x;
+    int r = blockIdx.y * blockDim.y + threadIdx.y;
+    if (r < rows && c < cols) {
+        long long i = (long long)r * cols + c;
+        o[i] = x[i] * 2.0f;
+    }
+}''',
+    "split": r'''
+extern "C" __global__ void split(const float *x, float *a, float *b,
+                                 const int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) { a[i] = x[i] * 2.0f; b[i] = x[i] + 1.0f; }
+}''',
+    "inc": r'''
+extern "C" __global__ void inc(const int *x, int *o, const int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) o[i] = x[i] + 1;
+}''',
+    "scaled": r'''
+extern "C" __global__ void scaled(const float *x, const float a, float *o,
+                                  const int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) o[i] = a * x[i];
+}''',
+    # one row per block, staged through dynamic shared memory (cols * 4
+    # bytes, above the 48 KB that needs no opt-in)
+    "reverse_rows": r'''
+extern "C" __global__ void reverse_rows(const float *x, float *o,
+                                        const int cols) {
+    extern __shared__ float row[];
+    const float *src = x + (long long)blockIdx.x * cols;
+    float *dst = o + (long long)blockIdx.x * cols;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) row[c] = src[c];
+    __syncthreads();
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        dst[c] = row[cols - 1 - c];
+}''',
+    # a bf16 scalar (passed as its 16 bits) and an int64 count
+    "axpy_bf16": r'''
+#include <cuda_bf16.h>
+extern "C" __global__ void axpy_bf16(const __nv_bfloat16 *x,
+                                     const __nv_bfloat16 *y,
+                                     __nv_bfloat16 *o, const __nv_bfloat16 a,
+                                     const long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n)
+        o[i] = __float2bfloat16(__bfloat162float(a) * __bfloat162float(x[i])
+                                + __bfloat162float(y[i]));
+}''',
+}
+RTC_SIGNATURES = {
+    "axpy": "const float *x, const float *y, float *o, const float a, "
+            "const int n",
+    "double2d": "const float *x, float *o, const int rows, const int cols",
+    "split": "const float *x, float *a, float *b, const int n",
+    "inc": "const int32_t *x, int32_t *o, const int n",
+    "scaled": "const float *x, const float a, float *o, const int n",
+    "reverse_rows": "const float *x, float *o, const int cols",
+    "axpy_bf16": "const bfloat16 *x, const bfloat16 *y, bfloat16 *o, "
+                 "const bfloat16 a, const int64_t n",
+}
+# The SwiGLU pair of llama_7b's FFN (gluon/model_zoo/language/llama.py:
+# 146-160, h = silu(g) * u): each thread takes 8 bf16 values in one 16-byte
+# load per operand where the pointers allow, computes in fp32 and rounds
+# once.  Bound by bytes: forward reads g, u and writes h; backward reads g,
+# u, dh and writes dg, du.
+SWIGLU_SOURCE = r'''
+#include <cuda_bf16.h>
+
+__device__ __forceinline__ float ld(const __nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void fwd1(float g, float u, __nv_bfloat16 *h) {
+    *h = __float2bfloat16(g / (1.0f + expf(-g)) * u);
+}
+
+__device__ __forceinline__ void bwd1(float g, float u, float dh,
+                                     __nv_bfloat16 *dg, __nv_bfloat16 *du) {
+    float s = 1.0f / (1.0f + expf(-g));
+    *dg = __float2bfloat16(dh * u * s * (1.0f + g * (1.0f - s)));
+    *du = __float2bfloat16(dh * g * s);
+}
+
+__device__ __forceinline__ bool aligned16(const void *p) {
+    return (reinterpret_cast<unsigned long long>(p) & 15ULL) == 0;
+}
+
+extern "C" __global__ void swiglu_fwd(const __nv_bfloat16 *__restrict__ g,
+                                      const __nv_bfloat16 *__restrict__ u,
+                                      __nv_bfloat16 *__restrict__ h,
+                                      const long long n) {
+    const bool vec = aligned16(g) && aligned16(u) && aligned16(h);
+    const long long stride = 8LL * gridDim.x * blockDim.x;
+    for (long long i = 8LL * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
+         i < n; i += stride) {
+        if (vec && i + 8 <= n) {
+            uint4 gv = *reinterpret_cast<const uint4 *>(g + i);
+            uint4 uv = *reinterpret_cast<const uint4 *>(u + i);
+            uint4 hv;
+            const __nv_bfloat16 *gp = reinterpret_cast<const __nv_bfloat16 *>(&gv);
+            const __nv_bfloat16 *up = reinterpret_cast<const __nv_bfloat16 *>(&uv);
+            __nv_bfloat16 *hp = reinterpret_cast<__nv_bfloat16 *>(&hv);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) fwd1(ld(gp[k]), ld(up[k]), hp + k);
+            *reinterpret_cast<uint4 *>(h + i) = hv;
+        } else {
+            for (long long j = i; j < n && j < i + 8; ++j)
+                fwd1(ld(g[j]), ld(u[j]), h + j);
+        }
+    }
+}
+
+extern "C" __global__ void swiglu_bwd(const __nv_bfloat16 *__restrict__ g,
+                                      const __nv_bfloat16 *__restrict__ u,
+                                      const __nv_bfloat16 *__restrict__ dh,
+                                      __nv_bfloat16 *__restrict__ dg,
+                                      __nv_bfloat16 *__restrict__ du,
+                                      const long long n) {
+    const bool vec = aligned16(g) && aligned16(u) && aligned16(dh)
+        && aligned16(dg) && aligned16(du);
+    const long long stride = 8LL * gridDim.x * blockDim.x;
+    for (long long i = 8LL * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
+         i < n; i += stride) {
+        if (vec && i + 8 <= n) {
+            uint4 gv = *reinterpret_cast<const uint4 *>(g + i);
+            uint4 uv = *reinterpret_cast<const uint4 *>(u + i);
+            uint4 hv = *reinterpret_cast<const uint4 *>(dh + i);
+            uint4 dgv, duv;
+            const __nv_bfloat16 *gp = reinterpret_cast<const __nv_bfloat16 *>(&gv);
+            const __nv_bfloat16 *up = reinterpret_cast<const __nv_bfloat16 *>(&uv);
+            const __nv_bfloat16 *hp = reinterpret_cast<const __nv_bfloat16 *>(&hv);
+            __nv_bfloat16 *gop = reinterpret_cast<__nv_bfloat16 *>(&dgv);
+            __nv_bfloat16 *uop = reinterpret_cast<__nv_bfloat16 *>(&duv);
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+                bwd1(ld(gp[k]), ld(up[k]), ld(hp[k]), gop + k, uop + k);
+            *reinterpret_cast<uint4 *>(dg + i) = dgv;
+            *reinterpret_cast<uint4 *>(du + i) = duv;
+        } else {
+            for (long long j = i; j < n && j < i + 8; ++j)
+                bwd1(ld(g[j]), ld(u[j]), ld(dh[j]), dg + j, du + j);
+        }
+    }
+}
+'''
+SWIGLU_SIGNATURES = {
+    "swiglu_fwd": "const bfloat16 *g, const bfloat16 *u, bfloat16 *h, "
+                  "const int64_t n",
+    "swiglu_bwd": "const bfloat16 *g, const bfloat16 *u, const bfloat16 *dh, "
+                  "bfloat16 *dg, bfloat16 *du, const int64_t n",
+}
+SWIGLU_BLOCK = 256
+# The twins for mx.rtc.PallasModule: the JAX package's rtc test sources
+# (tests/test_misc_components.py:232-265, 372; tests/test_surface_probe_r6.py:
+# 117-157) and the same Pallas-style form for the others, whose bf16
+# outputs are written in fp32 here (float* in their signatures).
+TWIN_SOURCE = '''
+def axpy(x_ref, y_ref, o_ref, a):
+    o_ref[...] = a * x_ref[...] + y_ref[...]
+
+def double(x_ref, o_ref):
+    o_ref[...] = x_ref[...] * 2.0
+
+def split(x_ref, a_ref, b_ref):
+    a_ref[...] = x_ref[...] * 2.0
+    b_ref[...] = x_ref[...] + 1.0
+
+def inc(x_ref, o_ref):
+    o_ref[...] = x_ref[...] + 1
+
+def scaled(x_ref, a, o_ref):
+    o_ref[...] = a * x_ref[...]
+
+def reverse_rows(x_ref, o_ref):
+    o_ref[...] = torch.flip(x_ref[...], dims=[-1])
+
+def axpy_bf16(x_ref, y_ref, o_ref, a):
+    o_ref[...] = a * x_ref[...].float() + y_ref[...].float()
+
+def swiglu_fwd(g_ref, u_ref, h_ref):
+    g = g_ref[...].float()
+    h_ref[...] = g * torch.sigmoid(g) * u_ref[...].float()
+
+def swiglu_bwd(g_ref, u_ref, dh_ref, dg_ref, du_ref):
+    g, u, dh = g_ref[...].float(), u_ref[...].float(), dh_ref[...].float()
+    s = torch.sigmoid(g)
+    dg_ref[...] = dh * u * s * (1.0 + g * (1.0 - s))
+    du_ref[...] = dh * g * s
+'''
+TWIN_SIGNATURES = {
+    "axpy": "const float *x, const float *y, float *o, const float a",
+    "double": "const float *x, float *o",
+    "split": "const float *x, float *a, float *b",
+    "inc": "const int32_t *x, int32_t *o",
+    "scaled": "const float *x, const float a, float *o",
+    "reverse_rows": "const float *x, float *o",
+    "axpy_bf16": "const bfloat16 *x, const bfloat16 *y, float *o, "
+                 "const bfloat16 a",
+    "swiglu_fwd": "const bfloat16 *g, const bfloat16 *u, float *h",
+    "swiglu_bwd": "const bfloat16 *g, const bfloat16 *u, const bfloat16 *dh, "
+                  "float *dg, float *du",
+}
+RTC_SIZES = (1, 7, 1000, 65537, (1 << 20) + 5)
+RTC_2D = ((6, 5), (300, 257), (2048, 4099))
+RTC_SMEM_COLS = (25000, 58000)   # 100,000 and 232,000 bytes of shared memory
+RTC_SWIGLU_SIZES = (1, 7, 8, 1000, 65543, (1 << 20) + 3)
+RTC_BF16_ABS = 2.0 ** -20
+FFN = dict(units=4096, hidden=11008, batch=4, seq=2048, warmup=3, steps=10,
+           loss_rel=5e-3, grad_rel_norm=2e-2)
+# flops per element of each SwiGLU kernel, for its operation bound (exp
+# counted as one): forward 1 exp, 1 add, 1 div, 1 mul; backward 1 exp,
+# 1 add, 1 div and 8 mul/add
+SWIGLU_FLOPS = {"swiglu_fwd": 4, "swiglu_bwd": 11}
+
+
+def _rtc_module(mx, source, exports, compile_s):
+    mod = mx.rtc.CudaModule(source, exports=exports)
+    compile_s[",".join(exports)] = mod.compile_seconds
+    return mod
+
+
+def _ulp(torch, x):
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def _rtc_case(torch, mx, name, kernel, twin, args, grid, block, twin_grid,
+              twin_block, kind, terms=None, shared_mem=0):
+    """Launch ``kernel`` on the card and ``twin`` (PallasModule) on CPU
+    copies of the same arrays; compare every output."""
+    outs = kernel.launch(args, mx.gpu(0), grid, block, shared_mem)
+    outs = outs if isinstance(outs, list) else [outs]
+    torch.cuda.synchronize()
+    # the twins take no trailing counts; their bf16 outputs are fp32
+    twin_args = []
+    for (_, dtype, kind_), a in zip(twin._spec, args):
+        if kind_ != "scalar":
+            a = a.copyto(mx.cpu())
+            if a._data.dtype != dtype:
+                a = a.astype(str(dtype).replace("torch.", ""))
+        twin_args.append(a)
+    refs = twin.launch(twin_args, mx.cpu(), twin_grid, twin_block)
+    refs = refs if isinstance(refs, list) else [refs]
+    worst = err = 0.0
+    for o, r in zip(outs, refs):
+        k = o._data.detach().cpu()
+        ref = r._data
+        if kind == "int32":
+            ratio = float((k != ref).any())
+        elif kind == "float32":
+            scale = ref.abs() if terms is None else terms(twin_args)
+            ratio = ((k - ref).abs() / _ulp(torch, scale).clamp_min(
+                1e-45)).max().item()
+        else:
+            scale = ref.abs() if terms is None else terms(twin_args)
+            tol = 2.0 ** -8 * ref.abs() + RTC_BF16_ABS * scale
+            ratio = ((k.float() - ref).abs() / tol.clamp_min(1e-30)).max().item()
+        worst = max(worst, ratio)
+        err = max(err, (k.float() - ref.float()).abs().max().item())
+    return {"kernel": name, "ok": worst <= 1.0, "err_ratio": worst,
+            "max_abs_err": err}
+
+
+def phase_rtc_kernels(torch, seed):
+    """Every rtc kernel of this path compiled with CudaModule and launched
+    on mx.gpu(0) NDArrays at ragged sizes, each held against its
+    PallasModule twin on CPU copies."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    compile_s = {}
+    mods = {name: _rtc_module(mx, src, [name], compile_s)
+            for name, src in RTC_SOURCES.items()}
+    mods["swiglu"] = _rtc_module(mx, SWIGLU_SOURCE, list(SWIGLU_SIGNATURES),
+                                 compile_s)
+    kern = {name: mods[name].get_kernel(name, sig)
+            for name, sig in RTC_SIGNATURES.items()}
+    kern.update({name: mods["swiglu"].get_kernel(name, sig)
+                 for name, sig in SWIGLU_SIGNATURES.items()})
+    twins = mx.rtc.PallasModule(TWIN_SOURCE)
+    twin = {name: twins.get_kernel(name, sig)
+            for name, sig in TWIN_SIGNATURES.items()}
+    gpu = mx.gpu(0)
+
+    def arr(*shape, dtype=torch.float32, ints=False):
+        if ints:
+            t = torch.randint(-2 ** 30, 2 ** 30, shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        else:
+            t = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        return nd.array(t, ctx=gpu)
+
+    def out(*shape, dtype="float32"):
+        return nd.full(shape, float("nan") if dtype != "int32" else -1,
+                       ctx=gpu, dtype=dtype)
+
+    def lin(n):
+        return ((n + 255) // 256, 1, 1), (256, 1, 1)
+
+    whole = ((1, 1, 1), (0, 0, 0))
+    cases = []
+    for n in RTC_SIZES:
+        x, y = arr(n), arr(n)
+        g, b = lin(n)
+        cases.append(_rtc_case(torch, mx, "axpy", kern["axpy"], twin["axpy"],
+                               [x, y, out(n), 1.7, n], g, b, *whole, "float32",
+                               terms=lambda a: (1.7 * a[0]._data).abs()
+                               + a[1]._data.abs()))
+        cases.append(_rtc_case(torch, mx, "split", kern["split"],
+                               twin["split"], [x, out(n), out(n), n], g, b,
+                               *whole, "float32",
+                               terms=lambda a: a[0]._data.abs() + 1.0))
+        cases.append(_rtc_case(torch, mx, "inc", kern["inc"], twin["inc"],
+                               [arr(n, ints=True), out(n, dtype="int32"), n],
+                               g, b, *whole, "int32"))
+        cases.append(_rtc_case(torch, mx, "scaled", kern["scaled"],
+                               twin["scaled"], [x, -3.25, out(n), n], g, b,
+                               *whole, "float32"))
+        cases.append(_rtc_case(torch, mx, "axpy_bf16", kern["axpy_bf16"],
+                               twin["axpy_bf16"],
+                               [arr(n, dtype=torch.bfloat16),
+                                arr(n, dtype=torch.bfloat16),
+                                out(n, dtype="bfloat16"), 0.7, n], g, b,
+                               *whole, "bf16",
+                               terms=lambda a: (0.69921875 * a[0]._data.float()).abs()
+                               + a[1]._data.float().abs()))
+    for rows, cols in RTC_2D:
+        # the CUDA kernel walks a 2-D grid of 16x16 blocks; the twin, the
+        # JAX test's tiled form, two row blocks of a Pallas grid
+        cases.append(_rtc_case(
+            torch, mx, "double2d", kern["double2d"], twin["double"],
+            [arr(rows, cols), out(rows, cols), rows, cols],
+            ((cols + 15) // 16, (rows + 15) // 16, 1), (16, 16, 1),
+            (2, 1, 1), (rows // 2, 0, 0), "float32"))
+    for cols in RTC_SMEM_COLS:
+        cases.append(_rtc_case(
+            torch, mx, "reverse_rows", kern["reverse_rows"],
+            twin["reverse_rows"], [arr(3, cols), out(3, cols), cols],
+            (3, 1, 1), (1024, 1, 1), *whole, "float32",
+            shared_mem=4 * cols))
+    for n in RTC_SWIGLU_SIZES:
+        g_, u_ = arr(n, dtype=torch.bfloat16), arr(n, dtype=torch.bfloat16)
+        grid = (max(1, -(-n // (8 * SWIGLU_BLOCK))), 1, 1)
+        block = (SWIGLU_BLOCK, 1, 1)
+        cases.append(_rtc_case(
+            torch, mx, "swiglu_fwd", kern["swiglu_fwd"], twin["swiglu_fwd"],
+            [g_, u_, out(n, dtype="bfloat16"), n], grid, block, *whole, "bf16",
+            terms=lambda a: (a[0]._data.float() * a[1]._data.float()).abs()))
+        cases.append(_rtc_case(
+            torch, mx, "swiglu_bwd", kern["swiglu_bwd"], twin["swiglu_bwd"],
+            [g_, u_, arr(n, dtype=torch.bfloat16), out(n, dtype="bfloat16"),
+             out(n, dtype="bfloat16"), n], grid, block, *whole, "bf16",
+            terms=lambda a: ((a[0]._data.float().abs() + 1.0) ** 2
+                             * (a[1]._data.float() * a[2]._data.float()).abs()
+                             + (a[0]._data.float() * a[2]._data.float()).abs())))
+    # a strided input is read from a dense copy; a misaligned view takes
+    # the kernel's scalar path
+    n = 4099
+    base = arr(2 * n + 1, dtype=torch.bfloat16)
+    gs, us = base[1:n + 1], base[n + 1:]
+    cases.append(_rtc_case(
+        torch, mx, "swiglu_fwd_offset_views", kern["swiglu_fwd"],
+        twin["swiglu_fwd"], [gs, us, out(n, dtype="bfloat16"), n],
+        (3, 1, 1), (SWIGLU_BLOCK, 1, 1), *whole, "bf16",
+        terms=lambda a: (a[0]._data.float() * a[1]._data.float()).abs()))
+    refused = _rtc_refusals(mx, nd, kern, gpu)
+    # does this NVRTC resolve cuda_bf16.h from its built-in headers, without
+    # the toolkit's include directory that CudaModule passes?
+    from mxnet_tpu_torch import _cuda_driver
+    try:
+        _cuda_driver.compile_cubin(RTC_SOURCES["axpy_bf16"],
+                                   ["--gpu-architecture=sm_90a"])
+        builtin_bf16 = True
+    except mx.MXNetError:
+        builtin_bf16 = False
+    bad = [c for c in cases if not c["ok"]]
+    worst = {}
+    for c in cases:
+        worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), c["err_ratio"])
+    emit({"phase": "rtc_kernels", "ok": not bad and all(refused.values()),
+          "cases": len(cases), "worst_err_ratio": worst,
+          "compile_seconds": compile_s, "refusals": refused, "failed": bad,
+          "nvrtc_version": _cuda_driver.nvrtc_version(),
+          "nvrtc_builtin_cuda_bf16_h": builtin_bf16,
+          "nvrtc_log": {k: m.log for k, m in mods.items() if m.log.strip()}})
+    check(not bad, f"rtc kernels disagree with their PallasModule twins: {bad}")
+    check(all(refused.values()), f"rtc launch checks: {refused}")
+    return ({name: kern[name] for name in SWIGLU_SIGNATURES},
+            {name: twin[name] for name in SWIGLU_SIGNATURES})
+
+
+def _rtc_refusals(mx, nd, kern, gpu):
+    """Launches the card would refuse, and a CPU context, raise before
+    anything runs."""
+    x, o = nd.zeros((8,), ctx=gpu), nd.zeros((8,), ctx=gpu)
+    attempts = {
+        "threads_over_1024": lambda: kern["scaled"].launch(
+            [x, 1.0, o, 8], gpu, (1, 1, 1), (2048, 1, 1)),
+        "shared_mem_over_227kb": lambda: kern["reverse_rows"].launch(
+            [x, o, 8], gpu, (1, 1, 1), (32, 1, 1), 232449),
+        "cpu_context": lambda: kern["scaled"].launch(
+            [x, 1.0, o, 8], mx.cpu(), (1, 1, 1), (32, 1, 1)),
+        "wrong_dtype": lambda: kern["inc"].launch(
+            [x, o, 8], gpu, (1, 1, 1), (32, 1, 1)),
+    }
+    result = {}
+    for name, fn in attempts.items():
+        before = kern["scaled"].launches + kern["reverse_rows"].launches
+        try:
+            fn()
+            result[name] = False
+        except (ValueError, TypeError, mx.MXNetError):
+            result[name] = (kern["scaled"].launches
+                            + kern["reverse_rows"].launches) == before
+    return result
+
+
+def _swiglu_function(mx, nd, kernels):
+    """SwiGLU as an mx.autograd.Function over the two rtc kernels: one
+    forward and one backward launch per call."""
+    fwd, bwd = kernels["swiglu_fwd"], kernels["swiglu_bwd"]
+
+    def grid(n):
+        return (max(1, -(-n // (8 * SWIGLU_BLOCK))), 1, 1)
+
+    class SwiGLU(mx.autograd.Function):
+        def forward(self, g, u):
+            h = nd.empty(g.shape, ctx=g.context, dtype="bfloat16")
+            fwd.launch([g, u, h, g.size], g.context, grid(g.size),
+                       (SWIGLU_BLOCK, 1, 1))
+            self.save_for_backward(g, u)
+            return h
+
+        def backward(self, dh):
+            g, u = self.saved_tensors
+            dg = nd.empty(g.shape, ctx=g.context, dtype="bfloat16")
+            du = nd.empty(g.shape, ctx=g.context, dtype="bfloat16")
+            bwd.launch([g, u, dh, dg, du, g.size], g.context, grid(g.size),
+                       (SWIGLU_BLOCK, 1, 1))
+            return dg, du
+
+    return SwiGLU
+
+
+def swiglu_bound_ms(name, n):
+    """Bytes: forward reads g, u and writes h, backward reads g, u, dh and
+    writes dg, du (2 bytes each); operations at the fp32 CUDA-core peak."""
+    nbytes = 2.0 * n * (3 if name == "swiglu_fwd" else 5)
+    t_ops = SWIGLU_FLOPS[name] * n / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_rtc_ffn(torch, seed, kernels, twins):
+    """One imperative training step of llama_7b's FFN on NDArrays, bf16:
+    g = x w1^T, u = x w3^T, h = SwiGLU(g, u) (the rtc kernels), y = h w2^T,
+    loss = mean(y^2), backward; held against the same step in plain torch
+    autograd, then 3 + 10 timed steps with the launch counts gated."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    torch.cuda.empty_cache()
+    gpu = mx.gpu(0)
+    t_rows, units, hidden = FFN["batch"] * FFN["seq"], FFN["units"], FFN["hidden"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    x_t = torch.randn(t_rows, units, generator=gen, device="cuda").bfloat16()
+    w_t = [(torch.randn(o, i, generator=gen, device="cuda") / math.sqrt(i))
+           .bfloat16() for o, i in ((hidden, units), (hidden, units),
+                                    (units, hidden))]
+    x = nd.array(x_t, ctx=gpu)
+    w1, w3, w2 = (nd.array(w, ctx=gpu) for w in w_t)
+    for w in (w1, w3, w2):
+        w.attach_grad()
+    swiglu = _swiglu_function(mx, nd, kernels)
+
+    def step():
+        with autograd.record():
+            g = nd.dot(x, w1, transpose_b=True)
+            u = nd.dot(x, w3, transpose_b=True)
+            h = swiglu()(g, u)
+            y = nd.dot(h, w2, transpose_b=True)
+            loss = (y * y).mean()
+        loss.backward()
+        return loss
+
+    # the same step in plain torch autograd
+    ref_w = [w.clone().requires_grad_(True) for w in w_t]
+    g_r = x_t @ ref_w[0].t()
+    u_r = x_t @ ref_w[1].t()
+    y_r = (g_r * torch.sigmoid(g_r) * u_r) @ ref_w[2].t()
+    loss_r = (y_r * y_r).mean()
+    loss_r.backward()
+    del g_r, u_r, y_r
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    loss = step()
+    first = float(loss)
+    grads = {n: w.grad._data.float() for n, w in
+             (("w1", w1), ("w3", w3), ("w2", w2))}
+    rel = {n: ((g - r.grad.float()).norm() / r.grad.float().norm()).item()
+           for (n, g), r in zip(grads.items(), ref_w)}
+    ref_loss = loss_r.item()
+    loss_rel = abs(first - ref_loss) / abs(ref_loss)
+    del grads
+    for _ in range(FFN["warmup"] - 1):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FFN["steps"]):
+        loss = step()
+    last = float(loss)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    steps = FFN["warmup"] + FFN["steps"]
+    out = {"phase": "rtc_ffn", "model": "llama_7b FFN", "dtype": "bfloat16",
+           "tokens": t_rows, "units": units, "hidden": hidden,
+           "steps": steps, "timed_steps": FFN["steps"],
+           "step_ms": 1e3 * wall / FFN["steps"],
+           "tokens_per_s": t_rows * FFN["steps"] / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": first, "ref_loss": ref_loss, "last_loss": last,
+           "loss_rel_diff": loss_rel, "grad_rel_norm_diff": rel,
+           "tolerance": {k: FFN[k] for k in ("loss_rel", "grad_rel_norm")},
+           "launches": launches}
+    out["gates"] = {
+        "finite": math.isfinite(first) and math.isfinite(last),
+        "loss": loss_rel <= FFN["loss_rel"],
+        "grads": all(r <= FFN["grad_rel_norm"] for r in rel.values()),
+        "one_launch_each_per_step": all(v == steps for v in launches.values()),
+    }
+    out["ok"] = all(out["gates"].values())
+
+    # kernel timings at this shape, beside the library's SwiGLU
+    n = t_rows * hidden
+    g_t = torch.randn(t_rows, hidden, generator=gen, device="cuda").bfloat16()
+    u_t = torch.randn(t_rows, hidden, generator=gen, device="cuda").bfloat16()
+    dh_t = torch.randn(t_rows, hidden, generator=gen, device="cuda").bfloat16()
+    g, u, dh = (nd.array(t, ctx=gpu) for t in (g_t, u_t, dh_t))
+    h = nd.empty((t_rows, hidden), ctx=gpu, dtype="bfloat16")
+    dg = nd.empty((t_rows, hidden), ctx=gpu, dtype="bfloat16")
+    du = nd.empty((t_rows, hidden), ctx=gpu, dtype="bfloat16")
+    grid = (-(-n // (8 * SWIGLU_BLOCK)), 1, 1)
+    block = (SWIGLU_BLOCK, 1, 1)
+    gl, ul = (t.clone().requires_grad_(True) for t in (g_t, u_t))
+    hl = torch.nn.functional.silu(gl) * ul
+    # the plain version: the twins' own Python source (what PallasModule
+    # runs on the CPU), called here on the card tensors as whole-array refs
+    plain = {"torch": torch}
+    exec(TWIN_SOURCE, plain)  # noqa: S102 — the twins, defined above
+    h32, dg32, du32 = (torch.empty(t_rows, hidden, device="cuda")
+                       for _ in range(3))
+    fns = {
+        "swiglu_fwd": (lambda: kernels["swiglu_fwd"].launch(
+            [g, u, h, n], gpu, grid, block),
+            lambda: plain["swiglu_fwd"](g_t, u_t, h32),
+            lambda: torch.nn.functional.silu(g_t) * u_t),
+        "swiglu_bwd": (lambda: kernels["swiglu_bwd"].launch(
+            [g, u, dh, dg, du, n], gpu, grid, block),
+            lambda: plain["swiglu_bwd"](g_t, u_t, dh_t, dg32, du32),
+            lambda: torch.autograd.grad(hl, (gl, ul), dh_t,
+                                        retain_graph=True)),
+    }
+    timing = {}
+    for name, (kern_fn, plain_fn, lib_fn) in fns.items():
+        runs = {"kernel": [], "plain": [], "library": []}
+        for order in (("kernel", "plain", "library"),
+                      ("library", "plain", "kernel")):
+            for key in order:
+                fn = {"kernel": kern_fn, "plain": plain_fn,
+                      "library": lib_fn}[key]
+                runs[key].append(cuda_ms(torch, fn, iters=20))
+        bound, bound_by = swiglu_bound_ms(name, n)
+        timing[name] = {"ms": min(runs["kernel"]),
+                        "plain_ms": min(runs["plain"]),
+                        "library_ms": min(runs["library"]), "bound_ms": bound,
+                        "bound_by": bound_by, "runs_ms": runs,
+                        "launches": launches[name]}
+    # each kernel against its plain version (the PallasModule twin, on CPU
+    # copies) at this shape, gated as in phase_rtc_kernels; and how far the
+    # library's bf16 step-by-step SwiGLU lies from it (reported)
+    terms = {"swiglu_fwd": lambda a: (a[0]._data.float()
+                                      * a[1]._data.float()).abs(),
+             "swiglu_bwd": lambda a: ((a[0]._data.float().abs() + 1.0) ** 2
+                                      * (a[1]._data.float()
+                                         * a[2]._data.float()).abs()
+                                      + (a[0]._data.float()
+                                         * a[2]._data.float()).abs())}
+    for name, args in (("swiglu_fwd", [g, u, h, n]),
+                       ("swiglu_bwd", [g, u, dh, dg, du, n])):
+        case = _rtc_case(torch, mx, name, kernels[name], twins[name], args,
+                         grid, block, (1, 1, 1), (0, 0, 0), "bf16",
+                         terms=terms[name])
+        timing[name].update(max_abs_err=case["max_abs_err"],
+                            err_ratio=case["err_ratio"])
+        out["gates"][f"{name}_vs_plain"] = case["ok"]
+    dgl, dul = torch.autograd.grad(hl, (gl, ul), dh_t)
+    timing["swiglu_fwd"]["library_max_abs_diff"] = (
+        h._data.float() - hl.detach().float()).abs().max().item()
+    timing["swiglu_bwd"]["library_max_abs_diff"] = max(
+        (dg._data.float() - dgl.float()).abs().max().item(),
+        (du._data.float() - dul.float()).abs().max().item())
+    out["ok"] = all(out["gates"].values())
+    out["kernel_timing"] = timing
+    emit(out)
+    check(out["ok"], f"rtc FFN step failed: {out['gates']}")
+    return timing
+
+
+def _rtc_kernel_line(name, timing):
+    """A row of the kernels line for an rtc kernel: CUDA C compiled at run
+    time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
+    this script (user code)."""
+    t = timing[name]
+    return {"name": f"rtc_{name}", "route": "cuda", "compiler": "nvrtc",
+            "source": "chip_smoke.py", "replaces": "mxnet_tpu/rtc.py:88",
+            "launches": t["launches"], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def _kernel_line(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -708,10 +1364,18 @@ def _kernel_line(name, source, replaces, launches, timing):
             "library_ms": timing["library_ms"]}
 
 
+PHASES = ("build", "device", "flash", "fused", "model_parity", "serving",
+          "resnet_parity", "training", "rtc_kernels", "rtc_ffn")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all)")
     args = parser.parse_args(argv)
+    only = set(args.only.split(","))
+    check(only <= set(PHASES), f"unknown phases {sorted(only - set(PHASES))}")
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available")
@@ -720,19 +1384,37 @@ def main(argv=None):
         import mxnet_tpu_torch  # noqa: F401
     except ImportError as e:
         raise SmokeFailure(f"the port is not beside this script ({e})")
-    phase_build()
+    lines = []
+    if "build" in only:
+        phase_build()
     phase_device(torch)
-    timing = phase_kernels(torch, args.seed)
-    fused = phase_fused_kernel(torch, args.seed)
-    phase_model_parity(torch, args.seed)
-    launches = phase_serving(torch, args.seed)
-    phase_resnet_parity(torch, args.seed)
-    fused_launches = phase_training(torch, args.seed)
-    emit({"kernels": [_kernel_line(
-        "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "mxnet_tpu/ops/attention.py:51", launches, timing), _kernel_line(
-        "fused_conv_bn_stats", "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
-        "mxnet_tpu/ops/fused_conv_bn.py:48", fused_launches, fused)]})
+    if "flash" in only:
+        timing = phase_kernels(torch, args.seed)
+    if "fused" in only:
+        fused = phase_fused_kernel(torch, args.seed)
+    if "model_parity" in only:
+        phase_model_parity(torch, args.seed)
+    if "serving" in only:
+        launches = phase_serving(torch, args.seed)
+        if "flash" in only:
+            lines.append(_kernel_line(
+                "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
+                "mxnet_tpu/ops/attention.py:51", launches, timing))
+    if "resnet_parity" in only:
+        phase_resnet_parity(torch, args.seed)
+    if "training" in only:
+        launches = phase_training(torch, args.seed)
+        if "fused" in only:
+            lines.append(_kernel_line(
+                "fused_conv_bn_stats",
+                "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
+                "mxnet_tpu/ops/fused_conv_bn.py:48", launches, fused))
+    if "rtc_kernels" in only or "rtc_ffn" in only:
+        kernels, twins = phase_rtc_kernels(torch, args.seed)
+    if "rtc_ffn" in only:
+        ffn = phase_rtc_ffn(torch, args.seed, kernels, twins)
+        lines += [_rtc_kernel_line(name, ffn) for name in SWIGLU_SIGNATURES]
+    emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,15 +4,26 @@ its flash-attention CUDA kernel, the paged KV cache, the
 continuous-batching scheduler and the in-process model server.  Slice 2 is
 the ResNet-50 v1 training step: the vision layers and model zoo, the fused
 1x1-conv + BatchNorm-statistics CUDA kernel, the loss, SGD, bf16
-conversion and ``CompiledTrainStep``.
+conversion and ``CompiledTrainStep``.  Slice 3 is the imperative front end
+(``Context``, the op registry, ``NDArray`` and ``mx.nd``, ``autograd``)
+and runtime-compiled CUDA kernels (``rtc.CudaModule`` over NVRTC).
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
-Entry points run on ``cuda`` unless given ``device="cpu"``."""
-from . import (base, context, contrib, convert, executor, gluon, initializer,
-               ops, optimizer, random, serving)
+Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
+(``device="cpu"``, ``mx.cpu()``)."""
+from . import (autograd, base, context, contrib, convert, error, executor,
+               gluon, initializer, ndarray, ops, optimizer, random, rtc,
+               serving)
 from .base import MXNetError, env
-from .context import resolve_device
+from .context import (Context, cpu, current_context, gpu, num_gpus,
+                      resolve_device, set_default_context, tpu)
+from .ndarray import NDArray, waitall
 
-__all__ = ["base", "context", "contrib", "convert", "executor", "gluon",
-           "initializer", "ops", "optimizer", "random", "serving",
-           "MXNetError", "env", "resolve_device"]
+nd = ndarray
+
+__all__ = ["autograd", "base", "context", "contrib", "convert", "error",
+           "executor", "gluon", "initializer", "nd", "ndarray", "ops",
+           "optimizer", "random", "rtc", "serving", "MXNetError", "env",
+           "Context", "cpu", "gpu", "tpu", "current_context",
+           "set_default_context", "num_gpus", "resolve_device", "NDArray",
+           "waitall"]

@@ -1,5 +1,6 @@
 """Base utilities of the port: the framework error, the typed environment
-flags the serving and training slices read, and the shape-bucket helper.
+flags, the dtype machinery with its 64-bit width policy, and the
+shape-bucket helper.
 
 Counterpart of ``mxnet_tpu/base.py``, reduced to what this package uses.
 Every runtime flag is declared once in a typed registry and read live
@@ -9,10 +10,14 @@ package.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
+
+import numpy as _np
+import torch
 
 __all__ = ["MXNetError", "ServerClosedError", "RequestCancelledError",
-           "EnvRegistry", "env", "row_bucket"]
+           "EnvRegistry", "env", "row_bucket", "dtype_torch", "dtype_name",
+           "numpy_dtype", "BFLOAT16", "narrow_source"]
 
 
 class MXNetError(RuntimeError):
@@ -89,3 +94,91 @@ def row_bucket(n: int, minimum: int = 16) -> int:
     """Next power of two >= ``n``, floor ``minimum`` (the length ladder of
     the generation scheduler)."""
     return 1 << max((int(minimum) - 1).bit_length(), (int(n) - 1).bit_length())
+
+
+env.declare("MXNET_SAFE_ACCUMULATION", True, bool,
+            "Accumulate reductions in fp32.")
+env.declare("MXNET_DEFAULT_DTYPE", "float32", str,
+            "Default dtype for created arrays.")
+
+
+# ---------------------------------------------------------------------------
+# dtypes.  The JAX package names dtypes as numpy does and runs with JAX's
+# x64 mode off, so a 64-bit request yields 32 bits there; the port keeps
+# that width policy (``_NARROW``) so that both packages make the same
+# arrays from the same source.
+# ---------------------------------------------------------------------------
+_DTYPE_ALIASES: Dict[Any, torch.dtype] = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+    float: torch.float32, int: torch.int32, bool: torch.bool,
+}
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
+           torch.complex128: torch.complex64}
+_INT32 = (-(2 ** 31), 2 ** 31 - 1)
+
+
+def _bfloat16_numpy():
+    """numpy's bfloat16 when ``ml_dtypes`` is installed (the JAX package's
+    bfloat16 is that dtype), else the name."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return "bfloat16"
+    return _np.dtype(ml_dtypes.bfloat16)
+
+
+BFLOAT16 = _bfloat16_numpy()
+
+
+def dtype_torch(dtype, narrow: bool = True):
+    """A user dtype spec (name, numpy dtype or type, Python type, torch
+    dtype; ``None`` stays ``None``) as a torch dtype, with 64-bit types
+    narrowed to 32 bits unless ``narrow`` is False."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, torch.dtype):
+        dt = dtype
+    elif dtype in _DTYPE_ALIASES:
+        dt = _DTYPE_ALIASES[dtype]
+    else:
+        name = str(dtype) if str(dtype) == "bfloat16" else _np.dtype(dtype).name
+        try:
+            dt = _DTYPE_ALIASES[name] if name in _DTYPE_ALIASES else getattr(
+                torch, name)
+        except AttributeError:
+            raise TypeError(f"unsupported dtype {dtype!r}") from None
+    return _NARROW.get(dt, dt) if narrow else dt
+
+
+def dtype_name(dtype) -> str:
+    """The numpy-style name of a dtype spec (``"bfloat16"`` included)."""
+    return str(dtype_torch(dtype, narrow=False)).replace("torch.", "")
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype (``BFLOAT16`` for bfloat16)."""
+    if dtype == torch.bfloat16:
+        return BFLOAT16
+    return _np.dtype(dtype_name(dtype))
+
+
+def narrow_source(a: _np.ndarray) -> _np.ndarray:
+    """The 64-bit width policy of ``mxnet_tpu/ndarray/ndarray.py:618-649``
+    on a numpy array: float64 becomes float32, and int64 becomes int32 when
+    every value fits, else it raises (the JAX package, with x64 off, would
+    otherwise truncate)."""
+    if a.dtype == _np.int64:
+        if a.size and (a.min() < _INT32[0] or a.max() > _INT32[1]):
+            raise ValueError(
+                f"int64 value out of int32 range (min {a.min()}, max "
+                f"{a.max()}): arrays hold 32-bit integers, as the JAX "
+                "package does with x64 disabled")
+        return a.astype(_np.int32)
+    if a.dtype == _np.float64:
+        return a.astype(_np.float32)
+    if a.dtype == _np.complex128:
+        return a.astype(_np.complex64)
+    return a

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` (and the chip smoke
 script) loads no JAX module and nothing of the JAX package, and no source
-file of the port imports either."""
+file of the port imports either.  Importing it loads no ``triton`` and no
+CUDA library (NVRTC, the driver): those load at a kernel's first use."""
 import re
 import subprocess
 import sys
@@ -15,7 +16,11 @@ _PROBE = """
 import sys
 before = set(sys.modules)
 import mxnet_tpu_torch, mxnet_tpu_torch.serving, chip_smoke
+import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.autograd, mxnet_tpu_torch.rtc
 print("\\n".join(sorted(set(sys.modules) - before)))
+maps = open("/proc/self/maps").read()
+print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
+      int("libnvrtc" in maps), int("libcuda.so" in maps))
 """
 
 
@@ -24,9 +29,12 @@ def test_import_loads_no_jax_and_no_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
-    assert "mxnet_tpu_torch" in loaded and "torch" in loaded
-    bad = [m for m in loaded if FORBIDDEN.search(m)]
+    for name in ("mxnet_tpu_torch", "torch", "mxnet_tpu_torch.ndarray",
+                 "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.rtc"):
+        assert name in loaded
+    bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
+    assert proc.stdout.split("LIBS")[1].split() == ["0", "0", "0"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
