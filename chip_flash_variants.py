@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Compare variants of the tensor-core flash kernel on one CUDA card.
+
+    python3 chip_flash_variants.py [VARIANT.cu ...]
+
+Each argument is a copy of ``mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu``
+with one change (keep copies under ``build/``, which git ignores).  The
+script builds the package's source and every variant with the package's
+``nvcc`` flags, one process each, all started together, and prints per
+source the ``-Xptxas -v`` lines (registers, spills, and C75xx notes such as
+"wgmma serialized").  It then launches each through ctypes on the same
+inputs: it holds each at five shapes to chip_smoke.py's bf16 gate against
+the fp32 plain version (half a bf16 ulp on O, 1e-4 on lse), and times each
+beside SDPA in three turns (in order, reversed, in order) at
+[4, 32, 2048, 128] causal, [4, 32, 1024, 128] causal and
+[4, 32, 2048, 128] non-causal.  One JSON line per result; without CUDA it
+exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CHECKS = [(1, 4, 130, 128, True), (2, 8, 384, 64, False),
+          (4, 32, 2048, 128, True), (1, 4, 100, 40, True),
+          (4, 32, 1024, 128, False)]
+TIMED = [(4, 32, 2048, 128, True), (4, 32, 1024, 128, True),
+         (4, 32, 2048, 128, False)]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def build(sources, out_dir, nvcc_flags):
+    """Compile every source in parallel; a ctypes function per source that
+    built, and the ptxas lines of each."""
+    procs = []
+    for i, src in enumerate(sources):
+        lib = out_dir / f"variant{i}.so"
+        procs.append((src, lib, subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", *nvcc_flags, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    fns = {}
+    for src, lib, proc in procs:
+        log, _ = proc.communicate()
+        notes = [ln.strip() for ln in log.splitlines()
+                 if any(k in ln for k in ("C75", "spill", "Used", "error"))]
+        emit({"source": str(src), "built": proc.returncode == 0,
+              "ptxas": notes})
+        if proc.returncode == 0:
+            fn = ctypes.CDLL(str(lib)).flash_fwd_wgmma
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[str(src)] = fn
+    return fns
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("variants", nargs="*", type=Path)
+    args = parser.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_flash_variants: CUDA is not available")
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import BF16_O_ABS, BF16_O_REL, cuda_ms
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import attention as A
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    sources = [_build.CSRC / "flash_fwd_wgmma.cu", *args.variants]
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build(sources, Path(tmp), _build.NVCC_FLAGS)
+
+        def run(fn, q, k, v, causal):
+            bh, sq, d = q.shape
+            o = torch.empty_like(q)
+            lse = torch.empty(bh, sq, device="cuda")
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), bh, sq, k.shape[1], d, int(causal),
+                     1.0 / math.sqrt(d),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed with error {err}")
+            return o, lse
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for name, fn in fns.items():
+            worst_o = worst_lse = 0.0
+            for b, h, s, d, causal in CHECKS:
+                q, k, v = (torch.randn(b * h, s, d, generator=gen,
+                                       device="cuda").bfloat16()
+                           for _ in range(3))
+                o, lse = run(fn, q, k, v, causal)
+                ro, rl = A._flash_forward_plain(q.float(), k.float(),
+                                                v.float(), causal,
+                                                1.0 / math.sqrt(d))
+                worst_o = max(worst_o, ((o.float() - ro).abs() / (
+                    BF16_O_REL * ro.abs() + BF16_O_ABS)).max().item())
+                worst_lse = max(worst_lse, (lse - rl).abs().max().item())
+            emit({"source": name, "o_half_ulp_ratio": worst_o,
+                  "lse_err": worst_lse,
+                  "ok": worst_o <= 1.0 and worst_lse <= 1e-4})
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for b, h, s, d, causal in TIMED:
+            q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(3))
+            q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+            calls = {name: (lambda fn=fn: run(fn, q, k, v, causal))
+                     for name, fn in fns.items()}
+            calls["sdpa"] = lambda: sdpa(q4, k4, v4, is_causal=causal,
+                                         scale=1.0 / math.sqrt(d))
+            runs = {name: [] for name in calls}
+            for order in (list(calls), list(calls)[::-1], list(calls)):
+                for name in order:
+                    runs[name].append(cuda_ms(torch, calls[name], iters=20,
+                                              warmup=3))
+            emit({"shape": [b, h, s, d], "causal": causal, "runs_ms": runs})
+
+
+if __name__ == "__main__":
+    main()

@@ -26,11 +26,14 @@ beside its bound, then drives the port's two paths:
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
-device, flash, fused, model_parity, serving, resnet_parity, training,
-rtc_kernels, rtc_ffn), for a short call while a kernel is brought up.  The line before the last is the kernel table; the last
+device, flash, flash_timing, fused, model_parity, serving, resnet_parity,
+training, rtc_kernels, rtc_ffn), for a short call while a kernel is brought
+up.  The line before the last is the kernel table; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
-result.
+result.  ``--only build,flash`` is the short first call after a change to a
+flash kernel: it builds the libraries, launches each FLASH_SHAPES case once,
+holds it against the plain version and stops.
 """
 from __future__ import annotations
 
@@ -53,9 +56,15 @@ PEAK_BYTES = 3.35e12
 # [B, H, S, D] shapes for the flash kernel check.  [4, 32, 1024, 128] is
 # the dense engine's decode step in the serving phase (4 slots, prompts up
 # to 1000 tokens bucketed to 1024); [4, 32, 2048, 128] is the timed shape.
+# bf16 cases run on the kernel _flash_variant picks: the tensor-core kernel
+# when D % 8 == 0 (D = 64, a ragged 130-row tail, D = 40 padded to 64),
+# the CUDA-core kernel otherwise (D = 36); fp32 always on the CUDA cores.
 FLASH_SHAPES = [(1, 32, 16, 128), (4, 32, 512, 128), (4, 32, 1024, 128),
-                (4, 32, 2048, 128), (1, 4, 64, 16), (2, 4, 300, 16)]
+                (4, 32, 2048, 128), (1, 4, 64, 16), (2, 4, 300, 16),
+                (2, 8, 384, 64), (1, 4, 130, 128), (1, 4, 100, 40),
+                (1, 4, 64, 36)]
 FLASH_TIMED = (4, 32, 2048, 128)
+FLASH_DECODE = (4, 32, 1024, 128)
 # Tolerances on max |kernel - plain|.  fp32: the starting 1e-4 on O and lse
 # (the two sum in other orders).  bf16: the kernel computes in fp32 from
 # the bf16 inputs, as the TPU kernel did, so it is held against the plain
@@ -173,11 +182,13 @@ def phase_device(torch):
           "cuda": torch.version.cuda})
 
 
-def flash_bound_ms(b, h, s, d, causal, dtype_bytes):
+def flash_bound_ms(b, h, s, d, causal, dtype_bytes, ops_factor=1.0):
     """Least time on the card: causal work is 2*B*H*S^2*D flops (two
-    products, half the score matrix), non-causal twice that; bytes are
-    q, k, v read once, O written once, lse (fp32) written once."""
-    flops = 2.0 * b * h * s * s * d * (1 if causal else 2)
+    products, half the score matrix), non-causal twice that, times
+    ``ops_factor`` (1.5 for the split-P kernel's own three products);
+    bytes are q, k, v read once, O written once, lse (fp32) written
+    once."""
+    flops = 2.0 * b * h * s * s * d * (1 if causal else 2) * ops_factor
     peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_FP32_FLOPS
     nbytes = 4.0 * b * h * s * d * dtype_bytes + 4.0 * b * h * s
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -186,10 +197,11 @@ def flash_bound_ms(b, h, s, d, causal, dtype_bytes):
 
 
 def phase_kernels(torch, seed):
+    """Every FLASH_SHAPES case, fp32 and bf16, causal and not, once on the
+    kernel _flash_variant picks, against the plain version in fp32."""
     from mxnet_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = []
-    timed = None
     for (b, h, s, d) in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
@@ -197,13 +209,16 @@ def phase_kernels(torch, seed):
                                        device="cuda").to(dtype)
                            for _ in range(3))
                 scale = 1.0 / math.sqrt(d)
+                before = A.flash_fwd_wgmma_launches
                 o, lse = A.flash_fwd(q, k, v, causal, scale)
+                ran_wgmma = A.flash_fwd_wgmma_launches - before == 1
                 ro, rl = A._flash_forward_plain(q.float(), k.float(),
                                                 v.float(), causal, scale)
                 torch.cuda.synchronize()
                 name = str(dtype).replace("torch.", "")
+                variant = A._flash_variant(dtype, d)
                 case = {"shape": [b, h, s, d], "dtype": name,
-                        "causal": causal,
+                        "causal": causal, "variant": variant,
                         "o_err": (o.float() - ro).abs().max().item(),
                         "lse_err": (lse - rl).abs().max().item()}
                 if dtype == torch.bfloat16:
@@ -218,56 +233,73 @@ def phase_kernels(torch, seed):
                     case["lse_err_vs_plain_bf16"] = (
                         lse - pl).abs().max().item()
                 tol = TOL[name]
+                want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+                        else "simt")
                 case["ok"] = (case["o_err"] <= tol["o"]
                               and case["lse_err"] <= tol["lse"]
-                              and case.get("o_half_ulp_ratio", 0.0) <= 1.0)
+                              and case.get("o_half_ulp_ratio", 0.0) <= 1.0
+                              and variant == want
+                              and ran_wgmma == (variant == "wgmma"))
                 cases.append(case)
-                if ((b, h, s, d) == FLASH_TIMED and causal
-                        and dtype == torch.bfloat16):
-                    timed = (q, k, v, case["o_err"])
                 del q, k, v, o, lse, ro, rl
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
           "cases": cases})
     check(not bad, f"flash_fwd disagrees with its plain version: {bad}")
 
-    # timings at the timed shape, causal bf16; the kernel, its plain
-    # version and the library call run in turns in this one process
-    q, k, v, err = timed
-    b, h, s, d = FLASH_TIMED
-    scale = 1.0 / math.sqrt(d)
-    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kernel = lambda: A.flash_fwd(q, k, v, True, scale)
-    plain = lambda: A._flash_forward_plain(q, k, v, True, scale)
-    library = lambda: sdpa(q4, k4, v4, is_causal=True, scale=scale)
-    times = {"kernel": [], "plain": [], "library": []}
-    for order in (("kernel", "plain", "library"),
-                  ("library", "plain", "kernel")):
+
+def _in_turns(torch, fns, iters=10):
+    """Each function timed twice, in the order given and then reversed, in
+    this one process; the lower of the two is kept."""
+    times = {key: [] for key in fns}
+    for order in (list(fns), list(fns)[::-1]):
         for key in order:
-            fn = {"kernel": kernel, "plain": plain, "library": library}[key]
-            times[key].append(cuda_ms(torch, fn, iters=10))
-    bound, bound_by = flash_bound_ms(b, h, s, d, True, 2)
-    # the same three at the dense engine's decode shape (not timed in the
-    # contract line; kept for the record)
-    db, dh, ds, dd = 4, 32, 1024, 128
-    qd, kd, vd = (torch.randn(db * dh, ds, dd, generator=gen, device="cuda",
-                              dtype=torch.bfloat16) for _ in range(3))
-    decode_ms = cuda_ms(torch, lambda: A.flash_fwd(qd, kd, vd, True, scale),
-                        iters=10)
-    decode_sdpa = cuda_ms(torch, lambda: sdpa(
-        qd.view(db, dh, ds, dd), kd.view(db, dh, ds, dd),
-        vd.view(db, dh, ds, dd), is_causal=True, scale=scale), iters=10)
-    result = {"shape": list(FLASH_TIMED), "dtype": "bfloat16",
-              "causal": True, "max_abs_err": err,
-              "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
-              "library_ms": min(times["library"]), "bound_ms": bound,
-              "bound_by": bound_by, "runs_ms": times,
-              "decode_shape": [db, dh, ds, dd], "decode_ms": decode_ms,
-              "decode_library_ms": decode_sdpa,
-              "decode_bound_ms": flash_bound_ms(db, dh, ds, dd, True, 2)[0]}
-    emit({"phase": "kernel_timing", "ok": True, "flash_fwd": result})
-    return result
+            times[key].append(cuda_ms(torch, fns[key], iters=iters))
+    return {key: min(t) for key, t in times.items()}, times
+
+
+def phase_flash_timing(torch, seed):
+    """The tensor-core kernel, its plain version and SDPA in turns at the
+    timed shape and at the dense engine's decode shape (causal bf16), with
+    the CUDA-core kernel at the timed shape as the earlier figure."""
+    from mxnet_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"dtype": "bfloat16", "causal": True,
+           "variant": A._flash_variant(torch.bfloat16, FLASH_TIMED[3])}
+    for key, (b, h, s, d) in (("timed", FLASH_TIMED),
+                              ("decode", FLASH_DECODE)):
+        q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        o, _ = A.flash_fwd(q, k, v, True, scale)
+        ro, _ = A._flash_forward_plain(q.float(), k.float(), v.float(),
+                                       True, scale)
+        err = (o.float() - ro).abs().max().item()
+        del o, ro
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        fns = {"kernel": lambda: A.flash_fwd(q, k, v, True, scale),
+               "plain": lambda: A._flash_forward_plain(q, k, v, True, scale),
+               "library": lambda: sdpa(q4, k4, v4, is_causal=True,
+                                       scale=scale)}
+        if key == "timed":
+            fns["simt_kernel"] = lambda: A._flash_fwd_cuda(
+                q, k, v, True, scale, variant="simt")
+        best, runs = _in_turns(torch, fns)
+        bound, bound_by = flash_bound_ms(b, h, s, d, True, 2)
+        out[key] = {"shape": [b, h, s, d], "max_abs_err": err,
+                    "ms": best["kernel"], "plain_ms": best["plain"],
+                    "library_ms": best["library"], "bound_ms": bound,
+                    "bound_by": bound_by,
+                    # the kernel's own ceiling: split P costs a third product
+                    "split_p_bound_ms": flash_bound_ms(b, h, s, d, True, 2,
+                                                       1.5)[0],
+                    "runs_ms": runs}
+        if key == "timed":
+            out[key]["simt_ms"] = best["simt_kernel"]
+        del q, k, v, q4, k4, v4
+    emit({"phase": "kernel_timing", "ok": True, "flash_fwd": out})
+    return out["timed"]
 
 
 def _random_llama(torch, seed, dtype, num_layers):
@@ -394,6 +426,7 @@ def phase_serving(torch, seed):
                              for p in model.parameters()) / 1e9}
     tokens = {}
     launches = {}
+    wgmma = {}
     with ModelServer() as server:
         server.register_generation("llama_dense", model, max_slots=4,
                                    kv_cache=False)
@@ -402,7 +435,7 @@ def phase_serving(torch, seed):
                                    prefix_cache=True)
         for name in ("llama_dense", "llama"):
             torch.cuda.synchronize()
-            A.flash_fwd_launches = 0
+            A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             futs = [server.generate_async(name, p, max_new_tokens=NEW_TOKENS,
@@ -411,11 +444,13 @@ def phase_serving(torch, seed):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             launches[name] = A.flash_fwd_launches
+            wgmma[name] = A.flash_fwd_wgmma_launches
             st = server.stats(name)
             out[name] = {"wall_s": wall,
                          "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
                          "steps": st["steps"], "admitted": st["admitted"],
                          "flash_fwd_launches": launches[name],
+                         "flash_fwd_wgmma_launches": wgmma[name],
                          "logit_rows": st["logit_rows"],
                          "nonfinite_rows": st["nonfinite_rows"],
                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -428,22 +463,24 @@ def phase_serving(torch, seed):
     out["bf16_logit_noise"] = _bf16_logit_noise(torch, model, prompts[0])
     dense = out["llama_dense"]
     # every dense forward (admission prefills + decode steps) runs the
-    # kernel once in each of the 32 layers
+    # tensor-core kernel once in each of the 32 layers, and no other kernel
     forwards = dense["admitted"] + dense["steps"]
-    out["launches_per_dense_forward"] = launches["llama_dense"] / forwards
+    out["launches_per_dense_forward"] = wgmma["llama_dense"] / forwards
     gates = {
         "16_tokens_each": all(len(t) == NEW_TOKENS for ts in tokens.values()
                               for t in ts),
         "logits_finite": all(out[n]["nonfinite_rows"] == 0
                              and out[n]["logit_rows"] > 0 for n in tokens),
-        "dense_launched_flash": launches["llama_dense"] == 32 * forwards > 0,
+        "dense_launched_flash": (wgmma["llama_dense"] == 32 * forwards > 0
+                                 and launches["llama_dense"]
+                                 == wgmma["llama_dense"]),
         "paged_launched_no_flash": launches["llama"] == 0,
     }
     out["gates"] = gates
     out["ok"] = all(gates.values())
     emit(out)
     check(out["ok"], f"serving gates failed: {gates}")
-    return launches["llama_dense"]
+    return wgmma["llama_dense"]
 
 
 def fused_bound_ms(m, k, n, dtype_bytes):
@@ -1364,7 +1401,8 @@ def _kernel_line(name, source, replaces, launches, timing):
             "library_ms": timing["library_ms"]}
 
 
-PHASES = ("build", "device", "flash", "fused", "model_parity", "serving",
+PHASES = ("build", "device", "flash", "flash_timing", "fused",
+          "model_parity", "serving",
           "resnet_parity", "training", "rtc_kernels", "rtc_ffn")
 
 
@@ -1389,16 +1427,18 @@ def main(argv=None):
         phase_build()
     phase_device(torch)
     if "flash" in only:
-        timing = phase_kernels(torch, args.seed)
+        phase_kernels(torch, args.seed)
+    if "flash_timing" in only:
+        timing = phase_flash_timing(torch, args.seed)
     if "fused" in only:
         fused = phase_fused_kernel(torch, args.seed)
     if "model_parity" in only:
         phase_model_parity(torch, args.seed)
     if "serving" in only:
         launches = phase_serving(torch, args.seed)
-        if "flash" in only:
+        if "flash_timing" in only:
             lines.append(_kernel_line(
-                "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
+                "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
                 "mxnet_tpu/ops/attention.py:51", launches, timing))
     if "resnet_parity" in only:
         phase_resnet_parity(torch, args.seed)

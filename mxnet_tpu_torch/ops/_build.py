@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with :mod:`ctypes`; no source
 includes PyTorch's headers, so a build takes seconds.  Libraries land in
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of
-their source, so an edited kernel is rebuilt and a stale one never loads.
+their source, the ``csrc/*.cuh`` headers it includes and the compiler
+flags, so an edited kernel, header or flag is rebuilt and a stale library
+never loads.
 A failed build raises with the compiler's output.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +27,7 @@ __all__ = ["KERNEL_SOURCES", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("flash_fwd", "fused_conv_bn")
+KERNEL_SOURCES = ("flash_fwd", "flash_fwd_wgmma", "fused_conv_bn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,10 +46,30 @@ def _nvcc() -> str:
                      "port's CUDA kernels are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_headers(src: Path) -> list:
+    """The ``csrc`` headers ``src`` includes with quotes, and theirs, in
+    the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = src.parent / name.decode()
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(name: str) -> Path:
+    """``build/torch_kernels/lib<name>-<hash>.so``; the hash covers
+    ``csrc/<name>.cu``, every local header it includes and ``NVCC_FLAGS``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in [src] + _local_headers(src):
+        h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:

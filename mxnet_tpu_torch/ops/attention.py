@@ -1,14 +1,17 @@
-"""Attention operators: flash-attention forward with a hand-written CUDA
-kernel, and rotary position embedding.
+"""Attention operators: flash-attention forward with hand-written CUDA
+kernels, and rotary position embedding.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  The Pallas TPU kernel
-``_flash_fwd_kernel`` becomes ``csrc/flash_fwd.cu``; :func:`flash_fwd` is
-its wrapper, and :func:`_flash_forward_plain` is the plain PyTorch version
-of the same function.  The wrapper chooses by the tensor's device alone: a
-CPU tensor gets the plain version, a CUDA tensor gets the kernel or an
-error.  Unlike the JAX dispatch gate, which falls back to a dense lowering
-unless S divides into 128-row blocks, the kernel takes any S, so every
-CUDA call launches it.
+``_flash_fwd_kernel`` becomes two CUDA kernels, chosen by
+:func:`_flash_variant` from the dtype and head dim alone:
+``csrc/flash_fwd_wgmma.cu`` on the tensor cores (bf16 with D a multiple of
+8) and ``csrc/flash_fwd.cu`` on the CUDA cores (fp32, and bf16 with any
+other D).  :func:`flash_fwd` is their wrapper, and
+:func:`_flash_forward_plain` is the plain PyTorch version of both.  The
+wrapper chooses by the tensor's device alone: a CPU tensor gets the plain
+version, a CUDA tensor gets a kernel or an error.  Unlike the JAX dispatch
+gate, which falls back to a dense lowering unless S divides into 128-row
+blocks, both kernels take any S, so every CUDA call launches one.
 
 Layouts follow the JAX package: ``[B, H, S, D]``, or packed ``[B, S, H*D]``
 with ``num_heads``.  The key-padding path (``key_valid_len``) and the
@@ -27,9 +30,11 @@ from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
 
-# Kernel launches made by flash_fwd (the count shows that a run went through
-# the kernel; nothing else touches it).
+# Kernel launches made by flash_fwd, of either kernel, and of the
+# tensor-core kernel alone (the counts show that a run went through the
+# kernels; nothing else touches them).
 flash_fwd_launches = 0
+flash_fwd_wgmma_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = -1e30
@@ -66,26 +71,45 @@ def _flash_forward_plain(q, k, v, causal: bool, sm_scale: float
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-_lib = None
+_libs = {}
 
 
-def _kernel_lib():
-    """The built ``csrc/flash_fwd.cu`` library, its C signatures declared
-    on first use."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_fwd")
-        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _flash_variant(dtype, d: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores, TMA) for
+    bf16 with D a multiple of 8, which TMA's 16-byte row strides need;
+    ``"simt"`` (CUDA cores) for everything else.  On the tensor cores fp32
+    would run as TF32, which the reference does not compute."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
-    global flash_fwd_launches
+def _kernel_lib(variant: str):
+    """The built library of a kernel variant, its C signatures declared on
+    first use: ``csrc/flash_fwd.cu`` (``"simt"``) or
+    ``csrc/flash_fwd_wgmma.cu`` (``"wgmma"``)."""
+    entry = _libs.get(variant)
+    if entry is None:
+        if variant == "wgmma":
+            lib = _build.load("flash_fwd_wgmma")
+            fn, err = lib.flash_fwd_wgmma, lib.flash_fwd_wgmma_error_string
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+        else:
+            lib = _build.load("flash_fwd")
+            fn, err = lib.flash_fwd, lib.flash_fwd_error_string
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        entry = _libs[variant] = (fn, err)
+    return entry
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
+                    variant: Optional[str] = None):
+    """Validate, then launch the kernel :func:`_flash_variant` picks
+    (``variant`` names one explicitly, for timing the two side by side)."""
+    global flash_fwd_launches, flash_fwd_wgmma_launches
     if q.dim() != 3:
         raise MXNetError(f"flash_fwd takes [BH, S, D] tensors, q is "
                          f"{tuple(q.shape)}")
@@ -107,18 +131,32 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     if not (0 < bh <= 65535 and sq > 0 and sk > 0):
         raise MXNetError(f"flash_fwd: unsupported sizes BH={bh}, S_q={sq}, "
                          f"S_k={sk}")
-    lib = _kernel_lib()
+    if variant is None:
+        variant = _flash_variant(q.dtype, d)
+    if variant == "wgmma":
+        if _flash_variant(q.dtype, d) != "wgmma":
+            raise MXNetError(f"flash_fwd: the tensor-core kernel takes bf16 "
+                             f"with D % 8 == 0, not {q.dtype} D={d}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise MXNetError(f"flash_fwd: {name} must be 16-byte aligned"
+                                 f" for the tensor-core kernel")
+    elif variant != "simt":
+        raise MXNetError(f"flash_fwd: no kernel variant {variant!r}")
+    fn, err_string = _kernel_lib(variant)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
-                            int(causal), float(sm_scale),
-                            _DTYPE_CODES[q.dtype],
-                            torch.cuda.current_stream(q.device).cuda_stream)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), bh, sq, sk, d, int(causal), float(sm_scale)]
+        if variant == "simt":
+            args.append(_DTYPE_CODES[q.dtype])
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise MXNetError("flash_fwd launch failed: "
-                         + lib.flash_fwd_error_string(err).decode())
+        raise MXNetError(f"flash_fwd ({variant}) launch failed: "
+                         + err_string(err).decode())
+    if variant == "wgmma":
+        flash_fwd_wgmma_launches += 1
     flash_fwd_launches += 1
     return out, lse
 
@@ -127,8 +165,8 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward on ``[BH, S, D]`` tensors: ``(O, lse)``, O
     in the input dtype, lse fp32 ``[BH, S_q]``.  CUDA tensors launch the
-    kernel (contiguous fp32/bf16, D <= 128, or an error); CPU tensors run
-    :func:`_flash_forward_plain`."""
+    kernel :func:`_flash_variant` picks (contiguous fp32/bf16, D <= 128, or
+    an error); CPU tensors run :func:`_flash_forward_plain`."""
     if q.device.type == "cpu":
         return _flash_forward_plain(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":

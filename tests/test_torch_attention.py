@@ -152,3 +152,105 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = torch.zeros(3, 8, 16)
     with pytest.raises(MXNetError):
         tattn._flash_fwd_cuda(q, k, v, True, 0.25)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 40, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 36, "simt"), (torch.bfloat16, 100, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_flash_variant_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 with D a multiple of 8 (TMA's 16-byte rows) takes the
+    tensor-core kernel; fp32 (which would run as TF32 there) and any other
+    D take the CUDA-core kernel."""
+    assert tattn._flash_variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("bad", ["wgmma_fp32", "wgmma_d36", "misaligned",
+                                 "unknown"])
+def test_wrapper_refuses_a_variant_the_inputs_do_not_fit(bad):
+    """Validated before anything is built or launched."""
+    q = torch.zeros(2, 8, 16, dtype=torch.bfloat16)
+    variant = "wgmma"
+    if bad == "wgmma_fp32":
+        q = q.float()
+    elif bad == "wgmma_d36":
+        q = torch.zeros(2, 8, 36, dtype=torch.bfloat16)
+    elif bad == "misaligned":
+        q = torch.zeros(2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+            2, 8, 16)
+        variant = None
+    else:
+        variant = "tf32"
+    with pytest.raises(MXNetError):
+        tattn._flash_fwd_cuda(q, q, q, True, 0.25, variant=variant)
+
+
+# chip_smoke.py's bf16 gate: each O element within half a bf16 ulp of the
+# plain version evaluated in fp32 on the same bf16 values.
+BF16_O_REL = 2.0 ** -8
+BF16_O_ABS = 1e-5
+
+
+def _emulate_tensor_core_kernel(q, k, v, causal, sm_scale, split_p):
+    """The tensor-core kernel's algorithm in torch on fp32 tensors holding
+    bf16 values: 128-row query and key tiles, S = q k^T in fp32, base-2
+    online softmax in fp32 with -1e30 masks, P split into bf16 hi and lo
+    (or rounded to bf16 alone), O accumulated in fp32 and rounded once to
+    bf16; lse = m ln 2 + log l."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale_log2 = sm_scale * 1.4426950408889634
+    out = torch.empty(bh, sq, d)
+    lse = torch.empty(bh, sq)
+    bf = lambda x: x.bfloat16().float()
+    for q0 in range(0, sq, 128):
+        rows = torch.arange(q0, min(q0 + 128, sq))
+        qt = q[:, rows]
+        acc = torch.zeros(bh, len(rows), d)
+        m = torch.full((bh, len(rows), 1), -1e30)
+        l = torch.zeros(bh, len(rows), 1)
+        k_end = min(sk, q0 + 128) if causal else sk
+        for k0 in range(0, k_end, 128):
+            cols = torch.arange(k0, min(k0 + 128, sk))
+            x = torch.matmul(qt, k[:, cols].transpose(1, 2)) * scale_log2
+            if causal:
+                x = x.masked_fill(cols[None, :] > rows[:, None], -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            vt = v[:, cols]
+            if split_p:
+                hi = bf(p)
+                pv = torch.matmul(hi, vt) + torch.matmul(bf(p - hi), vt)
+            else:
+                pv = torch.matmul(bf(p), vt)
+            acc = acc * alpha + pv
+            m = m_new
+        out[:, rows] = bf(acc / l)
+        lse[:, rows] = (m * 0.6931471805599453 + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+def _half_ulp_ratio(o, ref):
+    return ((o - ref).abs() / (BF16_O_REL * ref.abs() + BF16_O_ABS)).max()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 300, 16), (2, 256, 64), (2, 384, 128)])
+def test_split_p_keeps_the_half_ulp_gate(shape, causal):
+    """P = bf16 hi + bf16 lo meets chip_smoke.py's half-ulp bound against the
+    fp32 plain version, lse within 1e-4; P rounded to bf16 alone, the
+    textbook tensor-core kernel, misses the same bound."""
+    rng = np.random.RandomState(sum(shape) + causal)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .bfloat16().float() for _ in range(3))
+    sm = 1.0 / np.sqrt(shape[-1])
+    ref_o, ref_lse = tattn._flash_forward_plain(q, k, v, causal, sm)
+    o, lse = _emulate_tensor_core_kernel(q, k, v, causal, sm, split_p=True)
+    assert _half_ulp_ratio(o, ref_o) <= 1.0
+    assert (lse - ref_lse).abs().max() <= 1e-4
+    o_bf16_p, _ = _emulate_tensor_core_kernel(q, k, v, causal, sm,
+                                              split_p=False)
+    assert _half_ulp_ratio(o_bf16_p, ref_o) > 1.0
