@@ -27,7 +27,7 @@ from pathlib import Path
 
 # Kernel families, first match wins, by kernel name.
 FAMILIES = (
-    ("fused_conv_bn", re.compile(r"mm_bn_stats_kernel")),
+    ("fused_conv_bn", re.compile(r"mm_bn_stats")),
     ("conv_cudnn", re.compile(r"conv|cudnn|xmma|implicit|fprop|dgrad|wgrad",
                               re.I)),
     ("matmul_cublas", re.compile(r"gemm|cutlass|sm90_|ampere_|cublas", re.I)),

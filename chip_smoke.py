@@ -26,14 +26,15 @@ beside its bound, then drives the port's two paths:
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
-device, flash, flash_timing, fused, model_parity, serving, resnet_parity,
-training, rtc_kernels, rtc_ffn), for a short call while a kernel is brought
-up.  The line before the last is the kernel table; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result.  ``--only build,flash`` is the short first call after a change to a
-flash kernel: it builds the libraries, launches each FLASH_SHAPES case once,
-holds it against the plain version and stops.
+device, flash, flash_timing, fused, fused_timing, model_parity, serving,
+resnet_parity, training, rtc_kernels, rtc_ffn), for a short call while a
+kernel is brought up.  The line before the last is the kernel table; the
+last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+the rest of the repository beside it, the script exits non-zero and prints
+no result.  ``--only build,flash`` is the short first call after a change
+to a flash kernel: it builds the libraries, launches each FLASH_SHAPES case
+once, holds it against the plain version and stops; ``--only build,fused``
+does the same for the fused 1x1-conv + BN-statistics kernels.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from pathlib import Path
 # larger of its operations over the peak rate and its bytes over the
 # memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -80,13 +82,18 @@ BF16_O_REL = 2.0 ** -8
 BF16_O_ABS = 1e-5
 
 # Fused 1x1-conv + BN-statistics kernel: the (K, N) of every bottleneck 1x1
-# conv of resnet50_v1, by stage, with its output side at 224 px; the
-# kernel's M is batch * side^2.  Checked at batch 32, timed at the largest
-# stage-1 shape at batch 256 (the training phase's batch).
-FUSED_STAGES = ((56, ((64, 64), (256, 64), (64, 256))),
-                (28, ((256, 128), (512, 128), (128, 512), (256, 512))),
-                (14, ((512, 256), (1024, 256), (256, 1024), (512, 1024))),
-                (7, ((1024, 512), (2048, 512), (512, 2048), (1024, 2048))))
+# conv of resnet50_v1, by stage, with its output side at 224 px (the
+# stride sits on the first 1x1 and on the downsample of a stage's first
+# block) and its launches in one training step, 36 in all; the kernel's M
+# is batch * side^2.  Checked at batch 32; timed at batch 256 (the training
+# phase's batch) at every shape, FUSED_TIMED in full detail.  All of them
+# take the tensor-core kernel; the ragged shape (K % 4 != 0) takes the
+# CUDA-core one.
+FUSED_STAGES = (
+    (56, ((64, 64, 1), (256, 64, 2), (64, 256, 4))),
+    (28, ((256, 128, 1), (512, 128, 3), (128, 512, 4), (256, 512, 1))),
+    (14, ((512, 256, 1), (1024, 256, 5), (256, 1024, 6), (512, 1024, 1))),
+    (7, ((1024, 512, 1), (2048, 512, 2), (512, 2048, 3), (1024, 2048, 1))))
 FUSED_CHECK_BATCH = 32
 FUSED_RAGGED = (300, 130, 70)
 FUSED_TIMED = (256 * 56 * 56, 256, 64)
@@ -483,17 +490,30 @@ def phase_serving(torch, seed):
     return wgmma["llama_dense"]
 
 
+def _fused_bytes(m, k, n, dtype_bytes):
+    """x, w read once, y written once, the two fp32 [N] statistics written
+    once."""
+    return dtype_bytes * (m * k + k * n + m * n) + 8.0 * n
+
+
 def fused_bound_ms(m, k, n, dtype_bytes):
-    """Least time on the card for y = x @ w with the column statistics:
-    2MKN flops for the product and 3MN for the sums, at the fp32 CUDA-core
-    peak (bf16 at its tensor-core peak); bytes are x, w read once, y
-    written once and the two fp32 [N] statistics written once."""
-    flops = 2.0 * m * k * n + 3.0 * m * n
-    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_FP32_FLOPS
-    nbytes = dtype_bytes * (m * k + k * n + m * n) + 8.0 * n
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    """Least time on the card for y = x @ w with the column statistics as
+    the tensor-core kernel computes it: fp32 keeps fp32 through three TF32
+    products (3 * 2MKN flops), bf16 inputs need one; at the TF32
+    tensor-core peak, or the bytes at the memory rate if longer."""
+    flops = (3 if dtype_bytes == 4 else 1) * 2.0 * m * k * n
+    t_ops = flops / PEAK_TF32_FLOPS
+    t_bytes = _fused_bytes(m, k, n, dtype_bytes) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def fused_cuda_core_bound_ms(m, k, n):
+    """The same function in fp32 on the CUDA cores: 2MKN flops for the
+    product and 3MN for the sums at the fp32 peak, or the bytes (the bound
+    of the CUDA-core kernel, reported beside the tensor-core one)."""
+    t_ops = (2.0 * m * k * n + 3.0 * m * n) / PEAK_FP32_FLOPS
+    return 1e3 * max(t_ops, _fused_bytes(m, k, n, 4) / PEAK_BYTES)
 
 
 def _fused_inputs(torch, gen, m, k, n, dtype, affine, w_nk=True):
@@ -514,8 +534,12 @@ def _fused_inputs(torch, gen, m, k, n, dtype, affine, w_nk=True):
 
 def _fused_case(torch, FC, x, w, sc, sh, relu):
     """Run the kernel and its plain version (fp32, same values) once;
-    the errors and whether they pass the gates."""
+    the errors, the kernel variant that ran (by the launch counts) and
+    whether they pass the gates."""
+    before = (FC.fused_conv_bn_launches, FC.fused_conv_bn_wgmma_launches)
     y, s1, s2 = FC.fused_matmul_bn_stats(x, w, sc, sh, relu)
+    ran = (FC.fused_conv_bn_launches - before[0],
+           FC.fused_conv_bn_wgmma_launches - before[1])
     ry, r1, r2 = FC._reference_conv1x1(x.float(), w.float(), sc, sh, relu)
     torch.cuda.synchronize()
     d = (y.float() - ry).abs()
@@ -532,6 +556,7 @@ def _fused_case(torch, FC, x, w, sc, sh, relu):
         # 1 at the half-ulp bound; above 1 fails the case
         case["y_err_ratio"] = (d / (FUSED_TOL["y_bf16_rel"] * ry.abs()
                                     + FUSED_TOL["y_bf16_abs"])).max().item()
+    case["variant"] = {(1, 1): "wgmma", (1, 0): "simt"}.get(ran, str(ran))
     case["ok"] = all(case[r] <= 1.0 for r in
                      ("y_err_ratio", "sum_err_ratio", "sumsq_err_ratio"))
     return case
@@ -541,16 +566,18 @@ def phase_fused_kernel(torch, seed):
     """The fused 1x1-conv + BN-statistics kernel against its plain version
     at every resnet50_v1 shape (batch 32) and one ragged shape, fp32 and
     bf16, in its three modes (the model's shapes with w in the conv layout,
-    the ragged one as a direct call's contiguous [K, N]); then the timings
-    at FUSED_TIMED, fp32, in the mode the model runs (no affine, w in the
-    conv layout)."""
+    the ragged one as a direct call's contiguous [K, N]).  Each case must
+    also have run on the expected kernel: the tensor cores for the model's
+    shapes, the CUDA cores for the ragged one, as _fused_variant says and
+    as the launch counts show."""
     from mxnet_tpu_torch.ops import fused_conv_bn as FC
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = [(FUSED_CHECK_BATCH * side * side, k, n)
-              for side, kns in FUSED_STAGES for k, n in kns]
+              for side, kns in FUSED_STAGES for k, n, _ in kns]
     cases = []
     for (m, k, n) in shapes + [FUSED_RAGGED]:
         w_nk = (m, k, n) != FUSED_RAGGED
+        want = "wgmma" if w_nk else "simt"
         for dtype in (torch.float32, torch.bfloat16):
             for mode, (affine, relu) in FUSED_MODES.items():
                 x, w, sc, sh = _fused_inputs(torch, gen, m, k, n, dtype,
@@ -559,39 +586,77 @@ def phase_fused_kernel(torch, seed):
                 case.update(shape=[m, k, n], mode=mode,
                             dtype=str(dtype).replace("torch.", ""),
                             w_layout="nk" if w_nk else "kn")
+                case["ok"] = (case["ok"] and case["variant"] == want
+                              and FC._fused_variant(dtype, m, k, n) == want)
                 cases.append(case)
                 del x, w, sc, sh
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "fused_kernel", "ok": not bad, "tolerance": FUSED_TOL,
           "cases": len(cases),
+          "variants": {v: sum(c["variant"] == v for c in cases)
+                       for v in ("wgmma", "simt")},
           "worst": {r: max(c[r] for c in cases) for r in
                     ("y_err_ratio", "sum_err_ratio", "sumsq_err_ratio")},
           "failed": bad})
-    check(not bad, f"fused_conv_bn_stats disagrees with its plain version: "
-          f"{bad}")
+    check(not bad, f"fused_conv_bn_stats disagrees with its plain version "
+          f"or ran on the wrong kernel: {bad}")
 
-    m, k, n = FUSED_TIMED
-    x, w, _, _ = _fused_inputs(torch, gen, m, k, n, torch.float32, False)
-    timed = _fused_case(torch, FC, x, w, None, None, False)
-    check(timed["ok"], f"fused_conv_bn_stats at {FUSED_TIMED}: {timed}")
-    fns = {"kernel": lambda: FC.fused_matmul_bn_stats(x, w),
-           "plain": lambda: FC._reference_conv1x1(x, w, None, None, False),
-           "library": lambda: torch.matmul(x, w)}
-    times = {key: [] for key in fns}
-    for order in (("kernel", "plain", "library"),
-                  ("library", "plain", "kernel")):
-        for key in order:
-            times[key].append(cuda_ms(torch, fns[key], iters=10))
-    bound, bound_by = fused_bound_ms(m, k, n, 4)
-    result = {"shape": list(FUSED_TIMED), "dtype": "float32",
-              "mode": "plain", "max_abs_err": timed["max_abs_err"],
-              "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
-              "library_ms": min(times["library"]), "bound_ms": bound,
-              "bound_by": bound_by, "runs_ms": times,
-              "tf32": _tf32(torch)}
-    emit({"phase": "fused_kernel_timing", "ok": True,
-          "fused_conv_bn_stats": result})
-    return result
+
+def phase_fused_timing(torch, seed):
+    """At each of the 15 shapes at batch 256, fp32, TF32 off, in the mode
+    the model runs (no affine, w in the conv layout): the tensor-core
+    kernel checked once against the gates, then timed in turns with the
+    CUDA-core kernel (the earlier figure) and torch.matmul (y alone),
+    beside the bound; the sums over one training step's 36 launches.  At
+    FUSED_TIMED the plain version is timed too, for the kernels line."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    check(sum(c for _, kns in FUSED_STAGES for _, _, c in kns)
+          == FUSED_LAUNCHES_PER_STEP,
+          "FUSED_STAGES does not add up to one step's launches")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = TRAIN["batch"]
+    shapes, step = [], {"ms": 0.0, "simt_ms": 0.0, "library_ms": 0.0,
+                        "bound_ms": 0.0, "bound_cuda_cores_ms": 0.0}
+    timed = None
+    for side, kns in FUSED_STAGES:
+        for k, n, per_step in kns:
+            m = batch * side * side
+            x, w, _, _ = _fused_inputs(torch, gen, m, k, n, torch.float32,
+                                       False)
+            case = _fused_case(torch, FC, x, w, None, None, False)
+            check(case["ok"] and case["variant"] == "wgmma",
+                  f"fused_conv_bn_stats at {(m, k, n)}: {case}")
+            fns = {"kernel": lambda: FC.fused_matmul_bn_stats(x, w),
+                   "simt": lambda: FC._fused_cuda(x, w, None, None, False,
+                                                  variant="simt"),
+                   "library": lambda: torch.matmul(x, w)}
+            if (m, k, n) == FUSED_TIMED:
+                fns["plain"] = lambda: FC._reference_conv1x1(
+                    x, w, None, None, False)
+            best, runs = _in_turns(torch, fns)
+            bound, bound_by = fused_bound_ms(m, k, n, 4)
+            row = {"shape": [m, k, n], "launches_per_step": per_step,
+                   "variant": case["variant"],
+                   "max_abs_err": case["max_abs_err"],
+                   "y_err_ratio": case["y_err_ratio"],
+                   "ms": best["kernel"], "simt_ms": best["simt"],
+                   "library_ms": best["library"], "bound_ms": bound,
+                   "bound_by": bound_by,
+                   "bound_cuda_cores_ms": fused_cuda_core_bound_ms(m, k, n),
+                   "runs_ms": runs}
+            for key in step:
+                step[key] += row["launches_per_step"] * row[key]
+            if (m, k, n) == FUSED_TIMED:
+                timed = dict(row, dtype="float32", mode="plain",
+                             plain_ms=best["plain"], tf32=_tf32(torch))
+            shapes.append(row)
+            del x, w
+            torch.cuda.empty_cache()
+    check(timed is not None, f"FUSED_TIMED {FUSED_TIMED} is not a step shape")
+    emit({"phase": "fused_kernel_timing", "ok": True, "tf32": _tf32(torch),
+          "launches_per_step": FUSED_LAUNCHES_PER_STEP,
+          "step_sum": step, "shapes": shapes})
+    return timed
 
 
 def _tf32(torch):
@@ -700,6 +765,7 @@ def _train_run(torch, seed, name, fused, dtype):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FC.fused_conv_bn_launches = 0
+    FC.fused_conv_bn_wgmma_launches = 0
     A.flash_fwd_launches = 0
     first = step(x, y).item()
     for _ in range(TRAIN["warmup"] - 1):
@@ -711,6 +777,7 @@ def _train_run(torch, seed, name, fused, dtype):
     last = loss.item()
     wall = time.perf_counter() - t0
     launches = FC.fused_conv_bn_launches
+    wgmma = FC.fused_conv_bn_wgmma_launches
     flash = A.flash_fwd_launches
     steps = TRAIN["warmup"] + TRAIN["steps"]
     out = {"run": name, "fused": fused, "dtype": dtype or "float32",
@@ -721,11 +788,13 @@ def _train_run(torch, seed, name, fused, dtype):
            "last_loss": last,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tf32": _tf32(torch), "fused_conv_bn_launches": launches,
+           "fused_conv_bn_wgmma_launches": wgmma,
            "flash_fwd_launches": flash}
     want = FUSED_LAUNCHES_PER_STEP * steps if fused else 0
     out["gates"] = {"losses_finite": math.isfinite(first)
                     and math.isfinite(last),
-                    "launches": launches == want and flash == 0}
+                    "launches": launches == want and wgmma == want
+                    and flash == 0}
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"training run {name} failed: {out['gates']}")
@@ -1402,7 +1471,7 @@ def _kernel_line(name, source, replaces, launches, timing):
 
 
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
-          "model_parity", "serving",
+          "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "rtc_kernels", "rtc_ffn")
 
 
@@ -1431,7 +1500,9 @@ def main(argv=None):
     if "flash_timing" in only:
         timing = phase_flash_timing(torch, args.seed)
     if "fused" in only:
-        fused = phase_fused_kernel(torch, args.seed)
+        phase_fused_kernel(torch, args.seed)
+    if "fused_timing" in only:
+        fused = phase_fused_timing(torch, args.seed)
     if "model_parity" in only:
         phase_model_parity(torch, args.seed)
     if "serving" in only:
@@ -1444,10 +1515,10 @@ def main(argv=None):
         phase_resnet_parity(torch, args.seed)
     if "training" in only:
         launches = phase_training(torch, args.seed)
-        if "fused" in only:
+        if "fused_timing" in only:
             lines.append(_kernel_line(
                 "fused_conv_bn_stats",
-                "mxnet_tpu_torch/csrc/fused_conv_bn.cu",
+                "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
                 "mxnet_tpu/ops/fused_conv_bn.py:48", launches, fused))
     if "rtc_kernels" in only or "rtc_ffn" in only:
         kernels, twins = phase_rtc_kernels(torch, args.seed)

@@ -71,12 +71,13 @@
 // kEncodeError + the CUresult when a tensor map cannot be encoded.
 #include <atomic>
 #include <cstdint>
-#include <cstdio>
 #include <initializer_list>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -91,47 +92,8 @@ constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
-constexpr int kEncodeError = 100000;
 
 // ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// (No watchdog here: a timer and trap in this loop cost the 24-register
-// producer a spill, and ptxas then serialises every wgmma of the kernel.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // TMA: one [1, 128, 64] box at element coordinates (c0 = column, c1 = row,
 // c2 = batch*head) into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
@@ -144,38 +106,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of a register across the
-// asynchronous wgmma that owns it (and from reusing an A-fragment register
-// before the product that reads it has finished).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor for the 128-byte swizzle (layout type 1);
-// leading and stride byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo) << 16) |
-         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory
@@ -298,11 +228,6 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumerThreads)
                : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 template <int DP>
@@ -592,31 +517,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------- host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A [BH, S, D] bf16 tensor as a 3-D map read in [1, 128, 64] boxes with the
 // 128-byte swizzle; out-of-bounds elements read as zero.
 int encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
@@ -685,11 +585,5 @@ extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
 }
 
 extern "C" const char* flash_fwd_wgmma_error_string(int err) {
-  static thread_local char buf[96];
-  if (err >= kEncodeError) {
-    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
-             err - kEncodeError);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(err);
 }

@@ -1,12 +1,16 @@
-"""Fused 1x1 convolution + BatchNorm statistics, with a hand-written CUDA
-kernel.
+"""Fused 1x1 convolution + BatchNorm statistics, with hand-written CUDA
+kernels.
 
 Counterpart of ``mxnet_tpu/ops/fused_conv_bn.py``.  The Pallas TPU kernel
-``_mm_stats_kernel`` becomes ``csrc/fused_conv_bn.cu``;
-:func:`fused_matmul_bn_stats` is its wrapper and :func:`_reference_conv1x1`
-the plain PyTorch version of the same function.  The wrapper chooses by the
-tensor's device alone: a CPU tensor gets the plain version, a CUDA tensor
-gets the kernel or an error.
+``_mm_stats_kernel`` becomes two CUDA kernels, chosen by
+:func:`_fused_variant` from the dtype and shapes alone:
+``csrc/fused_conv_bn_wgmma.cu`` on the tensor cores (TMA, TF32 ``wgmma``
+with a three-product hi/lo split that keeps fp32) wherever TMA can describe
+x, and ``csrc/fused_conv_bn.cu`` on the CUDA cores for the rest.
+:func:`fused_matmul_bn_stats` is their wrapper and
+:func:`_reference_conv1x1` the plain PyTorch version of both.  The wrapper
+chooses by the tensor's device alone: a CPU tensor gets the plain version,
+a CUDA tensor gets a kernel or an error.
 
 :class:`_Conv1x1BNCore` makes the product differentiable, with the JAX
 package's backward (plain tensor ops there too), and
@@ -25,9 +29,12 @@ from . import _build
 
 __all__ = ["fused_matmul_bn_stats", "conv1x1_bn_stats_op"]
 
-# Kernel launches made by fused_matmul_bn_stats (the count shows that a run
-# went through the kernel; nothing else touches it).
+# Kernel launches made by fused_matmul_bn_stats, of either kernel, and of
+# the tensor-core kernel alone (the counts show that a run went through the
+# kernels; nothing else touches them).  The tensor-core kernel's w-split
+# pre-kernel is part of its one launch.
 fused_conv_bn_launches = 0
+fused_conv_bn_wgmma_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,27 +52,53 @@ def _reference_conv1x1(x, w, in_scale, in_shift, relu_in: bool):
     return y32.to(x.dtype), y32.sum(dim=0), (y32 * y32).sum(dim=0)
 
 
-_lib = None
+_libs = {}
 
 
-def _kernel_lib():
-    """The built ``csrc/fused_conv_bn.cu`` library, its C signatures
-    declared on first use."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("fused_conv_bn")
-        lib.fused_conv_bn_stats.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.fused_conv_bn_stats.restype = ctypes.c_int
-        lib.fused_conv_bn_error_string.argtypes = [ctypes.c_int]
-        lib.fused_conv_bn_error_string.restype = ctypes.c_char_p
-        lib.fused_conv_bn_tile_m.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _fused_variant(dtype, m: int, k: int, n: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores, TMA) where
+    TMA can describe x, whose rows need 16-byte strides (fp32 with
+    K % 4 == 0, bf16 with K % 8 == 0) and whose M rows fit TMA's 32-bit
+    coordinates; ``"simt"`` (CUDA cores) for everything else.  The choice
+    depends on the dtype and shapes only; the wrapper also needs a 16-byte
+    aligned x for ``"wgmma"`` and raises without one."""
+    per_row = {torch.float32: 4, torch.bfloat16: 8}.get(dtype)
+    return "wgmma" if per_row and k % per_row == 0 and m < 2 ** 31 else "simt"
 
 
-def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool):
-    global fused_conv_bn_launches
+def _kernel_lib(variant: str):
+    """The built library of a kernel variant, its C signatures declared on
+    first use: ``csrc/fused_conv_bn.cu`` (``"simt"``) or
+    ``csrc/fused_conv_bn_wgmma.cu`` (``"wgmma"``).  Returns (launch
+    function, error-string function, tile height of the partials)."""
+    entry = _libs.get(variant)
+    if entry is None:
+        if variant == "wgmma":
+            lib = _build.load("fused_conv_bn_wgmma")
+            fn = lib.fused_conv_bn_wgmma
+            err = lib.fused_conv_bn_wgmma_error_string
+            tile_m = lib.fused_conv_bn_wgmma_tile_m
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [
+                ctypes.c_int] * 4 + [ctypes.c_void_p]
+        else:
+            lib = _build.load("fused_conv_bn")
+            fn, err = lib.fused_conv_bn_stats, lib.fused_conv_bn_error_string
+            tile_m = lib.fused_conv_bn_tile_m
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
+                ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        tile_m.restype = ctypes.c_int
+        entry = _libs[variant] = (fn, err, tile_m())
+    return entry
+
+
+def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
+                variant: Optional[str] = None):
+    """Validate, then launch the kernel :func:`_fused_variant` picks
+    (``variant`` names one explicitly, for timing the two side by side)."""
+    global fused_conv_bn_launches, fused_conv_bn_wgmma_launches
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise MXNetError(f"fused_matmul_bn_stats takes x [M, K] and w [K, N], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -79,10 +112,6 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool):
                          f"{x.device}")
     if not x.is_contiguous():
         raise MXNetError("fused_matmul_bn_stats: x must be contiguous")
-    # the kernel reads w as a row-major [N, K]: the conv weight's own
-    # layout passes as it is, any other w is copied once (at most 8 MB on
-    # ResNet-50)
-    w_nk = w.t().contiguous()
     if (in_scale is None) != (in_shift is None):
         raise MXNetError("fused_matmul_bn_stats: in_scale and in_shift go "
                          "together")
@@ -95,22 +124,49 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool):
     if min(m, k, n) < 1:
         raise MXNetError(f"fused_matmul_bn_stats: empty product M={m}, K={k},"
                          f" N={n}")
-    lib = _kernel_lib()
-    tiles = -(-m // lib.fused_conv_bn_tile_m())
+    if variant is None:
+        variant = _fused_variant(x.dtype, m, k, n)
+    if variant == "wgmma":
+        if _fused_variant(x.dtype, m, k, n) != "wgmma":
+            raise MXNetError(f"fused_matmul_bn_stats: the tensor-core kernel "
+                             f"takes float32 with K % 4 == 0 or bfloat16 with "
+                             f"K % 8 == 0, not {x.dtype} K={k}")
+        if x.data_ptr() % 16:
+            raise MXNetError("fused_matmul_bn_stats: x must be 16-byte "
+                             "aligned for the tensor-core kernel")
+    elif variant != "simt":
+        raise MXNetError(f"fused_matmul_bn_stats: no kernel variant "
+                         f"{variant!r}")
+    fn, err_string, tile_m = _kernel_lib(variant)
+    # the kernels read w as a row-major [N, K]: the conv weight's own
+    # layout passes as it is, any other w is copied once (at most 8 MB on
+    # ResNet-50)
+    w_nk = w.t().contiguous()
+    tiles = -(-m // tile_m)
     with torch.cuda.device(x.device):
         y = torch.empty((m, n), dtype=x.dtype, device=x.device)
         psum = torch.empty((tiles, n), dtype=torch.float32, device=x.device)
         psumsq = torch.empty_like(psum)
-        err = lib.fused_conv_bn_stats(
-            x.data_ptr(), w_nk.data_ptr(),
-            None if in_scale is None else in_scale.data_ptr(),
-            None if in_shift is None else in_shift.data_ptr(),
-            y.data_ptr(), psum.data_ptr(), psumsq.data_ptr(), m, k, n,
-            int(bool(relu_in)), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+        args = [x.data_ptr(), w_nk.data_ptr()]
+        if variant == "wgmma":
+            # fp32 w_hi and w_lo [N, K], split from w by the kernel's
+            # pre-pass; bf16 w has no lo part
+            w_hi = torch.empty((n, k), dtype=torch.float32, device=x.device)
+            w_lo = (torch.empty_like(w_hi) if x.dtype == torch.float32
+                    else None)
+            args += [w_hi.data_ptr(),
+                     None if w_lo is None else w_lo.data_ptr()]
+        args += [None if in_scale is None else in_scale.data_ptr(),
+                 None if in_shift is None else in_shift.data_ptr(),
+                 y.data_ptr(), psum.data_ptr(), psumsq.data_ptr(), m, k, n,
+                 int(bool(relu_in)), _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream]
+        err = fn(*args)
     if err:
-        raise MXNetError("fused_conv_bn_stats launch failed: "
-                         + lib.fused_conv_bn_error_string(err).decode())
+        raise MXNetError(f"fused_conv_bn_stats ({variant}) launch failed: "
+                         + err_string(err).decode())
+    if variant == "wgmma":
+        fused_conv_bn_wgmma_launches += 1
     fused_conv_bn_launches += 1
     return y, psum.sum(dim=0), psumsq.sum(dim=0)
 
@@ -123,9 +179,9 @@ def fused_matmul_bn_stats(x, w, in_scale=None, in_shift=None,
     x: ``[M, K]``; w: ``[K, N]``; in_scale/in_shift: fp32 ``[K]`` or None.
     Returns (y ``[M, N]`` in x's dtype, sum ``[N]`` fp32, sumsq ``[N]``
     fp32), the statistics of the fp32 product.  CUDA tensors launch the
-    kernel (x contiguous, fp32 or bf16, or an error; a ``w`` that is not
-    the transpose of a contiguous ``[N, K]`` is copied to that layout);
-    CPU tensors run :func:`_reference_conv1x1`."""
+    kernel :func:`_fused_variant` picks (x contiguous, fp32 or bf16, or an
+    error; a ``w`` that is not the transpose of a contiguous ``[N, K]`` is
+    copied to that layout); CPU tensors run :func:`_reference_conv1x1`."""
     if x.device.type == "cpu":
         return _reference_conv1x1(x, w, in_scale, in_shift, relu_in)
     if x.device.type != "cuda":

@@ -40,3 +40,9 @@ def test_every_kernel_source_is_in_the_checkout():
     for name in _build.KERNEL_SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+def test_the_tensor_core_fused_kernel_is_built():
+    """Both fused conv-BN kernels are built, so every call reaches one."""
+    assert {"fused_conv_bn", "fused_conv_bn_wgmma"} <= set(
+        _build.KERNEL_SOURCES)
