@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 v1 training step goes, on one
-NVIDIA H100.
+"""Where the time of the port's training steps goes, on one NVIDIA H100.
 
-    python3 chip_profile.py [--seed N] [--steps N]
+    python3 chip_profile.py [--model resnet|bert] [--seed N] [--steps N]
 
 Run from the root of a checkout on a machine with one CUDA card (after or
 instead of ``chip_smoke.py``; it builds the kernels it needs the same way).
@@ -12,8 +11,11 @@ unfused fp32 and (c) unfused bf16 (full-width resnet50_v1, 224 px, batch
 ``torch.profiler`` and prints one JSON line: device time per step by kernel
 family (the fused kernel, cuDNN convolutions, cuBLAS matrix products,
 reductions, elementwise passes, pooling, other), the device's idle share of
-the traced wall time, and the ten kernels that took longest.  The last line
-names the card.
+the traced wall time, and the ten kernels that took longest.  With
+``--model bert`` it does the same for ``chip_smoke.py``'s two BERT-base
+runs (seq 128, batch 64, Adam; fp32, and bf16 through
+``amp.convert_block``), where the flash forward kernel is a family of its
+own.  The last line names the card.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from pathlib import Path
 # Kernel families, first match wins, by kernel name.
 FAMILIES = (
     ("fused_conv_bn", re.compile(r"mm_bn_stats")),
-    ("conv_cudnn", re.compile(r"conv|cudnn|xmma|implicit|fprop|dgrad|wgrad",
+    ("flash_fwd", re.compile(r"flash_fwd")),
+    # cuBLAS names some fp32 GEMMs sm80_xmma_gemm_*: "xmma" alone is no conv
+    ("conv_cudnn", re.compile(r"conv|cudnn|implicit|fprop|dgrad|wgrad",
                               re.I)),
     ("matmul_cublas", re.compile(r"gemm|cutlass|sm90_|ampere_|cublas", re.I)),
     ("pooling", re.compile(r"pool", re.I)),
@@ -45,15 +49,23 @@ def family(name):
     return "other"
 
 
-def profile_run(torch, smoke, seed, name, fused, dtype, steps):
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.empty_cache()
+def resnet_run(torch, smoke, seed, fused, dtype):
     net = smoke._resnet50(torch, fused, seed, dtype)
     step = smoke._train_step(net, smoke.TRAIN["batch"])
     x, y = smoke._images(torch, seed + 7, smoke.TRAIN["batch"],
                          smoke.TRAIN["px"], smoke.TRAIN["classes"],
                          torch.bfloat16 if dtype else None)
-    for _ in range(smoke.TRAIN["warmup"]):
+    return step, x, y, smoke.TRAIN["warmup"]
+
+
+def bert_run(torch, smoke, seed, dtype):
+    _net, step, x, y = smoke._bert_base(torch, seed, dtype or "float32")
+    return step, x, y, smoke.BERT["warmup"]
+
+
+def profile_run(torch, name, dtype, steps, step, x, y, warmup):
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
         step(x, y)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -74,21 +86,21 @@ def profile_run(torch, smoke, seed, name, fused, dtype, steps):
         top.append((ms, e.count // steps, e.key[:90]))
     busy = sum(by_family.values())
     top.sort(reverse=True)
-    out = {"run": name, "fused": fused, "dtype": dtype or "float32",
-           "traced_steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "device_busy_ms_per_step": busy,
-           "idle_share": 1.0 - busy * steps / wall_ms,
-           "ms_per_step_by_family": dict(sorted(
-               by_family.items(), key=lambda kv: -kv[1])),
-           "top_kernels": [{"ms_per_step": ms, "launches_per_step": n,
-                            "name": k} for ms, n, k in top[:10]],
-           "kernel_events": len(kernels)}
-    print(json.dumps(out), flush=True)
-    del net, step, x, y
+    return {"run": name, "dtype": dtype or "float32",
+            "traced_steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy * steps / wall_ms,
+            "ms_per_step_by_family": dict(sorted(
+                by_family.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"ms_per_step": ms, "launches_per_step": n,
+                             "name": k} for ms, n, k in top[:10]],
+            "kernel_events": len(kernels)}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("resnet", "bert"),
+                        default="resnet")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=2)
     args = parser.parse_args(argv)
@@ -99,10 +111,23 @@ def main(argv=None):
     import chip_smoke as smoke
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name, fused, dtype in (("a_fused_fp32", True, None),
-                               ("b_unfused_fp32", False, None),
-                               ("c_unfused_bf16", False, "bfloat16")):
-        profile_run(torch, smoke, args.seed, name, fused, dtype, args.steps)
+    if args.model == "resnet":
+        runs = [(name, dtype, lambda f=fused, d=dtype: resnet_run(
+                    torch, smoke, args.seed, f, d))
+                for name, fused, dtype in (("a_fused_fp32", True, None),
+                                           ("b_unfused_fp32", False, None),
+                                           ("c_unfused_bf16", False,
+                                            "bfloat16"))]
+    else:
+        runs = [(f"bert_{dtype or 'float32'}", dtype,
+                 lambda d=dtype: bert_run(torch, smoke, args.seed, d))
+                for dtype in (None, "bfloat16")]
+    for name, dtype, build in runs:
+        torch.cuda.empty_cache()
+        step, x, y, warmup = build()
+        out = profile_run(torch, name, dtype, args.steps, step, x, y, warmup)
+        print(json.dumps(out), flush=True)
+        del step, x, y
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

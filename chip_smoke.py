@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  It builds every CUDA kernel of the port from ``csrc/``,
 holds each against its plain PyTorch version on the card and times it
-beside its bound, then drives the port's two paths:
+beside its bound, then drives the port's paths:
 
 - serving (slice 1): checks the Llama model's two attention paths against
   each other, then serves full-width llama_7b (32 layers, bf16, random
@@ -22,13 +22,19 @@ beside its bound, then drives the port's two paths:
   llama_7b's FFN (bf16, 8192 tokens) for 3 + 10 imperative training steps
   through ``mx.nd`` and ``mx.autograd``, its SwiGLU an
   ``autograd.Function`` over two rtc kernels, held against plain torch
-  autograd.
+  autograd;
+- BERT pretraining (slice 6): holds the CUDA-core flash forward at
+  BERT-base's attention shape against its plain version and its autograd
+  Function's backward against plain autograd, and times it beside SDPA;
+  holds two Adam steps of the small BERT on the card against the same
+  steps on the CPU; then trains full-width BERT-base (seq 128, batch 64,
+  Adam, as bench.py) in fp32 and in bf16 through ``amp.convert_block``.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, flash, flash_timing, fused, fused_timing, model_parity, serving,
-resnet_parity, training, rtc_kernels, rtc_ffn), for a short call while a
-kernel is brought up.  The line before the last is the kernel table; the
+resnet_parity, training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
+bert_training), for a short call while a kernel is brought up.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -1448,6 +1454,257 @@ def phase_rtc_ffn(torch, seed, kernels, twins):
     return timing
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the BERT-base pretraining step (bench.py:158-192)
+# ---------------------------------------------------------------------------
+# bench.py's full BERT run: BERT-base (12 layers, 768 units, 3072 hidden, 12
+# heads, vocab 30522, max_length 512, dropout 0.1), seq 128, batch 64
+# (BENCH_BERT_BATCH), Adam lr 1e-4, MLM loss only, token_types zeros.  Its
+# attention runs fp32 in both runs: under amp.convert_block LayerNorm's fp32
+# gamma promotes every activation from embed_ln on, so both take the
+# CUDA-core flash kernel, 12 launches per step.  BERT_FLASH is that call's
+# [B, H, S, D].
+BERT = dict(vocab_size=30522, max_length=512, batch=64, seq=128, lr=1e-4,
+            warmup=3, steps=10)
+BERT_FLASH = (64, 12, 128, 64)
+# The small config of bench.py:168-170, dropout 0: two steps on the card
+# against the same two steps on the CPU from the same weights, fp32, TF32
+# off.  Bounds as tests/test_torch_bert.py states them: losses within 1e-5
+# of themselves; parameters within 2·lr per step, absolute (Adam's first
+# step moves a weight by ±lr whatever its gradient's size, so a near-zero
+# gradient rounded to the other sign costs 2·lr); the gradient of the first
+# layer's q, k and v within 1e-4 of its largest |value|.
+BERT_SMALL = dict(vocab_size=1000, units=64, hidden_size=128, num_layers=2,
+                  num_heads=4, max_length=32, dropout=0.0)
+BERT_PARITY = dict(batch=8, seq=32, steps=2, loss_rel=1e-5, grad_rel=1e-4)
+# The Function's backward against plain autograd through the dense
+# attention_reference: within 1e-4 of each gradient's largest |value| (the
+# kernel's O, held to 1e-4, enters delta = sum(dO * O)).
+BERT_BWD_REL = 1e-4
+
+
+def phase_bert_flash(torch, seed):
+    """The CUDA-core flash forward at BERT-base's shape, fp32 non-causal,
+    against its plain version; the autograd Function's backward on the card
+    against plain autograd of attention_reference; then the kernel, the
+    plain version and SDPA (fp32) timed in turns."""
+    from mxnet_tpu_torch.ops import attention as A
+    b, h, s, d = BERT_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    variant = A._flash_variant(torch.float32, d)
+    o, lse = A.flash_fwd(q, k, v, False, scale)
+    ro, rl = A._flash_forward_plain(q, k, v, False, scale)
+    o_err = (o - ro).abs().max().item()
+    lse_err = (lse - rl).abs().max().item()
+    del o, lse, ro, rl
+    leaves = [t.view(b, h, s, d).clone().requires_grad_() for t in (q, k, v)]
+    out = A.flash_attention(*leaves)
+    grad_fn = type(out.grad_fn).__name__
+    out.backward(do.view(b, h, s, d))
+    plain = [t.view(b, h, s, d).clone().requires_grad_() for t in (q, k, v)]
+    A.attention_reference(*plain).backward(do.view(b, h, s, d))
+    bwd = {f"d{n}": ((x.grad - y.grad).abs().max()
+                     / y.grad.abs().max()).item()
+           for n, x, y in zip("qkv", leaves, plain)}
+    del leaves, plain, out
+    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    best, runs = _in_turns(torch, {
+        "kernel": lambda: A.flash_fwd(q, k, v, False, scale),
+        "plain": lambda: A._flash_forward_plain(q, k, v, False, scale),
+        "library": lambda: sdpa(q4, k4, v4, scale=scale)})
+    bound, bound_by = flash_bound_ms(b, h, s, d, False, 4)
+    tol = TOL["float32"]
+    out = {"phase": "bert_flash", "shape": [b, h, s, d], "dtype": "float32",
+           "causal": False, "variant": variant, "o_err": o_err,
+           "lse_err": lse_err, "grad_fn": grad_fn,
+           "bwd_rel_err": bwd, "tolerance": {**tol, "bwd_rel": BERT_BWD_REL},
+           "max_abs_err": max(o_err, lse_err), "ms": best["kernel"],
+           "plain_ms": best["plain"], "library_ms": best["library"],
+           "bound_ms": bound, "bound_by": bound_by, "runs_ms": runs,
+           "tf32": _tf32(torch)}
+    out["ok"] = (variant == "simt" and o_err <= tol["o"]
+                 and lse_err <= tol["lse"]
+                 and grad_fn == "_FlashFunctionBackward"
+                 and max(bwd.values()) <= BERT_BWD_REL)
+    emit(out)
+    check(out["ok"], "flash_fwd at BERT's shape disagrees with its plain "
+          "version, or its backward with plain autograd")
+    del q, k, v, do, q4, k4, v4
+    return out
+
+
+def _bert_loss(vocab):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    ce = SoftmaxCrossEntropyLoss()
+
+    def mlm_loss(out, y):
+        mlm, _nsp = out
+        return ce(mlm.reshape(-1, vocab), y.reshape(-1))
+    return mlm_loss
+
+
+def _bert_step(net, vocab, batch):
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    return CompiledTrainStep(net, _bert_loss(vocab),
+                             optimizer.create("adam", learning_rate=BERT["lr"]),
+                             batch_size=batch)
+
+
+def _bert_batch(torch, seed, vocab, batch, seq, device):
+    """Random tokens and labels from ``seed``, token types zeros."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device)
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device).float()
+    return (tokens, torch.zeros_like(tokens)), labels
+
+
+def phase_bert_parity(torch, seed):
+    """Two steps of the small BERT on the card (flash kernel) against the
+    same two steps on the CPU (plain versions) from the same weights, fp32:
+    the losses, the first layer's q, k and v gradients of step 1 (C2: they
+    exist on the card) and every parameter after step 2."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import BERTForPretraining
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.random import generator
+    nets, losses, qkv_grads = {}, {}, {}
+    src = initialize(BERTForPretraining(device="cpu", **BERT_SMALL),
+                     generator(seed, "cpu")).state_dict()
+    x, y = _bert_batch(torch, seed + 3, BERT_SMALL["vocab_size"],
+                       BERT_PARITY["batch"], BERT_PARITY["seq"], "cpu")
+    launches = {}
+    for dev in ("cuda", "cpu"):
+        net = BERTForPretraining(device=dev, **BERT_SMALL)
+        net.load_state_dict(src)
+        grads = []
+
+        def keep(mod, inp, out, grads=grads):
+            if out.requires_grad and not grads:
+                out.register_hook(lambda g: grads.append(g.detach().cpu()))
+        hook = net.bert.encoder.cells[0].attention.qkv.register_forward_hook(
+            keep)
+        step = _bert_step(net, BERT_SMALL["vocab_size"], BERT_PARITY["batch"])
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        losses[dev] = [step(tuple(t.to(dev) for t in x), y.to(dev)).item()
+                       for _ in range(BERT_PARITY["steps"])]
+        launches[dev] = (A.flash_fwd_launches, A.flash_fwd_wgmma_launches)
+        hook.remove()
+        nets[dev], qkv_grads[dev] = net, grads
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    card, host = qkv_grads["cuda"], qkv_grads["cpu"]
+    qkv_rel = {}
+    if card and host:
+        for name, g, r in zip("qkv", card[0].chunk(3, -1),
+                              host[0].chunk(3, -1)):
+            qkv_rel[name] = ((g - r).abs().max() / r.abs().max()).item()
+    qkv_present = len(qkv_rel) == 3 and all(
+        c.abs().max().item() > 0 for c in card[0].chunk(3, -1))
+    atol = 2 * BERT["lr"] * BERT_PARITY["steps"]
+    worst = max((nets["cuda"].state_dict()[k].cpu() - v).abs().max().item()
+                for k, v in nets["cpu"].state_dict().items())
+    want = BERT_SMALL["num_layers"] * BERT_PARITY["steps"]
+    out = {"phase": "bert_parity", "config": BERT_SMALL, **BERT_PARITY,
+           "losses": losses, "loss_rel_diff": loss_rel,
+           "qkv_grad_rel_diff": qkv_rel, "worst_param_abs_diff": worst,
+           "param_atol": atol, "flash_launches": launches["cuda"],
+           "tf32": _tf32(torch)}
+    out["gates"] = {
+        "losses": all(math.isfinite(v) for v in losses["cuda"])
+        and loss_rel <= BERT_PARITY["loss_rel"],
+        "qkv_grads_on_card": qkv_present
+        and max(qkv_rel.values()) <= BERT_PARITY["grad_rel"],
+        "params": worst <= atol,
+        "launches": launches["cuda"] == (want, 0)
+        and launches["cpu"] == (0, 0)}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"small BERT on the card disagrees with the CPU: "
+          f"{out['gates']}")
+
+
+def _bert_base(torch, seed, dtype):
+    """Full-width BERT-base on the card as bench.py builds it (weights from
+    ``seed``, dropout 0.1 drawing from ``seed + 1``, converted to bf16
+    with amp.convert_block unless ``dtype`` is float32), its Adam step and
+    its batch: ``(net, step, x, y)``."""
+    from mxnet_tpu_torch.contrib.amp import convert_block
+    from mxnet_tpu_torch.gluon.model_zoo.language import BERTForPretraining
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    vocab = BERT["vocab_size"]
+    net = BERTForPretraining(vocab_size=vocab, max_length=BERT["max_length"],
+                             generator=generator(seed + 1, "cuda"),
+                             device="cuda")
+    initialize(net, generator(seed, "cuda"))
+    if dtype != "float32":
+        convert_block(net, dtype)
+    step = _bert_step(net, vocab, BERT["batch"])
+    x, y = _bert_batch(torch, seed + 7, vocab, BERT["batch"], BERT["seq"],
+                       "cuda")
+    return net, step, x, y
+
+
+def _bert_run(torch, seed, dtype):
+    """``BERT["warmup"]`` + ``BERT["steps"]`` steps of full-width
+    BERT-base as bench.py builds it, with the flash launch counts set to 0
+    just before and read just after; samples per second from the host
+    clock over the timed steps, ending in a ``loss.item()``."""
+    from mxnet_tpu_torch.ops import attention as A
+    torch.cuda.empty_cache()
+    net, step, x, y = _bert_base(torch, seed, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    first = step(x, y).item()
+    for _ in range(BERT["warmup"] - 1):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BERT["steps"]):
+        loss = step(x, y)
+    last = loss.item()
+    wall = time.perf_counter() - t0
+    launches, wgmma = A.flash_fwd_launches, A.flash_fwd_wgmma_launches
+    steps = BERT["warmup"] + BERT["steps"]
+    layers = len(net.bert.encoder.cells)
+    out = {"run": f"bert_{dtype}", "dtype": dtype, "batch": BERT["batch"],
+           "seq": BERT["seq"], "layers": layers, "steps": steps,
+           "timed_steps": BERT["steps"],
+           "samples_per_sec": BERT["batch"] * BERT["steps"] / wall,
+           "step_ms": 1e3 * wall / BERT["steps"], "first_loss": first,
+           "last_loss": last,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tf32": _tf32(torch), "flash_fwd_launches": launches,
+           "flash_fwd_wgmma_launches": wgmma}
+    out["gates"] = {"losses_finite": math.isfinite(first)
+                    and math.isfinite(last),
+                    "launches": launches == layers * steps == 156
+                    and wgmma == 0}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"BERT run {dtype} failed: {out['gates']}")
+    del net, step, x, y
+    return out
+
+
+def phase_bert_training(torch, seed):
+    """Full-width BERT-base pretraining steps, fp32 then bf16 through
+    amp.convert_block; TF32 off.  Returns the flash launches of both runs."""
+    runs = [_bert_run(torch, seed, "float32"),
+            _bert_run(torch, seed, "bfloat16")]
+    emit({"phase": "bert_training", "ok": True,
+          "bf16_over_fp32_step_ms": runs[1]["step_ms"] / runs[0]["step_ms"]})
+    return sum(r["flash_fwd_launches"] for r in runs)
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -1472,7 +1729,8 @@ def _kernel_line(name, source, replaces, launches, timing):
 
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
           "fused_timing", "model_parity", "serving",
-          "resnet_parity", "training", "rtc_kernels", "rtc_ffn")
+          "resnet_parity", "training", "rtc_kernels", "rtc_ffn",
+          "bert_flash", "bert_parity", "bert_training")
 
 
 def main(argv=None):
@@ -1525,6 +1783,19 @@ def main(argv=None):
     if "rtc_ffn" in only:
         ffn = phase_rtc_ffn(torch, args.seed, kernels, twins)
         lines += [_rtc_kernel_line(name, ffn) for name in SWIGLU_SIGNATURES]
+    if "bert_flash" in only:
+        bert_timing = phase_bert_flash(torch, args.seed)
+    if "bert_parity" in only:
+        phase_bert_parity(torch, args.seed)
+    if "bert_training" in only:
+        launches = phase_bert_training(torch, args.seed)
+        if "bert_flash" in only:
+            line = _kernel_line("flash_fwd_bert",
+                                "mxnet_tpu_torch/csrc/flash_fwd.cu",
+                                "mxnet_tpu/ops/attention.py:51", launches,
+                                bert_timing)
+            line["shape"], line["dtype"] = BERT_FLASH, "float32"
+            lines.append(line)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["llama_state_dict_from_mxnet", "resnet_state_dict_from_mxnet"]
+__all__ = ["llama_state_dict_from_mxnet", "resnet_state_dict_from_mxnet",
+           "bert_state_dict_from_mxnet"]
 
 
 def _mxnet_suffix(key: str) -> str:
@@ -31,19 +32,15 @@ def _mxnet_suffix(key: str) -> str:
     return re.sub(r"^layers\.(\d+)\.", r"layer\1_", key).replace(".", "_")
 
 
-def llama_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
-                                ) -> Dict[str, torch.Tensor]:
-    """Map ``params`` onto ``model``'s state dict, load it (cast to each
-    entry's dtype and device) and return it.  Raises when a name is
-    missing, left over, or has another shape."""
-    heads = [k for k in params if k.endswith("tok_embed_weight")]
-    if len(heads) != 1:
-        raise MXNetError(f"expected one *tok_embed_weight, found {heads}")
-    prefix = heads[0][: -len("tok_embed_weight")]
+def _load_named(params: Dict[str, np.ndarray], model, name_of
+                ) -> Dict[str, torch.Tensor]:
+    """Load ``params[name_of(key)]`` into each entry of ``model``'s state
+    dict (cast to its dtype and device) and return the state.  Raises when
+    a name is missing, left over, or has another shape."""
     own = model.state_dict()
     state, used = {}, set()
     for key, ref in own.items():
-        name = prefix + _mxnet_suffix(key)
+        name = name_of(key)
         if name not in params:
             raise MXNetError(f"no parameter {name!r} for {key!r}")
         arr = np.asarray(params[name])
@@ -56,6 +53,54 @@ def llama_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
         raise MXNetError(f"parameters with no place in the model: {extra}")
     model.load_state_dict(state)
     return state
+
+
+def _prefix_of(params, suffix: str) -> str:
+    """The name prefix of the one parameter whose name ends in ``suffix``."""
+    hits = [k for k in params if k.endswith(suffix)]
+    if len(hits) != 1:
+        raise MXNetError(f"expected one *{suffix}, found {hits}")
+    return hits[0][: -len(suffix)]
+
+
+def llama_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
+                                ) -> Dict[str, torch.Tensor]:
+    """Map ``params`` onto ``model``'s state dict, load it (cast to each
+    entry's dtype and device) and return it.  Raises when a name is
+    missing, left over, or has another shape."""
+    prefix = _prefix_of(params, "tok_embed_weight")
+    return _load_named(params, model, lambda key: prefix + _mxnet_suffix(key))
+
+
+# The port's BERT module names where the JAX package's prefixes differ.
+_BERT_RENAMES = (("token_type_embed.", "type_embed."), ("attention.", "attn."),
+                 ("proj.", "out."), ("mlm_transform.", "mlm_trans."))
+
+
+def _bert_name(key: str, top: str, backbone: str) -> str:
+    """``bert.encoder.cells.0.attention.proj.weight`` ->
+    ``<backbone>enc_layer0_attn_out_weight``; keys outside ``bert.`` take
+    the ``top`` prefix (``mlm_bias`` -> ``<top>mlm_bias``)."""
+    prefix = top
+    if key.startswith("bert."):
+        prefix, key = backbone, key[len("bert."):]
+    key = re.sub(r"^encoder\.cells\.(\d+)\.", r"enc_layer\1.", key)
+    for port, jax_name in _BERT_RENAMES:
+        key = key.replace(port, jax_name)
+    return prefix + key.replace(".", "_")
+
+
+def bert_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
+                               ) -> Dict[str, torch.Tensor]:
+    """Map ``params`` (the JAX ``BERTForPretraining``'s ``collect_params()``
+    as numpy) onto ``model``'s state dict by name, load it (cast to each
+    entry's dtype and device) and return it.  The MLM decoder's tied weight
+    is the embedding's one entry on both sides.  Raises when a name is
+    missing, left over, or has another shape."""
+    top = _prefix_of(params, "mlm_bias")
+    backbone = _prefix_of(params, "word_embed_weight")
+    return _load_named(params, model,
+                       lambda key: _bert_name(key, top, backbone))
 
 
 _ROLES = ("weight", "bias", "gamma", "beta", "running_mean", "running_var")

@@ -1,0 +1,114 @@
+"""Transformer encoder blocks in PyTorch.
+
+Counterpart of ``mxnet_tpu/gluon/model_zoo/language/transformer.py``: the
+same modules, parameter layout and order, and numerics.
+
+- One packed QKV projection ``Dense(3·units)``, split into thirds.
+- Attention is :func:`~mxnet_tpu_torch.ops.flash_attention`: the CUDA flash
+  forward on the card with the blockwise backward, or the dense masked
+  path when a ``valid_length`` is given.
+- Dropout after the output projection and after the FFN only, never on
+  the attention probabilities; post-LN residual wiring; gelu in the FFN.
+
+Every ``Dropout`` of a block draws from the one ``torch.Generator`` the
+block is given (``generator=``); at rate 0 it is the identity.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from ....context import resolve_device
+from ....ops import flash_attention
+from ...nn import Dense, Dropout, LayerNorm
+
+__all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
+           "TransformerEncoder"]
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention over ``[B, S, units]`` with packed QKV; the heads
+    stay packed ``[B, S, H·D]`` into the attention op."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
+                 causal=False, generator=None, device=None):
+        super().__init__()
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        dev = resolve_device(device)
+        self._num_heads = num_heads
+        self._causal = causal
+        self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
+                         in_units=units, device=dev)
+        self.proj = Dense(units, flatten=False, use_bias=use_bias,
+                          in_units=units, device=dev)
+        self.dropout = Dropout(dropout, generator=generator)
+
+    def forward(self, x, valid_length=None):
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        return self.dropout(self.proj(flash_attention(
+            q, k, v, valid_length, num_heads=self._num_heads,
+            causal=self._causal)))
+
+
+class PositionwiseFFN(nn.Module):
+    """``Dense(hidden, activation)`` then ``Dense(units)``."""
+
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 generator=None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ffn1 = Dense(hidden_size, flatten=False, activation=activation,
+                          in_units=units, device=dev)
+        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
+                          device=dev)
+        self.dropout = Dropout(dropout, generator=generator)
+
+    def forward(self, x):
+        return self.dropout(self.ffn2(self.ffn1(x)))
+
+
+class TransformerEncoderCell(nn.Module):
+    """Post-LN encoder cell: ``x = LN(x + MHA(x))``, ``x = LN(x + FFN(x))``."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 activation="gelu", causal=False, layer_norm_eps=1e-12,
+                 generator=None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.attention = MultiHeadAttention(units, num_heads, dropout=dropout,
+                                            causal=causal,
+                                            generator=generator, device=dev)
+        self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                             device=dev)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
+                                   activation=activation, generator=generator,
+                                   device=dev)
+        self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                             device=dev)
+
+    def forward(self, x, valid_length=None):
+        x = self.ln1(x + self.attention(x, valid_length))
+        return self.ln2(x + self.ffn(x))
+
+
+class TransformerEncoder(nn.Module):
+    """A stack of ``num_layers`` encoder cells."""
+
+    def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
+                 activation="gelu", causal=False, layer_norm_eps=1e-12,
+                 generator=None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cells = nn.ModuleList(
+            TransformerEncoderCell(units, hidden_size, num_heads,
+                                   dropout=dropout, activation=activation,
+                                   causal=causal,
+                                   layer_norm_eps=layer_norm_eps,
+                                   generator=generator, device=dev)
+            for _ in range(num_layers))
+
+    def forward(self, x, valid_length=None):
+        for cell in self.cells:
+            x = cell(x, valid_length)
+        return x

@@ -1,5 +1,5 @@
 """``Activation`` (counterpart of ``mxnet_tpu/gluon/nn/activations.py``);
-the slice ports ``relu``."""
+``relu``, ``tanh`` and the exact ``gelu``."""
 from __future__ import annotations
 
 from torch import nn

@@ -14,8 +14,11 @@ gate, which falls back to a dense lowering unless S divides into 128-row
 blocks, both kernels take any S, so every CUDA call launches one.
 
 Layouts follow the JAX package: ``[B, H, S, D]``, or packed ``[B, S, H*D]``
-with ``num_heads``.  The key-padding path (``key_valid_len``) and the
-backward wait for the slices that need them.
+with ``num_heads``.  :class:`_FlashFunction` puts the forward under torch
+autograd on either device, with the JAX package's blockwise backward
+(``_flash_bwd``, a jnp ``lax.scan`` there, torch ops here); with a
+``key_valid_len`` the attention takes the dense masked path, which autograd
+follows directly.
 """
 from __future__ import annotations
 
@@ -174,15 +177,88 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float
     return _flash_fwd_cuda(q, k, v, causal, sm_scale)
 
 
-def _forward_with_lse(q, k, v, causal: bool, sm_scale: float):
-    """``[B, H, S, D]`` -> (out ``[B, H, S_q, D]``, lse ``[B, H, S_q]``)."""
-    b, h, sq, d = q.shape
+_BWD_BLOCK_K = 128
+
+
+class _FlashFunction(torch.autograd.Function):
+    """``(out, lse)`` of :func:`flash_fwd` on ``[B, H, S, D]`` inputs, with
+    the gradient of ``out`` computed blockwise from the saved lse (lse
+    itself takes none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        out, lse = flash_fwd(q.reshape(b * h, sq, d).contiguous(),
+                             k.reshape(b * h, sk, d).contiguous(),
+                             v.reshape(b * h, sk, d).contiguous(),
+                             causal, sm_scale)
+        out, lse = out.view(b, h, sq, d), lse.view(b, h, sq)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, dout, ctx.causal,
+                                     ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def _flash_backward(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
+    """The JAX package's ``_flash_bwd`` in fp32: ``delta = Σ dO·O``, then
+    per block of 128 keys P is recomputed from the lse (masked scores at
+    -1e30 give exactly 0), dq accumulates and the block's dk, dv are
+    written; the full score matrix never exists.  A ragged last block is
+    sliced short where the JAX package pads and masks it."""
+    qf, do = q.float(), dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    lse = lse.unsqueeze(-1)
     sk = k.shape[2]
-    out, lse = flash_fwd(q.reshape(b * h, sq, d).contiguous(),
-                         k.reshape(b * h, sk, d).contiguous(),
-                         v.reshape(b * h, sk, d).contiguous(),
-                         causal, sm_scale)
-    return out.view(b, h, sq, d), lse.view(b, h, sq)
+    bk = min(_BWD_BLOCK_K, sk)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    for k0 in range(0, sk, bk):
+        kj = k[:, :, k0:k0 + bk].float()
+        vj = v[:, :, k0:k0 + bk].float()
+        s = torch.matmul(qf, kj.transpose(-1, -2)) * sm_scale
+        if causal:
+            cols = torch.arange(k0, k0 + kj.shape[2], device=q.device)
+            s = s.masked_fill(rows < cols, _MASK)
+        p = torch.exp(s - lse)
+        dv[:, :, k0:k0 + bk] = torch.matmul(p.transpose(-1, -2), do)
+        dp = torch.matmul(do, vj.transpose(-1, -2))
+        ds = p * (dp - delta) * sm_scale
+        dq += torch.matmul(ds, kj)
+        dk[:, :, k0:k0 + bk] = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _forward_with_lse(q, k, v, causal: bool, sm_scale: float):
+    """``[B, H, S, D]`` -> (out ``[B, H, S_q, D]``, lse ``[B, H, S_q]``),
+    differentiable in q, k and v."""
+    return _FlashFunction.apply(q, k, v, causal, sm_scale)
+
+
+def _masked_dense_attention(q, k, v, key_valid_len, causal: bool,
+                            sm_scale: float):
+    """Dense attention with per-example key padding (BERT's
+    ``valid_length``): key ``j`` of example ``b`` counts when
+    ``j < key_valid_len[b]``; masked scores are -1e30 in fp32.  Torch
+    autograd differentiates it; the ``[S_q, S_k]`` scores materialise."""
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * sm_scale
+    cols = torch.arange(s.shape[-1], device=s.device)
+    valid = cols < key_valid_len.to(torch.int32).reshape(-1, 1, 1, 1)
+    if causal:
+        rows = torch.arange(s.shape[-2], device=s.device)[:, None]
+        valid = valid & (rows >= cols)
+    s = torch.where(valid, s, s.new_full((), _MASK))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(q.dtype), v)
 
 
 def rope(x, cos, sin, num_heads: Optional[int] = None):
@@ -204,10 +280,13 @@ def rope(x, cos, sin, num_heads: Optional[int] = None):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def flash_attention(q, k, v, num_heads: Optional[int] = None,
-                    causal: bool = False, sm_scale: Optional[float] = None):
+def flash_attention(q, k, v, key_valid_len=None,
+                    num_heads: Optional[int] = None, causal: bool = False,
+                    sm_scale: Optional[float] = None):
     """Fused multi-head scaled-dot-product attention over ``[B, H, S, D]``
-    inputs, or ``[B, S, H*D]`` with ``num_heads`` (returning that layout)."""
+    inputs, or ``[B, S, H*D]`` with ``num_heads`` (returning that layout).
+    ``key_valid_len`` (``[B]``) masks each example's padding keys on the
+    dense path; without it the flash forward runs."""
     packed = q.dim() == 3
     if packed:
         if not num_heads:
@@ -218,7 +297,11 @@ def flash_attention(q, k, v, num_heads: Optional[int] = None,
                    for t in (q, k, v))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    out, _ = _forward_with_lse(q, k, v, bool(causal), float(sm_scale))
+    if key_valid_len is not None:
+        out = _masked_dense_attention(q, k, v, key_valid_len, bool(causal),
+                                      float(sm_scale))
+    else:
+        out, _ = _forward_with_lse(q, k, v, bool(causal), float(sm_scale))
     if packed:
         b, h, s, d = out.shape
         out = out.transpose(1, 2).reshape(b, s, h * d)

@@ -1,5 +1,5 @@
-"""Optimizer update ops: counterparts of ``sgd_update`` and
-``sgd_mom_update`` in ``mxnet_tpu/ops/optimizer_ops.py``.
+"""Optimizer update ops: counterparts of ``sgd_update``, ``sgd_mom_update``
+and ``adam_update`` in ``mxnet_tpu/ops/optimizer_ops.py``.
 
 The JAX ops return new arrays; these update ``weight`` (and the momentum)
 in place, which keeps one copy of each in device memory.  The arithmetic
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
 
 
 def _prep(grad, rescale_grad, clip_gradient, wd, weight):
@@ -38,3 +38,33 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
     mom.mul_(momentum).sub_(lr * g)
     weight.add_(mom)
+
+
+def _weak(x, dtype):
+    """The Python scalar ``x`` rounded to ``dtype``, as jnp takes a
+    weak-typed scalar into an array's dtype (0.999 is 0.99609375 in
+    bf16)."""
+    return None if x is None else float(torch.tensor(x, dtype=dtype))
+
+
+@torch.no_grad()
+def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=None):
+    """``mean = β1·mean + (1 − β1)·g``, ``var = β2·var + (1 − β2)·g²``, then
+    ``weight -= lr·mean / (sqrt(var) + ε)``, in place; ``lr`` already
+    carries the bias correction (the optimizer's).
+
+    As in the JAX op, every Python scalar enters in the weight's dtype
+    and every op rounds to it.  An ``lr`` given as a float32 tensor (the
+    JAX compiled step traces it as a float32 array) runs the last line in
+    fp32 instead, so a bf16 weight is rounded once."""
+    dt = weight.dtype
+    g = _prep(grad, _weak(rescale_grad, dt), _weak(clip_gradient, dt),
+              _weak(wd, dt), weight)
+    mean.copy_(_weak(beta1, dt) * mean + _weak(1.0 - beta1, dt) * g)
+    var.copy_(_weak(beta2, dt) * var + _weak(1.0 - beta2, dt) * g.square())
+    denom = var.sqrt() + _weak(epsilon, dt)
+    if isinstance(lr, torch.Tensor):
+        weight.copy_(weight.float() - float(lr) * mean.float() / denom.float())
+    else:
+        weight.sub_(_weak(lr, dt) * mean / denom)

@@ -1,4 +1,4 @@
 """Optimizers of the port."""
-from .optimizer import SGD, Optimizer, create, register
+from .optimizer import SGD, Adam, Optimizer, create, register
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]

@@ -254,3 +254,113 @@ def test_split_p_keeps_the_half_ulp_gate(shape, causal):
     o_bf16_p, _ = _emulate_tensor_core_kernel(q, k, v, causal, sm,
                                               split_p=False)
     assert _half_ulp_ratio(o_bf16_p, ref_o) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The backward: _FlashFunction against jax.vjp of the JAX flash_attention,
+# whose custom_vjp is the blockwise _flash_bwd.  Both sum the same fp32
+# products in other orders: dq, dk and dv within 1e-5 of each one's largest
+# |value| (BWD_REL).
+# ---------------------------------------------------------------------------
+BWD_REL = 1e-5
+
+
+def _rel_close(got, ref, rel, what):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    bound = rel * float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    assert err <= bound, f"{what}: max err {err} > {bound}"
+
+
+def _jax_vjp(q, k, v, do, heads, causal, valid=None):
+    import jax
+
+    def f(q_, k_, v_):
+        if valid is None:
+            return jattn.flash_attention(q_, k_, v_, num_heads=heads,
+                                         causal=causal)
+        return jattn.flash_attention(q_, k_, v_, jnp.asarray(valid),
+                                     num_heads=heads, causal=causal)
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port_vjp(q, k, v, do, heads, causal, valid=None):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    if valid is None:
+        out = tattn.flash_attention(tq, tk, tv, num_heads=heads,
+                                    causal=causal)
+    else:
+        out = tattn.flash_attention(tq, tk, tv, torch.from_numpy(valid),
+                                    num_heads=heads, causal=causal)
+    out.backward(torch.from_numpy(do))
+    return out, [out, tq.grad, tk.grad, tv.grad]
+
+
+def _layout(shape, packed):
+    b, h, s, d = shape
+    return (b, s, h * d) if packed else shape
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 4, 200, 16), (1, 2, 256, 64)])
+def test_flash_backward_matches_jax_blockwise_vjp(shape, causal, packed):
+    """S = 200 leaves a ragged second K block of 72 keys; S = 256 two full
+    blocks of 128."""
+    rng = np.random.RandomState(sum(shape) + 2 * causal + packed)
+    q, k, v, do = (rng.randn(*_layout(shape, packed)).astype(np.float32)
+                   for _ in range(4))
+    heads = shape[1] if packed else None
+    ref = _jax_vjp(q, k, v, do, heads, causal)
+    _, got = _port_vjp(q, k, v, do, heads, causal)
+    for name, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        _rel_close(g, r, BWD_REL, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_masked_dense_path_matches_jax(causal):
+    """key_valid_len given: the dense masked path, output and gradients,
+    against the JAX package's (valid lengths 5, 32 and 17 of 32 keys)."""
+    rng = np.random.RandomState(7 + causal)
+    b, h, s, d = 3, 2, 32, 8
+    q, k, v, do = (rng.randn(b, s, h * d).astype(np.float32)
+                   for _ in range(4))
+    valid = np.array([5, 32, 17], np.int32)
+    ref = _jax_vjp(q, k, v, do, h, causal, valid)
+    _, got = _port_vjp(q, k, v, do, h, causal, valid)
+    for name, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        _rel_close(g, r, BWD_REL, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_has_the_function_grad_fn_on_cpu(causal):
+    """q, k and v that require grad give an output whose grad_fn is the
+    Function's, and its gradients equal plain autograd through
+    attention_reference (the dense softmax) within BWD_REL."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 3, 150, 32)
+                                    .astype(np.float32)) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tattn.flash_attention(*leaves, causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashFunctionBackward"
+    out.backward(do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    tattn.attention_reference(*plain, causal=causal).backward(do)
+    for name, a, b in zip("qkv", leaves, plain):
+        _rel_close(a.grad, b.grad.numpy(), BWD_REL, f"d{name}")
+
+
+def test_flash_backward_returns_each_input_dtype():
+    """bf16 inputs: the backward runs in fp32 and casts back to bf16, as
+    the JAX package's does."""
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 40, 16).astype(np.float32))
+               .bfloat16().requires_grad_() for _ in range(3))
+    out = tattn.flash_attention(q, k, v, causal=True)
+    out.float().sum().backward()
+    assert out.dtype == torch.bfloat16
+    assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))

@@ -1,11 +1,16 @@
-"""Port parity: the SGD update ops, the SGD optimizer, bf16 conversion and
-the training step's optimizer handling, against mxnet_tpu's.
+"""Port parity: the SGD and Adam update ops, the SGD and Adam optimizers,
+bf16 conversion and the training step's optimizer handling, against
+mxnet_tpu's.
 
 Inputs are seeded numpy arrays fed to both packages.  Tolerance: fp32
 updates within 1e-6 of the largest |value| (the same elementwise
 arithmetic in the same order; XLA may contract a multiply-add that
-PyTorch rounds twice).  The training step is held to the closed-form
-gradient of its mean loss within 1e-5.
+PyTorch rounds twice).  bf16 Adam updates within one bf16 ulp of each
+reference element: both packages take the Python scalars in bf16 and
+round each op to bf16 (the eager ops here agree bit for bit), but XLA
+may keep excess precision inside a fusion (jitted, the compiled step's
+form differed in 0.1% of 200k elements by one ulp).  The training step is held to the closed-form gradient of its
+mean loss within 1e-5.
 """
 import numpy as np
 import pytest
@@ -87,6 +92,81 @@ def test_sgd_optimizer_matches_jax(momentum):
             _close(tst[i], jst[i].asnumpy(), f"momentum {i}")
         else:
             assert tst[i] is None and jst[i] is None
+
+
+def _bf16_ulp(ref):
+    """The spacing of bf16 numbers at each element of ``ref`` (8 bits of
+    mantissa); 0 at 0."""
+    ref = np.abs(np.asarray(ref, np.float32))
+    with np.errstate(divide="ignore"):
+        e = np.floor(np.log2(np.where(ref > 0, ref, 1.0)))
+    return np.where(ref > 0, 2.0 ** (e - 7), 0.0)
+
+
+def _adam_close(got, ref, dtype, what):
+    got = got.detach().float().numpy()
+    ref = np.asarray(ref.astype("float32") if hasattr(ref, "astype")
+                     else ref, np.float32)
+    if dtype == "float32":
+        _close(torch.from_numpy(got), ref, what)
+        return
+    err = np.abs(got - ref) - _bf16_ulp(ref)
+    assert err.max() <= 0, f"{what}: {int((err > 0).sum())} elements off " \
+                           f"by more than one bf16 ulp"
+
+
+def _adam_arrays(seed, dtype):
+    """A weight ~ U(-0.07, 0.07), as the initializer draws it, and three
+    gradients of magnitude ~1e-3, in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    w = rng.uniform(-0.07, 0.07, (64, 33)).astype(np.float32)
+    grads = [(rng.randn(64, 33) * 1e-3).astype(np.float32) for _ in range(3)]
+    to = lambda a: torch.tensor(a).to(getattr(torch, dtype))
+    return w, grads, to
+
+
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adam_update_op_matches_jax_compiled_form(dtype, wd):
+    """The op as the JAX compiled step runs it: lr a float32 array."""
+    import jax.numpy as jnp
+    w, grads, to = _adam_arrays(3, dtype)
+    jw = jnp.asarray(w).astype(dtype)
+    jm = jv = jnp.zeros_like(jw)
+    tw, tm, tv = to(w), to(0 * w), to(0 * w)
+    for t, g in enumerate(grads, start=1):
+        lr = 1e-3 * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t)
+        jw, jm, jv = jops._adam_update(jw, jnp.asarray(g).astype(dtype), jm,
+                                       jv, lr=jnp.float32(lr), wd=wd)
+        jw = jw.astype(dtype)
+        tops.adam_update(tw, to(g), tm, tv, lr=torch.tensor(lr), wd=wd)
+    for name, got, ref in (("weight", tw, jw), ("mean", tm, jm),
+                           ("var", tv, jv)):
+        assert got.dtype == getattr(torch, dtype)
+        _adam_close(got, np.asarray(ref.astype(jnp.float32)), dtype, name)
+
+
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adam_optimizer_matches_jax(dtype, wd):
+    """Three updates through ``Optimizer.update``, bias correction from
+    each index's update count; mean and variance in the weight's dtype."""
+    w, grads, to = _adam_arrays(4, dtype)
+    kw = dict(learning_rate=1e-3, wd=wd)
+    jo, to_opt = jopt.create("adam", **kw), topt.create("adam", **kw)
+    jw = nd.array(w).astype(dtype)
+    tw = to(w)
+    jst, tst = jo.create_state(0, jw), to_opt.create_state(0, tw)
+    assert all(s.dtype == tw.dtype for s in tst)
+    for g in grads:
+        jo.update(0, jw, nd.array(g).astype(dtype), jst)
+        to_opt.update(0, tw, to(g), tst)
+    assert to_opt.num_update == jo.num_update == 3
+    for name, got, ref in (("weight", tw, jw), ("mean", tst[0], jst[0]),
+                           ("var", tst[1], jst[1])):
+        _adam_close(got, ref.asnumpy().astype(np.float32) if dtype ==
+                    "float32" else ref.astype("float32").asnumpy(), dtype,
+                    name)
 
 
 def test_convert_block_keeps_norm_tensors_fp32():
