@@ -23,9 +23,11 @@ beside its bound, then drives the port's paths:
   through ``mx.nd`` and ``mx.autograd``, its SwiGLU an
   ``autograd.Function`` over two rtc kernels, held against plain torch
   autograd;
-- BERT pretraining (slice 6): holds the CUDA-core flash forward at
-  BERT-base's attention shape against its plain version and its autograd
-  Function's backward against plain autograd, and times it beside SDPA;
+- BERT pretraining (slice 6): holds the fp32 tensor-core flash forward
+  (three TF32 products per product) at BERT-base's attention shape against
+  its plain version and its autograd Function's backward against plain
+  autograd, and times it beside the CUDA-core kernel, SDPA and the
+  ``flash_attention`` call the model makes;
   holds two Adam steps of the small BERT on the card against the same
   steps on the CPU; then trains full-width BERT-base (seq 128, batch 64,
   Adam, as bench.py) in fp32 and in bf16 through ``amp.convert_block``.
@@ -39,8 +41,9 @@ last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
 to a flash kernel: it builds the libraries, launches each FLASH_SHAPES case
-once, holds it against the plain version and stops; ``--only build,fused``
-does the same for the fused 1x1-conv + BN-statistics kernels.
+once, holds it against the plain version and stops (add ``bert_flash`` for
+the fp32 kernel at BERT's shape); ``--only build,fused`` does the same for
+the fused 1x1-conv + BN-statistics kernels.
 """
 from __future__ import annotations
 
@@ -64,13 +67,16 @@ PEAK_BYTES = 3.35e12
 # [B, H, S, D] shapes for the flash kernel check.  [4, 32, 1024, 128] is
 # the dense engine's decode step in the serving phase (4 slots, prompts up
 # to 1000 tokens bucketed to 1024); [4, 32, 2048, 128] is the timed shape.
-# bf16 cases run on the kernel _flash_variant picks: the tensor-core kernel
-# when D % 8 == 0 (D = 64, a ragged 130-row tail, D = 40 padded to 64),
-# the CUDA-core kernel otherwise (D = 36); fp32 always on the CUDA cores.
+# Every case runs on the kernel _flash_variant picks, which the launch
+# counts confirm: bf16 on the tensor-core kernel when D % 8 == 0 (D = 64, a
+# ragged 130-row tail, D = 40 padded to 64), fp32 on the three-TF32-product
+# tensor-core kernel when D % 4 == 0 (all but D = 30; D = 36 and 40 padded
+# to 64, ragged 100-, 130- and 300-row tails), and the CUDA-core kernel for
+# the rest (bf16 D = 36 and 30, fp32 D = 30).
 FLASH_SHAPES = [(1, 32, 16, 128), (4, 32, 512, 128), (4, 32, 1024, 128),
                 (4, 32, 2048, 128), (1, 4, 64, 16), (2, 4, 300, 16),
                 (2, 8, 384, 64), (1, 4, 130, 128), (1, 4, 100, 40),
-                (1, 4, 64, 36)]
+                (1, 4, 64, 36), (1, 4, 64, 30)]
 FLASH_TIMED = (4, 32, 2048, 128)
 FLASH_DECODE = (4, 32, 1024, 128)
 # Tolerances on max |kernel - plain|.  fp32: the starting 1e-4 on O and lse
@@ -150,12 +156,16 @@ def check(cond, msg):
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
-    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events.
+    The card first spins for about a millisecond, so the host queues the
+    calls ahead of it and a call shorter than its own launch still times
+    as device work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -174,7 +184,8 @@ def phase_build():
         log = Path(str(path) + ".log")
         ptxas[name] = [ln.strip() for ln in
                        (log.read_text().splitlines() if log.exists() else [])
-                       if "registers" in ln or "spill" in ln]
+                       if "registers" in ln or "spill" in ln
+                       or "C75" in ln]
     emit({"phase": "build", "ok": True, "seconds": seconds,
           "libraries": {n: str(p) for n, p in libs.items()}, "ptxas": ptxas})
 
@@ -195,14 +206,18 @@ def phase_device(torch):
           "cuda": torch.version.cuda})
 
 
-def flash_bound_ms(b, h, s, d, causal, dtype_bytes, ops_factor=1.0):
+def flash_bound_ms(b, h, s, d, causal, dtype_bytes, ops_factor=1.0,
+                   peak=None):
     """Least time on the card: causal work is 2*B*H*S^2*D flops (two
     products, half the score matrix), non-causal twice that, times
-    ``ops_factor`` (1.5 for the split-P kernel's own three products);
-    bytes are q, k, v read once, O written once, lse (fp32) written
-    once."""
+    ``ops_factor`` (1.5 for the split-P kernel's own three products, 3 for
+    the three TF32 products of the fp32 tensor-core kernel) at ``peak``
+    (by default bf16's tensor-core peak for bf16, the CUDA cores' fp32 peak
+    for fp32); bytes are q, k, v read once, O written once, lse (fp32)
+    written once."""
     flops = 2.0 * b * h * s * s * d * (1 if causal else 2) * ops_factor
-    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_FP32_FLOPS
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_FP32_FLOPS
     nbytes = 4.0 * b * h * s * d * dtype_bytes + 4.0 * b * h * s
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -222,9 +237,11 @@ def phase_kernels(torch, seed):
                                        device="cuda").to(dtype)
                            for _ in range(3))
                 scale = 1.0 / math.sqrt(d)
-                before = A.flash_fwd_wgmma_launches
+                before = (A.flash_fwd_wgmma_launches,
+                          A.flash_fwd_tf32_launches)
                 o, lse = A.flash_fwd(q, k, v, causal, scale)
-                ran_wgmma = A.flash_fwd_wgmma_launches - before == 1
+                ran_wgmma = A.flash_fwd_wgmma_launches - before[0] == 1
+                ran_tf32 = A.flash_fwd_tf32_launches - before[1] == 1
                 ro, rl = A._flash_forward_plain(q.float(), k.float(),
                                                 v.float(), causal, scale)
                 torch.cuda.synchronize()
@@ -246,13 +263,16 @@ def phase_kernels(torch, seed):
                     case["lse_err_vs_plain_bf16"] = (
                         lse - pl).abs().max().item()
                 tol = TOL[name]
-                want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0
-                        else "simt")
+                if dtype == torch.float32:
+                    want = "tf32" if d % 4 == 0 else "simt"
+                else:
+                    want = "wgmma" if d % 8 == 0 else "simt"
                 case["ok"] = (case["o_err"] <= tol["o"]
                               and case["lse_err"] <= tol["lse"]
                               and case.get("o_half_ulp_ratio", 0.0) <= 1.0
                               and variant == want
-                              and ran_wgmma == (variant == "wgmma"))
+                              and ran_wgmma == (variant == "wgmma")
+                              and ran_tf32 == (variant == "tf32"))
                 cases.append(case)
                 del q, k, v, o, lse, ro, rl
     bad = [c for c in cases if not c["ok"]]
@@ -1461,9 +1481,9 @@ def phase_rtc_ffn(torch, seed, kernels, twins):
 # heads, vocab 30522, max_length 512, dropout 0.1), seq 128, batch 64
 # (BENCH_BERT_BATCH), Adam lr 1e-4, MLM loss only, token_types zeros.  Its
 # attention runs fp32 in both runs: under amp.convert_block LayerNorm's fp32
-# gamma promotes every activation from embed_ln on, so both take the
-# CUDA-core flash kernel, 12 launches per step.  BERT_FLASH is that call's
-# [B, H, S, D].
+# gamma promotes every activation from embed_ln on, so both take the fp32
+# tensor-core flash kernel (D = 64), 12 launches per step.  BERT_FLASH is
+# that call's [B, H, S, D].
 BERT = dict(vocab_size=30522, max_length=512, batch=64, seq=128, lr=1e-4,
             warmup=3, steps=10)
 BERT_FLASH = (64, 12, 128, 64)
@@ -1484,10 +1504,12 @@ BERT_BWD_REL = 1e-4
 
 
 def phase_bert_flash(torch, seed):
-    """The CUDA-core flash forward at BERT-base's shape, fp32 non-causal,
+    """The fp32 tensor-core flash forward at BERT-base's shape, non-causal,
     against its plain version; the autograd Function's backward on the card
-    against plain autograd of attention_reference; then the kernel, the
-    plain version and SDPA (fp32) timed in turns."""
+    against plain autograd of attention_reference; then timed in turns
+    beside the CUDA-core kernel, the plain version, SDPA (fp32) and
+    ``flash_attention`` on the packed [B, S, H*D] tensors the model passes
+    (the kernel plus the wrapper's copies between the two layouts)."""
     from mxnet_tpu_torch.ops import attention as A
     b, h, s, d = BERT_FLASH
     gen = torch.Generator(device="cuda").manual_seed(seed + 17)
@@ -1495,11 +1517,18 @@ def phase_bert_flash(torch, seed):
                    for _ in range(4))
     scale = 1.0 / math.sqrt(d)
     variant = A._flash_variant(torch.float32, d)
+    before = A.flash_fwd_tf32_launches
     o, lse = A.flash_fwd(q, k, v, False, scale)
+    ran_tf32 = A.flash_fwd_tf32_launches - before == 1
     ro, rl = A._flash_forward_plain(q, k, v, False, scale)
     o_err = (o - ro).abs().max().item()
     lse_err = (lse - rl).abs().max().item()
-    del o, lse, ro, rl
+    packed = [t.view(b, h, s, d).transpose(1, 2).reshape(b, s, h * d)
+              for t in (q, k, v)]
+    wrapped = A.flash_attention(*packed, num_heads=h)
+    wrapper_diff = (wrapped.view(b, s, h, d).transpose(1, 2).reshape(
+        b * h, s, d) - o).abs().max().item()
+    del o, lse, ro, rl, wrapped
     leaves = [t.view(b, h, s, d).clone().requires_grad_() for t in (q, k, v)]
     out = A.flash_attention(*leaves)
     grad_fn = type(out.grad_fn).__name__
@@ -1514,26 +1543,38 @@ def phase_bert_flash(torch, seed):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     best, runs = _in_turns(torch, {
         "kernel": lambda: A.flash_fwd(q, k, v, False, scale),
+        "simt_kernel": lambda: A._flash_fwd_cuda(q, k, v, False, scale,
+                                                 variant="simt"),
         "plain": lambda: A._flash_forward_plain(q, k, v, False, scale),
-        "library": lambda: sdpa(q4, k4, v4, scale=scale)})
-    bound, bound_by = flash_bound_ms(b, h, s, d, False, 4)
+        "library": lambda: sdpa(q4, k4, v4, scale=scale),
+        "wrapper": lambda: A.flash_attention(*packed, num_heads=h)})
+    # the function's bound (bytes, with the products at the TF32 peak)
+    # and the kernel's own ceiling for its three TF32 products
+    bound, bound_by = flash_bound_ms(b, h, s, d, False, 4, ops_factor=3,
+                                     peak=PEAK_TF32_FLOPS)
+    tf32x3_ops_ms = 1e3 * 4.0 * b * h * s * s * d * 3 / PEAK_TF32_FLOPS
     tol = TOL["float32"]
     out = {"phase": "bert_flash", "shape": [b, h, s, d], "dtype": "float32",
-           "causal": False, "variant": variant, "o_err": o_err,
-           "lse_err": lse_err, "grad_fn": grad_fn,
+           "causal": False, "variant": variant, "ran_tf32": ran_tf32,
+           "o_err": o_err, "lse_err": lse_err, "grad_fn": grad_fn,
            "bwd_rel_err": bwd, "tolerance": {**tol, "bwd_rel": BERT_BWD_REL},
            "max_abs_err": max(o_err, lse_err), "ms": best["kernel"],
-           "plain_ms": best["plain"], "library_ms": best["library"],
-           "bound_ms": bound, "bound_by": bound_by, "runs_ms": runs,
-           "tf32": _tf32(torch)}
-    out["ok"] = (variant == "simt" and o_err <= tol["o"]
-                 and lse_err <= tol["lse"]
+           "simt_ms": best["simt_kernel"], "plain_ms": best["plain"],
+           "library_ms": best["library"], "wrapper_ms": best["wrapper"],
+           "wrapper_over_kernel_ms": best["wrapper"] - best["kernel"],
+           "wrapper_max_abs_diff": wrapper_diff,
+           "bound_ms": bound, "bound_by": bound_by,
+           "tf32x3_ops_ms": tf32x3_ops_ms,
+           "cuda_core_ops_ms": flash_bound_ms(b, h, s, d, False, 4)[0],
+           "runs_ms": runs, "tf32": _tf32(torch)}
+    out["ok"] = (variant == "tf32" and ran_tf32 and o_err <= tol["o"]
+                 and lse_err <= tol["lse"] and wrapper_diff == 0.0
                  and grad_fn == "_FlashFunctionBackward"
                  and max(bwd.values()) <= BERT_BWD_REL)
     emit(out)
     check(out["ok"], "flash_fwd at BERT's shape disagrees with its plain "
           "version, or its backward with plain autograd")
-    del q, k, v, do, q4, k4, v4
+    del q, k, v, do, q4, k4, v4, packed
     return out
 
 
@@ -1592,9 +1633,11 @@ def phase_bert_parity(torch, seed):
             keep)
         step = _bert_step(net, BERT_SMALL["vocab_size"], BERT_PARITY["batch"])
         A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = 0
         losses[dev] = [step(tuple(t.to(dev) for t in x), y.to(dev)).item()
                        for _ in range(BERT_PARITY["steps"])]
-        launches[dev] = (A.flash_fwd_launches, A.flash_fwd_wgmma_launches)
+        launches[dev] = (A.flash_fwd_launches, A.flash_fwd_wgmma_launches,
+                         A.flash_fwd_tf32_launches)
         hook.remove()
         nets[dev], qkv_grads[dev] = net, grads
     loss_rel = max(abs(a - b) / abs(b)
@@ -1622,8 +1665,8 @@ def phase_bert_parity(torch, seed):
         "qkv_grads_on_card": qkv_present
         and max(qkv_rel.values()) <= BERT_PARITY["grad_rel"],
         "params": worst <= atol,
-        "launches": launches["cuda"] == (want, 0)
-        and launches["cpu"] == (0, 0)}
+        "launches": launches["cuda"] == (want, 0, want)
+        and launches["cpu"] == (0, 0, 0)}
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"small BERT on the card disagrees with the CPU: "
@@ -1663,6 +1706,7 @@ def _bert_run(torch, seed, dtype):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = 0
     first = step(x, y).item()
     for _ in range(BERT["warmup"] - 1):
         step(x, y)
@@ -1673,6 +1717,7 @@ def _bert_run(torch, seed, dtype):
     last = loss.item()
     wall = time.perf_counter() - t0
     launches, wgmma = A.flash_fwd_launches, A.flash_fwd_wgmma_launches
+    tf32 = A.flash_fwd_tf32_launches
     steps = BERT["warmup"] + BERT["steps"]
     layers = len(net.bert.encoder.cells)
     out = {"run": f"bert_{dtype}", "dtype": dtype, "batch": BERT["batch"],
@@ -1683,10 +1728,11 @@ def _bert_run(torch, seed, dtype):
            "last_loss": last,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tf32": _tf32(torch), "flash_fwd_launches": launches,
+           "flash_fwd_tf32_launches": tf32,
            "flash_fwd_wgmma_launches": wgmma}
     out["gates"] = {"losses_finite": math.isfinite(first)
                     and math.isfinite(last),
-                    "launches": launches == layers * steps == 156
+                    "launches": launches == tf32 == layers * steps == 156
                     and wgmma == 0}
     out["ok"] = all(out["gates"].values())
     emit(out)
@@ -1697,12 +1743,13 @@ def _bert_run(torch, seed, dtype):
 
 def phase_bert_training(torch, seed):
     """Full-width BERT-base pretraining steps, fp32 then bf16 through
-    amp.convert_block; TF32 off.  Returns the flash launches of both runs."""
+    amp.convert_block; TF32 off.  Returns the fp32 tensor-core flash
+    kernel's launches in both runs."""
     runs = [_bert_run(torch, seed, "float32"),
             _bert_run(torch, seed, "bfloat16")]
     emit({"phase": "bert_training", "ok": True,
           "bf16_over_fp32_step_ms": runs[1]["step_ms"] / runs[0]["step_ms"]})
-    return sum(r["flash_fwd_launches"] for r in runs)
+    return sum(r["flash_fwd_tf32_launches"] for r in runs)
 
 
 def _rtc_kernel_line(name, timing):
@@ -1791,10 +1838,11 @@ def main(argv=None):
         launches = phase_bert_training(torch, args.seed)
         if "bert_flash" in only:
             line = _kernel_line("flash_fwd_bert",
-                                "mxnet_tpu_torch/csrc/flash_fwd.cu",
+                                "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
                                 "mxnet_tpu/ops/attention.py:51", launches,
                                 bert_timing)
             line["shape"], line["dtype"] = BERT_FLASH, "float32"
+            line["simt_ms"] = bert_timing["simt_ms"]
             lines.append(line)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,18 +1,23 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 or bf16 in, fp32 math.
+// Flash-attention forward for Hopper (sm_90a), fp32 or bf16 in, fp32 math,
+// on the CUDA cores.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_fwd_kernel (called
-// through _flash_forward_pallas).  Same function: for every (batch*head, query
-// row) an online softmax over the keys, running max and sum kept in fp32,
-// O = softmax(q k^T * sm_scale) v in the input dtype and lse = m + log(l) in
-// fp32.  Masked scores are -1e30 as in the TPU kernel, and in causal mode the
+// through _flash_forward_pallas) for the inputs the tensor-core kernels do
+// not take: fp32 whose head dim D is not a multiple of 4 (flash_fwd_tf32.cu
+// takes the rest of fp32) and bf16 whose D is not a multiple of 8
+// (flash_fwd_wgmma.cu takes the rest of bf16), both because TMA needs
+// 16-byte row strides.  ops/attention.py's variant="simt" still forces it
+// for any input, to time it beside them.  Same function: for every
+// (batch*head, query row) an online softmax over the keys, running max and
+// sum kept in fp32, O = softmax(q k^T * sm_scale) v in the input dtype and
+// lse = m + log(l) in fp32.  Masked scores are -1e30 as in the TPU kernel, and in causal mode the
 // key tiles entirely above the diagonal of a query tile are skipped.
 //
 // What bounds it on this card: at the serving shapes (S of 16..2048, D 128)
 // the work is compute, 4*S_q*S_k*D flops per head (half that when causal)
-// against 3*S*D input elements.  This first version computes on the CUDA
-// cores in fp32 (no tensor cores, no TMA), so it sits far below the bf16
-// tensor-core bound; its design only keeps the S x S score matrix out of
-// device memory:
+// against 3*S*D input elements.  It computes on the CUDA cores in fp32 (no
+// tensor cores, no TMA), so it sits far below the tensor-core bounds; its
+// design only keeps the S x S score matrix out of device memory:
 //   * one 256-thread block per (b*h, 64-row query tile); a loop over 64-row
 //     key/value tiles staged in shared memory as fp32 (the TPU grid's
 //     sequential k axis becomes this in-block loop);

@@ -88,26 +88,11 @@ constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kConsumerThreads = 256;
 constexpr int kBoxCols = 64;      // 128 bytes of bf16: the swizzle width
 constexpr int kSubTileBytes = 128 * kBoxCols * 2;  // one [128, 64] box
-constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------- PTX
-// TMA: one [1, 128, 64] box at element coordinates (c0 = column, c1 = row,
-// c2 = batch*head) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory
 // (both K-major), fp32 accumulator; scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64],
@@ -213,12 +198,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers 1 and 2 order when the two consumers start their products
 // (bar.sync by the warpgroup whose turn it is, bar.arrive by the other).
 __device__ __forceinline__ void named_sync(int id) {
@@ -277,44 +256,6 @@ __device__ __forceinline__ void start_pv(float (&acc)[DP / 2],
     }
   }
   wgmma_commit();
-}
-
-// Online softmax of one score tile in base 2.  s[4j + e] holds row
-// row0 + 8 (e / 2), key k0 + 8 j + col_lane + e % 2; the four lanes of a
-// quad share a row.  Scales and masks s, raises the running max m2, and
-// leaves P = 2^(s - m2) in s, the rescale factor of the earlier tiles in
-// alpha and this thread's part of the row sums in rs.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m2)[2],
-                                             float (&alpha)[2], float (&rs)[2],
-                                             float scale_log2, bool edge,
-                                             int k0, int row0, int col_lane,
-                                             int s_k, int causal) {
-  float mx[2] = {m2[0], m2[1]};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    float x = s[i] * scale_log2;
-    if (edge) {
-      const int col = k0 + 8 * (i / 4) + col_lane + (i & 1);
-      const int row = row0 + 8 * ((i >> 1) & 1);
-      if (col >= s_k || (causal && col > row)) x = kMask;
-    }
-    s[i] = x;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    alpha[h] = ex2(m2[h] - mx[h]);
-    m2[h] = mx[h];
-    rs[h] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const float p = ex2(s[i] - m2[(i >> 1) & 1]);
-    s[i] = p;
-    rs[(i >> 1) & 1] += p;
-  }
 }
 
 // P = P_hi + P_lo in the A-fragment layout of k16 step kk: registers

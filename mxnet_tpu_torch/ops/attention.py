@@ -2,16 +2,18 @@
 kernels, and rotary position embedding.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``.  The Pallas TPU kernel
-``_flash_fwd_kernel`` becomes two CUDA kernels, chosen by
+``_flash_fwd_kernel`` becomes three CUDA kernels, chosen by
 :func:`_flash_variant` from the dtype and head dim alone:
-``csrc/flash_fwd_wgmma.cu`` on the tensor cores (bf16 with D a multiple of
-8) and ``csrc/flash_fwd.cu`` on the CUDA cores (fp32, and bf16 with any
-other D).  :func:`flash_fwd` is their wrapper, and
-:func:`_flash_forward_plain` is the plain PyTorch version of both.  The
-wrapper chooses by the tensor's device alone: a CPU tensor gets the plain
-version, a CUDA tensor gets a kernel or an error.  Unlike the JAX dispatch
-gate, which falls back to a dense lowering unless S divides into 128-row
-blocks, both kernels take any S, so every CUDA call launches one.
+``csrc/flash_fwd_tf32.cu`` on the tensor cores for fp32 with D a multiple
+of 4 (three TF32 products per product keep fp32 accuracy),
+``csrc/flash_fwd_wgmma.cu`` on the tensor cores for bf16 with D a multiple
+of 8, and ``csrc/flash_fwd.cu`` on the CUDA cores for any other D.
+:func:`flash_fwd` is their wrapper, and :func:`_flash_forward_plain` is the
+plain PyTorch version of all three.  The wrapper chooses by the tensor's
+device alone: a CPU tensor gets the plain version, a CUDA tensor gets a
+kernel or an error.  Unlike the JAX dispatch gate, which falls back to a
+dense lowering unless S divides into 128-row blocks, every kernel takes any
+S, so every CUDA call launches one.
 
 Layouts follow the JAX package: ``[B, H, S, D]``, or packed ``[B, S, H*D]``
 with ``num_heads``.  :class:`_FlashFunction` puts the forward under torch
@@ -33,11 +35,12 @@ from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
 
-# Kernel launches made by flash_fwd, of either kernel, and of the
+# Kernel launches made by flash_fwd, of any kernel, and of each
 # tensor-core kernel alone (the counts show that a run went through the
 # kernels; nothing else touches them).
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
+flash_fwd_tf32_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = -1e30
@@ -78,29 +81,37 @@ _libs = {}
 
 
 def _flash_variant(dtype, d: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores, TMA) for
-    bf16 with D a multiple of 8, which TMA's 16-byte row strides need;
-    ``"simt"`` (CUDA cores) for everything else.  On the tensor cores fp32
-    would run as TF32, which the reference does not compute."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
+    """The kernel a CUDA call takes.  On the tensor cores, where TMA's
+    16-byte row strides describe the rows: ``"tf32"`` for fp32 with D a
+    multiple of 4 (each product split into three TF32 products, which keep
+    the reference's fp32 accuracy where one TF32 product would not) and
+    ``"wgmma"`` for bf16 with D a multiple of 8.  ``"simt"`` (CUDA cores)
+    for any other D, in either dtype."""
+    if dtype == torch.float32 and d % 4 == 0:
+        return "tf32"
+    if dtype == torch.bfloat16 and d % 8 == 0:
+        return "wgmma"
+    return "simt"
+
+
+# The library and C function of each kernel variant.
+_VARIANT_SOURCES = {"simt": "flash_fwd", "wgmma": "flash_fwd_wgmma",
+                    "tf32": "flash_fwd_tf32"}
 
 
 def _kernel_lib(variant: str):
     """The built library of a kernel variant, its C signatures declared on
-    first use: ``csrc/flash_fwd.cu`` (``"simt"``) or
-    ``csrc/flash_fwd_wgmma.cu`` (``"wgmma"``)."""
+    first use: ``csrc/flash_fwd.cu`` (``"simt"``, which also takes a dtype
+    code), ``csrc/flash_fwd_wgmma.cu`` (``"wgmma"``) or
+    ``csrc/flash_fwd_tf32.cu`` (``"tf32"``)."""
     entry = _libs.get(variant)
     if entry is None:
-        if variant == "wgmma":
-            lib = _build.load("flash_fwd_wgmma")
-            fn, err = lib.flash_fwd_wgmma, lib.flash_fwd_wgmma_error_string
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p]
-        else:
-            lib = _build.load("flash_fwd")
-            fn, err = lib.flash_fwd, lib.flash_fwd_error_string
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        name = _VARIANT_SOURCES[variant]
+        lib = _build.load(name)
+        fn, err = getattr(lib, name), getattr(lib, f"{name}_error_string")
+        dtype_code = [ctypes.c_int] if variant == "simt" else []
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] + dtype_code + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -111,8 +122,11 @@ def _kernel_lib(variant: str):
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
                     variant: Optional[str] = None):
     """Validate, then launch the kernel :func:`_flash_variant` picks
-    (``variant`` names one explicitly, for timing the two side by side)."""
+    (``variant`` names one explicitly, for timing them side by side; a
+    tensor-core variant the inputs do not fit is refused, never
+    replaced)."""
     global flash_fwd_launches, flash_fwd_wgmma_launches
+    global flash_fwd_tf32_launches
     if q.dim() != 3:
         raise MXNetError(f"flash_fwd takes [BH, S, D] tensors, q is "
                          f"{tuple(q.shape)}")
@@ -136,14 +150,14 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
                          f"S_k={sk}")
     if variant is None:
         variant = _flash_variant(q.dtype, d)
-    if variant == "wgmma":
-        if _flash_variant(q.dtype, d) != "wgmma":
-            raise MXNetError(f"flash_fwd: the tensor-core kernel takes bf16 "
-                             f"with D % 8 == 0, not {q.dtype} D={d}")
+    if variant in ("wgmma", "tf32"):
+        if _flash_variant(q.dtype, d) != variant:
+            raise MXNetError(f"flash_fwd: the {variant} tensor-core kernel "
+                             f"does not take {q.dtype} with D={d}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise MXNetError(f"flash_fwd: {name} must be 16-byte aligned"
-                                 f" for the tensor-core kernel")
+                                 f" for the {variant} tensor-core kernel")
     elif variant != "simt":
         raise MXNetError(f"flash_fwd: no kernel variant {variant!r}")
     fn, err_string = _kernel_lib(variant)
@@ -160,6 +174,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
                          + err_string(err).decode())
     if variant == "wgmma":
         flash_fwd_wgmma_launches += 1
+    elif variant == "tf32":
+        flash_fwd_tf32_launches += 1
     flash_fwd_launches += 1
     return out, lse
 

@@ -120,11 +120,12 @@ def test_rope_matches_jax(packed):
 
 def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
     monkeypatch.setattr(tattn, "flash_fwd_launches", 0)
+    monkeypatch.setattr(tattn, "flash_fwd_tf32_launches", 0)
     q, k, v = (torch.from_numpy(a) for a in _qkv((4, 32, 16), seed=5))
     out, lse = tattn.flash_fwd(q, k, v, True, 0.25)
     assert out.shape == (4, 32, 16) and lse.shape == (4, 32)
     assert lse.dtype == torch.float32
-    assert tattn.flash_fwd_launches == 0
+    assert tattn.flash_fwd_launches == tattn.flash_fwd_tf32_launches == 0
 
 
 def test_no_fallback_on_other_devices():
@@ -158,16 +159,18 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 40, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 36, "simt"), (torch.bfloat16, 100, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
+    (torch.float32, 36, "tf32"), (torch.float32, 30, "simt")])
 def test_flash_variant_by_dtype_and_head_dim(dtype, d, want):
-    """bf16 with D a multiple of 8 (TMA's 16-byte rows) takes the
-    tensor-core kernel; fp32 (which would run as TF32 there) and any other
-    D take the CUDA-core kernel."""
+    """Where TMA's 16-byte rows describe the rows, the tensor cores: fp32
+    with D a multiple of 4 takes the three-TF32-product kernel, bf16 with D
+    a multiple of 8 the bf16 one; any other D takes the CUDA-core kernel."""
     assert tattn._flash_variant(dtype, d) == want
 
 
 @pytest.mark.parametrize("bad", ["wgmma_fp32", "wgmma_d36", "misaligned",
-                                 "unknown"])
+                                 "unknown", "tf32_bf16", "tf32_d30",
+                                 "tf32_misaligned"])
 def test_wrapper_refuses_a_variant_the_inputs_do_not_fit(bad):
     """Validated before anything is built or launched."""
     q = torch.zeros(2, 8, 16, dtype=torch.bfloat16)
@@ -180,8 +183,18 @@ def test_wrapper_refuses_a_variant_the_inputs_do_not_fit(bad):
         q = torch.zeros(2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:].view(
             2, 8, 16)
         variant = None
-    else:
+    elif bad == "unknown":
+        variant = "fp8"
+    elif bad == "tf32_bf16":
         variant = "tf32"
+    elif bad == "tf32_d30":
+        q = torch.zeros(2, 8, 30)
+        variant = "tf32"
+    else:
+        # fp32 D = 16 would take the TF32 kernel, but q is 4 bytes off
+        q = torch.zeros(2 * 8 * 16 + 1)[1:].view(2, 8, 16)
+        assert tattn._flash_variant(q.dtype, 16) == "tf32"
+        variant = None
     with pytest.raises(MXNetError):
         tattn._flash_fwd_cuda(q, q, q, True, 0.25, variant=variant)
 
@@ -254,6 +267,150 @@ def test_split_p_keeps_the_half_ulp_gate(shape, causal):
     o_bf16_p, _ = _emulate_tensor_core_kernel(q, k, v, causal, sm,
                                               split_p=False)
     assert _half_ulp_ratio(o_bf16_p, ref_o) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core kernel (csrc/flash_fwd_tf32.cu): its arithmetic on the
+# CPU, held to chip_smoke.py's fp32 gates (1e-4 on O and on lse) against the
+# plain version and the JAX package's reference.
+# ---------------------------------------------------------------------------
+TF32_GATE = 1e-4
+
+
+def _tf32_rna(a):
+    """cvt.rna.tf32.f32: the low 13 mantissa bits rounded half away from
+    zero, then dropped."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(a):
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _add_truncated(acc, part):
+    """acc + part (exact in fp64) rounded toward zero to fp32: how the
+    tensor core adds into its fp32 accumulator."""
+    exact = acc.double() + part
+    near = exact.float()
+    over = near.double().abs() > exact.abs()
+    return torch.where(over, torch.nextafter(near, torch.zeros_like(near)),
+                       near)
+
+
+def _tc_product(a, b, products):
+    """a @ b as the kernel issues it: a k8 step at a time, each step's
+    three TF32 products (a_lo b_hi, a_hi b_lo, a_hi b_hi; or a_hi b_hi
+    alone when products == 1) exact, added into a fresh fp32 accumulator
+    one wgmma at a time with truncation."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    if products == 3:
+        terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))
+    else:
+        terms = ((a_hi, b_hi),)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = _add_truncated(acc, torch.matmul(
+                x[..., k0:k0 + 8].double(), y[..., k0:k0 + 8, :].double()))
+    return acc
+
+
+def _emulate_tf32_kernel(q, k, v, causal, sm_scale, products=3):
+    """The kernel's algorithm on fp32 CPU tensors [BH, S, D]: D zero-padded
+    to 64 or 128, key tiles of 64 or 32 keys; S = Q K^T and each tile's P V
+    through _tc_product (S accumulates over all of D, each P V starts a fresh
+    accumulator); base-2 online softmax in fp32 with -1e30 masks; O =
+    alpha O + PV rounded once; lse = m ln 2 + log l.  The rows are not cut
+    into query tiles: a key tile is fully masked for a row that the kernel's
+    causal skip keeps from it (and for every row above it, which is not run
+    here), and would leave its m, l and O exactly as they are."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dp = 64 if d <= 64 else 128
+    bk = 64 if dp == 64 else 32
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    q, k, v = pad(q), pad(k), pad(v)
+    scale_log2 = torch.tensor(sm_scale * 1.4426950408889634,
+                              dtype=torch.float32)
+    rows = torch.arange(sq)[:, None]
+    acc = torch.zeros(bh, sq, dp)
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros(bh, sq, 1)
+    for k0 in range(0, sk, bk):
+        r = slice(min(k0, sq) if causal else 0, sq)
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        x = _tc_product(q[:, r], kt.transpose(1, 2), products) * scale_log2
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        if causal:
+            x = x.masked_fill(cols > rows[r], -1e30)
+        m_new = torch.maximum(m[:, r], x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m[:, r] - m_new)
+        p = torch.exp2(x - m_new)
+        l[:, r] = l[:, r] * alpha + p.sum(-1, keepdim=True)
+        pv = _tc_product(p, vt, products)
+        acc[:, r] = (acc[:, r].double() * alpha.double()
+                     + pv.double()).float()
+        m[:, r] = m_new
+    out = (acc / l)[..., :d]
+    lse = (m * 0.6931471805599453 + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+def _jax_reference(q, k, v, causal, sm_scale):
+    """The JAX package on the CPU: O from attention_reference, lse from
+    its XLA forward."""
+    qj, kj, vj = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    o = jattn.attention_reference(qj[None], kj[None], vj[None], causal,
+                                  sm_scale)[0]
+    _, lse = jattn._forward_with_lse(qj[None], kj[None], vj[None], causal,
+                                     sm_scale)
+    return torch.from_numpy(np.array(o)), torch.from_numpy(
+        np.array(lse)[0])
+
+
+def _worst(got, refs):
+    o, lse = got
+    return max(max((o - ro).abs().max().item(),
+                   (lse - rl).abs().max().item()) for ro, rl in refs)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 128, 64), False), ((4, 128, 64), True), ((2, 300, 36), False),
+    ((2, 300, 36), True), ((2, 2048, 128), True)])
+def test_three_tf32_products_keep_the_fp32_flash_gate(shape, causal):
+    """q, k, v ~ N(0, 1) as chip_smoke.py draws them, at BERT-base's head
+    (D 64, S 128), a ragged S = 300 with D = 36 (padded to 64), and
+    FLASH_SHAPES' longest fp32 case (S 2048, D 128, causal, two heads):
+    three TF32 products per product keep O and lse within 1e-4 of the plain
+    version and of the JAX package's reference; one TF32 product, the
+    textbook tensor-core kernel, misses the same gate."""
+    rng = np.random.RandomState(sum(shape) + causal)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               for _ in range(3))
+    sm = 1.0 / np.sqrt(shape[-1])
+    refs = [tattn._flash_forward_plain(q, k, v, causal, sm),
+            _jax_reference(q, k, v, causal, sm)]
+    three = _worst(_emulate_tf32_kernel(q, k, v, causal, sm), refs)
+    assert three <= TF32_GATE / 4, three
+    one = _worst(_emulate_tf32_kernel(q, k, v, causal, sm, products=1), refs)
+    assert one > TF32_GATE, one
+
+
+def test_tf32_emulation_rounds_as_the_card_does():
+    """rna rounds the low 13 bits half away from zero; the accumulator
+    truncates toward zero."""
+    ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
+    a = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2 ** -20,
+                      -(1.0 + ulp / 2), 1.0 + ulp * 0.75])
+    assert _tf32_rna(a).tolist() == [1.0, 1.0 + ulp, 1.0, -(1.0 + ulp),
+                                     1.0 + ulp]
+    acc = torch.tensor([1.0, -1.0])
+    tiny = torch.tensor([2.0 ** -30, -(2.0 ** -30)], dtype=torch.float64)
+    assert _add_truncated(acc, tiny).tolist() == [1.0, -1.0]
+    assert _add_truncated(acc, -tiny).tolist() == [
+        1.0 - 2.0 ** -24, -(1.0 - 2.0 ** -24)]
 
 
 # ---------------------------------------------------------------------------

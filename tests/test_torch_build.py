@@ -46,3 +46,11 @@ def test_the_tensor_core_fused_kernel_is_built():
     """Both fused conv-BN kernels are built, so every call reaches one."""
     assert {"fused_conv_bn", "fused_conv_bn_wgmma"} <= set(
         _build.KERNEL_SOURCES)
+
+
+def test_the_tensor_core_flash_kernels_are_built():
+    """All three flash kernels are built, so every call reaches one: fp32
+    on the tensor cores (three TF32 products), bf16 on the tensor cores and
+    the CUDA-core kernel for the rest."""
+    assert {"flash_fwd", "flash_fwd_tf32", "flash_fwd_wgmma"} <= set(
+        _build.KERNEL_SOURCES)
