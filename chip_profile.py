@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training steps goes, on one NVIDIA H100.
 
-    python3 chip_profile.py [--model resnet|bert] [--seed N] [--steps N]
+    python3 chip_profile.py [--model resnet|bert|gluon] [--seed N] [--steps N]
 
 Run from the root of a checkout on a machine with one CUDA card (after or
 instead of ``chip_smoke.py``; it builds the kernels it needs the same way).
@@ -15,7 +15,11 @@ the traced wall time, and the ten kernels that took longest.  With
 ``--model bert`` it does the same for ``chip_smoke.py``'s two BERT-base
 runs (seq 128, batch 64, Adam; fp32, and bf16 through
 ``amp.convert_block``), where the flash forward kernel is a family of its
-own.  The last line names the card.
+own.  With ``--model gluon`` it traces the fused fp32 resnet50_v1 trained
+through the Gluon loop of ``chip_smoke.py``'s ``gluon_training`` phase
+(``record()`` -> ``backward()`` -> ``Trainer.step`` with the metric
+update), then the same model through ``CompiledTrainStep``.  The last line
+names the card.
 """
 from __future__ import annotations
 
@@ -63,6 +67,18 @@ def bert_run(torch, smoke, seed, dtype):
     return step, x, y, smoke.BERT["warmup"]
 
 
+def gluon_runs(torch, smoke, seed):
+    """The Gluon loop, then CompiledTrainStep, on the same model."""
+    import mxnet_tpu_torch as mx
+    _net, _trainer, _metric, step = smoke._gluon_resnet(torch, seed)
+    x, y = smoke._images(torch, seed + 7, smoke.GLUON["batch"],
+                         smoke.GLUON["px"], smoke.GLUON["classes"])
+    yield (lambda data, label: step(data, label).mean(), mx.nd.NDArray(x),
+           mx.nd.NDArray(y), smoke.GLUON["warmup"])
+    yield (smoke._train_step(_net, smoke.GLUON["batch"]), x, y,
+           smoke.GLUON["warmup"])
+
+
 def profile_run(torch, name, dtype, steps, step, x, y, warmup):
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -99,7 +115,7 @@ def profile_run(torch, name, dtype, steps, step, x, y, warmup):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("resnet", "bert"),
+    parser.add_argument("--model", choices=("resnet", "bert", "gluon"),
                         default="resnet")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=2)
@@ -118,10 +134,15 @@ def main(argv=None):
                                            ("b_unfused_fp32", False, None),
                                            ("c_unfused_bf16", False,
                                             "bfloat16"))]
-    else:
+    elif args.model == "bert":
         runs = [(f"bert_{dtype or 'float32'}", dtype,
                  lambda d=dtype: bert_run(torch, smoke, args.seed, d))
                 for dtype in (None, "bfloat16")]
+    else:
+        gluon = gluon_runs(torch, smoke, args.seed)
+        runs = [(name, None, lambda: next(gluon))
+                for name in ("gluon_trainer_fused_fp32",
+                             "compiled_step_fused_fp32")]
     for name, dtype, build in runs:
         torch.cuda.empty_cache()
         step, x, y, warmup = build()

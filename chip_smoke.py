@@ -30,13 +30,20 @@ beside its bound, then drives the port's paths:
   ``flash_attention`` call the model makes;
   holds two Adam steps of the small BERT on the card against the same
   steps on the CPU; then trains full-width BERT-base (seq 128, batch 64,
-  Adam, as bench.py) in fp32 and in bf16 through ``amp.convert_block``.
+  Adam, as bench.py) in fp32 and in bf16 through ``amp.convert_block``;
+- the Gluon training loop (slice 8): ``train_mnist.py``'s net with
+  deferred init trained 20 steps on ``mx.gpu(0)``, then full-width
+  resnet50_v1 (fused fp32, batch 256) through ``net.initialize``,
+  ``gluon.Trainer``, an ``NDArrayIter`` on the card and ``mx.metric``:
+  its first 2 steps held against ``CompiledTrainStep`` from the same
+  weights, then 3 + 10 timed steps beside ``CompiledTrainStep``'s.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, flash, flash_timing, fused, fused_timing, model_parity, serving,
-resnet_parity, training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
-bert_training), for a short call while a kernel is brought up.  The line before the last is the kernel table; the
+resnet_parity, training, gluon_training, rtc_kernels, rtc_ffn, bert_flash,
+bert_parity, bert_training), for a short call while a kernel is brought
+up; ``--only build,gluon_training`` runs just the Gluon loop.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -838,6 +845,245 @@ def phase_training(torch, seed):
           "fused_over_unfused_step_ms": runs[0]["step_ms"]
           / runs[1]["step_ms"]})
     return runs[0]["fused_conv_bn_launches"]
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the Gluon training loop
+# ---------------------------------------------------------------------------
+# The canonical loop, record() -> loss.backward() -> trainer.step(batch),
+# over an NDArrayIter, with mx.metric.Accuracy updated every step.  First
+# train_mnist.py's net (no input widths: deferred init materialises every
+# parameter on the card at the first forward) on its synthetic data, with
+# its learning rate; the mean loss of the last 5 of 20 steps must lie below
+# that of the first 5.  Then full-width resnet50_v1 as the training phase
+# runs it (fused fp32, TF32 off, SGD as bench.py), initialised with Xavier
+# through net.initialize: its first 2 steps are held against
+# CompiledTrainStep from the same weights on the same batches, each step
+# from the same state (every parameter, moving statistic and momentum
+# within STEP_REL of its tensor's largest |value| plus STEP_ABS, the
+# tolerance the CPU tests hold the port's steps to; on the CPU the two
+# loops agree bit for bit, since a batch of 256 makes the mean's head
+# gradient a power of two, and on the card they differ only where cuDNN
+# and the max-pool backward sum in a run-dependent order), then it
+# trains 3 + 10 steps with the launch counts set to 0 just before and read
+# just after (36 tensor-core fused launches per step), and CompiledTrainStep
+# runs the same 3 + 10 steps after it, timed the same way.
+GLUON = dict(mnist_batch=64, mnist_steps=20, mnist_lr=0.01, batch=256,
+             px=224, classes=1000, batches=2, parity_steps=2, warmup=3,
+             steps=10, step_rel=1e-3, step_abs=1e-6)
+
+
+def _gluon_mnist(torch, seed):
+    """train_mnist.py's net and data through the Gluon loop on mx.gpu(0)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    mx.random.seed(seed)
+    net = gluon.nn.Sequential()
+    net.add(gluon.nn.Conv2D(32, 3, padding=1, activation="relu"),
+            gluon.nn.MaxPool2D(2),
+            gluon.nn.Conv2D(64, 3, padding=1, activation="relu"),
+            gluon.nn.MaxPool2D(2),
+            gluon.nn.Flatten(),
+            gluon.nn.Dense(128, activation="relu"),
+            gluon.nn.Dense(10))
+    net.initialize(ctx=mx.gpu(0))
+    deferred = sum(p.shape is None or 0 in p.shape
+                   for p in net.collect_params().values())
+    rng = np.random.RandomState(seed)
+    x = rng.rand(2048, 1, 28, 28).astype("float32")
+    y = ((x.mean(axis=(1, 2, 3)) * 10).astype("int64") % 10).astype(
+        "float32")
+    it = mx.io.NDArrayIter(x[:1792], y[:1792], GLUON["mnist_batch"],
+                           shuffle=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": GLUON["mnist_lr"],
+                             "momentum": 0.9})
+    metric = mx.metric.Accuracy()
+    losses = []
+    for _, batch in zip(range(GLUON["mnist_steps"]), it):
+        data, label = batch.data[0], batch.label[0]
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(GLUON["mnist_batch"])
+        metric.update([label], [out])
+        losses.append(float(loss.mean().asscalar()))
+    on_card = all(p.data().context == mx.gpu(0) and p.data()._data.is_cuda
+                  for p in net.collect_params().values())
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    out = {"steps": len(losses), "deferred_params": deferred,
+           "params_on_card": on_card, "first5_mean_loss": first,
+           "last5_mean_loss": last, "accuracy": float(metric.get()[1]),
+           "shapes": {k: list(p.shape)
+                      for k, p in net.collect_params().items()}}
+    out["gates"] = {"deferred_then_on_card": deferred == 4 and on_card,
+                    "loss_falls": math.isfinite(last) and last < first}
+    return out
+
+
+def _state_gap(got, ref):
+    """The largest ``max|got - ref| / (max|ref| + STEP_ABS/STEP_REL)``
+    over matching tensors, with its name."""
+    worst = (0.0, "")
+    for name, r in ref.items():
+        bound = r.abs().max().item() + GLUON["step_abs"] / GLUON["step_rel"]
+        worst = max(worst, ((got[name] - r).abs().max().item() / bound,
+                            name))
+    return worst
+
+
+def _gluon_resnet(torch, seed):
+    """resnet50_v1 (fused fp32, 1000 classes) built on mx.gpu(0) and
+    initialised through the Gluon API, with its Trainer and metric;
+    returns ``(net, trainer, metric, step)``, ``step(data, label)`` one
+    step of the canonical loop (the loss NDArray, not synchronised)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    os.environ["MXNET_TPU_FUSE_CONV_BN"] = "1"
+    mx.random.seed(seed)
+    net = resnet50_v1(classes=GLUON["classes"], ctx=mx.gpu(0))
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2))
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4})
+    metric = mx.metric.Accuracy()
+
+    def step(data, label):
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(data.shape[0])
+        metric.update([label], [out])
+        return loss
+
+    return net, trainer, metric, step
+
+
+def phase_gluon_training(torch, seed):
+    """The Gluon training loop on the card (see the comment above)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    mnist = _gluon_mnist(torch, seed)
+    emit({"phase": "gluon_mnist", "ok": all(mnist["gates"].values()),
+          **mnist})
+    check(all(mnist["gates"].values()),
+          f"train_mnist.py's loop on the card failed: {mnist['gates']}")
+
+    torch.cuda.empty_cache()
+    net, trainer, metric, gluon_step = _gluon_resnet(torch, seed)
+    ref = resnet50_v1(classes=GLUON["classes"], ctx=mx.gpu(0))
+    ref.load_state_dict(net.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    n = GLUON["batch"] * GLUON["batches"]
+    x = torch.rand(n, 3, GLUON["px"], GLUON["px"], generator=gen,
+                   device="cuda")
+    y = torch.randint(0, GLUON["classes"], (n,), generator=gen,
+                      device="cuda").float()
+    it = mx.io.NDArrayIter(mx.nd.NDArray(x), mx.nd.NDArray(y),
+                           GLUON["batch"])
+    del x, y
+
+    def next_batch():
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            batch = it.next()
+        return batch.data[0], batch.label[0]
+
+    compiled = _train_step(ref, GLUON["batch"])
+    learnable = [i for i, p in enumerate(net.collect_params().values())
+                 if p.grad_req != "null"]
+    parity = []
+    for k in range(GLUON["parity_steps"]):
+        if k:
+            # each step from the same state, as the CPU tests run it: the
+            # card's nondeterministic sums (cuDNN, max-pool backward) grow
+            # through a second step in either loop
+            ref.load_state_dict(net.state_dict())
+            for i, mom in zip(learnable, compiled._states):
+                mom.copy_(trainer._updaters[0].states[i])
+        data, label = next_batch()
+        gl = float(gluon_step(data, label).mean().asscalar())
+        cl = compiled(data._data, label._data).item()
+        state = _state_gap(net.state_dict(), ref.state_dict())
+        moms = {str(i): trainer._updaters[0].states[i] for i in learnable}
+        mom = _state_gap(moms, {str(i): m for i, m in
+                                       zip(learnable, compiled._states)})
+        parity.append({"step": k + 1, "loss_gluon": gl, "loss_compiled": cl,
+                       "worst_state": state, "worst_momentum": mom,
+                       "bitwise_equal_tensors": sum(
+                           torch.equal(a, b) for a, b in zip(
+                               net.state_dict().values(),
+                               ref.state_dict().values()))})
+    parity_ok = all(math.isfinite(p["loss_gluon"])
+                    and p["worst_state"][0] <= GLUON["step_rel"]
+                    and p["worst_momentum"][0] <= GLUON["step_rel"]
+                    for p in parity)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FC.fused_conv_bn_launches = 0
+    FC.fused_conv_bn_wgmma_launches = 0
+    first = float(gluon_step(*next_batch()).mean().asscalar())
+    for _ in range(GLUON["warmup"] - 1):
+        gluon_step(*next_batch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GLUON["steps"]):
+        loss = gluon_step(*next_batch())
+    last = float(loss.mean().asscalar())
+    wall = time.perf_counter() - t0
+    launches = FC.fused_conv_bn_launches
+    wgmma = FC.fused_conv_bn_wgmma_launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    batches = [next_batch() for _ in range(GLUON["batches"])]
+    for i in range(GLUON["warmup"]):
+        data, label = batches[i % len(batches)]
+        compiled(data._data, label._data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GLUON["steps"]):
+        data, label = batches[i % len(batches)]
+        closs = compiled(data._data, label._data)
+    closs.item()
+    compiled_wall = time.perf_counter() - t0
+
+    steps = GLUON["warmup"] + GLUON["steps"]
+    want = FUSED_LAUNCHES_PER_STEP * steps
+    out = {"phase": "gluon_training", "model": "resnet50_v1", "fused": True,
+           "dtype": "float32", "batch": GLUON["batch"], "px": GLUON["px"],
+           "steps": steps, "timed_steps": GLUON["steps"],
+           "step_ms": 1e3 * wall / GLUON["steps"],
+           "imgs_per_sec": GLUON["batch"] * GLUON["steps"] / wall,
+           "compiled_step_ms": 1e3 * compiled_wall / GLUON["steps"],
+           "compiled_imgs_per_sec":
+               GLUON["batch"] * GLUON["steps"] / compiled_wall,
+           "first_loss": first, "last_loss": last,
+           "accuracy": float(metric.get()[1]), "peak_mem_gb": peak,
+           "fused_conv_bn_launches": launches,
+           "fused_conv_bn_wgmma_launches": wgmma, "parity": parity,
+           "tolerance": {k: GLUON[k] for k in ("step_rel", "step_abs")},
+           "tf32": _tf32(torch)}
+    out["gates"] = {"launches": launches == want and wgmma == want,
+                    "parity_with_compiled_train_step": parity_ok,
+                    "losses_finite": math.isfinite(first)
+                    and math.isfinite(last)}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"gluon_training failed: {out['gates']}")
+    del net, ref, it, trainer, compiled, batches
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1776,8 +2022,8 @@ def _kernel_line(name, source, replaces, launches, timing):
 
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
           "fused_timing", "model_parity", "serving",
-          "resnet_parity", "training", "rtc_kernels", "rtc_ffn",
-          "bert_flash", "bert_parity", "bert_training")
+          "resnet_parity", "training", "gluon_training", "rtc_kernels",
+          "rtc_ffn", "bert_flash", "bert_parity", "bert_training")
 
 
 def main(argv=None):
@@ -1818,13 +2064,20 @@ def main(argv=None):
                 "mxnet_tpu/ops/attention.py:51", launches, timing))
     if "resnet_parity" in only:
         phase_resnet_parity(torch, args.seed)
+    by_path = {}
     if "training" in only:
-        launches = phase_training(torch, args.seed)
-        if "fused_timing" in only:
-            lines.append(_kernel_line(
-                "fused_conv_bn_stats",
-                "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
-                "mxnet_tpu/ops/fused_conv_bn.py:48", launches, fused))
+        by_path["training"] = phase_training(torch, args.seed)
+    if "gluon_training" in only:
+        by_path["gluon_training"] = phase_gluon_training(torch, args.seed)
+    if by_path and "fused_timing" in only:
+        # launches: this slice's path (the Gluon loop) when it ran
+        line = _kernel_line(
+            "fused_conv_bn_stats",
+            "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
+            "mxnet_tpu/ops/fused_conv_bn.py:48",
+            by_path.get("gluon_training", by_path.get("training")), fused)
+        line["launches_by_path"] = by_path
+        lines.append(line)
     if "rtc_kernels" in only or "rtc_ffn" in only:
         kernels, twins = phase_rtc_kernels(torch, args.seed)
     if "rtc_ffn" in only:

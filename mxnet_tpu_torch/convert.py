@@ -12,6 +12,11 @@ ResNet's names count layers per stage and type
 (``resnetv10_stage1_fusedconv1x1bn0_running_var``), and the port's
 modules register their tensors in the JAX package's order, so the two
 lists pair up one to one.
+
+:func:`params_from_mxnet` carries weights into a Gluon block of the port
+by name: the JAX model's ``collect_params()`` as numpy, key by key, into
+the port block's ``collect_params()`` (both built under the same
+``prefix=``).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["llama_state_dict_from_mxnet", "resnet_state_dict_from_mxnet",
-           "bert_state_dict_from_mxnet"]
+           "bert_state_dict_from_mxnet", "params_from_mxnet"]
 
 
 def _mxnet_suffix(key: str) -> str:
@@ -142,3 +147,24 @@ def resnet_state_dict_from_mxnet(params: Dict[str, np.ndarray], model
         raise MXNetError(f"parameters with no place in the model: {extra}")
     model.load_state_dict(state)
     return state
+
+
+def params_from_mxnet(ref_params: Dict[str, np.ndarray], net) -> None:
+    """Write ``ref_params`` (the JAX block's ``collect_params()`` as numpy,
+    by name) into ``net.collect_params()`` in place, each cast to its
+    parameter's dtype; a deferred parameter takes the array's shape (call
+    ``net.initialize`` first).  Raises on a name missing or left over on
+    either side and on a shape that differs."""
+    params = net.collect_params()
+    missing = sorted(set(params.keys()) - set(ref_params))
+    extra = sorted(set(ref_params) - set(params.keys()))
+    if missing or extra:
+        raise MXNetError(f"parameters do not pair up: missing {missing}, "
+                         f"with no place {extra}")
+    for name, p in params.items():
+        arr = np.asarray(ref_params[name])
+        known = p.shape or ()
+        if len(known) != arr.ndim or any(
+                s not in (0, a) for s, a in zip(known, arr.shape)):
+            raise MXNetError(f"{name}: shape {arr.shape} != {p.shape}")
+        p.set_data(arr)

@@ -43,7 +43,16 @@ class CompiledTrainStep:
         """Run one step on a batch (``x`` a tensor or a tuple of the net's
         inputs); updates parameters, optimizer state and BN statistics in
         place and returns the mean loss (a 0-dim tensor on the net's
-        device, not synchronised)."""
+        device, not synchronised).  NDArray inputs (a Gluon iterator's
+        batches) run on their tensors and give an NDArray loss."""
+        from .ndarray.ndarray import NDArray
+        if isinstance(y, NDArray):
+            # Gluon batches: the step runs on their tensors
+            ctx = y.context
+            loss = self(tuple(a._data if isinstance(a, NDArray) else a
+                              for a in (x if isinstance(x, tuple) else (x,))),
+                        y._data)
+            return NDArray(loss, ctx)
         net, opt = self._net, self._opt
         xs = x if isinstance(x, tuple) else (x,)
         was_training = net.training

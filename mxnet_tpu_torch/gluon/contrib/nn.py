@@ -1,12 +1,17 @@
 """``FusedConv1x1BN``: a 1x1 convolution + BatchNorm (+ ReLU) through the
 CUDA matmul-with-statistics kernel.
 
-Counterpart of ``mxnet_tpu/gluon/contrib/nn.py:FusedConv1x1BN``.  In
-training one pass of the kernel (``ops/fused_conv_bn.py``) computes the
-conv output and the per-channel batch statistics, so BatchNorm never
-rereads the output for them.  In evaluation BN folds into the conv weight
-and a plain matrix product runs.  NCHW in and out, like ``Conv2D`` +
-``BatchNorm``; there is no conv bias (BN cancels it).
+Counterpart of ``mxnet_tpu/gluon/contrib/nn.py:FusedConv1x1BN``, a
+:class:`~mxnet_tpu_torch.gluon.block.HybridBlock` with the reference's
+parameters (``weight`` Xavier, ``gamma``, ``beta``, and the moving
+statistics with ``grad_req='null'``) and a deferred input width
+(``in_channels=0``).  In training one pass of the kernel
+(``ops/fused_conv_bn.py``) computes the conv output and the per-channel
+batch statistics, so BatchNorm never rereads the output for them.  In
+evaluation BN folds into the conv weight and a plain matrix product runs.
+NCHW in and out, like ``Conv2D`` + ``BatchNorm``; there is no conv bias
+(BN cancels it).  Training mode is the module's (under the Gluon boundary,
+``mx.autograd.is_training()``).
 
 The dtypes follow the JAX package's promotion: with a bf16 weight and
 input the conv output is bf16, but the normalise subtracts the fp32 mean,
@@ -16,39 +21,43 @@ mixed dtypes, as in the JAX package.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...base import MXNetError, env
-from ...context import resolve_device
-from ...initializer import One, Xavier, Zero
+from ...base import env
 from ...ops.fused_conv_bn import conv1x1_bn_stats_op
+from ..block import HybridBlock
 from ..nn.basic_layers import _update_running, cast_keeping_norm_fp32
 
 __all__ = ["FusedConv1x1BN"]
 
 
-class FusedConv1x1BN(nn.Module):
+class FusedConv1x1BN(HybridBlock):
     def __init__(self, channels, in_channels=0, strides=1, relu=False,
-                 momentum=0.9, epsilon=1e-5, device=None):
-        super().__init__()
-        if in_channels <= 0:
-            raise MXNetError("FusedConv1x1BN: the port has no deferred init; "
-                             "pass in_channels")
-        dev = resolve_device(device)
+                 momentum=0.9, epsilon=1e-5, device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
         self._channels = channels
         self._strides = strides
         self._relu = relu
         self._momentum = momentum
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.empty(channels, in_channels, 1, 1,
-                                               device=dev))
-        self.gamma = nn.Parameter(torch.ones(channels, device=dev))
-        self.beta = nn.Parameter(torch.zeros(channels, device=dev))
-        self.register_buffer("running_mean", torch.zeros(channels, device=dev))
-        self.register_buffer("running_var", torch.ones(channels, device=dev))
-        self.initializers = {"weight": Xavier(), "gamma": One(),
-                             "beta": Zero(), "running_mean": Zero(),
-                             "running_var": One()}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, in_channels, 1, 1),
+                init="xavier", allow_deferred_init=True)
+            self.gamma = self.params.get("gamma", shape=(channels,),
+                                         init="ones",
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(channels,),
+                                        init="zeros",
+                                        allow_deferred_init=True)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(channels,),
+                init="zeros", allow_deferred_init=True, differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(channels,),
+                init="ones", allow_deferred_init=True, differentiable=False)
+
+    def _shape_hint(self, x, *args):
+        self._reg_params["weight"].shape = (self._channels, x.shape[1], 1, 1)
 
     def cast(self, dtype):
         """Cast to ``dtype``; in bf16/fp16 only the conv weight narrows."""

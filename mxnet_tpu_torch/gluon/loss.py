@@ -1,18 +1,22 @@
-"""Losses of the training slice: the ``Loss`` base with its shared
-weighting epilogue and ``SoftmaxCrossEntropyLoss`` (counterparts of
-``mxnet_tpu/gluon/loss.py``).  A loss returns one value per sample."""
+"""Losses: the ``Loss`` base with its shared weighting epilogue,
+``SoftmaxCrossEntropyLoss``, ``L2Loss`` and ``L1Loss`` (counterparts of
+``mxnet_tpu/gluon/loss.py``), as
+:class:`~mxnet_tpu_torch.gluon.block.HybridBlock` s computing on tensors.
+A loss returns one value per sample; called with NDArrays it returns an
+NDArray, whose ``backward()`` differentiates the sum over the batch (the
+Trainer's ``step(batch_size)`` rescales by ``1/batch_size``)."""
 from __future__ import annotations
 
-from torch import nn
-
 from ..ops import nn as F
+from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "L2Loss",
+           "L1Loss"]
 
 
-class Loss(nn.Module):
-    def __init__(self, weight, batch_axis):
-        super().__init__()
+class Loss(HybridBlock):
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
         self._weight = weight
         self._batch_axis = batch_axis
 
@@ -32,17 +36,47 @@ class Loss(nn.Module):
         return f"batch_axis={self._batch_axis}, w={self._weight}"
 
 
-class SoftmaxCrossEntropyLoss(Loss):
-    """Cross entropy of ``log_softmax(pred)`` against class indices
-    (``sparse_label``) or a distribution of ``pred``'s shape."""
+def _match(label, pred):
+    """``label`` in ``pred``'s shape (labels arrive flat)."""
+    return label.reshape(pred.shape)
 
-    def __init__(self, axis=-1, sparse_label=True, weight=None, batch_axis=0):
-        super().__init__(weight, batch_axis)
-        self._axis = axis
-        self._sparse_label = sparse_label
+
+class L2Loss(Loss):
+    """Half the squared error: ``weight/2 · (pred − label)²``, averaged per
+    sample."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
 
     def forward(self, pred, label, sample_weight=None):
-        logp = F.log_softmax(pred, self._axis)
+        err = pred - _match(label, pred)
+        return self._finish(err.square(), sample_weight, self._weight / 2)
+
+
+class L1Loss(Loss):
+    """Absolute error, averaged per sample."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def forward(self, pred, label, sample_weight=None):
+        return self._finish((pred - _match(label, pred)).abs(), sample_weight)
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    """Cross entropy of ``log_softmax(pred)`` (``pred`` itself with
+    ``from_logits``) against class indices (``sparse_label``) or a
+    distribution of ``pred``'s shape."""
+
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._axis = axis
+        self._sparse_label = sparse_label
+        self._from_logits = from_logits
+
+    def forward(self, pred, label, sample_weight=None):
+        logp = pred if self._from_logits else F.log_softmax(pred, self._axis)
         if self._sparse_label:
             nll = -F.pick(logp, label, axis=self._axis, keepdims=True)
         else:

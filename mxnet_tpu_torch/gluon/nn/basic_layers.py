@@ -1,124 +1,213 @@
-"""Basic layers of the training slices: ``HybridSequential``, ``Dense``,
-``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding`` and ``Flatten``.
+"""Basic layers: ``Sequential``, ``HybridSequential``, ``Dense``,
+``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
+``Lambda`` and ``HybridLambda``.
 
-Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``.  Gluon's
-``Parameter``/``HybridBlock`` become ``nn.Parameter``/``nn.Module``, and the
-moving statistics, which gluon keeps as parameters with ``grad_req='null'``,
-become buffers.  Each module registers its parameters, then its buffers, in
-the JAX package's order, so ``state_dict()`` walks the same tensors as
-``collect_params()`` (``convert.resnet_state_dict_from_mxnet`` relies on
-it).  The port has no deferred initialisation: constructors take the input
-width, and :func:`~mxnet_tpu_torch.initializer.initialize` fills the
-tensors from each module's ``initializers``.  ``Dropout`` draws its masks
-from the ``torch.Generator`` it is given.
+Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``, on
+:class:`~mxnet_tpu_torch.gluon.block.HybridBlock` with the reference's
+parameters, names, initializers and deferred shapes (``in_units=0``,
+``in_channels=0`` infer the width at the first forward).  Each layer's
+``forward`` computes on tensors.  The moving statistics are parameters with
+``grad_req='null'`` in ``collect_params()`` and buffers of the module;
+each layer registers its tensors in the JAX package's order, so
+``state_dict()`` walks the same tensors as ``collect_params()``
+(``convert.resnet_state_dict_from_mxnet`` relies on it).  ``Dropout``
+draws its masks from the generator it is given; without one it draws from
+the device's stream (``mx.random``) under the Gluon boundary and refuses
+to train otherwise.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from ... import ndarray as _ndmod
+from ... import random as _random
 from ...base import MXNetError
-from ...context import resolve_device
-from ...initializer import One, Zero
 from ...ops import nn as F
+from ..block import Block, HybridBlock, _boundary_ctx
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 _FP32_NORM = ("gamma", "beta", "running_mean", "running_var")
 
 
-class HybridSequential(nn.Sequential):
-    """``nn.Sequential`` with gluon's ``add``."""
+class _Stack:
+    """``add``, ``len``, indexing and iteration over the children."""
 
     def add(self, *blocks):
         for block in blocks:
-            self.append(block)
+            self.register_child(block)
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-class Dense(nn.Module):
+class Sequential(_Stack, Block):
+    """Children applied in turn."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Children applied in turn (hybridizable in the reference)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+
+def _prod(shape):
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+class Dense(HybridBlock):
     """Fully connected layer, weight ``[units, in_units]``, then the
     ``activation`` when one is named; ``flatten`` folds every input dim
     after the first (``[B, C, 1, 1]`` -> ``[B, C]``).  The weight draws
-    from the default ``Uniform(0.07)``, the bias starts at zero."""
+    from the initializer given to ``initialize`` (default
+    ``Uniform(0.07)``), the bias starts at zero."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0, device=None):
-        super().__init__()
-        if in_units <= 0:
-            raise MXNetError("Dense: the port has no deferred init; pass "
-                             "in_units")
-        dev = resolve_device(device)
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, device=None,
+                 **kwargs):
+        super().__init__(device=device, **kwargs)
+        self._units = units
         self._flatten = flatten
         self._act_type = activation
-        self.weight = nn.Parameter(torch.empty(units, in_units, device=dev))
-        self.bias = (nn.Parameter(torch.zeros(units, device=dev))
-                     if use_bias else None)
-        self.initializers = {"weight": None, "bias": Zero()}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), init=weight_initializer,
+                dtype=dtype, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), init=bias_initializer,
+                    dtype=dtype, allow_deferred_init=True)
+            else:
+                self.bias = None
+
+    def _shape_hint(self, x, *args):
+        in_units = _prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._reg_params["weight"].shape = (self._units, in_units)
 
     def forward(self, x):
         out = F.fully_connected(x, self.weight, self.bias, self._flatten)
         return F.activation(out, self._act_type) if self._act_type else out
 
+    def extra_repr(self):
+        return f"{self._units}, {self._act_type or 'linear'}"
 
-class Dropout(nn.Module):
+
+class Dropout(HybridBlock):
     """Zeroes each element with probability ``rate`` in training (masks
     shared along ``axes``), drawing from ``generator``, a
-    ``torch.Generator`` on the input's device; identity in evaluation.
-    The layer holds the generator, so the layers of one model can share
-    one stream."""
+    ``torch.Generator`` on the input's device, or, under the Gluon
+    boundary without one, from the device's ``mx.random`` stream;
+    identity in evaluation.  The layer holds the generator, so the layers
+    of one model can share one stream."""
 
-    def __init__(self, rate, axes=(), generator=None):
-        super().__init__()
+    def __init__(self, rate, axes=(), generator=None, **kwargs):
+        super().__init__(**kwargs)
         self._rate = rate
         self._axes = tuple(axes)
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self._rate, self.training, self.generator,
-                         self._axes)
+        gen = self.generator
+        if gen is None and self.training and _boundary_ctx() is not None:
+            gen = _random.device_generator(x.device)
+        return F.dropout(x, self._rate, self.training, gen, self._axes)
 
     def extra_repr(self):
         return f"p={self._rate}"
 
 
-class BatchNorm(nn.Module):
-    """Batch normalisation over the channels of NCHW data, with moving
-    statistics.
+class BatchNorm(HybridBlock):
+    """Batch normalisation over the channels (axis 1) of NCHW data, with
+    moving statistics.
 
     Training uses the batch's statistics (biased variance, one-pass or
     centred per ``MXNET_TPU_FAST_VARIANCE``) and updates
-    ``running = momentum·running + (1 − momentum)·batch``; evaluation uses
-    the moving ones.  This is not ``torch.nn.BatchNorm2d``, whose momentum
-    has the opposite meaning and whose running variance is unbiased."""
+    ``running = momentum·running + (1 − momentum)·batch``; evaluation, and
+    ``use_global_stats``, use the moving ones.  This is not
+    ``torch.nn.BatchNorm2d``, whose momentum has the opposite meaning and
+    whose running variance is unbiased.  ``scale=False`` fixes gamma at 1
+    and ``center=False`` leaves beta out of the gradient."""
 
-    def __init__(self, momentum=0.9, epsilon=1e-5, in_channels=0,
-                 device=None):
-        super().__init__()
-        if in_channels <= 0:
-            raise MXNetError("BatchNorm: the port has no deferred init; pass "
-                             "in_channels")
-        dev = resolve_device(device)
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        if axis != 1:
+            raise MXNetError("BatchNorm: only axis=1 (NCHW) is ported")
+        self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=dev))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=dev))
-        self.register_buffer("running_mean",
-                             torch.zeros(in_channels, device=dev))
-        self.register_buffer("running_var", torch.ones(in_channels, device=dev))
-        self.initializers = {"gamma": One(), "beta": Zero(),
-                             "running_mean": Zero(), "running_var": One()}
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.in_channels = in_channels
+        shape = (in_channels,)
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null", shape=shape,
+                init=gamma_initializer, allow_deferred_init=True,
+                differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null", shape=shape,
+                init=beta_initializer, allow_deferred_init=True,
+                differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=shape,
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=shape,
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def _shape_hint(self, x, *args):
+        for name in _FP32_NORM:
+            self._reg_params[name].shape = (x.shape[self._axis],)
 
     def cast(self, dtype):
+        """Norm tensors stay fp32 when ``dtype`` is bf16 or fp16."""
         return cast_keeping_norm_fp32(self, dtype)
 
     def forward(self, x):
+        training = self.training and not self._use_global_stats
         out, mean, var = F.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, fix_gamma=False, training=self.training)
-        if self.training:
+            eps=self._epsilon, fix_gamma=not self._scale, training=training)
+        if training:
             _update_running(self, mean, var)
         return out
+
+    def extra_repr(self):
+        return f"axis={self._axis}, momentum={self._momentum}"
 
 
 @torch.no_grad()
@@ -132,59 +221,105 @@ def _update_running(block, mean, var):
 
 def cast_keeping_norm_fp32(block, dtype):
     """gluon's ``cast`` for a block that holds norm tensors: its own
-    floating tensors go to ``dtype`` (a torch dtype or its name), except
-    that ``gamma``, ``beta`` and the moving statistics stay fp32 when
-    ``dtype`` is bf16 or fp16."""
-    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    low = dtype in (torch.bfloat16, torch.float16)
-    for name, t in list(block.named_parameters(recurse=False)) + list(
-            block.named_buffers(recurse=False)):
-        if t.is_floating_point():
-            keep = low and name in _FP32_NORM
-            t.data = t.data.to(torch.float32 if keep else dtype)
+    parameters go to ``dtype`` (a torch dtype or its name), except that
+    ``gamma``, ``beta`` and the moving statistics stay fp32 when ``dtype``
+    is bf16 or fp16; returns ``block``."""
+    name = str(dtype).split(".")[-1]
+    low = name in ("bfloat16", "float16")
+    for attr, p in block._reg_params.items():
+        p.cast("float32" if low and attr in _FP32_NORM else name)
     return block
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(HybridBlock):
     """Layer normalisation over ``axis`` with fp32 moments (see
     :func:`~mxnet_tpu_torch.ops.nn.layer_norm`); ``gamma`` starts at one,
     ``beta`` at zero.  Their names keep them fp32 under
     ``amp.convert_block``."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0, device=None):
-        super().__init__()
-        if in_channels <= 0:
-            raise MXNetError("LayerNorm: the port has no deferred init; pass"
-                             " in_channels")
-        dev = resolve_device(device)
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
         self._axis = axis
         self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=dev))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=dev))
-        self.initializers = {"gamma": One(), "beta": Zero()}
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def _shape_hint(self, x, *args):
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (x.shape[self._axis],)
 
     def forward(self, x):
         return F.layer_norm(x, self.gamma, self.beta, self._axis,
                             self._epsilon)
 
 
-class Embedding(nn.Module):
+class Embedding(HybridBlock):
     """Row lookup in a ``[input_dim, output_dim]`` table drawn from the
     default ``Uniform(0.07)``; its gradient is dense."""
 
-    def __init__(self, input_dim, output_dim, device=None):
-        super().__init__()
-        dev = resolve_device(device)
-        self.weight = nn.Parameter(torch.empty(input_dim, output_dim,
-                                               device=dev))
-        self.initializers = {"weight": None}
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, device=None,
+                 **kwargs):
+        super().__init__(device=device, **kwargs)
+        if sparse_grad:
+            raise MXNetError("Embedding: sparse gradients are not ported")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
         return F.embedding(x, self.weight)
 
+    def extra_repr(self):
+        return f"{self._input_dim} -> {self._output_dim}"
 
-class Flatten(nn.Module):
+
+class Flatten(HybridBlock):
     """``[B, ...]`` -> ``[B, prod(...)]``."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class Lambda(Block):
+    """Wraps a function of NDArrays, or the name of an ``mx.nd`` function."""
+
+    _nd_forward = True
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl = (getattr(_ndmod, function)
+                           if isinstance(function, str) else function)
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wraps ``function(F, *args)``, or the name of an ``F`` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            name = function
+
+            def impl(F, *args):
+                return getattr(F, name)(*args)
+            self._func_impl = impl
+        else:
+            self._func_impl = function
+
+    def hybrid_forward(self, F, *args):
+        return self._func_impl(F, *args)

@@ -77,24 +77,51 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
             * gamma.reshape(bshape) + beta.reshape(bshape))
 
 
-def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0)):
-    """2-D convolution, NCHW data and ``[out, in, kh, kw]`` weight."""
-    return F.conv2d(data, weight, bias, tuple(stride), tuple(pad))
+def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
+                dilate=(1, 1), num_group=1):
+    """2-D convolution, NCHW data and ``[out, in / num_group, kh, kw]``
+    weight."""
+    return F.conv2d(data, weight, bias, tuple(stride), tuple(pad),
+                    tuple(dilate), num_group)
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
-            stride=None, pad=(0, 0)):
-    """NCHW pooling: max over ``kernel`` windows (the 'valid' convention,
-    ``stride`` defaulting to ``kernel``), or the global average.  The
-    slice ports these two."""
-    if global_pool and pool_type == "avg":
-        return data.mean(dim=(2, 3), keepdim=True)
-    if not global_pool and pool_type == "max":
-        return F.max_pool2d(data, tuple(kernel),
-                            tuple(stride) if stride else tuple(kernel),
-                            tuple(pad))
-    raise MXNetError(f"pooling: {'global ' if global_pool else ''}"
-                     f"{pool_type} pooling is not ported")
+            stride=None, pad=(0, 0), ceil_mode=False, count_include_pad=True):
+    """NCHW max or average pooling over ``kernel`` windows, ``stride``
+    defaulting to ``kernel``; the 'valid' convention, or with
+    ``ceil_mode`` the 'full' one, whose last window the JAX package pads
+    on the high edge (max pads with -inf, average with zeros that
+    ``count_include_pad`` counts).  ``global_pool`` reduces all of H, W."""
+    if pool_type not in ("max", "avg"):
+        raise MXNetError(f"pooling: {pool_type} pooling is not ported")
+    if global_pool:
+        if pool_type == "avg":
+            return data.mean(dim=(2, 3), keepdim=True)
+        return data.amax(dim=(2, 3), keepdim=True)
+    kernel = tuple(kernel)
+    stride = tuple(stride) if stride else kernel
+    pad = tuple(pad)
+    if ceil_mode:
+        hi = []
+        for i in range(2):
+            size = data.shape[2 + i] + 2 * pad[i]
+            out = -(-(size - kernel[i]) // stride[i]) + 1
+            hi.append(pad[i] + max((out - 1) * stride[i] + kernel[i] - size,
+                                   0))
+        edges = (pad[1], hi[1], pad[0], hi[0])
+        fill = float("-inf") if pool_type == "max" else 0.0
+        padded = F.pad(data, edges, value=fill)
+        if pool_type == "max":
+            return F.max_pool2d(padded, kernel, stride)
+        total = F.avg_pool2d(padded, kernel, stride)
+        if count_include_pad:
+            return total
+        ones = F.pad(torch.ones_like(data[:1, :1]), edges)
+        return total / F.avg_pool2d(ones, kernel, stride)
+    if pool_type == "max":
+        return F.max_pool2d(data, kernel, stride, pad)
+    return F.avg_pool2d(data, kernel, stride, pad,
+                        count_include_pad=count_include_pad)
 
 
 def fully_connected(data, weight, bias=None, flatten=True):

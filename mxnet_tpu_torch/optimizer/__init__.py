@@ -1,4 +1,6 @@
 """Optimizers of the port."""
-from .optimizer import SGD, Adam, Optimizer, create, register
+from .optimizer import (SGD, Adam, Optimizer, Updater, create, get_updater,
+                        register)
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "get_updater",
+           "register"]

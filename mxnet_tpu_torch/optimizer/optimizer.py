@@ -1,28 +1,40 @@
-"""Optimizers of the training slices: the ``Optimizer`` base, ``SGD`` and
-``Adam`` (counterparts of ``mxnet_tpu/optimizer/optimizer.py``).
+"""Optimizers: the ``Optimizer`` base, ``SGD``, ``Adam``, and the Gluon
+half, ``Updater`` / ``get_updater`` (counterparts of
+``mxnet_tpu/optimizer/optimizer.py``).
 
 ``update(index, weight, grad, state)`` changes ``weight`` and ``state`` in
-place through ``ops/optimizer_ops.py``.  The learning rate and weight decay
-of a parameter are the optimizer's times its ``lr_mult``/``wd_mult``, keyed
-by index or by name (``param_idx2name``); with no multipliers set, wd
-applies to every parameter, BN gamma and beta included.  bf16 weights
-take the plain update with a bf16 momentum, as in the JAX package, whose
-multi-precision path is for fp16 only; Adam's mean and variance take the
-weight's dtype too.  Each ``update`` of an optimizer that needs it counts
+place through ``ops/optimizer_ops.py``; ``weight`` and ``grad`` are
+tensors or NDArrays (a parameter's NDArray shares the module's tensor, so
+the module sees the update).  The learning rate is the optimizer's, or its
+``lr_scheduler``'s at ``num_update``; a parameter's rate and weight decay
+are then scaled by its ``Parameter.lr_mult``/``wd_mult`` (``param_dict``,
+which ``gluon.Trainer`` fills), else by ``lr_mult``/``wd_mult`` keyed by
+index or by name (``param_idx2name``); with no multipliers set, wd applies
+to every parameter, BN gamma and beta included.  Each ``update`` counts
 per index (``_update_count``, ``num_update``); Adam's bias correction reads
 the step count ``_t``, which a training step sets for all its updates.
-The fp16 master-weight path (``multi_precision``), learning-rate schedules
-and the row-sparse lazy updates wait for later slices.
+bf16 weights take the plain update with a bf16 momentum, as in the JAX
+package; ``multi_precision`` keeps an fp32 master copy of fp16 weights
+(``update_multi_precision``).  The row-sparse lazy updates wait for a later
+slice.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..ops.optimizer_ops import adam_update, sgd_mom_update, sgd_update
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
+           "register"]
+
+
+def _raw(x):
+    """The tensor of an NDArray (a tensor as is)."""
+    return x if isinstance(x, torch.Tensor) else x._data
 
 
 class Optimizer:
@@ -41,9 +53,15 @@ class Optimizer:
         return Optimizer.opt_registry[name.lower()](**kwargs)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, begin_num_update=0):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.multi_precision = multi_precision
+        self.param_dict = dict(param_dict or {})
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
@@ -61,6 +79,40 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision``, an fp16 weight's state is
+        ``(state of its fp32 copy, the fp32 copy)``."""
+        w = _raw(weight)
+        if self.multi_precision and w.dtype == torch.float16:
+            w32 = w.detach().float()
+            return self.create_state(index, w32), w32
+        return self.create_state(index, w)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``, through the fp32 copy for an fp16 weight under
+        ``multi_precision``."""
+        w, g = _raw(weight), _raw(grad)
+        if self.multi_precision and w.dtype == torch.float16:
+            inner, w32 = state
+            self.update(index, w32, g.float(), inner)
+            with torch.no_grad():
+                w.copy_(w32)
+        else:
+            self.update(index, w, g, state)
+        if not isinstance(weight, torch.Tensor):
+            weight._version += 1
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler overwrites learning rate")
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
 
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = dict(args_lr_mult)
@@ -88,17 +140,26 @@ class Optimizer:
             return self._step
         return self._index_update_count[index]
 
-    def _mult(self, mults, index):
+    def _mult(self, attr, index):
         name = self.idx2name.get(index, index)
+        if name in self.param_dict:
+            return getattr(self.param_dict[name], attr)
+        mults = getattr(self, attr)
         if index in mults:
             return mults[index]
         return mults.get(name, 1.0)
 
     def _get_lr(self, index):
-        return self.lr * self._mult(self.lr_mult, index)
+        lr = (self.lr_scheduler(self.num_update) if self.lr_scheduler
+              else self.lr)
+        return lr * self._mult("lr_mult", index)
 
     def _get_wd(self, index):
-        return self.wd * self._mult(self.wd_mult, index)
+        return self.wd * self._mult("wd_mult", index)
+
+    def __getstate__(self):
+        # the Parameters of param_dict belong to the process's modules
+        return dict(self.__dict__, param_dict={})
 
 
 register = Optimizer.register
@@ -120,6 +181,8 @@ class SGD(Optimizer):
         return torch.zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        weight, grad = _raw(weight), _raw(grad)
+        self._update_count(index)
         kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
                   rescale_grad=self.rescale_grad,
                   clip_gradient=self.clip_gradient)
@@ -143,6 +206,7 @@ class Adam(Optimizer):
         return torch.zeros_like(weight), torch.zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        weight, grad = _raw(weight), _raw(grad)
         self._update_count(index)
         t = self._t(index)
         lr = (self._get_lr(index) * (1.0 - self.beta2 ** t) ** 0.5
@@ -155,3 +219,76 @@ class Adam(Optimizer):
                     beta2=self.beta2, epsilon=self.epsilon,
                     wd=self._get_wd(index), rescale_grad=self.rescale_grad,
                     clip_gradient=self.clip_gradient)
+
+
+class Updater:
+    """Applies an optimizer to one index at a time, keeping each index's
+    state (reference ``get_updater``): ``updater(index, grad, weight)``."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+        self.states_synced: Dict[Any, bool] = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced[index]:
+            self.states[index] = _to_device(self.states[index],
+                                            _raw(weight).device)
+            self.states_synced[index] = True
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer=False) -> bytes:
+        """The states (and, with ``dump_optimizer``, the optimizer),
+        pickled with each tensor as a numpy array."""
+        blob = {"states": {k: _serialize(v) for k, v in self.states.items()}}
+        if dump_optimizer:
+            blob["optimizer"] = self.optimizer
+        return pickle.dumps(blob)
+
+    def set_states(self, states: bytes):
+        """Restore :meth:`get_states`; each state moves to its weight's
+        device at the next update."""
+        blob = pickle.loads(states)
+        if "optimizer" in blob:
+            self.optimizer = blob["optimizer"]
+        self.states = {k: _deserialize(v) for k, v in blob["states"].items()}
+        self.states_synced = {k: False for k in self.states}
+
+
+def _serialize(state):
+    if isinstance(state, torch.Tensor):
+        t = state.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return ("bf16", t.view(torch.int16).numpy())
+        return ("nd", t.numpy())
+    if isinstance(state, tuple):
+        return ("tuple", tuple(_serialize(s) for s in state))
+    return ("raw", state)
+
+
+def _deserialize(blob):
+    kind, value = blob
+    if kind == "nd":
+        return torch.from_numpy(np.array(value))
+    if kind == "bf16":
+        return torch.from_numpy(np.array(value)).view(torch.bfloat16)
+    if kind == "tuple":
+        return tuple(_deserialize(s) for s in value)
+    return value
+
+
+def _to_device(state, device):
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, tuple):
+        return tuple(_to_device(s, device) for s in state)
+    return state
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

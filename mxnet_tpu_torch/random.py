@@ -1,19 +1,26 @@
-"""Seeded random streams: one explicit :class:`torch.Generator` per use,
-created on the device the numbers are drawn on.
+"""Seeded random streams: one :class:`torch.Generator` per device.
 
-The JAX package keys a global threefry stream (``mxnet_tpu/random.py``);
-the port passes generators explicitly instead.  The same seed gives other
-bits than JAX's, so tests copy weights across rather than compare draws.
+The JAX package keys a global threefry stream (``mxnet_tpu/random.py``).
+The port keeps one generator per device instead: :func:`seed` (the
+reference's ``mx.random.seed``) reseeds every device's stream, and
+:func:`device_generator` gives the stream of a device, which Gluon's
+initializers and ``Dropout`` draw from.  Code that wants a stream of its
+own passes an explicit generator (:func:`generator`).  The same seed
+gives other bits than JAX's, so tests copy weights across rather than
+compare draws.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from .context import resolve_device
 
-__all__ = ["generator"]
+__all__ = ["generator", "seed", "device_generator"]
+
+_seed = 0
+_streams: Dict[str, torch.Generator] = {}
 
 
 def generator(seed: int, device: Optional[Union[str, torch.device]] = None
@@ -21,4 +28,25 @@ def generator(seed: int, device: Optional[Union[str, torch.device]] = None
     """A generator on ``device`` (default ``cuda``) seeded with ``seed``."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
+    return gen
+
+
+def seed(seed_state: int, ctx=None) -> None:
+    """Restart every device's stream from ``seed_state`` (reference
+    ``mx.random.seed``; ``ctx`` is accepted and, as in the JAX package,
+    every device is reseeded)."""
+    global _seed
+    _seed = int(seed_state)
+    _streams.clear()
+
+
+def device_generator(device: Union[str, torch.device]) -> torch.Generator:
+    """The stream of ``device``, started from the last :func:`seed` (0 if
+    none) at its first use."""
+    dev = torch.device(device)
+    key = str(dev)
+    gen = _streams.get(key)
+    if gen is None:
+        gen = _streams[key] = torch.Generator(device=dev)
+        gen.manual_seed(_seed)
     return gen

@@ -17,6 +17,8 @@ import sys
 before = set(sys.modules)
 import mxnet_tpu_torch, mxnet_tpu_torch.serving, chip_smoke
 import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.autograd, mxnet_tpu_torch.rtc
+import mxnet_tpu_torch.gluon, mxnet_tpu_torch.metric, mxnet_tpu_torch.io
+import mxnet_tpu_torch.lr_scheduler
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -30,7 +32,9 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
     for name in ("mxnet_tpu_torch", "torch", "mxnet_tpu_torch.ndarray",
-                 "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.rtc"):
+                 "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.rtc",
+                 "mxnet_tpu_torch.gluon", "mxnet_tpu_torch.metric",
+                 "mxnet_tpu_torch.io", "mxnet_tpu_torch.lr_scheduler"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
