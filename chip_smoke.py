@@ -37,13 +37,22 @@ beside its bound, then drives the port's paths:
   ``gluon.Trainer``, an ``NDArrayIter`` on the card and ``mx.metric``:
   its first 2 steps held against ``CompiledTrainStep`` from the same
   weights, then 3 + 10 timed steps beside ``CompiledTrainStep``'s.
+- export -> import -> serve (slice 9): full-width BERT-base (fp32,
+  random weights) served from its block through ``ModelServer.register``
+  under 24 concurrent requests, every answer held against a solo forward
+  on the card and one against the CPU, the fp32 tensor-core flash kernel's
+  launches gated at 12 per forward (``serving_bert``); full-width
+  resnet50_v1 exported, rebuilt with ``InferenceEngine.from_export`` and
+  served the same way (``serving_resnet_export``).
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, flash, flash_timing, fused, fused_timing, model_parity, serving,
-resnet_parity, training, gluon_training, rtc_kernels, rtc_ffn, bert_flash,
-bert_parity, bert_training), for a short call while a kernel is brought
-up; ``--only build,gluon_training`` runs just the Gluon loop.  The line before the last is the kernel table; the
+resnet_parity, training, gluon_training, serving_bert,
+serving_resnet_export, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
+bert_training), for a short call while a kernel is brought up; ``--only
+build,gluon_training`` runs just the Gluon loop and ``--only
+build,serving_bert,serving_resnet_export`` the serving phases.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -1087,6 +1096,312 @@ def phase_gluon_training(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# slice 9: export -> import -> serve
+# ---------------------------------------------------------------------------
+# Both models are served through ModelServer.register (ladder 1/2/4/8, 20
+# ms batching window) and take examples/serving/serve_resnet.py's traffic:
+# 24 concurrent requests of 1-3 rows from RandomState(seed), released
+# together through a barrier.  Gates: every answer within 1e-4 of its
+# largest |value| plus 1e-6 of a solo forward of the same block on the card
+# (the rungs sum in other orders than a solo batch); one request within
+# 1e-3 plus 1e-6 of the port's plain versions on the CPU from the same
+# weights (the kernel and cuDNN against the plain versions, through 12
+# layers); the cache holds the ladder's 4 entries, all made at warmup.
+# Timing: ms per batch of 8 through engine.predict against the block called
+# directly, 3 warm-up then 20 timed batches, synchronised at the end.
+SERVE = dict(max_batch=8, max_wait_us=20000, requests=24, rows=(1, 3),
+             card_rel=1e-4, cpu_rel=1e-3, abs=1e-6, warm=3, timed=20)
+# BERT-base (bert_12_768_12: vocab 30522, 768 units, 12 layers, 12 heads,
+# fp32, TF32 off, mx.init.Normal(0.02) from --seed), seq 128: 12 launches
+# of the fp32 tensor-core flash kernel per forward, at [b, 12, 128, 64]
+SERVE_BERT = dict(seq=128, heads=12, head_dim=64)
+SERVE_RESNET = dict(px=224, classes=1000)
+
+
+def _rows_gate(got, ref, rel):
+    """(max |got - ref|, its bound rel * max |ref| + SERVE["abs"])."""
+    g, r = got.asnumpy(), ref.asnumpy()
+    import numpy as np
+    return (float(np.abs(g - r).max()),
+            rel * float(np.abs(r).max()) + SERVE["abs"])
+
+
+def _traffic(server, name, reqs):
+    """Every request from a thread of its own, released together; returns
+    (answers, wall seconds from the release to the last answer)."""
+    import threading
+    client = server.client()
+    gate = threading.Barrier(len(reqs) + 1)
+    answers, errors = [None] * len(reqs), []
+
+    def call(i):
+        gate.wait()
+        try:
+            answers[i] = client.predict(name, reqs[i])
+        except Exception as e:  # noqa: BLE001 - reported as a gate
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    check(not errors, f"{name}: requests failed: {errors}")
+    return answers, time.perf_counter() - t0
+
+
+def _batch_ms(torch, fn):
+    """ms per call of ``fn`` over SERVE["timed"] calls after
+    SERVE["warm"], synchronised at the end."""
+    for _ in range(SERVE["warm"]):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE["timed"]):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / SERVE["timed"]
+
+
+def _serving_report(server, name, eng, reqs, wall, warm_stats):
+    """The phase line's serving figures and the cache gate."""
+    snap = server.stats(name)
+    cache = snap["compile_cache"]
+    rows = sum(len(r) for r in reqs)
+    out = {"requests": snap["requests"], "rows": rows,
+           "batches": snap["batches"], "wall_s": wall,
+           "rows_per_s": rows / wall,
+           "latency_ms_p50": snap["latency_us_p50"] / 1e3,
+           "latency_ms_p95": snap["latency_us_p95"] / 1e3,
+           "batch_occupancy": snap["batch_occupancy"],
+           "bucket_use": snap["bucket_use"],
+           "batch_stage_ms_mean": snap["batch_stage_ms_mean"],
+           "batch_stage_ms_max": snap["batch_stage_ms_max"],
+           "cache": {k: cache[k] for k in ("entries", "hits", "misses")},
+           "cache_after_warmup": {k: warm_stats[k]
+                                  for k in ("entries", "hits", "misses")},
+           "ladder": list(eng.ladder)}
+    out["cache_ok"] = (warm_stats["entries"] == warm_stats["misses"] == 4
+                       and warm_stats["hits"] == 0
+                       and cache["entries"] == cache["misses"] == 4
+                       and cache["hits"] == snap["batches"]
+                       and snap["requests"] == len(reqs))
+    return out
+
+
+def _serve_requests(seed, feat, make):
+    """SERVE["requests"] requests of 1-3 rows of ``feat`` from
+    RandomState(seed), each drawn by ``make(rng, shape)``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lo, hi = SERVE["rows"]
+    return [make(rng, (int(rng.randint(lo, hi + 1)),) + tuple(feat))
+            for _ in range(SERVE["requests"])]
+
+
+def _flash_at(torch, seed, batches):
+    """The fp32 tensor-core flash kernel at each [b, 12, 128, 64] the
+    served BERT gives it, once against its plain version, then timed
+    beside it and SDPA with the bound."""
+    from mxnet_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    h, s, d = SERVE_BERT["heads"], SERVE_BERT["seq"], SERVE_BERT["head_dim"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for b in batches:
+        q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        before = A.flash_fwd_tf32_launches
+        o, lse = A.flash_fwd(q, k, v, False, scale)
+        ran = A.flash_fwd_tf32_launches - before == 1
+        ro, rl = A._flash_forward_plain(q, k, v, False, scale)
+        err = max((o - ro).abs().max().item(), (lse - rl).abs().max().item())
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        best, _ = _in_turns(torch, {
+            "kernel": lambda: A.flash_fwd(q, k, v, False, scale),
+            "plain": lambda: A._flash_forward_plain(q, k, v, False, scale),
+            "library": lambda: sdpa(q4, k4, v4, scale=scale)})
+        bound, bound_by = flash_bound_ms(b, h, s, d, False, 4, ops_factor=3,
+                                         peak=PEAK_TF32_FLOPS)
+        cases.append({"shape": [b, h, s, d], "ran_tf32": ran,
+                      "max_abs_err": err, "ms": best["kernel"],
+                      "plain_ms": best["plain"],
+                      "library_ms": best["library"], "bound_ms": bound,
+                      "bound_by": bound_by,
+                      "ok": ran and err <= TOL["float32"]["o"]})
+    return cases
+
+
+def phase_serving_bert(torch, seed):
+    """Full-width BERT-base served from its block (see SERVE); returns the
+    fp32 tensor-core flash kernel's launches on this path."""
+    import tempfile
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.language import bert_12_768_12
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.serving import ModelServer
+    torch.cuda.empty_cache()
+    kernels = _flash_at(torch, seed, (1, 2, 4, 8))
+    mx.random.seed(seed)
+    net = bert_12_768_12(ctx=mx.gpu(0))
+    net.initialize(mx.init.Normal(0.02))
+    layers = len(net.encoder.cells)
+    vocab = net.word_embed._input_dim
+    units = net._units
+    forwards = [0]
+    hook = net.register_forward_pre_hook(
+        lambda block, args: forwards.__setitem__(0, forwards[0] + 1))
+    reqs = _serve_requests(seed, (SERVE_BERT["seq"],),
+                           lambda rng, shape: rng.randint(
+                               0, vocab, shape).astype(np.int32))
+
+    # the main path: register (warmup over the ladder), traffic, stop
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = 0
+    server = ModelServer()
+    eng = server.register("bert", net, max_batch=SERVE["max_batch"],
+                          max_wait_us=SERVE["max_wait_us"],
+                          input_spec=[((SERVE_BERT["seq"],), "int32")])
+    warm = eng.cache_stats
+    answers, wall = _traffic(server, "bert", reqs)
+    report = _serving_report(server, "bert", eng, reqs, wall, warm)
+    server.stop()
+    served = {"flash_fwd": A.flash_fwd_launches,
+              "tf32": A.flash_fwd_tf32_launches,
+              "wgmma": A.flash_fwd_wgmma_launches,
+              "forwards": forwards[0]}
+
+    # gates: solo forwards of the same block on the card, one request on
+    # the CPU through the plain versions from the same weights
+    worst_card = []
+    for x, got in zip(reqs, answers):
+        ref = net(mx.nd.array(x, ctx=mx.gpu(0), dtype="int32"))
+        worst_card.append([_rows_gate(g, r, SERVE["card_rel"])
+                           for g, r in zip(got, ref)])
+    solo_forwards = forwards[0] - served["forwards"]
+    hook.detach()
+    i2 = next(i for i, x in enumerate(reqs) if len(x) == 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        net.save_parameters(f"{tmp}/bert.params")
+        cpu_net = bert_12_768_12(ctx=mx.cpu())
+        cpu_net.load_parameters(f"{tmp}/bert.params")
+    cpu_ref = cpu_net(mx.nd.array(reqs[i2], ctx=mx.cpu(), dtype="int32"))
+    cpu_gate = [_rows_gate(g.as_in_context(mx.cpu()), r, SERVE["cpu_rel"])
+                for g, r in zip(answers[i2], cpu_ref)]
+    del cpu_net, cpu_ref
+
+    x8 = mx.nd.array(np.concatenate(reqs)[:SERVE["max_batch"]],
+                     ctx=mx.gpu(0), dtype="int32")
+    engine_ms = _batch_ms(torch, lambda: eng.predict(x8))
+    block_ms = _batch_ms(torch, lambda: net(x8))
+    out = {"phase": "serving_bert", "model": "bert_12_768_12",
+           "layers": layers, "units": units, "seq": SERVE_BERT["seq"],
+           "dtype": "float32", **SERVE, **report,
+           "engine_ms_per_batch8": engine_ms,
+           "block_ms_per_batch8": block_ms,
+           "flash_launches": served, "forwards_served": served["forwards"],
+           "solo_forwards": solo_forwards,
+           "card_worst": max((e / b, e) for r in worst_card for e, b in r),
+           "cpu_err_bound": cpu_gate, "flash_at_serving_shapes": kernels,
+           "tf32": _tf32(torch)}
+    out["gates"] = {
+        "answers_match_solo_forward": all(e <= b for r in worst_card
+                                          for e, b in r),
+        "one_request_matches_cpu": all(e <= b for e, b in cpu_gate),
+        "shapes": all(g[0].shape == (len(x), SERVE_BERT["seq"], units)
+                      and g[1].shape == (len(x), units)
+                      for x, g in zip(reqs, answers)),
+        "flash_launches": served["tf32"] == layers * served["forwards"]
+        and served["flash_fwd"] == served["tf32"]
+        and served["wgmma"] == 0 and served["forwards"] > 0,
+        "cache": report["cache_ok"],
+        "multi_request_batches": any(int(k) >= 2 for k in
+                                     report["batch_occupancy"]),
+        "kernel_at_serving_shapes": all(c["ok"] for c in kernels)}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"serving_bert failed: {out['gates']}")
+    del net, eng, answers
+    return served["tf32"]
+
+
+def phase_serving_resnet_export(torch, seed):
+    """Full-width resnet50_v1 exported, rebuilt from its files with
+    InferenceEngine.from_export and served (see SERVE)."""
+    import tempfile
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.serving import InferenceEngine, ModelServer
+    torch.cuda.empty_cache()
+    os.environ["MXNET_TPU_FUSE_CONV_BN"] = "0"
+    mx.random.seed(seed)
+    net = resnet50_v1(classes=SERVE_RESNET["classes"], ctx=mx.gpu(0))
+    net.initialize(mx.init.Xavier())
+    feat = (3, SERVE_RESNET["px"], SERVE_RESNET["px"])
+    net(mx.nd.zeros((1,) + feat, ctx=mx.gpu(0)))   # captures the signature
+    reqs = _serve_requests(seed, feat, lambda rng, shape: rng.rand(
+        *shape).astype(np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = f"{tmp}/resnet50_v1"
+        net.export(prefix)
+        with open(f"{prefix}-symbol.json") as f:
+            graph = json.load(f)
+        eng = InferenceEngine.from_export(prefix,
+                                          max_batch=SERVE["max_batch"])
+        cpu_eng = InferenceEngine.from_export(prefix, max_batch=4,
+                                              ctx=mx.cpu())
+    server = ModelServer()
+    server.register("resnet", engine=eng, max_wait_us=SERVE["max_wait_us"])
+    warm = eng.cache_stats
+    answers, wall = _traffic(server, "resnet", reqs)
+    report = _serving_report(server, "resnet", eng, reqs, wall, warm)
+    server.stop()
+
+    worst_card = [_rows_gate(got, net(mx.nd.array(x, ctx=mx.gpu(0))),
+                             SERVE["card_rel"])
+                  for x, got in zip(reqs, answers)]
+    cpu_ref = cpu_eng.predict(reqs[0])
+    cpu_gate = _rows_gate(answers[0].as_in_context(mx.cpu()), cpu_ref,
+                          SERVE["cpu_rel"])
+    x8 = mx.nd.array(np.concatenate(reqs)[:SERVE["max_batch"]],
+                     ctx=mx.gpu(0))
+    engine_ms = _batch_ms(torch, lambda: eng.predict(x8))
+    symbol_block_ms = _batch_ms(torch, lambda: eng.block(x8))
+    block_ms = _batch_ms(torch, lambda: net(x8))
+    out = {"phase": "serving_resnet_export", "model": "resnet50_v1",
+           "fused": False, "dtype": "float32", "px": SERVE_RESNET["px"],
+           "graph_nodes": len(graph["nodes"]),
+           "graph_ops": sorted({n["op"] for n in graph["nodes"]}),
+           "input_spec": eng.input_spec, **SERVE, **report,
+           "engine_ms_per_batch8": engine_ms,
+           "symbol_block_ms_per_batch8": symbol_block_ms,
+           "block_ms_per_batch8": block_ms,
+           "card_worst": max((e / b, e) for e, b in worst_card),
+           "cpu_err_bound": cpu_gate, "tf32": _tf32(torch)}
+    out["gates"] = {
+        "answers_match_solo_forward": all(e <= b for e, b in worst_card),
+        "one_request_matches_cpu": cpu_gate[0] <= cpu_gate[1],
+        "shapes": all(g.shape == (len(x), SERVE_RESNET["classes"])
+                      for x, g in zip(reqs, answers)),
+        "spec_from_sidecar": eng.input_spec == [(feat, "float32")],
+        "cache": report["cache_ok"],
+        "multi_request_batches": any(int(k) >= 2 for k in
+                                     report["batch_occupancy"])}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"serving_resnet_export failed: {out['gates']}")
+    del net, eng, cpu_eng, answers
+
+
+# ---------------------------------------------------------------------------
 # slice 3: mx.nd / mx.autograd / mx.rtc.CudaModule
 # ---------------------------------------------------------------------------
 # Each rtc kernel below is user code, as an MXNet user writes it for
@@ -2022,8 +2337,9 @@ def _kernel_line(name, source, replaces, launches, timing):
 
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
           "fused_timing", "model_parity", "serving",
-          "resnet_parity", "training", "gluon_training", "rtc_kernels",
-          "rtc_ffn", "bert_flash", "bert_parity", "bert_training")
+          "resnet_parity", "training", "gluon_training", "serving_bert",
+          "serving_resnet_export", "rtc_kernels", "rtc_ffn", "bert_flash",
+          "bert_parity", "bert_training")
 
 
 def main(argv=None):
@@ -2078,6 +2394,11 @@ def main(argv=None):
             by_path.get("gluon_training", by_path.get("training")), fused)
         line["launches_by_path"] = by_path
         lines.append(line)
+    bert_paths = {}
+    if "serving_bert" in only:
+        bert_paths["serving_bert"] = phase_serving_bert(torch, args.seed)
+    if "serving_resnet_export" in only:
+        phase_serving_resnet_export(torch, args.seed)
     if "rtc_kernels" in only or "rtc_ffn" in only:
         kernels, twins = phase_rtc_kernels(torch, args.seed)
     if "rtc_ffn" in only:
@@ -2088,15 +2409,19 @@ def main(argv=None):
     if "bert_parity" in only:
         phase_bert_parity(torch, args.seed)
     if "bert_training" in only:
-        launches = phase_bert_training(torch, args.seed)
-        if "bert_flash" in only:
-            line = _kernel_line("flash_fwd_bert",
-                                "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
-                                "mxnet_tpu/ops/attention.py:51", launches,
-                                bert_timing)
-            line["shape"], line["dtype"] = BERT_FLASH, "float32"
-            line["simt_ms"] = bert_timing["simt_ms"]
-            lines.append(line)
+        bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
+    if bert_paths and "bert_flash" in only:
+        # launches: this slice's path (serving_bert) when it ran
+        line = _kernel_line("flash_fwd_bert",
+                            "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
+                            "mxnet_tpu/ops/attention.py:51",
+                            bert_paths.get("serving_bert",
+                                           bert_paths.get("bert_training")),
+                            bert_timing)
+        line["launches_by_path"] = bert_paths
+        line["shape"], line["dtype"] = BERT_FLASH, "float32"
+        line["simt_ms"] = bert_timing["simt_ms"]
+        lines.append(line)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,16 @@ and runtime-compiled CUDA kernels (``rtc.CudaModule`` over NVRTC).
 Slice 6 is the BERT-base pretraining step.  Slice 8 is the Gluon training
 loop: ``gluon.Parameter``/``Block``/``Trainer`` with deferred init,
 ``mx.init``, ``mx.lr_scheduler``, ``mx.metric`` and ``mx.io.NDArrayIter``.
+Slice 9 is export, import and serving: ``mx.sym`` with its ``Executor``,
+``HybridBlock.export``/``SymbolBlock``, ``CachedOp`` and the
+non-generative ``ModelServer.register`` path (engine, batcher, client).
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 (``device="cpu"``, ``mx.cpu()``)."""
 from . import (autograd, base, context, contrib, convert, error, executor,
                gluon, initializer, io, lr_scheduler, metric, name, ndarray,
-               ops, optimizer, random, rtc, serving)
+               ops, optimizer, random, rtc, serving, symbol)
 from .base import MXNetError, env
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       resolve_device, set_default_context, tpu)
@@ -24,11 +27,13 @@ from .ndarray import NDArray, waitall
 
 nd = ndarray
 init = initializer
+sym = symbol
 
 __all__ = ["autograd", "base", "context", "contrib", "convert", "error",
            "executor", "gluon", "init", "initializer", "io", "lr_scheduler",
            "metric", "name", "nd", "ndarray", "ops",
-           "optimizer", "random", "rtc", "serving", "MXNetError", "env",
+           "optimizer", "random", "rtc", "serving", "sym", "symbol",
+           "MXNetError", "env",
            "Context", "cpu", "gpu", "tpu", "current_context",
            "set_default_context", "num_gpus", "resolve_device", "NDArray",
            "waitall"]

@@ -16,8 +16,8 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "ServerClosedError", "RequestCancelledError",
-           "EnvRegistry", "env", "row_bucket", "dtype_torch", "dtype_name",
-           "numpy_dtype", "BFLOAT16", "narrow_source"]
+           "EnvRegistry", "env", "row_bucket", "attr_truthy", "dtype_torch",
+           "dtype_name", "numpy_dtype", "BFLOAT16", "narrow_source"]
 
 
 class MXNetError(RuntimeError):
@@ -88,6 +88,24 @@ env.declare("MXNET_TPU_FUSE_CONV_BN", 0, int,
             "pairs as FusedConv1x1BN (the CUDA matmul with a BN-statistics "
             "epilogue, ops/fused_conv_bn.py) instead of Conv2D+BatchNorm.  "
             "Read when the block is constructed.")
+
+
+env.declare("MXNET_SERVING_MAX_QUEUE", 256, int,
+            "Admission bound on a DynamicBatcher's queue (pending requests); "
+            "submissions beyond it are shed with OverloadedError.")
+env.declare("MXNET_SERVING_DEADLINE_MS", 0, int,
+            "Default per-request serving deadline in milliseconds; a request "
+            "still queued past it fails with DeadlineExceededError instead "
+            "of occupying the batch.  0 = no default deadline.")
+
+
+def attr_truthy(v) -> bool:
+    """Truth of an op attribute that survives symbol-JSON round trips,
+    where attrs can arrive as repr strings (``'False'``, ``'0'``): a plain
+    ``bool()`` would read ``'False'`` as true."""
+    if isinstance(v, str):
+        return v.strip().lower() in ("true", "1")
+    return bool(v)
 
 
 def row_bucket(n: int, minimum: int = 16) -> int:

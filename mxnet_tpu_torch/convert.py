@@ -83,13 +83,13 @@ _BERT_RENAMES = (("token_type_embed.", "type_embed."), ("attention.", "attn."),
 
 
 def _bert_name(key: str, top: str, backbone: str) -> str:
-    """``bert.encoder.cells.0.attention.proj.weight`` ->
+    """``bert.encoder.layer0.attention.proj.weight`` ->
     ``<backbone>enc_layer0_attn_out_weight``; keys outside ``bert.`` take
     the ``top`` prefix (``mlm_bias`` -> ``<top>mlm_bias``)."""
     prefix = top
     if key.startswith("bert."):
         prefix, key = backbone, key[len("bert."):]
-    key = re.sub(r"^encoder\.cells\.(\d+)\.", r"enc_layer\1.", key)
+    key = re.sub(r"^encoder\.layer(\d+)\.", r"enc_layer\1.", key)
     for port, jax_name in _BERT_RENAMES:
         key = key.replace(port, jax_name)
     return prefix + key.replace(".", "_")

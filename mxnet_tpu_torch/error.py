@@ -1,14 +1,17 @@
 """Structured exception hierarchy (reference ``python/mxnet/error.py``).
 
 Counterpart of ``mxnet_tpu/error.py``: a registry maps error *names* to
-exception classes with the reference's public surface.
+exception classes with the reference's public surface.  It also holds the
+port's copies of the serving errors of ``mxnet_tpu/resilience/policy.py``
+that the dynamic batcher raises (overload, deadline, backend down).
 """
 from __future__ import annotations
 
-from .base import MXNetError
+from .base import MXNetError, ServerClosedError
 
 __all__ = ["MXNetError", "register_error", "register", "InternalError",
-           "get_error_class"]
+           "get_error_class", "OverloadedError", "DeadlineExceededError",
+           "BackendUnavailableError", "ServerClosedError"]
 
 _ERROR_TYPES = {}
 
@@ -42,6 +45,27 @@ class InternalError(MXNetError):
     """Framework-internal invariant violation (reference error.py:31)."""
 
 
+@register_error
+class BackendUnavailableError(MXNetError):
+    """The model's backend is unavailable; the request was refused."""
+
+
+@register_error
+class DeadlineExceededError(MXNetError, TimeoutError):
+    """A request's deadline passed before it ran."""
+
+
+@register_error
+class OverloadedError(MXNetError):
+    """Admission control refused the request (queue full); retry after
+    ``retry_after_s`` seconds."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+register_error("ServerClosedError", ServerClosedError)
 register_error("ValueError", ValueError)
 register_error("TypeError", TypeError)
 register_error("AttributeError", AttributeError)

@@ -23,12 +23,23 @@ block whose ``forward`` is defined outside the port (a user's), and a
 ``HybridBlock`` that defines ``hybrid_forward(F, x, **params)`` (``F`` is
 ``mx.nd``), compute on NDArrays, whichever way they are called.
 
-``hybridize()`` records that it was asked and changes nothing else: blocks
-run eagerly (compiling a block waits for a later slice).
+Calling a block with Symbols composes a graph instead: a
+``HybridBlock`` runs its reference-form ``hybrid_forward(F=mx.sym, x,
+**param_vars)`` on variables named after its parameters, as the JAX
+package's does, which is how :meth:`HybridBlock.export` writes the symbol
+JSON that :class:`SymbolBlock` (of either package) loads.  The port's
+layers keep their tensor ``forward`` as the path every tensor or NDArray
+call takes; their ``hybrid_forward`` is the symbolic form.
+
+``hybridize()`` routes the block's NDArray calls through a
+:class:`~mxnet_tpu_torch.cached_op.CachedOp`, keyed per input signature;
+each entry runs the block eagerly.
 """
 from __future__ import annotations
 
+import json
 import re
+import sys
 import threading
 from collections import OrderedDict
 from typing import Dict, Optional
@@ -38,16 +49,24 @@ from torch import nn
 
 from .. import autograd
 from .. import ndarray as _ndmod
-from ..context import Context, cpu, resolve_device
+from ..base import MXNetError
+from ..cached_op import CachedOp
+from ..context import Context, cpu, current_context, resolve_device
 from ..ndarray import ndarray as _nd
 from ..ndarray.ndarray import NDArray
 from .parameter import (DeferredInitializationError, Parameter, ParameterDict,
                         _shape_known)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _PACKAGE = __name__.split(".")[0] + "."
+_SYMBOL_MODULE = _PACKAGE + "symbol.symbol"
 _tls = threading.local()
+
+
+def _is_symbol(x) -> bool:
+    sym = sys.modules.get(_SYMBOL_MODULE)
+    return sym is not None and isinstance(x, sym.Symbol)
 
 
 class _BlockScope:
@@ -373,6 +392,8 @@ class Block(nn.Module):
         self._deferred = [p for p in pending if not p._allocated()]
 
     def __call__(self, *args, **kwargs):
+        if args and _is_symbol(args[0]):
+            return self._call_symbol(*args, **kwargs)
         if self._deferred:
             self._finish_deferred(*args)
         ctx = _first_ctx(args)
@@ -402,23 +423,68 @@ class Block(nn.Module):
         finally:
             stack.pop()
 
+    def _call_symbol(self, *args, **kwargs):
+        """A call with Symbols: the forward composes the graph."""
+        return self.forward(*args, **kwargs)
+
     def forward(self, *args):
         raise NotImplementedError
 
 
 class HybridBlock(Block):
-    """A block that ``hybridize`` may compile (not yet: see the module
-    docstring).  Subclasses define a tensor ``forward`` (the port's
-    layers) or ``hybrid_forward(self, F, x, *args, **params)``, which gets
-    ``F = mx.nd``, NDArrays, and each registered parameter's NDArray by
-    name."""
+    """A block with a symbolic form.  Subclasses define a tensor
+    ``forward`` (the port's layers) and ``hybrid_forward(self, F, x,
+    *args, **params)``, or ``hybrid_forward`` alone, which then also
+    serves NDArray and tensor calls with ``F = mx.nd``, NDArrays, and each
+    registered parameter's NDArray by name.  With Symbols,
+    ``hybrid_forward`` gets ``F = mx.sym`` and each parameter's
+    variable."""
 
     _active = False
+    _cached_op = None
 
     def hybridize(self, active=True, **kwargs):
+        """Route NDArray calls through a CachedOp (``active``); the
+        children run inside this block's entry, as in the JAX package,
+        where only the outermost hybridized block compiles.  The
+        reference's flags (``static_alloc``, ...) are accepted and have
+        nothing to set."""
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._cached_op = None
         return self
+
+    def _eager_forward(self, *args):
+        """The block's NDArray call without its CachedOp (what an entry
+        runs, and what the serving engine caches)."""
+        return Block.__call__(self, *args)
+
+    def _call_symbol(self, *args, **kwargs):
+        from .. import symbol as F
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise MXNetError(f"{type(self).__name__} has no symbolic form "
+                             "(no hybrid_forward)")
+        params = {name: p.var() for name, p in self._reg_params.items()}
+        return self.hybrid_forward(F, *args, **kwargs, **params)
+
+    def export(self, path, epoch=0):
+        """Write ``{path}-symbol.json`` (the traced graph, input
+        ``data``), ``{path}-{epoch:04d}.params`` (``arg:``/``aux:`` keys by
+        ``grad_req``, the shared ``.npz`` format) and, once an NDArray call
+        captured the input signature, ``{path}-signature.json``, as
+        ``mxnet_tpu/gluon/block.py:export`` does; returns the first two
+        paths."""
+        from ..symbol import trace_to_symbol
+        sym = trace_to_symbol(self)
+        sym.save(f"{path}-symbol.json")
+        params = {f"{'aux' if p.grad_req == 'null' else 'arg'}:{name}":
+                  p.data() for name, p in self.collect_params().items()}
+        _nd.save(f"{path}-{epoch:04d}.params", params)
+        sig = self.input_signature()
+        if sig is not None:
+            with open(f"{path}-signature.json", "w") as f:
+                json.dump({"inputs": [{"shape": list(shape), "dtype": dt}
+                                      for shape, dt in sig]}, f)
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
 
     def input_signature(self):
         """``((shape, dtype), ...)`` of the NDArray inputs of the last
@@ -429,6 +495,12 @@ class HybridBlock(Block):
         if any(isinstance(a, NDArray) for a in args):
             self._in_sig = tuple((tuple(a.shape), str(a.dtype))
                                  for a in args if isinstance(a, NDArray))
+            if self._active and not kwargs:
+                if self._cached_op is None:
+                    self._cached_op = CachedOp(
+                        self._eager_forward,
+                        list(self.collect_params().values()))
+                return self._cached_op(*args)
         return super().__call__(*args, **kwargs)
 
     def forward(self, x, *args):
@@ -444,3 +516,52 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a loaded symbol and its parameters (reference
+    ``gluon/block.py:SymbolBlock``): the forward binds the inputs by name
+    (``inputs``) and each parameter by its variable's name, and walks the
+    graph through the registry in predict mode, as the JAX package's
+    does.  ``params`` maps ``arg:name``/``aux:name`` (or bare names) to
+    NDArrays; each becomes a Parameter on the NDArray's device (``aux:``
+    ones take no gradient)."""
+
+    _nd_forward = True
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        self._sym_outputs = outputs
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._sym_inputs = [x if isinstance(x, str) else x.name
+                            for x in inputs]
+        for key, arr in (params or {}).items():
+            aux = key.startswith("aux:")
+            name = key[4:] if key.startswith(("arg:", "aux:")) else key
+            p = Parameter(name, shape=arr.shape, dtype=str(arr.dtype),
+                          grad_req="null" if aux else "write",
+                          differentiable=not aux)
+            self._params._params[name] = p
+            self._device = arr.context.torch_device()
+            self._register_param(name.replace(".", "_"), p)
+            p.set_data(arr)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock from an export's files, its parameters on
+        ``ctx`` (default: the current context)."""
+        from ..symbol import load as sym_load
+        sym = sym_load(symbol_file)
+        params = {}
+        if param_file:
+            with (ctx or current_context()):
+                params = _nd.load(param_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        return SymbolBlock(sym, input_names, params)
+
+    def forward(self, *args):
+        bindings = dict(zip(self._sym_inputs, args))
+        for name, p in self._params.items():
+            bindings[name] = p.data()
+        return self._sym_outputs.eval_with(bindings)

@@ -17,11 +17,16 @@ The dtypes follow the JAX package's promotion: with a bf16 weight and
 input the conv output is bf16, but the normalise subtracts the fp32 mean,
 so the block returns fp32, and a following bf16 ``Conv2D`` refuses the
 mixed dtypes, as in the JAX package.
+
+``hybrid_forward`` is the JAX block's, both branches, over the registry's
+``_contrib_conv1x1_bn_stats``: the symbolic form ``export`` traces, which
+outside training is the folded product with ``with_stats=False``.
 """
 from __future__ import annotations
 
 import torch
 
+from ... import autograd
 from ...base import env
 from ...ops.fused_conv_bn import conv1x1_bn_stats_op
 from ..block import HybridBlock
@@ -98,6 +103,39 @@ class FusedConv1x1BN(HybridBlock):
         if self._relu:
             out = torch.relu(out)
         return out.permute(0, 3, 1, 2)
+
+    def hybrid_forward(self, F, x, weight=None, gamma=None, beta=None,
+                       running_mean=None, running_var=None):
+        if autograd.is_training():
+            y, s1, s2 = F._contrib_conv1x1_bn_stats(
+                x.transpose(axes=(0, 2, 3, 1)), weight, stride=self._strides)
+            n, h, w, _ = y.shape
+            m_rows = n * h * w
+            mean = s1 / m_rows
+            if env.MXNET_TPU_FAST_VARIANCE:
+                var = F.maximum(s2 / m_rows - mean * mean, 0.0)
+            else:
+                var = F.mean((y - mean.reshape(1, 1, 1, -1)) ** 2,
+                             axis=(0, 1, 2))
+            inv = (var + self._epsilon) ** -0.5
+            out = (y - mean.reshape(1, 1, 1, -1)) * (inv * gamma).reshape(
+                1, 1, 1, -1) + beta.reshape(1, 1, 1, -1)
+            mom = self._momentum
+            running_mean._set_data(mom * running_mean._data
+                                   + (1 - mom) * mean._data)
+            running_var._set_data(mom * running_var._data
+                                  + (1 - mom) * var._data)
+        else:
+            inv = (running_var + self._epsilon) ** -0.5
+            scale = gamma * inv
+            wf = weight * scale.reshape(-1, 1, 1, 1)
+            y, _, _ = F._contrib_conv1x1_bn_stats(
+                x.transpose(axes=(0, 2, 3, 1)), wf, stride=self._strides,
+                with_stats=False)
+            out = y + (beta - running_mean * scale).reshape(1, 1, 1, -1)
+        if self._relu:
+            out = F.relu(out)
+        return out.transpose(axes=(0, 3, 1, 2))
 
     def extra_repr(self):
         return (f"{self._channels}, strides={self._strides}, "

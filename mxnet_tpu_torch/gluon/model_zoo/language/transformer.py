@@ -11,38 +11,46 @@ same modules, parameter layout and order, and numerics.
   the attention probabilities; post-LN residual wiring; gelu in the FFN.
 
 Every ``Dropout`` of a block draws from the one ``torch.Generator`` the
-block is given (``generator=``); at rate 0 it is the identity.
+block is given (``generator=``), or, without one, from the device's
+``mx.random`` stream under the Gluon boundary; at rate 0 it is the
+identity.
+
+The blocks are Gluon ``HybridBlock``s built in the JAX package's name
+scopes (``prefix=``), so ``collect_params()`` gives its names
+(``bertmodel0_enc_layer0_attn_qkv_weight``) and ``save_parameters`` its
+structural names (``encoder.layer0.attention.qkv.weight``).  They have no
+symbolic form: the JAX package cannot trace BERT either.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ....context import resolve_device
 from ....ops import flash_attention
+from ...block import HybridBlock
 from ...nn import Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "TransformerEncoder"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(HybridBlock):
     """Self-attention over ``[B, S, units]`` with packed QKV; the heads
     stay packed ``[B, S, H·D]`` into the attention op."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
-                 causal=False, generator=None, device=None):
-        super().__init__()
+                 causal=False, generator=None, device=None, **kwargs):
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by heads "
                              f"{num_heads}")
         dev = resolve_device(device)
+        super().__init__(device=dev, **kwargs)
         self._num_heads = num_heads
         self._causal = causal
-        self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
-                         in_units=units, device=dev)
-        self.proj = Dense(units, flatten=False, use_bias=use_bias,
-                          in_units=units, device=dev)
-        self.dropout = Dropout(dropout, generator=generator)
+        with self.name_scope():
+            self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
+                             in_units=units, prefix="qkv_", device=dev)
+            self.proj = Dense(units, flatten=False, use_bias=use_bias,
+                              in_units=units, prefix="out_", device=dev)
+            self.dropout = Dropout(dropout, generator=generator)
 
     def forward(self, x, valid_length=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -51,62 +59,70 @@ class MultiHeadAttention(nn.Module):
             causal=self._causal)))
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     """``Dense(hidden, activation)`` then ``Dense(units)``."""
 
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
-                 generator=None, device=None):
-        super().__init__()
+                 generator=None, device=None, **kwargs):
         dev = resolve_device(device)
-        self.ffn1 = Dense(hidden_size, flatten=False, activation=activation,
-                          in_units=units, device=dev)
-        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
-                          device=dev)
-        self.dropout = Dropout(dropout, generator=generator)
+        super().__init__(device=dev, **kwargs)
+        with self.name_scope():
+            self.ffn1 = Dense(hidden_size, flatten=False,
+                              activation=activation, in_units=units,
+                              prefix="ffn1_", device=dev)
+            self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
+                              prefix="ffn2_", device=dev)
+            self.dropout = Dropout(dropout, generator=generator)
 
     def forward(self, x):
         return self.dropout(self.ffn2(self.ffn1(x)))
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCell(HybridBlock):
     """Post-LN encoder cell: ``x = LN(x + MHA(x))``, ``x = LN(x + FFN(x))``."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  activation="gelu", causal=False, layer_norm_eps=1e-12,
-                 generator=None, device=None):
-        super().__init__()
+                 generator=None, device=None, **kwargs):
         dev = resolve_device(device)
-        self.attention = MultiHeadAttention(units, num_heads, dropout=dropout,
-                                            causal=causal,
-                                            generator=generator, device=dev)
-        self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
-                             device=dev)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
-                                   activation=activation, generator=generator,
-                                   device=dev)
-        self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
-                             device=dev)
+        super().__init__(device=dev, **kwargs)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(
+                units, num_heads, dropout=dropout, causal=causal,
+                generator=generator, device=dev, prefix="attn_")
+            self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                                 prefix="ln1_", device=dev)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
+                                       activation=activation,
+                                       generator=generator, device=dev,
+                                       prefix="ffn_")
+            self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                                 prefix="ln2_", device=dev)
 
     def forward(self, x, valid_length=None):
         x = self.ln1(x + self.attention(x, valid_length))
         return self.ln2(x + self.ffn(x))
 
 
-class TransformerEncoder(nn.Module):
-    """A stack of ``num_layers`` encoder cells."""
+class TransformerEncoder(HybridBlock):
+    """A stack of ``num_layers`` encoder cells, registered as ``layer{i}``
+    (``cells`` lists them)."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
                  activation="gelu", causal=False, layer_norm_eps=1e-12,
-                 generator=None, device=None):
-        super().__init__()
+                 generator=None, device=None, **kwargs):
         dev = resolve_device(device)
-        self.cells = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads,
-                                   dropout=dropout, activation=activation,
-                                   causal=causal,
-                                   layer_norm_eps=layer_norm_eps,
-                                   generator=generator, device=dev)
-            for _ in range(num_layers))
+        super().__init__(device=dev, **kwargs)
+        self.cells = []
+        with self.name_scope():
+            for i in range(num_layers):
+                cell = TransformerEncoderCell(
+                    units, hidden_size, num_heads, dropout=dropout,
+                    activation=activation, causal=causal,
+                    layer_norm_eps=layer_norm_eps, generator=generator,
+                    device=dev, prefix=f"layer{i}_")
+                self.register_child(cell, f"layer{i}")
+                self.cells.append(cell)
 
     def forward(self, x, valid_length=None):
         for cell in self.cells:

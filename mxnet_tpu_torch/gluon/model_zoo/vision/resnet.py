@@ -14,8 +14,10 @@ the body's 1x1 convs keep their bias and the downsample conv has none.
 The JAX package leaves most input widths to deferred init; here every
 layer is built with its width, computed from the model's own arguments
 (images have 3 channels), so the tensors exist as soon as the model does,
-on ``device`` (or ``ctx``; default the card).  ResNet v2, ``thumbnail``
-and pretrained weights wait for later slices.
+on ``device`` (or ``ctx``; default the card).  Each block's
+``hybrid_forward`` is the JAX block's symbolic form (the residual
+``broadcast_add`` and ``Activation``), which ``export`` traces.  ResNet
+v2, ``thumbnail`` and pretrained weights wait for later slices.
 """
 from __future__ import annotations
 
@@ -65,6 +67,17 @@ class BasicBlockV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(self.body(x) + residual)
 
+    def hybrid_forward(self, F, x):
+        return _residual(F, self, x)
+
+
+def _residual(F, block, x):
+    """``relu(body(x) + residual)``, the body composed first, as the JAX
+    blocks do."""
+    out = block.body(x)
+    residual = x if block.downsample is None else block.downsample(x)
+    return F.Activation(out + residual, act_type="relu")
+
 
 def _conv1x1_bn(seq, channels, stride, relu, in_channels, use_bias=True,
                 device=None):
@@ -102,6 +115,9 @@ class BottleneckV1(HybridBlock):
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(self.body(x) + residual)
+
+    def hybrid_forward(self, F, x):
+        return _residual(F, self, x)
 
 
 class ResNetV1(HybridBlock):
@@ -153,6 +169,9 @@ class ResNetV1(HybridBlock):
         return layer
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

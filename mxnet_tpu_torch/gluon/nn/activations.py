@@ -20,5 +20,8 @@ class Activation(HybridBlock):
     def forward(self, x):
         return F.activation(x, self._act_type)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
     def extra_repr(self):
         return self._act_type

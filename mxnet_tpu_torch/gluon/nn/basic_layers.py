@@ -13,12 +13,14 @@ each layer registers its tensors in the JAX package's order, so
 (``convert.resnet_state_dict_from_mxnet`` relies on it).  ``Dropout``
 draws its masks from the generator it is given; without one it draws from
 the device's stream (``mx.random``) under the Gluon boundary and refuses
-to train otherwise.
+to train otherwise.  Each layer's ``hybrid_forward`` is the JAX layer's,
+in registry ops: the symbolic form that ``export`` traces.
 """
 from __future__ import annotations
 
 import torch
 
+from ... import autograd
 from ... import ndarray as _ndmod
 from ... import random as _random
 from ...base import MXNetError
@@ -42,6 +44,9 @@ class _Stack:
         for block in self._modules.values():
             x = block(x)
         return x
+
+    def hybrid_forward(self, F, x, *args):
+        return self.forward(x, *args)
 
     def __len__(self):
         return len(self._modules)
@@ -114,6 +119,18 @@ class Dense(HybridBlock):
         out = F.fully_connected(x, self.weight, self.bias, self._flatten)
         return F.activation(out, self._act_type) if self._act_type else out
 
+    def hybrid_forward(self, F, x, weight=None, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, no_bias=True,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
     def extra_repr(self):
         return f"{self._units}, {self._act_type or 'linear'}"
 
@@ -137,6 +154,11 @@ class Dropout(HybridBlock):
         if gen is None and self.training and _boundary_ctx() is not None:
             gen = _random.device_generator(x.device)
         return F.dropout(x, self._rate, self.training, gen, self._axes)
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return F.copy(x)
 
     def extra_repr(self):
         return f"p={self._rate}"
@@ -206,6 +228,21 @@ class BatchNorm(HybridBlock):
             _update_running(self, mean, var)
         return out
 
+    def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,
+                       running_var=None):
+        # output_mean_var keeps the statistics visible to a symbolic trace
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            output_mean_var=True)
+        if autograd.is_training() and not self._use_global_stats:
+            m = self._momentum
+            running_mean._set_data(m * running_mean._data
+                                   + (1 - m) * mean._data)
+            running_var._set_data(m * running_var._data + (1 - m) * var._data)
+        return out
+
     def extra_repr(self):
         return f"axis={self._axis}, momentum={self._momentum}"
 
@@ -261,6 +298,11 @@ class LayerNorm(HybridBlock):
         return F.layer_norm(x, self.gamma, self.beta, self._axis,
                             self._epsilon)
 
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        out, _, _ = F.LayerNorm(x, gamma, beta, axis=self._axis,
+                                eps=self._epsilon, output_mean_var=True)
+        return out
+
 
 class Embedding(HybridBlock):
     """Row lookup in a ``[input_dim, output_dim]`` table drawn from the
@@ -282,6 +324,10 @@ class Embedding(HybridBlock):
     def forward(self, x):
         return F.embedding(x, self.weight)
 
+    def hybrid_forward(self, F, x, weight=None):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim, sparse_grad=False)
+
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
 
@@ -291,6 +337,9 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
 
 
 class Lambda(Block):

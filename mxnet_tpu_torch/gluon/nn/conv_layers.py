@@ -3,7 +3,9 @@
 ``mxnet_tpu/gluon/nn/conv_layers.py``), NCHW.
 
 ``Conv2D`` with ``in_channels=0`` infers its input width at the first
-forward (deferred init).  Each layer's ``forward`` computes on tensors.
+forward (deferred init).  Each layer's ``forward`` computes on tensors;
+its ``hybrid_forward`` is the JAX layer's (``Convolution`` / ``Pooling``
+with the JAX layer's params), the symbolic form that ``export`` traces.
 """
 from __future__ import annotations
 
@@ -42,6 +44,11 @@ class Conv2D(HybridBlock):
         self._act_type = activation
         self._kwargs = dict(stride=_pair(strides), pad=_pair(padding),
                             dilate=_pair(dilation), num_group=groups)
+        self._sym_kwargs = {
+            "kernel": self._kernel, "stride": _pair(strides),
+            "dilate": _pair(dilation), "pad": _pair(padding),
+            "num_filter": channels, "num_group": groups,
+            "no_bias": not use_bias}
         wshape = (channels, in_channels // groups if in_channels else 0
                   ) + self._kernel
         with self.name_scope():
@@ -63,6 +70,15 @@ class Conv2D(HybridBlock):
         out = F.convolution(x, self.weight, self.bias, **self._kwargs)
         return F.activation(out, self._act_type) if self._act_type else out
 
+    def hybrid_forward(self, F, x, weight=None, bias=None):
+        if bias is None:
+            out = F.Convolution(x, weight, **self._sym_kwargs)
+        else:
+            out = F.Convolution(x, weight, bias, **self._sym_kwargs)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
     def extra_repr(self):
         return (f"{self._channels}, kernel_size={self._kernel}, "
                 f"stride={self._kwargs['stride']}")
@@ -70,17 +86,28 @@ class Conv2D(HybridBlock):
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout="NCHW", count_include_pad=True, **kwargs):
+                 pool_type, layout="NCHW", count_include_pad=None, **kwargs):
         super().__init__(**kwargs)
         _nchw(layout)
         self._kwargs = dict(kernel=_pair(pool_size),
                             stride=None if strides is None else _pair(strides),
                             pad=_pair(padding), global_pool=global_pool,
                             pool_type=pool_type, ceil_mode=ceil_mode,
-                            count_include_pad=count_include_pad)
+                            count_include_pad=count_include_pad is not False)
+        self._sym_kwargs = {
+            "kernel": _pair(pool_size),
+            "stride": _pair(pool_size if strides is None else strides),
+            "pad": _pair(padding), "global_pool": global_pool,
+            "pool_type": pool_type,
+            "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._sym_kwargs["count_include_pad"] = count_include_pad
 
     def forward(self, x):
         return F.pooling(x, **self._kwargs)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._sym_kwargs)
 
     def extra_repr(self):
         return (f"size={self._kwargs['kernel']}, "

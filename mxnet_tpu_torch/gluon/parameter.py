@@ -380,6 +380,15 @@ class Parameter:
                 self._t.data = self._t.data.to(dtype_torch(dtype))
             self._refresh()
 
+    def var(self):
+        """This parameter as a symbol variable (name, shape, dtype); a
+        ``grad_req='null'`` one is an auxiliary state of the graph."""
+        from ..symbol import var
+        s = var(self.name, shape=self.shape, dtype=self.dtype)
+        if self._grad_req == "null":
+            s._outputs[0][0].attrs["__aux__"] = True
+        return s
+
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self._shape}, "
                 f"dtype={self.dtype})")

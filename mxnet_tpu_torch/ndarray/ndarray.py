@@ -23,6 +23,7 @@ Every operator application goes through :func:`invoke`, the analog of
 from __future__ import annotations
 
 import os
+import sys as _sys
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as _np
@@ -368,6 +369,9 @@ class _OpGrad(torch.autograd.Function):
         return (None, None) + tuple(grads)
 
 
+_SYMBOL_MODULE = __name__.split(".")[0] + ".symbol.symbol"
+
+
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
@@ -390,10 +394,20 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
     while recording, an op on an array that is on the tape runs with
     torch's grad mode on and so records its node; otherwise it records
     nothing.  A ``ctx`` param places the result of an op without array
-    inputs."""
+    inputs.  Symbol inputs compose a graph node instead
+    (``symbol.invoke_symbol``), so one ``hybrid_forward(F, ...)`` serves
+    both ``mx.nd`` and a symbolic trace, as in the JAX package."""
     if isinstance(op, str):
         op = _registry.get(op)
     params = dict(params) if params else {}
+    sym = _sys.modules.get(_SYMBOL_MODULE)
+    if sym is not None and any(
+            isinstance(x, sym.Symbol) or (isinstance(x, (list, tuple)) and x
+                                          and isinstance(x[0], sym.Symbol))
+            for x in inputs):
+        params.pop("ctx", None)
+        return sym.invoke_symbol(op.name, list(inputs), params,
+                                 name=params.pop("name", None))
     ctx = params.pop("ctx", None)
     nd_inputs: List[NDArray] = []
     for x in inputs:
@@ -419,6 +433,11 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
             raw.append(x)
     if op.nin == 0:
         params["device"] = device
+    if op.takes_training and "_training" not in params:
+        params["_training"] = autograd.is_training()
+    if op.needs_rng and params.get("generator") is None:
+        from .. import random as _random
+        params["generator"] = _random.device_generator(device)
 
     recording = (autograd.is_recording() and op.differentiable
                  and any(x._data.requires_grad for x in nd_inputs))

@@ -30,8 +30,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, attr_truthy
 from . import _build
+from .registry import register
 
 __all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
 
@@ -185,8 +186,9 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float
     """Flash-attention forward on ``[BH, S, D]`` tensors: ``(O, lse)``, O
     in the input dtype, lse fp32 ``[BH, S_q]``.  CUDA tensors launch the
     kernel :func:`_flash_variant` picks (contiguous fp32/bf16, D <= 128, or
-    an error); CPU tensors run :func:`_flash_forward_plain`."""
-    if q.device.type == "cpu":
+    an error); CPU tensors run :func:`_flash_forward_plain`, and so do
+    ``meta`` tensors, which carry shapes only (``Symbol.infer_shape``)."""
+    if q.device.type in ("cpu", "meta"):
         return _flash_forward_plain(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_fwd: no kernel for device {q.device}")
@@ -296,17 +298,21 @@ def rope(x, cos, sin, num_heads: Optional[int] = None):
     return out.reshape(x.shape).to(x.dtype)
 
 
+@register("flash_attention", nin=3)
 def flash_attention(q, k, v, key_valid_len=None,
                     num_heads: Optional[int] = None, causal: bool = False,
                     sm_scale: Optional[float] = None):
     """Fused multi-head scaled-dot-product attention over ``[B, H, S, D]``
     inputs, or ``[B, S, H*D]`` with ``num_heads`` (returning that layout).
-    ``key_valid_len`` (``[B]``) masks each example's padding keys on the
-    dense path; without it the flash forward runs."""
+    ``key_valid_len`` (``[B]``, a fourth array input of the registry op)
+    masks each example's padding keys on the dense path; without it the
+    flash forward runs."""
     packed = q.dim() == 3
+    causal = attr_truthy(causal)
     if packed:
         if not num_heads:
             raise MXNetError("num_heads required for [B, S, H*D] inputs")
+        num_heads = int(num_heads)
         b, _, hd = q.shape
         d = hd // num_heads
         q, k, v = (t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2)

@@ -24,8 +24,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, attr_truthy
 from . import _build
+from .registry import register
 
 __all__ = ["fused_matmul_bn_stats", "conv1x1_bn_stats_op"]
 
@@ -181,8 +182,10 @@ def fused_matmul_bn_stats(x, w, in_scale=None, in_shift=None,
     fp32), the statistics of the fp32 product.  CUDA tensors launch the
     kernel :func:`_fused_variant` picks (x contiguous, fp32 or bf16, or an
     error; a ``w`` that is not the transpose of a contiguous ``[N, K]`` is
-    copied to that layout); CPU tensors run :func:`_reference_conv1x1`."""
-    if x.device.type == "cpu":
+    copied to that layout); CPU tensors run :func:`_reference_conv1x1`, and
+    so do ``meta`` tensors, which carry shapes only
+    (``Symbol.infer_shape``)."""
+    if x.device.type in ("cpu", "meta"):
         return _reference_conv1x1(x, w, in_scale, in_shift, relu_in)
     if x.device.type != "cuda":
         raise MXNetError(f"fused_matmul_bn_stats: no kernel for device "
@@ -238,6 +241,7 @@ class _Conv1x1BNCore(torch.autograd.Function):
         return dx, dw.to(w2d.dtype), dscale, dshift, None
 
 
+@register("_contrib_conv1x1_bn_stats", nin=2, nout=3)
 def conv1x1_bn_stats_op(x, w, stride: int = 1, relu_in: bool = False,
                         with_stats: bool = True):
     """NHWC 1x1 convolution with the output's per-channel statistics.
@@ -246,7 +250,10 @@ def conv1x1_bn_stats_op(x, w, stride: int = 1, relu_in: bool = False,
     ``[Cin, Cout]``.  Returns (y ``[N, H', W', Cout]``, sum ``[Cout]``,
     sumsq ``[Cout]``), H' and W' after the stride's subsampling.
     ``with_stats=False`` (inference, BN folded into ``w``) is a plain
-    matrix product with zero statistics."""
+    matrix product with zero statistics.  Registered as the JAX package's
+    ``_contrib_conv1x1_bn_stats`` op; flags may arrive as the strings of a
+    loaded symbol JSON."""
+    relu_in, with_stats = attr_truthy(relu_in), attr_truthy(with_stats)
     w2d = w.reshape(w.shape[0], w.shape[1]).t() if w.dim() == 4 else w
     s = int(stride)
     if s > 1:

@@ -30,6 +30,14 @@ class Operator:
         constants).
     grad : optional custom gradient
         ``grad(params, inputs, outputs, out_grads) -> in_grads``.
+    takes_training : the op takes ``_training`` (BatchNorm, Dropout), which
+        :func:`~mxnet_tpu_torch.ndarray.ndarray.invoke` sets from
+        ``autograd.is_training()``.
+    needs_rng : the op takes ``generator``, the device's ``mx.random``
+        stream unless the caller passes one.
+    infer_shapes : optional ``infer_shapes(shapes, params) -> shapes`` that
+        fills the unknown shapes of an op's variable inputs (weight, bias)
+        from its data input, for ``Symbol.infer_shape``.
     """
 
     def __init__(self, name: str, fn: Callable, *, nin: Optional[int] = None,
@@ -41,6 +49,10 @@ class Operator:
         self.nout = nout
         self.differentiable = differentiable
         self.grad = grad
+        params = inspect.signature(fn).parameters
+        self.takes_training = "_training" in params
+        self.needs_rng = "generator" in params
+        self.infer_shapes: Optional[Callable] = None
         self.doc = doc or (fn.__doc__ or "")
         self.aliases: List[str] = []
 

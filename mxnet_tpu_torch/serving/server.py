@@ -1,12 +1,15 @@
-"""In-process serving surface for generation models.
+"""In-process serving surface.
 
-Counterpart of the generation half of ``mxnet_tpu/serving/server.py``: a
-:class:`ModelServer` owns one :class:`GenerationScheduler` per registered
-model, each driven by a daemon thread that steps it whenever work is
-pending.  ``generate_async`` / ``generate`` / ``generate_stream`` submit
-requests; ``stop`` drains them.  The HTTP endpoints, the batcher and
-engine for non-generative models and the circuit breaker wait for later
-slices.
+Counterpart of ``mxnet_tpu/serving/server.py`` without its HTTP surface:
+a :class:`ModelServer` serves non-generative models through ``register``
+(an :class:`~.engine.InferenceEngine` behind a
+:class:`~.batcher.DynamicBatcher`, warmed over its bucket ladder) and
+generation models through ``register_generation`` (a
+:class:`GenerationScheduler` driven by a daemon step loop).
+``predict``/``predict_async``, the in-process :class:`Client` and
+``generate``/``generate_async``/``generate_stream`` submit requests;
+``stats`` reports per model; ``stop`` drains them all.  The HTTP endpoints
+and the circuit breaker wait for later slices.
 """
 from __future__ import annotations
 
@@ -16,9 +19,23 @@ import warnings
 from typing import Any, Dict, Optional
 
 from ..base import MXNetError, ServerClosedError
+from .batcher import DynamicBatcher
+from .engine import InferenceEngine
 from .generation import DEFAULT_EOS, GenerationScheduler, TokenStream
+from .stats import ServingStats
 
-__all__ = ["ModelServer"]
+__all__ = ["ModelServer", "Client"]
+
+
+class _Served:
+    """One non-generative model: its engine, batcher and statistics."""
+
+    __slots__ = ("engine", "batcher", "stats")
+
+    def __init__(self, engine, batcher, stats):
+        self.engine = engine
+        self.batcher = batcher
+        self.stats = stats
 
 
 class _GenServed:
@@ -86,11 +103,41 @@ class _GenServed:
 
 
 class ModelServer:
-    """Serves generation models in-process."""
+    """Serves models in-process."""
 
     def __init__(self):
+        self._models: Dict[str, _Served] = {}
         self._generators: Dict[str, _GenServed] = {}
         self._stopped = False
+
+    def register(self, name: str, block=None,
+                 engine: Optional[InferenceEngine] = None,
+                 max_batch: int = 8, max_wait_us: int = 2000,
+                 input_spec=None, warmup: bool = True,
+                 max_queue: Optional[int] = None) -> InferenceEngine:
+        """Serve ``block`` (or a prebuilt ``engine``) under ``name``.
+        ``warmup`` runs the whole bucket ladder, on the batcher's worker
+        thread, before the model takes traffic, so live requests only hit
+        cache entries; it needs an input spec (given, captured from a
+        forward, or from an export's sidecar)."""
+        if self._stopped:
+            raise MXNetError("server is stopped; create a new ModelServer")
+        if name in self._models or name in self._generators:
+            raise MXNetError(f"model {name!r} already registered")
+        stats = ServingStats(name)
+        if engine is None:
+            if block is None:
+                raise MXNetError("register needs a block or an engine")
+            engine = InferenceEngine(block, input_spec=input_spec,
+                                     max_batch=max_batch, name=name,
+                                     stats=stats)
+        else:
+            engine._stats = stats
+        batcher = DynamicBatcher(engine, max_wait_us=max_wait_us,
+                                 stats=stats, name=name, max_queue=max_queue,
+                                 warmup=warmup)
+        self._models[name] = _Served(engine, batcher, stats)
+        return engine
 
     def register_generation(self, name: str, model,
                             scheduler: Optional[GenerationScheduler] = None,
@@ -104,7 +151,7 @@ class ModelServer:
         :class:`GenerationScheduler`."""
         if self._stopped:
             raise MXNetError("server is stopped; create a new ModelServer")
-        if name in self._generators:
+        if name in self._generators or name in self._models:
             raise MXNetError(f"model {name!r} already registered")
         if scheduler is None:
             if model is None:
@@ -125,7 +172,28 @@ class ModelServer:
                              f"{self.models()}") from None
 
     def models(self):
-        return sorted(self._generators)
+        """The names served, non-generative and generative."""
+        return sorted([*self._models, *self._generators])
+
+    def _served(self, name: str) -> _Served:
+        try:
+            return self._models[name]
+        except KeyError:
+            raise MXNetError(f"unknown model {name!r}; serving "
+                             f"{self.models()}") from None
+
+    def predict_async(self, name: str, inputs,
+                      deadline_ms: Optional[float] = None):
+        """Submit a request; the Future resolves to the model's outputs
+        for its rows (one NDArray, or a list)."""
+        return self._served(name).batcher.submit(inputs,
+                                                 deadline_ms=deadline_ms)
+
+    def predict(self, name: str, inputs, deadline_ms: Optional[float] = None):
+        return self.predict_async(name, inputs, deadline_ms).result()
+
+    def client(self) -> "Client":
+        return Client(self)
 
     def generate_async(self, name: str, prompt, max_new_tokens: int = 16,
                        eos_id=DEFAULT_EOS):
@@ -149,33 +217,63 @@ class ModelServer:
         return stream
 
     def stats(self, name: Optional[str] = None) -> Dict[str, Any]:
-        """Scheduler and serving statistics of one model, or of all."""
+        """Serving statistics of one model (with its CachedOp counters, or
+        its scheduler's), or of all."""
         if name is None:
             return {n: self.stats(n) for n in self.models()}
+        if name in self._models:
+            m = self._models[name]
+            return m.stats.snapshot(m.engine.cache_stats)
         sched = self._gen(name).scheduler
         snap = sched._stats.snapshot()
         snap.update(sched.stats_snapshot())
         return snap
 
     def stop(self, timeout: Optional[float] = 30.0):
-        """Graceful shutdown: refuse new work and stop every step loop.
-        One drain budget of ``timeout`` seconds is shared by all models;
-        requests still unfinished fail with :class:`ServerClosedError`."""
+        """Graceful shutdown: refuse new work, stop every step loop and
+        drain every batcher.  One drain budget of ``timeout`` seconds is
+        shared by all models; requests still unfinished fail with
+        :class:`ServerClosedError`."""
         if self._stopped:
             return
         self._stopped = True
         end = None if timeout is None else time.monotonic() + timeout
+
+        def left():
+            return None if end is None else max(0.0, end - time.monotonic())
         for name, g in self._generators.items():
-            left = None if end is None else max(0.0, end - time.monotonic())
-            failed = g.close(left)
+            failed = g.close(left())
             if failed:
                 warnings.warn(
                     f"serving: generation model {name!r} stopped with "
                     f"{failed} unfinished request(s) failed with "
                     "ServerClosedError", RuntimeWarning, stacklevel=2)
+        for name, m in self._models.items():
+            if not m.batcher.close(left()):
+                failed = m.batcher.fail_pending()
+                warnings.warn(
+                    f"serving: model {name!r} did not drain within "
+                    f"{timeout}s; failed {failed} still-queued request(s) "
+                    "with ServerClosedError", RuntimeWarning, stacklevel=2)
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.stop()
+
+
+class Client:
+    """The in-process client: the same calls a remote client makes, on a
+    :class:`ModelServer` in this process (the HTTP transport is not
+    ported yet)."""
+
+    def __init__(self, server: ModelServer):
+        if not isinstance(server, ModelServer):
+            raise MXNetError("Client takes a ModelServer; the HTTP transport"
+                             " is not ported yet")
+        self._server = server
+
+    def predict(self, name: str, inputs, block: bool = True):
+        fut = self._server.predict_async(name, inputs)
+        return fut.result() if block else fut

@@ -6,6 +6,8 @@ flash kernel.  Tolerance: float32, summed in other orders by XLA and
 PyTorch; 2e-6 absolute on outputs of magnitude ~1, as the JAX package's own
 attention tests use, and 1e-5 on lse (magnitude up to ~6).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -129,11 +131,16 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
 
 
 def test_no_fallback_on_other_devices():
-    """A tensor that is neither on the CPU nor on CUDA gets an error, never
-    the plain version."""
-    q = torch.empty(2, 8, 16, device="meta")
-    with pytest.raises(MXNetError):
+    """A tensor on a device that is neither the CPU nor CUDA gets an
+    error, never the plain version; a ``meta`` tensor (shapes only, for
+    symbol shape inference) gets the plain version's shapes."""
+    q = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(MXNetError, match="no kernel"):
         tattn.flash_fwd(q, q, q, False, 0.25)
+    m = torch.empty(2, 8, 16, device="meta")
+    out, lse = tattn.flash_fwd(m, m, m, False, 0.25)
+    assert (out.device.type, out.shape, lse.shape) == (
+        "meta", (2, 8, 16), (2, 8))
 
 
 @pytest.mark.parametrize("bad", ["float16", "noncontiguous", "head_dim_256",

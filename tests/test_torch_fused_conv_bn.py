@@ -9,6 +9,8 @@ all fp32.  Tolerance: every compared tensor within 1e-5 of its largest
 products, columns and batch statistics in other orders; nothing else
 differs).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -73,10 +75,16 @@ def test_plain_version_matches_jax_oracle_and_pallas_interpret(mode):
 
 
 def test_wrapper_refuses_a_device_without_kernel():
-    x = torch.empty(4, 3, device="meta")
-    w = torch.empty(3, 2, device="meta")
+    """A device that is neither the CPU nor CUDA gets an error; a ``meta``
+    tensor (shapes only, for symbol shape inference) gets the plain
+    version's shapes."""
+    x = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(MXNetError, match="no kernel"):
-        tf.fused_matmul_bn_stats(x, w)
+        tf.fused_matmul_bn_stats(x, x)
+    y, s1, s2 = tf.fused_matmul_bn_stats(torch.empty(4, 3, device="meta"),
+                                         torch.empty(3, 2, device="meta"))
+    assert (y.device.type, y.shape, s1.shape, s2.shape) == (
+        "meta", (4, 2), (2,), (2,))
 
 
 @pytest.mark.parametrize("stride,with_stats,relu_in",

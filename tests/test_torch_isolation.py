@@ -18,7 +18,9 @@ before = set(sys.modules)
 import mxnet_tpu_torch, mxnet_tpu_torch.serving, chip_smoke
 import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.autograd, mxnet_tpu_torch.rtc
 import mxnet_tpu_torch.gluon, mxnet_tpu_torch.metric, mxnet_tpu_torch.io
-import mxnet_tpu_torch.lr_scheduler
+import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.symbol
+import mxnet_tpu_torch.cached_op, mxnet_tpu_torch.serving.engine
+import mxnet_tpu_torch.serving.batcher, mxnet_tpu_torch.error
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -34,7 +36,11 @@ def test_import_loads_no_jax_and_no_jax_package():
     for name in ("mxnet_tpu_torch", "torch", "mxnet_tpu_torch.ndarray",
                  "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.rtc",
                  "mxnet_tpu_torch.gluon", "mxnet_tpu_torch.metric",
-                 "mxnet_tpu_torch.io", "mxnet_tpu_torch.lr_scheduler"):
+                 "mxnet_tpu_torch.io", "mxnet_tpu_torch.lr_scheduler",
+                 "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.symbol.symbol",
+                 "mxnet_tpu_torch.cached_op",
+                 "mxnet_tpu_torch.serving.engine",
+                 "mxnet_tpu_torch.serving.batcher"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
