@@ -44,15 +44,24 @@ beside its bound, then drives the port's paths:
   launches gated at 12 per forward (``serving_bert``); full-width
   resnet50_v1 exported, rebuilt with ``InferenceEngine.from_export`` and
   served the same way (``serving_resnet_export``).
+- the symbolic training loop (slice 10): a BERT-base encoder classifier
+  (the port's Gluon blocks called on ``mx.sym.var``, fp32) trained
+  through ``Module.fit`` over the ``'device'`` kvstore for 2 epochs, then
+  scored and predicted, the fp32 tensor-core flash kernel's launches
+  gated at 12 per forward; epoch 0 again with the ``'local'`` and no
+  kvstore, a resumed run from a checkpoint with its optimizer states,
+  3 batches against ``gluon.Trainer`` on the same block, and one
+  forward_backward on the card against the CPU (``module_fit``).
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, flash, flash_timing, fused, fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, serving_bert,
-serving_resnet_export, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
-bert_training), for a short call while a kernel is brought up; ``--only
-build,gluon_training`` runs just the Gluon loop and ``--only
-build,serving_bert,serving_resnet_export`` the serving phases.  The line before the last is the kernel table; the
+serving_resnet_export, module_fit, rtc_kernels, rtc_ffn, bert_flash,
+bert_parity, bert_training), for a short call while a kernel is brought
+up; ``--only build,gluon_training`` runs just the Gluon loop, ``--only
+build,serving_bert,serving_resnet_export`` the serving phases and
+``--only build,module_fit`` the Module loop.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -1402,6 +1411,323 @@ def phase_serving_resnet_export(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# slice 10: the symbolic training loop (Module.fit over the kvstore)
+# ---------------------------------------------------------------------------
+# A BERT-base encoder classifier (bert_training's widths, its MLM head
+# replaced by a 2-class head) built by calling the port's Gluon blocks on
+# mx.sym.var("data"), fp32, TF32 off, trained through Module.fit over an
+# NDArrayIter on the card: 384 rows of 128 token ids (float32) and 0/1
+# labels from RandomState(seed), batch 64, 6 batches per epoch, SGD with
+# momentum.  Gates: every parameter after the first epoch equal, within
+# 1e-6 of its largest |value| plus 1e-7, across the 'device', 'local' and
+# no kvstore (the same arithmetic; expected bit for bit); the resumed run
+# (checkpoint and optimizer states after epoch 0) within 1e-4 plus 1e-6 of
+# the uninterrupted one (Embedding's backward may add in another order on
+# the card); 3 batches of Module against the same block trained through
+# gluon.Trainer within 1e-4 plus 1e-6 (losses and parameters: the graph's
+# registry ops against the layers' tensor forwards); one forward_backward
+# at batch 8 on the card against the port's plain versions on the CPU from
+# the same checkpoint within 1e-3 plus 1e-6 (outputs, the word embedding's
+# and layer 0's QKV gradients: the kernel and cuBLAS against the plain
+# versions through 12 layers).
+MODULE = dict(vocab=30522, units=768, hidden=3072, heads=12, layers=12,
+              seq=128, rows=384, batch=64, epochs=2, lr=0.01, momentum=0.9,
+              speedometer=3, gluon_steps=3, gluon_timed=6, card_batch=8,
+              kv_rel=1e-6, kv_abs=1e-7, resume_rel=1e-4, resume_abs=1e-6,
+              gluon_rel=1e-4, gluon_abs=1e-6, cpu_rel=1e-3, cpu_abs=1e-6)
+
+
+def _encoder_classifier(mx, device):
+    """``(block, symbol)``: the encoder classifier of MODULE as a
+    HybridBlock of the port's layers, and its graph under a
+    SoftmaxOutput."""
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    from mxnet_tpu_torch.gluon.model_zoo.language.transformer import \
+        TransformerEncoder
+    m = MODULE
+    units = m["units"]
+
+    class EncoderClassifier(HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.word_embed = nn.Embedding(m["vocab"], units,
+                                               prefix="word_embed_")
+                self.pos_weight = self.params.get(
+                    "pos_weight", shape=(1, m["seq"], units))
+                self.ln = nn.LayerNorm(epsilon=1e-12, in_channels=units,
+                                       prefix="ln_")
+                self.encoder = TransformerEncoder(
+                    m["layers"], units, m["hidden"], m["heads"], dropout=0.0,
+                    activation="gelu", prefix="enc_", device=device)
+                self.pooler = nn.Dense(units, activation="tanh",
+                                       in_units=units, prefix="pooler_")
+                self.head = nn.Dense(2, in_units=units, prefix="head_")
+
+        def hybrid_forward(self, F, x, pos_weight):
+            h = self.encoder(self.ln(F.broadcast_add(self.word_embed(x),
+                                                     pos_weight)))
+            cls = F.reshape(F.slice_axis(h, axis=1, begin=0, end=1),
+                            shape=(-1, units))
+            return self.head(self.pooler(cls))
+
+    net = EncoderClassifier(prefix="cls_")
+    sym = mx.sym.SoftmaxOutput(net(mx.sym.var("data")),
+                               mx.sym.var("softmax_label"), name="softmax")
+    return net, sym
+
+
+def _param_gap(got, ref, rel, abs_):
+    """``(worst max|got - ref| / (rel·max|ref| + abs), its name, the
+    largest max|got - ref|, every tensor bitwise equal)`` over ``ref``'s
+    names; NDArrays or tensors."""
+    def raw(x):
+        return x._data if hasattr(x, "_data") else x
+    worst, name, gap, equal = 0.0, "", 0.0, True
+    for k, r in ref.items():
+        r, g = raw(r), raw(got[k]).to(raw(r).device)
+        d = (g - r).abs().max().item()
+        ratio = d / (rel * r.abs().max().item() + abs_)
+        if ratio >= worst:
+            worst, name = ratio, k
+        gap = max(gap, d)
+        equal = equal and bool((g == r).all().item())
+    return worst, name, gap, equal
+
+
+def phase_module_fit(torch, seed):
+    """The symbolic training loop on the card (see MODULE); returns the
+    fp32 tensor-core flash kernel's launches on its main path (run A)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import attention as A
+    m = MODULE
+    gpu = mx.gpu(0)
+    torch.cuda.empty_cache()
+    forwards, steps = [0], []
+
+    class Module(mx.module.Module):
+        """A Module on the card that counts its forwards and marks the
+        start of each step (its forward_backward)."""
+
+        def forward(self, data_batch, is_train=None):
+            forwards[0] += 1
+            super().forward(data_batch, is_train)
+
+        def forward_backward(self, data_batch):
+            self._t0 = time.perf_counter()
+            super().forward_backward(data_batch)
+
+    def step_end(param):
+        """Batch-end callback: the step's time, forward_backward to here
+        (update and update_metric included), ending in a synchronize."""
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - param.locals["self"]._t0)
+
+    mx.random.seed(seed)
+    net, sym = _encoder_classifier(mx, "cuda")
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, m["vocab"], (m["rows"], m["seq"])).astype(np.float32)
+    y = rng.randint(0, 2, m["rows"]).astype(np.float32)
+    it = mx.io.NDArrayIter(mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu),
+                           batch_size=m["batch"])
+    opt = {"learning_rate": m["lr"], "momentum": m["momentum"],
+           "rescale_grad": 1.0 / m["batch"]}
+    fit = dict(optimizer="sgd", optimizer_params=opt)
+    batches_per_epoch = m["rows"] // m["batch"]
+    tmp = tempfile.mkdtemp(prefix="module_fit_")
+    try:
+        # run A, the main path: fit 2 epochs, score, predict
+        mod = Module(sym, context=gpu)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(mx.init.Xavier())
+        init = mod.get_params()[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = 0
+        fwd0 = forwards[0]
+        mod.fit(it, num_epoch=m["epochs"], kvstore="device",
+                batch_end_callback=[step_end,
+                                    mx.callback.Speedometer(
+                                        m["batch"], m["speedometer"])],
+                epoch_end_callback=mx.callback.do_checkpoint(f"{tmp}/a"),
+                **fit)
+        peak_fit = torch.cuda.max_memory_allocated() / 1e9
+        score = mod.score(it, "acc")
+        pred = mod.predict(it)
+        torch.cuda.synchronize()
+        main = {"flash_fwd": A.flash_fwd_launches,
+                "tf32": A.flash_fwd_tf32_launches,
+                "wgmma": A.flash_fwd_wgmma_launches,
+                "forwards": forwards[0] - fwd0}
+        step_ms = 1e3 * statistics.median(steps)
+        final = mod.get_params()[0]
+        it.reset()
+        mod.forward_backward(it.next())
+        update_ms = cuda_ms(torch, mod.update, iters=5)
+        del mod
+        torch.cuda.empty_cache()
+
+        # kvstore: epoch 0 again from run A's start with 'local' (run B,
+        # which checkpoints with its optimizer states) and with none
+        epoch0 = mx.model.load_params(f"{tmp}/a", 1)[0]
+        kv_gaps = {}
+        for kv in ("local", None):
+            mod = Module(sym, context=gpu)
+            mod.fit(it, num_epoch=1, kvstore=kv, arg_params=init,
+                    aux_params={}, **fit)
+            kv_gaps[str(kv)] = _param_gap(mod.get_params()[0], epoch0,
+                                          m["kv_rel"], m["kv_abs"])
+            if kv == "local":
+                mod.save_checkpoint(f"{tmp}/b", 1, save_optimizer_states=True)
+            del mod
+        # resume: a new module from run B's checkpoint fits epoch 1
+        rsym, rarg, raux = mx.model.load_checkpoint(f"{tmp}/b", 1)
+        mod = Module(rsym, context=gpu)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=rarg, aux_params=raux)
+        mod.init_optimizer(kvstore="device", **fit)
+        mod.load_optimizer_states(f"{tmp}/b-0001.states")
+        mod.fit(it, begin_epoch=1, num_epoch=m["epochs"], kvstore="device",
+                **fit)
+        resume = _param_gap(mod.get_params()[0], final, m["resume_rel"],
+                            m["resume_abs"])
+        del mod, rarg
+        torch.cuda.empty_cache()
+
+        # Module against gluon.Trainer on the same block, 3 batches
+        it.reset()
+        batches = [it.next() for _ in range(m["gluon_steps"])]
+        mod = Module(sym, context=gpu)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=init, aux_params={})
+        mod.init_optimizer(kvstore="device", **fit)
+        mod_losses = []
+        for b in batches:
+            mod.forward_backward(b)
+            p = mod.get_outputs()[0]._data
+            mod_losses.append(-p.gather(1, b.label[0]._data.long()[:, None])
+                              .log().mean().item())
+            mod.update()
+        mod_params = mod.get_params()[0]
+        del mod
+        net.initialize(ctx=gpu)
+        params = net.collect_params()
+        for name, p in params.items():
+            p.set_data(init[name])
+        gluon_forwards = [0]
+        hook = net.register_forward_pre_hook(
+            lambda block, args: gluon_forwards.__setitem__(
+                0, gluon_forwards[0] + 1))
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": m["lr"],
+                                                "momentum": m["momentum"]})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def gluon_step(b):
+            with autograd.record():
+                loss = loss_fn(net(b.data[0]), b.label[0])
+            loss.backward()
+            trainer.step(m["batch"])
+            return loss
+
+        gluon_losses = [float(gluon_step(b).mean().asscalar())
+                        for b in batches]
+        gluon_gap = _param_gap({k: p.data() for k, p in params.items()},
+                               mod_params, m["gluon_rel"], m["gluon_abs"])
+        loss_gap = max(abs(a - b) / (m["gluon_rel"] * abs(b) + m["gluon_abs"])
+                       for a, b in zip(gluon_losses, mod_losses))
+        gluon_times = []
+        for i in range(m["gluon_timed"]):
+            t0 = time.perf_counter()
+            gluon_step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            gluon_times.append(time.perf_counter() - t0)
+        hook.detach()
+        del trainer, mod_params
+        torch.cuda.empty_cache()
+
+        # the card against the CPU: one forward_backward at batch 8 from
+        # the same checkpoint
+        mx.model.save_checkpoint(f"{tmp}/c", 0, sym, final, {})
+        del final
+        xs = mx.nd.array(x[:m["card_batch"]], ctx=mx.cpu())
+        ys = mx.nd.array(y[:m["card_batch"]], ctx=mx.cpu())
+        sides = []
+        for ctx, cls in ((gpu, Module), (mx.cpu(), mx.module.Module)):
+            with ctx:
+                csym, carg, caux = mx.model.load_checkpoint(f"{tmp}/c", 0)
+            cmod = cls(csym, context=ctx)
+            cmod.bind([("data", (m["card_batch"], m["seq"]))],
+                      [("softmax_label", (m["card_batch"],))])
+            cmod.init_params(arg_params=carg, aux_params=caux)
+            cmod.forward_backward(mx.io.DataBatch([xs], [ys]))
+            g = cmod._exec.grad_dict
+            sides.append({
+                "output": cmod.get_outputs()[0].as_in_context(mx.cpu()),
+                "word_embed": g["cls_word_embed_weight"].as_in_context(
+                    mx.cpu()),
+                "qkv0": g["cls_enc_layer0_attn_qkv_weight"].as_in_context(
+                    mx.cpu())})
+            del cmod, carg
+        cpu_gap = _param_gap(sides[0], sides[1], m["cpu_rel"], m["cpu_abs"])
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+
+    layers = m["layers"]
+    phase = {"tf32": A.flash_fwd_tf32_launches,
+             "other": A.flash_fwd_launches - A.flash_fwd_tf32_launches,
+             "wgmma": A.flash_fwd_wgmma_launches,
+             "module_forwards": forwards[0] - fwd0,
+             "gluon_forwards": gluon_forwards[0]}
+    out = {"phase": "module_fit", "model": "bert_base_encoder_classifier",
+           "layers": layers, "units": m["units"], "seq": m["seq"],
+           "batch": m["batch"], "rows": m["rows"], "epochs": m["epochs"],
+           "dtype": "float32", "optimizer": "sgd", **opt,
+           "step_ms": step_ms, "samples_per_sec": m["batch"] / step_ms * 1e3,
+           "steps_ms": [1e3 * s for s in steps],
+           "update_ms": update_ms,
+           "gluon_step_ms": 1e3 * statistics.median(gluon_times),
+           "peak_mem_gb_fit": peak_fit,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "score": score, "predict_shape": list(pred.shape),
+           "main_path": main, "phase_launches": phase,
+           "kvstore_gaps": kv_gaps, "resume_gap": resume,
+           "gluon_loss": gluon_losses, "module_loss": mod_losses,
+           "gluon_param_gap": gluon_gap, "gluon_loss_gap": loss_gap,
+           "card_cpu_gap": cpu_gap,
+           "tolerance": {k: m[k] for k in m if k.endswith(("_rel", "_abs"))},
+           "tf32": _tf32(torch)}
+    out["gates"] = {
+        "main_path_launches": main["tf32"] == layers * main["forwards"]
+        and main["flash_fwd"] == main["tf32"] and main["wgmma"] == 0
+        and main["forwards"] == (m["epochs"] + 2) * batches_per_epoch
+        and len(steps) == m["epochs"] * batches_per_epoch,
+        "phase_launches": phase["tf32"] == layers * (
+            phase["module_forwards"] + phase["gluon_forwards"])
+        and phase["other"] == 0 and phase["wgmma"] == 0,
+        "kvstores_agree": all(g[0] <= 1.0 for g in kv_gaps.values()),
+        "resume": resume[0] <= 1.0,
+        "module_matches_gluon": gluon_gap[0] <= 1.0 and loss_gap <= 1.0,
+        "card_matches_cpu": cpu_gap[0] <= 1.0,
+        "predict": list(pred.shape) == [m["rows"], 2]
+        and bool(torch.isfinite(pred._data).all().item()),
+        "losses_finite": all(math.isfinite(v) for v in
+                             gluon_losses + mod_losses)}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"module_fit failed: {out['gates']}")
+    del net, it, pred
+    return main["tf32"]
+
+
+# ---------------------------------------------------------------------------
 # slice 3: mx.nd / mx.autograd / mx.rtc.CudaModule
 # ---------------------------------------------------------------------------
 # Each rtc kernel below is user code, as an MXNet user writes it for
@@ -2338,8 +2664,8 @@ def _kernel_line(name, source, replaces, launches, timing):
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "serving_bert",
-          "serving_resnet_export", "rtc_kernels", "rtc_ffn", "bert_flash",
-          "bert_parity", "bert_training")
+          "serving_resnet_export", "module_fit", "rtc_kernels", "rtc_ffn",
+          "bert_flash", "bert_parity", "bert_training")
 
 
 def main(argv=None):
@@ -2399,6 +2725,8 @@ def main(argv=None):
         bert_paths["serving_bert"] = phase_serving_bert(torch, args.seed)
     if "serving_resnet_export" in only:
         phase_serving_resnet_export(torch, args.seed)
+    if "module_fit" in only:
+        bert_paths["module_fit"] = phase_module_fit(torch, args.seed)
     if "rtc_kernels" in only or "rtc_ffn" in only:
         kernels, twins = phase_rtc_kernels(torch, args.seed)
     if "rtc_ffn" in only:
@@ -2411,12 +2739,14 @@ def main(argv=None):
     if "bert_training" in only:
         bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: this slice's path (serving_bert) when it ran
+        # launches: this slice's path (module_fit) when it ran, else the
+        # latest earlier slice's
+        main_path = next(bert_paths[k] for k in ("module_fit", "serving_bert",
+                                                  "bert_training")
+                         if k in bert_paths)
         line = _kernel_line("flash_fwd_bert",
                             "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
-                            "mxnet_tpu/ops/attention.py:51",
-                            bert_paths.get("serving_bert",
-                                           bert_paths.get("bert_training")),
+                            "mxnet_tpu/ops/attention.py:51", main_path,
                             bert_timing)
         line["launches_by_path"] = bert_paths
         line["shape"], line["dtype"] = BERT_FLASH, "float32"

@@ -18,8 +18,13 @@ identity.
 The blocks are Gluon ``HybridBlock``s built in the JAX package's name
 scopes (``prefix=``), so ``collect_params()`` gives its names
 (``bertmodel0_enc_layer0_attn_qkv_weight``) and ``save_parameters`` its
-structural names (``encoder.layer0.attention.qkv.weight``).  They have no
-symbolic form: the JAX package cannot trace BERT either.
+structural names (``encoder.layer0.attention.qkv.weight``).  Tensor and
+NDArray calls take each block's ``forward``; a call with Symbols takes its
+``hybrid_forward``, the JAX block's, in registry ops (``split`` into q, k
+and v, then ``flash_attention``), so an encoder traces to the JAX
+package's graph node for node.  At rate 0 a block's dropout adds no node,
+as the JAX block then has none.  ``BERTModel`` stays without a symbolic
+form: the JAX package cannot trace it.
 """
 from __future__ import annotations
 
@@ -58,6 +63,18 @@ class MultiHeadAttention(HybridBlock):
             q, k, v, valid_length, num_heads=self._num_heads,
             causal=self._causal)))
 
+    def hybrid_forward(self, F, x, valid_length=None):
+        q, k, v = F.split(self.qkv(x), num_outputs=3, axis=-1)
+        if valid_length is not None:
+            out = F.flash_attention(q, k, v, valid_length,
+                                    num_heads=self._num_heads,
+                                    causal=self._causal)
+        else:
+            out = F.flash_attention(q, k, v, num_heads=self._num_heads,
+                                    causal=self._causal)
+        out = self.proj(out)
+        return self.dropout(out) if self.dropout._rate else out
+
 
 class PositionwiseFFN(HybridBlock):
     """``Dense(hidden, activation)`` then ``Dense(units)``."""
@@ -76,6 +93,10 @@ class PositionwiseFFN(HybridBlock):
 
     def forward(self, x):
         return self.dropout(self.ffn2(self.ffn1(x)))
+
+    def hybrid_forward(self, F, x):
+        out = self.ffn2(self.ffn1(x))
+        return self.dropout(out) if self.dropout._rate else out
 
 
 class TransformerEncoderCell(HybridBlock):
@@ -103,6 +124,12 @@ class TransformerEncoderCell(HybridBlock):
         x = self.ln1(x + self.attention(x, valid_length))
         return self.ln2(x + self.ffn(x))
 
+    def hybrid_forward(self, F, x, valid_length=None):
+        att = (self.attention(x) if valid_length is None
+               else self.attention(x, valid_length))
+        x = self.ln1(x + att)
+        return self.ln2(x + self.ffn(x))
+
 
 class TransformerEncoder(HybridBlock):
     """A stack of ``num_layers`` encoder cells, registered as ``layer{i}``
@@ -127,4 +154,9 @@ class TransformerEncoder(HybridBlock):
     def forward(self, x, valid_length=None):
         for cell in self.cells:
             x = cell(x, valid_length)
+        return x
+
+    def hybrid_forward(self, F, x, valid_length=None):
+        for cell in self.cells:
+            x = cell(x) if valid_length is None else cell(x, valid_length)
         return x

@@ -1,0 +1,7 @@
+"""The Module API (counterpart of ``mxnet_tpu/module/``; reference
+``python/mxnet/module/``): symbolic training loops over the ``Executor``."""
+from .base_module import BaseModule
+from .bucketing_module import BucketingModule
+from .module import Module
+
+__all__ = ["BaseModule", "Module", "BucketingModule"]

@@ -556,7 +556,10 @@ class Executor:
     autograd, updates the BatchNorm moving statistics in ``aux_dict``,
     and keeps the graph for ``backward``, which writes (``grad_req``
     ``'write'``), adds (``'add'``) or skips (``'null'``) each argument's
-    gradient in ``grad_dict``."""
+    gradient in ``grad_dict``.  Each graph serves one ``backward``: a
+    new ``forward`` drops the previous one before it walks, and
+    ``backward`` frees it as it goes, so one step's activations never
+    live beside the next step's."""
 
     def __init__(self, symbol: Symbol, ctx, args: "OrderedDict[str, NDArray]",
                  args_grad: Optional["OrderedDict[str, NDArray]"], grad_req,
@@ -586,6 +589,7 @@ class Executor:
         return NDArray(t, arr.context)
 
     def forward(self, is_train: bool = False, **kwargs):
+        self._graph = None
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 self.arg_dict[k][:] = v
@@ -609,6 +613,7 @@ class Executor:
         if self._graph is None:
             raise MXNetError("backward called without forward(is_train=True)")
         leaves, raw = self._graph
+        self._graph = None
         if out_grads is None:
             cts = [torch.ones_like(r) for r in raw]
         else:
@@ -619,7 +624,7 @@ class Executor:
         wrt = [(k, t) for k, t in leaves.items() if t.requires_grad]
         grads = torch.autograd.grad(
             [r for r, _ in pairs], [t for _, t in wrt],
-            [c for _, c in pairs], retain_graph=True,
+            [c for _, c in pairs],
             allow_unused=True) if pairs and wrt else [None] * len(wrt)
         for (name, t), g in zip(wrt, grads):
             g = torch.zeros_like(t) if g is None else g.detach()

@@ -1,6 +1,6 @@
 """Port parity: ``HybridBlock.export`` / ``SymbolBlock.imports`` across the
-two packages, the layers' symbolic forms, ``hybridize`` and the BERT
-blocks' names, on the CPU.
+two packages, the layers' and the transformer blocks' symbolic forms,
+``hybridize`` and the BERT blocks' names, on the CPU.
 
 Blocks are built in both packages under the same explicit ``prefix=`` and
 node counters are reset before each trace, so parameter and node names
@@ -318,6 +318,76 @@ def test_hybridize_routes_through_a_cached_op():
     sig = stats["signatures"][0]
     assert sig[0] == (((5, 3), "float32"),) and sig[1] is False
     assert ("h_dense0_weight", "write") in sig[2]
+
+
+# ------------------------------------------ the transformer blocks' forms
+def _transformer_pairs():
+    """name -> (JAX block, port block, whether it takes valid_length):
+    the encoder blocks at 16 units, 4 heads, 32 hidden."""
+    from mxnet_tpu.gluon.model_zoo.language import transformer as jtr
+    from mxnet_tpu_torch.gluon.model_zoo.language import transformer as ttr
+
+    def both(make):
+        return make(jtr, {}), make(ttr, {"device": "cpu"})
+    return {
+        "attention": (*both(lambda m, d: m.MultiHeadAttention(
+            16, 4, prefix="attn_", **d)), True),
+        "attention_causal": (*both(lambda m, d: m.MultiHeadAttention(
+            16, 4, causal=True, prefix="attn_", **d)), True),
+        "ffn": (*both(lambda m, d: m.PositionwiseFFN(
+            16, 32, prefix="ffn_", **d)), False),
+        "ffn_dropout": (*both(lambda m, d: m.PositionwiseFFN(
+            16, 32, dropout=0.1, prefix="ffn_", **d)), False),
+        "cell": (*both(lambda m, d: m.TransformerEncoderCell(
+            16, 32, 4, prefix="cell_", **d)), True),
+        "cell_dropout": (*both(lambda m, d: m.TransformerEncoderCell(
+            16, 32, 4, dropout=0.1, prefix="cell_", **d)), True),
+        "encoder": (*both(lambda m, d: m.TransformerEncoder(
+            2, 16, 32, 4, prefix="enc_", **d)), True),
+    }
+
+
+TRANSFORMER_CASES = [(name, vl) for name, (_, _, takes_vl)
+                     in sorted(_transformer_pairs().items())
+                     for vl in ((False, True) if takes_vl else (False,))]
+
+
+@pytest.mark.parametrize("name,with_valid_length", TRANSFORMER_CASES)
+def test_transformer_symbolic_form_matches_its_tensor_forward(
+        name, with_valid_length):
+    """Each encoder block traced on variables gives the JAX block's JSON
+    (``split``, ``flash_attention``, with ``valid_length`` when given),
+    and its graph evaluated through the registry equals its tensor
+    ``forward`` and the JAX block on the same weights."""
+    import torch
+    jb, tb, _ = _transformer_pairs()[name]
+    jb.collect_params().initialize(jmx.init.Xavier())
+    _copy(jb, tb)
+    inputs = ["data", "valid_length"] if with_valid_length else ["data"]
+    JNames.reset()
+    TNames.reset()
+    jsym, tsym = jtrace(jb, *inputs), ttrace(tb, *inputs)
+    assert json.loads(tsym.tojson()) == json.loads(jsym.tojson())
+    ops = {n.op for n in _nodes(tsym)}
+    assert ("flash_attention" in ops) == (not name.startswith("ffn"))
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 6, 16).astype(np.float32)
+    vl = np.array([6, 3], np.float32)
+    args = [x, vl] if with_valid_length else [x]
+    bindings = {n: tmx.nd.array(a) for n, a in zip(inputs, args)}
+    bindings.update({n: p.data() for n, p in tb.collect_params().items()})
+    out = tsym.eval_with(bindings)
+    tb.eval()
+    with torch.no_grad():
+        ref = tb(*(torch.from_numpy(a) for a in args))
+    _close(out, ref.numpy(), what=f"{name} graph vs tensor forward")
+    _close(out, jb(*(jmx.nd.array(a) for a in args)),
+           what=f"{name} graph vs JAX block")
+
+
+def _nodes(sym):
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    return [n for n in _topo(sym._outputs) if not n.is_var]
 
 
 # ------------------------------------------------------------------ BERT

@@ -21,6 +21,8 @@ import mxnet_tpu_torch.gluon, mxnet_tpu_torch.metric, mxnet_tpu_torch.io
 import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.symbol
 import mxnet_tpu_torch.cached_op, mxnet_tpu_torch.serving.engine
 import mxnet_tpu_torch.serving.batcher, mxnet_tpu_torch.error
+import mxnet_tpu_torch.module, mxnet_tpu_torch.kvstore
+import mxnet_tpu_torch.model, mxnet_tpu_torch.callback
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -40,7 +42,12 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.symbol.symbol",
                  "mxnet_tpu_torch.cached_op",
                  "mxnet_tpu_torch.serving.engine",
-                 "mxnet_tpu_torch.serving.batcher"):
+                 "mxnet_tpu_torch.serving.batcher",
+                 "mxnet_tpu_torch.module", "mxnet_tpu_torch.module.module",
+                 "mxnet_tpu_torch.module.base_module",
+                 "mxnet_tpu_torch.module.bucketing_module",
+                 "mxnet_tpu_torch.kvstore", "mxnet_tpu_torch.kvstore.base",
+                 "mxnet_tpu_torch.model", "mxnet_tpu_torch.callback"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad

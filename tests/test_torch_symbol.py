@@ -185,6 +185,31 @@ def test_executor_backward_needs_a_training_forward():
         ex.backward()
 
 
+def test_executor_graph_serves_one_backward():
+    """``forward(is_train=True)`` then ``backward`` works step after step
+    with the same gradients; the graph is freed by its backward (a second
+    backward raises, as one without a training forward does) and dropped
+    by the next forward."""
+    ex = _mlp(tmx).simple_bind(data=(4, 10))
+    ex.copy_params_from(_bindings(tmx, _mlp(tmx), data=(4, 10)))
+    head = tmx.nd.array(np.linspace(-1, 1, 12, dtype=np.float32)
+                        .reshape(4, 3))
+    grads = []
+    for _ in range(2):
+        ex.forward(is_train=True)
+        ex.backward(head)
+        grads.append(ex.grad_dict["fc1_weight"].asnumpy())
+        assert ex._graph is None
+        with pytest.raises(MXNetError, match="forward"):
+            ex.backward(head)
+    np.testing.assert_array_equal(grads[0], grads[1])
+    assert np.abs(grads[0]).sum() > 0
+    ex.forward(is_train=True)
+    ex.forward(is_train=False)
+    with pytest.raises(MXNetError, match="forward"):
+        ex.backward(head)
+
+
 def test_executor_reshape_keeps_weights():
     ex = _mlp(tmx).simple_bind(data=(4, 10))
     ex.arg_dict["fc1_weight"][:] = 0.5
