@@ -52,16 +52,26 @@ beside its bound, then drives the port's paths:
   kvstore, a resumed run from a checkpoint with its optimizer states,
   3 batches against ``gluon.Trainer`` on the same block, and one
   forward_backward on the card against the CPU (``module_fit``).
+- the distributed kvstore (slice 11): ``tools/launch.py -n 2`` starts
+  two ranks of this script (``--dist-worker``) on the one card over gloo
+  (NCCL refuses two ranks on one card), each training ``module_fit``'s
+  encoder classifier on ``mx.gpu(0)``: ``Module.fit`` over ``dist_sync``
+  on its half of the rows, the ranks' weights held equal bit for bit
+  after every step; the same batches on both ranks against a one-process
+  ``'device'`` run with ``rescale_grad`` doubled, bit for bit; then
+  ``gluon.Trainer`` over ``dist_sync`` with the bucketed push and with
+  one collective per key (``dist_training``).
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, flash, flash_timing, fused, fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, serving_bert,
-serving_resnet_export, module_fit, rtc_kernels, rtc_ffn, bert_flash,
-bert_parity, bert_training), for a short call while a kernel is brought
-up; ``--only build,gluon_training`` runs just the Gluon loop, ``--only
-build,serving_bert,serving_resnet_export`` the serving phases and
-``--only build,module_fit`` the Module loop.  The line before the last is the kernel table; the
+serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
+bert_flash, bert_parity, bert_training), for a short call while a kernel
+is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
+``--only build,serving_bert,serving_resnet_export`` the serving phases,
+``--only build,module_fit`` the Module loop and ``--only
+build,dist_training`` the two-rank job.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -1280,7 +1290,21 @@ def phase_serving_bert(torch, seed):
     warm = eng.cache_stats
     answers, wall = _traffic(server, "bert", reqs)
     report = _serving_report(server, "bert", eng, reqs, wall, warm)
+    # an id past the vocabulary: its row comes back NaN (the JAX package's
+    # jnp.take), no device-side assert reaches the card, and the server
+    # answers the requests after it
+    bad = reqs[0].copy()
+    bad[0, 5] = vocab
+    bad_out = server.predict("bert", bad)[0]._data
+    later = [server.predict("bert", x) for x in reqs[1:3]]
+    torch.cuda.synchronize()
     server.stop()
+    bad_gate = {
+        "bad_row_nan": bool(torch.isnan(bad_out[0]).any().item()),
+        "other_rows_finite": bool(torch.isfinite(bad_out[1:]).all().item()),
+        "later_answers": [_rows_gate(g, r, SERVE["card_rel"])
+                          for got, ref in zip(later, answers[1:3])
+                          for g, r in zip(got, ref)]}
     served = {"flash_fwd": A.flash_fwd_launches,
               "tf32": A.flash_fwd_tf32_launches,
               "wgmma": A.flash_fwd_wgmma_launches,
@@ -1318,10 +1342,13 @@ def phase_serving_bert(torch, seed):
            "solo_forwards": solo_forwards,
            "card_worst": max((e / b, e) for r in worst_card for e, b in r),
            "cpu_err_bound": cpu_gate, "flash_at_serving_shapes": kernels,
-           "tf32": _tf32(torch)}
+           "out_of_vocab_request": bad_gate, "tf32": _tf32(torch)}
     out["gates"] = {
         "answers_match_solo_forward": all(e <= b for r in worst_card
                                           for e, b in r),
+        "out_of_vocab_id": bad_gate["bad_row_nan"]
+        and bad_gate["other_rows_finite"]
+        and all(e <= b for e, b in bad_gate["later_answers"]),
         "one_request_matches_cpu": all(e <= b for e, b in cpu_gate),
         "shapes": all(g[0].shape == (len(x), SERVE_BERT["seq"], units)
                       and g[1].shape == (len(x), units)
@@ -1725,6 +1752,324 @@ def phase_module_fit(torch, seed):
     check(out["ok"], f"module_fit failed: {out['gates']}")
     del net, it, pred
     return main["tf32"]
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the distributed kvstore
+# ---------------------------------------------------------------------------
+# Two ranks on the one card, over gloo (NCCL refuses two ranks on one
+# card), each training module_fit's full-width BERT-base encoder
+# classifier (MODULE; fp32, TF32 off) on mx.gpu(0) under tools/launch.py.
+DIST = dict(ranks=2, batches=3, timeout_s=420)
+
+
+def _dist_digests(torch, tensors, weights):
+    """One int64 per tensor: its fp32 bits weighted by position (mod
+    65521), summed; equal digests on every rank mean equal bits there."""
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1).view(torch.int32).long()
+        w = weights.get(bits.numel())
+        if w is None:
+            w = weights[bits.numel()] = torch.arange(
+                bits.numel(), device=bits.device) % 65521 + 1
+        out.append((bits * w).sum())
+    return torch.stack(out).cpu()
+
+
+def _dist_runs(torch, mx, seed):
+    """This rank's part of dist_training: run A (Module.fit over dist_sync
+    on rows r::2, then the same batches on every rank against a
+    one-process 'device' run), run B (gluon.Trainer over dist_sync with
+    the default bucket cap, then MXNET_KVSTORE_BUCKET_KB=0)."""
+    import statistics
+
+    import numpy as np
+    import torch.distributed as dist
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.kvstore.bucketing import (bucket_capacity_bytes,
+                                                   partition_bucket_indices)
+    from mxnet_tpu_torch.ops import attention as A
+    m = MODULE
+    rank, world = mx.distributed.process_index(), mx.distributed.process_count()
+    gpu, B, nb = mx.gpu(0), m["batch"], DIST["batches"]
+    weights = {}
+
+    def agree(tensors):
+        """The ranks hold equal bits: one all_reduce of the digests."""
+        d = _dist_digests(torch, tensors, weights)
+        total = d.clone()
+        dist.all_reduce(total)
+        return bool(torch.equal(total, d * world))
+
+    forwards, steps, updates, agreed = [0], [], [], []
+
+    class Module(mx.module.Module):
+        """Counts forwards; times each step and its update()."""
+
+        def forward(self, data_batch, is_train=None):
+            forwards[0] += 1
+            super().forward(data_batch, is_train)
+
+        def forward_backward(self, data_batch):
+            self._t0 = time.perf_counter()
+            super().forward_backward(data_batch)
+
+        def update(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().update()
+            torch.cuda.synchronize()
+            updates.append(1e3 * (time.perf_counter() - t0))
+
+    net, sym = _encoder_classifier(mx, "cuda")
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, m["vocab"], (m["rows"], m["seq"])).astype(np.float32)
+    y = rng.randint(0, 2, m["rows"]).astype(np.float32)
+    mine = (x[rank::world][:nb * B], y[rank::world][:nb * B])
+    same = (x[:nb * B], y[:nb * B])
+
+    def module_run(data, kvstore, rescale, init_seed, arg_params=None):
+        it = mx.io.NDArrayIter(mx.nd.array(data[0], ctx=gpu),
+                               mx.nd.array(data[1], ctx=gpu), batch_size=B)
+        mod = Module(sym, context=gpu)
+        mod.bind(it.provide_data, it.provide_label)
+        mx.random.seed(init_seed)
+        mod.init_params(mx.init.Xavier(), arg_params=arg_params,
+                        aux_params={} if arg_params else None)
+        opt = {"learning_rate": m["lr"], "momentum": m["momentum"],
+               "rescale_grad": rescale}
+        mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                           optimizer_params=opt)
+        init = mod.get_params()[0]
+        names = mod._param_names
+
+        def step_end(param):
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - mod._t0))
+            if kvstore != "device":
+                agreed.append(agree([mod._exec.arg_dict[n]._data
+                                     for n in names]))
+
+        mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+                optimizer_params=opt, batch_end_callback=step_end)
+        return mod, init
+
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "cards": torch.cuda.device_count()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # run A, the main path: Module.fit over dist_sync, rank r on rows r::2
+    # from rank-divergent Xavier draws (kv.init sends rank 0's)
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = 0
+    mod, _ = module_run(mine, "dist_sync", 1.0 / B, seed + rank)
+    torch.cuda.synchronize()
+    out["module"] = {"flash": {"tf32": A.flash_fwd_tf32_launches,
+                               "all": A.flash_fwd_launches,
+                               "wgmma": A.flash_fwd_wgmma_launches,
+                               "forwards": forwards[0]},
+                     "step_ms": list(steps), "update_ms": list(updates),
+                     "ranks_agree": list(agreed),
+                     "rounds": dict(mod._kvstore._rounds_completed)}
+    del mod
+    # run A(b): the same batches on every rank; against one process with
+    # 'device' and rescale_grad doubled from the same weights (g + g = 2g
+    # and the scalings by 1/64 and 2/64 are exact)
+    agreed.clear()
+    mod, init = module_run(same, "dist_sync", 1.0 / B, seed + rank)
+    out["module_same"] = {"ranks_agree": list(agreed)}
+    dist_params = mod.get_params()[0]
+    del mod
+    if rank == 0:
+        dev, _ = module_run(same, "device", 2.0 / B, seed, arg_params=init)
+        gap = _param_gap(dev.get_params()[0], dist_params, 1e-6, 0.0)
+        out["module_same"]["device_gap"] = list(gap)
+        del dev
+    del dist_params, init
+    torch.cuda.empty_cache()
+
+    # run B: gluon.Trainer over dist_sync, bucketed then one key at a time
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    gforwards = [0]
+    hook = net.register_forward_pre_hook(
+        lambda block, args: gforwards.__setitem__(0, gforwards[0] + 1))
+    batches = [(mx.nd.array(mine[0][i * B:(i + 1) * B], ctx=gpu),
+                mx.nd.array(mine[1][i * B:(i + 1) * B], ctx=gpu))
+               for i in range(nb)]
+    runs, finals = {}, {}
+    for cap in ("4096", "0"):
+        os.environ["MXNET_KVSTORE_BUCKET_KB"] = cap
+        mx.random.seed(seed + 100 + rank)
+        net.initialize(mx.init.Xavier(), ctx=gpu, force_reinit=True)
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": m["lr"],
+                                                "momentum": m["momentum"]},
+                                kvstore="dist_sync")
+        allreduce_ms, step_ms, staged, issued, ok = [], [], [], [], []
+        inner = trainer.allreduce_grads
+
+        def timed_allreduce(inner=inner, allreduce_ms=allreduce_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner()
+            torch.cuda.synchronize()
+            allreduce_ms.append(1e3 * (time.perf_counter() - t0))
+
+        trainer.allreduce_grads = timed_allreduce
+        for xb, yb in batches:
+            kv = trainer._kvstore
+            before = (kv.keys_staged, kv.buckets_issued) if kv else (0, 0)
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(net(xb), yb)
+            loss.backward()
+            trainer.step(B)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            kv = trainer._kvstore
+            staged.append(kv.keys_staged - before[0])
+            issued.append(kv.buckets_issued - before[1])
+            ok.append(agree([p.data()._data for p in params.values()]))
+        sizes = [p.data()._data.numel() * 4 for p in params.values()]
+        runs[cap] = {"step_ms": step_ms, "allreduce_grads_ms": allreduce_ms,
+                     "keys_staged": staged, "buckets_issued": issued,
+                     "keys": len(sizes), "bytes": sum(sizes),
+                     "expected_buckets": len(partition_bucket_indices(
+                         sizes, ["float32"] * len(sizes),
+                         bucket_capacity_bytes())) if cap != "0" else 0,
+                     "rounds": dict(kv._rounds_completed),
+                     "ranks_agree": ok, "loss": float(loss.mean().asscalar())}
+        finals[cap] = [p.data()._data.clone() for p in params.values()]
+        del trainer, kv
+    del os.environ["MXNET_KVSTORE_BUCKET_KB"]
+    hook.detach()
+    out["trainer"] = runs
+    out["trainer_bucketed_equals_per_key"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(finals["4096"], finals["0"]))
+    out["flash_phase"] = {"tf32": A.flash_fwd_tf32_launches,
+                          "all": A.flash_fwd_launches,
+                          "wgmma": A.flash_fwd_wgmma_launches,
+                          "forwards": forwards[0] + gforwards[0]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["module_step_ms_median"] = statistics.median(out["module"]["step_ms"])
+    return out
+
+
+def dist_worker(seed, out_dir):
+    """A rank of dist_training (``chip_smoke.py --dist-worker``, started by
+    tools/launch.py): writes its figures to ``out_dir/rank<r>.json`` and
+    prints ``[rank r] dist_training OK``; any failure exits non-zero."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mx.distributed.initialize(backend="gloo")
+    try:
+        out = _dist_runs(torch, mx, seed)
+    finally:
+        mx.distributed.finalize()
+    Path(out_dir, f"rank{out['rank']}.json").write_text(json.dumps(out))
+    print(f"[rank {out['rank']}] dist_training OK", flush=True)
+
+
+def phase_dist_training(torch, seed):
+    """Two gloo ranks on the card under tools/launch.py (see DIST);
+    returns the fp32 tensor-core flash kernel's launches on each rank's
+    main path (run A)."""
+    import shutil
+    import signal
+    import tempfile
+    root = Path(__file__).resolve().parent
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = DIST["ranks"]
+    out_dir = tempfile.mkdtemp(prefix="dist_training_")
+    cmd = [sys.executable, str(root / "tools" / "launch.py"), "-n", str(n),
+           sys.executable, str(Path(__file__).resolve()), "--dist-worker",
+           "--seed", str(seed), "--dist-out", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=root,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DIST["timeout_s"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        raise SmokeFailure(f"dist_training: no end in {DIST['timeout_s']} s")
+    wall = time.perf_counter() - t0
+    try:
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(n) if Path(out_dir, f"rank{r}.json").exists()]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(proc.returncode == 0 and len(ranks) == n and all(
+        f"[rank {r}] dist_training OK" in stdout for r in range(n)),
+        f"dist_training: launcher rc {proc.returncode}, {len(ranks)} of {n} "
+        f"ranks reported\n{stdout[-2000:]}\n{stderr[-6000:]}")
+    layers = MODULE["layers"]
+    r0 = ranks[0]
+    bucketed, per_key = r0["trainer"]["4096"], r0["trainer"]["0"]
+    out = {"phase": "dist_training", "model": "bert_base_encoder_classifier",
+           "layers": layers, "units": MODULE["units"], "seq": MODULE["seq"],
+           "batch_per_rank": MODULE["batch"], "batches": DIST["batches"],
+           "dtype": "float32", "backend": r0["backend"], "world": n,
+           "ranks_per_card": n / r0["cards"], "wall_s": wall,
+           "module_step_ms": [r["module"]["step_ms"] for r in ranks],
+           "module_update_ms": [r["module"]["update_ms"] for r in ranks],
+           "trainer_step_ms": {cap: [r["trainer"][cap]["step_ms"]
+                                     for r in ranks] for cap in ("4096", "0")},
+           "allreduce_grads_ms": {cap: [r["trainer"][cap][
+               "allreduce_grads_ms"] for r in ranks] for cap in ("4096", "0")},
+           "keys_staged_per_step": bucketed["keys_staged"],
+           "buckets_per_step": bucketed["buckets_issued"],
+           "expected_buckets": bucketed["expected_buckets"],
+           "keys": bucketed["keys"], "grad_bytes": bucketed["bytes"],
+           "rounds": {"module": r0["module"]["rounds"],
+                      "trainer_bucketed": bucketed["rounds"],
+                      "trainer_per_key": per_key["rounds"]},
+           "device_gap": r0["module_same"].get("device_gap"),
+           "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+           "flash_main_path": [r["module"]["flash"] for r in ranks],
+           "flash_phase": [r["flash_phase"] for r in ranks],
+           "losses": [r["trainer"]["4096"]["loss"] for r in ranks]}
+    nkeys = bucketed["keys"]
+    out["gates"] = {
+        "backend_gloo": all(r["backend"] == "gloo" for r in ranks),
+        "ranks_agree_every_step": all(
+            all(r["module"]["ranks_agree"]) and
+            len(r["module"]["ranks_agree"]) == DIST["batches"] and
+            all(r["module_same"]["ranks_agree"]) and
+            all(all(t["ranks_agree"]) and len(t["ranks_agree"]) ==
+                DIST["batches"] for t in r["trainer"].values())
+            for r in ranks),
+        "same_batches_match_device_run": out["device_gap"] is not None
+        and out["device_gap"][3] is True,
+        "bucketed": all(
+            r["trainer"]["4096"]["buckets_issued"] ==
+            [r["trainer"]["4096"]["expected_buckets"]] * DIST["batches"]
+            and r["trainer"]["4096"]["keys_staged"] ==
+            [nkeys] * DIST["batches"]
+            and r["trainer"]["0"]["buckets_issued"] == [0] * DIST["batches"]
+            and r["trainer"]["0"]["rounds"].get("allreduce") ==
+            nkeys * DIST["batches"] for r in ranks),
+        "bucketed_equals_per_key": all(r["trainer_bucketed_equals_per_key"]
+                                       for r in ranks),
+        "flash_launches": all(
+            f["tf32"] == layers * f["forwards"] and f["all"] == f["tf32"]
+            and f["wgmma"] == 0 and f["forwards"] > 0
+            for r in ranks for f in (r["module"]["flash"], r["flash_phase"]))
+        and all(r["module"]["flash"]["forwards"] == DIST["batches"]
+                for r in ranks),
+        "losses_finite": all(math.isfinite(v) for v in out["losses"])}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"dist_training failed: {out['gates']}")
+    return [r["module"]["flash"]["tf32"] for r in ranks]
 
 
 # ---------------------------------------------------------------------------
@@ -2664,8 +3009,9 @@ def _kernel_line(name, source, replaces, launches, timing):
 PHASES = ("build", "device", "flash", "flash_timing", "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "serving_bert",
-          "serving_resnet_export", "module_fit", "rtc_kernels", "rtc_ffn",
-          "bert_flash", "bert_parity", "bert_training")
+          "serving_resnet_export", "module_fit", "dist_training",
+          "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
+          "bert_training")
 
 
 def main(argv=None):
@@ -2673,7 +3019,12 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default: all)")
+    parser.add_argument("--dist-worker", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--dist-out", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker(args.seed, args.dist_out)
     only = set(args.only.split(","))
     check(only <= set(PHASES), f"unknown phases {sorted(only - set(PHASES))}")
     import torch
@@ -2727,6 +3078,8 @@ def main(argv=None):
         phase_serving_resnet_export(torch, args.seed)
     if "module_fit" in only:
         bert_paths["module_fit"] = phase_module_fit(torch, args.seed)
+    if "dist_training" in only:
+        bert_paths["dist_training"] = phase_dist_training(torch, args.seed)
     if "rtc_kernels" in only or "rtc_ffn" in only:
         kernels, twins = phase_rtc_kernels(torch, args.seed)
     if "rtc_ffn" in only:
@@ -2741,9 +3094,11 @@ def main(argv=None):
     if bert_paths and "bert_flash" in only:
         # launches: this slice's path (module_fit) when it ran, else the
         # latest earlier slice's
-        main_path = next(bert_paths[k] for k in ("module_fit", "serving_bert",
-                                                  "bert_training")
-                         if k in bert_paths)
+        main_path = next((bert_paths[k] for k in ("module_fit",
+                                                   "serving_bert",
+                                                   "bert_training")
+                          if k in bert_paths),
+                         bert_paths.get("dist_training", [0])[0])
         line = _kernel_line("flash_fwd_bert",
                             "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
                             "mxnet_tpu/ops/attention.py:51", main_path,

@@ -15,15 +15,17 @@ Slice 9 is export, import and serving: ``mx.sym`` with its ``Executor``,
 non-generative ``ModelServer.register`` path (engine, batcher, client).
 Slice 10 is the symbolic training loop: ``mx.module`` (``Module``,
 ``BucketingModule``), ``mx.model`` checkpoints, ``mx.callback`` and the
-one-process ``mx.kvstore`` (``'local'``, ``'device'``).
+one-process ``mx.kvstore`` (``'local'``, ``'device'``).  Slice 11 is the
+distributed kvstore: ``mx.distributed`` over ``torch.distributed``, the
+``dist_*`` stores, bucketed pushes and 2-bit compression.
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 (``device="cpu"``, ``mx.cpu()``)."""
-from . import (autograd, base, callback, context, contrib, convert, error,
-               executor, gluon, initializer, io, kvstore, lr_scheduler,
-               metric, model, module, name, ndarray, ops, optimizer, random,
-               rtc, serving, symbol)
+from . import (autograd, base, callback, context, contrib, convert,
+               distributed, error, executor, gluon, initializer, io, kvstore,
+               lr_scheduler, metric, model, module, name, ndarray, ops,
+               optimizer, parallel, random, rtc, serving, symbol)
 from .base import MXNetError, env
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       resolve_device, set_default_context, tpu)
@@ -36,9 +38,10 @@ sym = symbol
 kv = kvstore
 
 __all__ = ["autograd", "base", "callback", "context", "contrib", "convert",
-           "error", "executor", "gluon", "init", "initializer", "io", "kv",
-           "kvstore", "lr_scheduler", "metric", "model", "module", "name",
-           "nd", "ndarray", "ops", "optimizer", "random", "rtc", "serving",
+           "distributed", "error", "executor", "gluon", "init", "initializer",
+           "io", "kv", "kvstore", "lr_scheduler", "metric", "model", "module",
+           "name", "nd", "ndarray", "ops", "optimizer", "parallel", "random",
+           "rtc", "serving",
            "sym", "symbol", "save_checkpoint", "load_checkpoint",
            "MXNetError", "env",
            "Context", "cpu", "gpu", "tpu", "current_context",

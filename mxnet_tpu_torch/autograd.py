@@ -131,25 +131,75 @@ def mark_variables(variables, gradients, grad_reqs="write") -> None:
 
 
 # ---------------------------------------------------------------------------
+# ops that torch does not track
+# ---------------------------------------------------------------------------
+def _untracked(t) -> bool:
+    return not t.requires_grad and hasattr(t, "_mx_srcs")
+
+
+def link_untracked(inputs, outputs) -> None:
+    """Keep the tape's edges that torch drops.  A recorded op whose output
+    torch does not track (``one_hot``, a comparison, an integer cast) gets
+    its on-tape inputs as ``_mx_srcs``; a tracked output that used such an
+    input keeps it in its node's metadata.  ``backward`` walks these edges
+    too, so a variable reached only through them gets a zero gradient, as
+    on the JAX package's tape."""
+    srcs = [t for t in inputs if isinstance(t, torch.Tensor)
+            and (t.requires_grad or _untracked(t))]
+    if not srcs:
+        return
+    hidden = [t for t in srcs if not t.requires_grad]
+    for o in outputs:
+        if any(o is t for t in inputs):
+            continue
+        if o.grad_fn is not None:
+            if hidden:
+                o.grad_fn.metadata.setdefault("mx_srcs", []).extend(hidden)
+        elif not o.requires_grad:
+            o._mx_srcs = srcs
+
+
+# ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------
-def _variables_of(roots) -> List:
+def _variables_of(roots, tensors=()) -> List:
     """Each tagged leaf tensor reachable from the ``grad_fn`` nodes
-    ``roots``, with its array: ``[(array, tensor)]``."""
+    ``roots`` and from ``tensors``, through torch's graph and the edges
+    of :func:`link_untracked`, with its array: ``[(array, tensor)]``."""
     seen, stack, found = set(), list(roots), []
-    while stack:
+    pending = list(tensors)
+    while stack or pending:
+        while pending:
+            t = pending.pop()
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            if t.grad_fn is not None:
+                stack.append(t.grad_fn)
+            elif t.requires_grad:
+                _add_variable(t, found, seen)
+            else:
+                pending.extend(getattr(t, "_mx_srcs", ()))
+        if not stack:
+            break
         fn = stack.pop()
         if fn is None or fn in seen:
             continue
         seen.add(fn)
         t = getattr(fn, "variable", None)
         if t is not None:
-            ref = getattr(t, "_mx_variable", None)
-            arr = ref() if ref is not None else None
-            if arr is not None and _is_variable(arr):
-                found.append((arr, t))
+            _add_variable(t, found, seen)
+        pending.extend(fn.metadata.get("mx_srcs", ()))
         stack.extend(f for f, _ in fn.next_functions)
     return found
+
+
+def _add_variable(t, found, seen) -> None:
+    ref = getattr(t, "_mx_variable", None)
+    arr = ref() if ref is not None else None
+    if arr is not None and _is_variable(arr) and ("leaf", id(t)) not in seen:
+        seen.add(("leaf", id(t)))
+        found.append((arr, t))
 
 
 def _grads(outs, ogs, tensors, retain_graph):
@@ -169,28 +219,37 @@ def _grads(outs, ogs, tensors, retain_graph):
 def _run_backward(heads, head_grads, variables=None, retain_graph=False):
     """Gradients of ``heads``: written into the variables' gradient arrays,
     or, given ``variables``, returned for them (a tensor or None each)."""
-    if all(h._data.grad_fn is None and not _is_variable(h) for h in heads):
+    if all(h._data.grad_fn is None and not _is_variable(h)
+           and not _untracked(h._data) for h in heads):
         raise MXNetError(
             "cannot differentiate: none of the heads was computed under "
             "autograd.record() or marked with attach_grad()")
     outs, ogs, leaf_heads = [], [], []
     for h, g in zip(heads, head_grads):
         if h._data.grad_fn is None:
-            leaf_heads.append((h, g))
+            leaf_heads.append(((h, h._data), g))
         else:
             outs.append(h._data)
             ogs.append(g)
     if variables is None:
-        targets = _variables_of([o.grad_fn for o in outs])
+        # a variable on the tape that torch's graph does not reach (only
+        # through untracked ops) takes a zero gradient
+        targets = _variables_of([o.grad_fn for o in outs],
+                                [h._data for h in heads
+                                 if _untracked(h._data)])
     else:
         targets = [(v, v._data) for v in variables if v._data.requires_grad]
     got = (_grads(outs, ogs, [t for _, t in targets], retain_graph)
            if outs and targets else [None] * len(targets))
     total: Dict[int, torch.Tensor] = {}
     arrays = {}
-    for (arr, _), g in list(zip(targets, got)) + leaf_heads:
-        if g is None or (variables is None and not _is_variable(arr)):
+    for (arr, t), g in list(zip(targets, got)) + leaf_heads:
+        if variables is None and not _is_variable(arr):
             continue
+        if g is None:
+            if variables is not None:
+                continue
+            g = torch.zeros_like(t)
         total[id(arr)] = g if id(arr) not in total else total[id(arr)] + g
         arrays[id(arr)] = arr
     if variables is not None:

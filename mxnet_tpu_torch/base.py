@@ -90,6 +90,32 @@ env.declare("MXNET_TPU_FUSE_CONV_BN", 0, int,
             "Read when the block is constructed.")
 
 
+# -- the kvstore (mxnet_tpu/base.py:184, :200, :336-365)
+env.declare("MXNET_UPDATE_ON_KVSTORE", True, bool,
+            "gluon.Trainer runs the optimizer inside the kvstore when one "
+            "is engaged (the Trainer's update_on_kvstore=None).")
+env.declare("MXNET_ASYNC_SYNC_INTERVAL", 16, int,
+            "dist_async: pushes per key between cross-process averaging "
+            "rounds of its stored value.")
+env.declare("MXNET_KVSTORE_TIMEOUT", 0.0, float,
+            "Seconds a dist kvstore collective may block: the process "
+            "group's timeout (torch.distributed raises past it).  0 keeps "
+            "torch's default.")
+env.declare("MXNET_KVSTORE_BUCKET_KB", 4096, int,
+            "Bucket capacity in KiB for a multi-key dense push: keys are "
+            "concatenated into dtype-grouped flat buckets of at most this "
+            "size and each bucket is reduced once (the results equal the "
+            "per-key path bit for bit).  0 = one reduction per key.")
+env.declare("MXNET_KVSTORE_SHARD", False, bool,
+            "Optimizer-state sharding of the bucketed push (ZeRO, the JAX "
+            "package's kvstore/sharded.py).  Not ported: a store asked "
+            "for it raises at its push.")
+env.declare("MXNET_KVSTORE_OVERLAP", True, bool,
+            "Issue a bucket's all-reduce (async) the moment it fills, while "
+            "later keys are still staged; off, every bucket waits for the "
+            "end-of-push flush, which issues them in priority order.")
+
+
 env.declare("MXNET_SERVING_MAX_QUEUE", 256, int,
             "Admission bound on a DynamicBatcher's queue (pending requests); "
             "submissions beyond it are shed with OverloadedError.")

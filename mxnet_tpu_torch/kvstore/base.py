@@ -3,22 +3,26 @@
 ``python/mxnet/kvstore/base.py``).
 
 The contract: int or str keys; ``init`` once per key; ``push`` sums a
-value or a list of values; ``pull`` copies the stored value out (a pulled
-buffer never aliases the store); ``pushpull`` does both; an optimizer or
-updater set on the store runs at push time on the merged value into the
-stored one, else the merged value replaces it.  Every store here lives in
-one process on one device: ``rank`` is 0, ``num_workers`` 1, and
-``barrier`` waits for the card's queued work.
+value or a list of values, and a list of keys goes through one
+``_push_group`` call (the bucketed stores fuse it); ``pull`` copies the
+stored value out (a pulled buffer never aliases the store); ``pushpull``
+does both; an optimizer or updater set on the store runs at push time on
+the merged value into the stored one, else the merged value replaces it;
+with 2-bit compression set (``set_gradient_compression``) the merged
+value is quantized first.  The stores of this file live in one process:
+``rank`` is 0, ``num_workers`` 1, and ``barrier`` waits for the card's
+queued work; the dist stores (``kvstore/__init__.py``) span processes.
 
 Not ported yet, and an error rather than a different result:
 ``row_sparse_pull`` (the row-sparse arrays, ROADMAP A15) and
-``set_gradient_compression`` (ROADMAP A11).
+optimizer-state sharding (``kvstore/sharded.py``, ROADMAP A11, the
+rest).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
-from ..base import MXNetError
+from ..base import MXNetError, env
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["KVStoreBase", "TestStore", "create", "register"]
@@ -44,6 +48,10 @@ class KVStoreBase:
     def __init__(self):
         self._store: Dict[str, NDArray] = {}
         self._updater: Optional[Callable] = None
+        self._optimizer = None
+        self._compression = None
+        # engage the store in a Trainer even with one worker
+        self.force_use = False
 
     # ------------------------------------------------------------- identity
     @property
@@ -60,9 +68,15 @@ class KVStoreBase:
 
     @staticmethod
     def is_capable(capability: str) -> bool:
-        """Capability probe (reference ``kvstore.py:111``): the stores
-        here take an optimizer."""
-        return capability.lower() == "optimizer"
+        """Capability probe (reference ``kvstore.py:111``)."""
+        return capability.lower() in ("optimizer", "dist_sync")
+
+    @property
+    def optimizer_state_sharding(self) -> bool:
+        """Whether a bucketed push should shard the optimizer states
+        (``MXNET_KVSTORE_SHARD``); the port has no sharded push yet, and
+        a store asked for one raises at its push."""
+        return bool(env.MXNET_KVSTORE_SHARD)
 
     # ------------------------------------------------------------- helpers
     @staticmethod
@@ -104,22 +118,42 @@ class KVStoreBase:
                 raise MXNetError(f"key {k} already initialized")
             self._store[sk] = _copy(v)
 
+    @staticmethod
+    def _priorities(priority, n: int):
+        """One priority per key, from an int or a matched list (the
+        Trainer's ``priority=-index``, which orders a bucketed flush)."""
+        if isinstance(priority, (list, tuple)):
+            if len(priority) != n:
+                raise MXNetError("mismatched keys/priorities in kvstore push")
+            return [int(p) for p in priority]
+        return [int(priority)] * n
+
     def push(self, key, value, priority=0):
         """Push one key's value or value list, or a list of keys with one
         value (or value list) each; each key's values are summed."""
         keys = self._aslist(key)
         if len(keys) == 1:
-            groups = [(keys[0], self._aslist(value))]
+            groups = [(keys[0], self._aslist(value),
+                       self._priorities(priority, 1)[0])]
         else:
             values = self._aslist(value)
             if len(keys) != len(values):
                 raise MXNetError("mismatched keys/values in kvstore push")
-            groups = [(k, self._aslist(v)) for k, v in zip(keys, values)]
-        for k, vals in groups:
-            sk = self._key(k)
-            if sk not in self._store:
-                raise MXNetError(f"key {k} has not been initialized")
-            self._apply_merged(k, sk, self._reduce(vals))
+            groups = [(k, self._aslist(v), p) for k, v, p in zip(
+                keys, values, self._priorities(priority, len(keys)))]
+        self._push_group(groups)
+
+    def _push_group(self, groups):
+        """One call per ``push``, every key of it at once: here the
+        per-key loop; the device and dist stores bucket it."""
+        for k, vals, prio in groups:
+            self._push_one(k, vals, prio)
+
+    def _push_one(self, key, vals: List[NDArray], priority: int):
+        sk = self._key(key)
+        if sk not in self._store:
+            raise MXNetError(f"key {key} has not been initialized")
+        self._apply_merged(key, sk, self._reduce(vals))
 
     def pull(self, key, out=None, priority: int = 0, ignore_sparse: bool = True):
         """Copy each key's stored value into its ``out`` (onto its device,
@@ -151,8 +185,12 @@ class KVStoreBase:
         return results[0] if len(results) == 1 else results
 
     def pushpull(self, key, value, out=None, priority=0):
-        self.push(key, value)
-        return self.pull(key, out=out)
+        """``push`` then ``pull``: a list of keys is one staged push (one
+        bucketed flush on the device and dist stores), and the pull reads
+        the store with no collective."""
+        self.push(key, value, priority)
+        return self.pull(key, out=out,
+                         priority=priority if isinstance(priority, int) else 0)
 
     def row_sparse_pull(self, key, out=None, priority: int = 0, row_ids=None):
         raise MXNetError("kvstore row_sparse_pull: row-sparse arrays are not "
@@ -161,14 +199,17 @@ class KVStoreBase:
     # ------------------------------------------------------------- updater
     def set_optimizer(self, optimizer):
         from .. import optimizer as opt
+        self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
 
     def _set_updater(self, updater):
         self._updater = updater
 
     def set_gradient_compression(self, compression_params):
-        raise MXNetError("kvstore gradient compression is not ported yet "
-                         "(ROADMAP A11)")
+        """2-bit compression with error feedback on every merged dense
+        value (``{"type": "2bit", "threshold": t}``)."""
+        from .gradient_compression import GradientCompression
+        self._compression = GradientCompression(**compression_params)
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:
@@ -191,29 +232,38 @@ class KVStoreBase:
     def _reduce(self, vals: List[NDArray]) -> NDArray:
         raise NotImplementedError
 
-    def _apply_merged(self, key, sk: str, merged: NDArray):
-        """The updater on the merged value into the stored one (in place;
-        the original key reaches it, so per-index multipliers resolve),
-        else the merged value replaces the stored one."""
+    def _apply_merged(self, key, sk: str, merged: NDArray,
+                      compress: bool = True):
+        """The compression round trip (unless the caller compressed a
+        whole bucket already), then the updater on the merged value into
+        the stored one (in place; the original key reaches it, so
+        per-index multipliers resolve), else the merged value replaces
+        the stored one."""
+        if compress and self._compression is not None:
+            merged = NDArray(self._compression.roundtrip(
+                sk, merged._data.detach()), merged.context)
         if self._updater is not None:
             self._updater(key, merged, self._store[sk])
         else:
             self._store[sk] = _copy(merged)
 
 
-_DIST = ("dist_sync", "dist_device_sync", "dist_tpu_sync", "dist_async",
-         "dist_tpu_async")
-
-
 def create(name: str = "local") -> KVStoreBase:
-    """A store by type: ``'local'``, ``'device'`` (alias ``'nccl'``) or
-    ``'teststore'``.  The distributed types raise: they need processes
-    across cards and are not ported yet."""
+    """A store by type (reference ``kvstore.cc:40-72``):
+
+    ``'local'``            the pushed values summed pairwise
+    ``'device'``/``'nccl'`` the same on the values' card, a multi-key push
+                           in buckets
+    ``'dist_sync'``/``'dist_device_sync'``/``'dist_tpu_sync'``
+                           every rank's push summed with an all-reduce
+                           across the processes of ``mx.distributed``
+    ``'dist_async'``/``'dist_tpu_async'``
+                           pushes applied locally, each key averaged
+                           across processes every
+                           ``MXNET_ASYNC_SYNC_INTERVAL`` pushes
+    ``'teststore'``        the plugin protocol's store
+    """
     name = (name or "local").lower()
-    if name in _DIST:
-        raise MXNetError(f"kvstore {name!r}: the distributed kvstore is not "
-                         "ported yet (ROADMAP A11); one process has "
-                         "'local' and 'device'")
     cls = _REGISTRY.get(name)
     if cls is None:
         raise MXNetError(f"unknown kvstore type {name!r}; available: "

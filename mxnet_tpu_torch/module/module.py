@@ -7,9 +7,13 @@ told otherwise; the grad_req of each argument follows ``for_training``,
 ``fixed_param_names`` and ``inputs_need_grad``.  ``init_optimizer``
 follows the JAX package: with a kvstore (``'local'`` by default) it
 creates the store, sets the optimizer on it and puts each parameter in
-it, and ``update`` then pushes each gradient and pulls each weight back;
-without one the module's own updater updates the weights in place.  The
-two give the same numbers.
+it, and ``update`` then pushes each gradient and pulls each weight back,
+one key at a time; without one the module's own updater updates the
+weights in place.  The two give the same numbers.  Over a ``dist_*``
+store the push all-reduces across processes, and ``init_optimizer``
+pulls each parameter back after putting it in, so every rank starts from
+rank 0's weights (upstream MXNet pulls there; the JAX package does not,
+which in one process changes nothing).
 
 Where the JAX package departs from upstream MXNet 1.6 the port follows
 it: ``init_optimizer`` leaves ``rescale_grad`` as given (upstream sets
@@ -211,6 +215,9 @@ class Module(BaseModule):
             kv.set_optimizer(optimizer)
             for i, name in enumerate(self._param_names):
                 kv.init(i, self._exec.arg_dict[name])
+                # a dist store holds rank 0's value: every rank starts
+                # from it (upstream model._initialize_kvstore pulls too)
+                kv.pull(i, out=self._exec.arg_dict[name])
         self.optimizer_initialized = True
 
     def borrow_optimizer(self, shared_module):

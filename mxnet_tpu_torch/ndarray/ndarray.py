@@ -448,6 +448,8 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
             result = op.fn(*raw, **params)
     multi = isinstance(result, (tuple, list))
     outs_raw = _own(list(result) if multi else [result], raw)
+    if autograd.is_recording():
+        autograd.link_untracked([x._data for x in nd_inputs], outs_raw)
     if out is not None:
         out_list = out if isinstance(out, (list, tuple)) else [out]
         for o, r in zip(out_list, outs_raw):

@@ -39,9 +39,7 @@ _UNARY = {
     "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
     "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
     "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
-    "erf": torch.erf, "erfinv": torch.erfinv, "gammaln": torch.lgamma,
-    "gamma": lambda x: torch.exp(torch.lgamma(x)),
-    "digamma": torch.digamma, "sigmoid": torch.sigmoid,
+    "erf": torch.erf, "erfinv": torch.erfinv, "sigmoid": torch.sigmoid,
     "softsign": lambda x: x / (1 + torch.abs(x)), "relu": torch.relu,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
     "logical_not": lambda x: torch.logical_not(x).to(x.dtype),
@@ -56,6 +54,37 @@ for _name, _fn in _UNARY.items():
 
 alias("negative", "_np_negative")
 alias("abs", "_abs")
+
+
+# -- the gamma family, with JAX's values at the poles: digamma is NaN at
+#    0 (torch gives -inf) and its derivative +inf at every non-positive
+#    integer (torch's trigamma is finite at the negative ones), so the
+#    gradients of gammaln and gamma are NaN there, as in the JAX package.
+def _digamma(x):
+    return torch.where(x == 0, torch.nan, torch.digamma(x))
+
+
+def _trigamma(x):
+    pole = (x <= 0) & (x == torch.floor(x))
+    return torch.where(pole, torch.inf, torch.polygamma(1, x))
+
+
+@register("digamma", nin=1,
+          grad=lambda p, i, o, g: [g[0] * _trigamma(i[0])])
+def _digamma_op(data):
+    return _digamma(data)
+
+
+@register("gammaln", nin=1,
+          grad=lambda p, i, o, g: [g[0] * _digamma(i[0])])
+def _gammaln_op(data):
+    return torch.lgamma(data)
+
+
+@register("gamma", nin=1,
+          grad=lambda p, i, o, g: [g[0] * o[0] * _digamma(i[0])])
+def _gamma_op(data):
+    return torch.exp(torch.lgamma(data))
 
 
 @register("hard_sigmoid", nin=1)
@@ -178,7 +207,6 @@ _BINARY = {
     "broadcast_add": torch.add, "broadcast_sub": torch.sub,
     "broadcast_mul": torch.mul, "broadcast_div": torch.true_divide,
     "broadcast_mod": torch.remainder, "broadcast_power": torch.pow,
-    "broadcast_maximum": torch.maximum, "broadcast_minimum": torch.minimum,
     "broadcast_hypot": torch.hypot,
     "broadcast_floordiv": _floor_divide,
     "broadcast_equal": _cmp(torch.eq), "broadcast_not_equal": _cmp(torch.ne),
@@ -195,6 +223,35 @@ _BINARY = {
 
 for _name, _fn in _BINARY.items():
     register(_name, nin=2)((lambda f: lambda lhs, rhs: f(lhs, rhs))(_fn))
+
+
+# -- maximum/minimum with JAX's gradient: an operand equal to the result
+#    takes the gradient, half of it on a tie, so a NaN result sends it to
+#    neither side (torch sends it to the NaN operand).
+def _chosen(a, b, z, g):
+    w = torch.where(a == z, torch.where(b == z, 0.5, 1.0), 0.0)
+    return (g * w.to(g.dtype)).sum_to_size(a.shape)
+
+
+def _maxmin_grad(params, inputs, outputs, out_grads):
+    x, y = inputs
+    z, g = outputs[0], out_grads[0]
+    return [_chosen(x, y, z, g), _chosen(y, x, z, g)]
+
+
+def _maxmin_scalar_grad(params, inputs, outputs, out_grads):
+    x, z = inputs[0], outputs[0]
+    return [_chosen(x, _s(params.get("scalar", 0.0)), z, out_grads[0])]
+
+
+@register("broadcast_maximum", nin=2, grad=_maxmin_grad)
+def _maximum(lhs, rhs):
+    return torch.maximum(lhs, rhs)
+
+
+@register("broadcast_minimum", nin=2, grad=_maxmin_grad)
+def _minimum(lhs, rhs):
+    return torch.minimum(lhs, rhs)
 
 alias("broadcast_add", "elemwise_add")
 alias("broadcast_add", "_plus")
@@ -248,8 +305,6 @@ _SCALAR = {
     "_power_scalar": lambda x, s: torch.pow(x, _s(s)),
     "_rpower_scalar": lambda x, s: torch.pow(_s(s), x),
     "_floordiv_scalar": lambda x, s: _floor_divide(x, _s(s)),
-    "_maximum_scalar": lambda x, s: torch.maximum(x, _s(s)),
-    "_minimum_scalar": lambda x, s: torch.minimum(x, _s(s)),
     "_hypot_scalar": lambda x, s: torch.hypot(x, torch.tensor(s, dtype=x.dtype)),
     "_equal_scalar": lambda x, s: (x == s).to(x.dtype),
     "_not_equal_scalar": lambda x, s: (x != s).to(x.dtype),
@@ -265,3 +320,13 @@ _SCALAR = {
 for _name, _fn in _SCALAR.items():
     register(_name, nin=1)(
         (lambda f: lambda data, scalar=0.0: f(data, scalar))(_fn))
+
+
+@register("_maximum_scalar", nin=1, grad=_maxmin_scalar_grad)
+def _maximum_scalar(data, scalar=0.0):
+    return torch.maximum(data, _s(scalar))
+
+
+@register("_minimum_scalar", nin=1, grad=_maxmin_scalar_grad)
+def _minimum_scalar(data, scalar=0.0):
+    return torch.minimum(data, _s(scalar))

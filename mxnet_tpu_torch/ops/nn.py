@@ -156,8 +156,20 @@ def fully_connected(data, weight, bias=None, flatten=True):
 
 def embedding(data, weight):
     """Rows of ``weight`` at the integer ``data`` (any shape); the gradient
-    is a dense scatter-add into ``weight``'s shape."""
-    return F.embedding(data.long(), weight)
+    is a dense scatter-add into ``weight``'s shape.
+
+    Out-of-range ids follow the JAX package's ``jnp.take``: an id in
+    [-V, 0) counts from the end, and any other id outside [0, V) gives a
+    NaN row (a floating table) and adds nothing to the gradient.  No bad
+    id reaches ``F.embedding``, where the card would fault."""
+    rows = weight.shape[0]
+    idx = data.long()
+    idx = torch.where(idx < 0, idx + rows, idx)
+    ok = (idx >= 0) & (idx < rows)
+    out = F.embedding(torch.where(ok, idx, 0), weight)
+    if not weight.is_floating_point():
+        return out
+    return torch.where(ok.unsqueeze(-1), out, torch.nan)
 
 
 def dropout(data, p=0.5, training=True, generator=None, axes=()):
@@ -351,7 +363,10 @@ def _softmax_output_grad(params, inputs, outputs, out_grads):
     if label.dim() == prob.dim():  # one-hot labels
         grad = prob - label
     else:
-        oh = F.one_hot(label.long(), prob.shape[class_axis]).to(prob.dtype)
+        # clamped first: an ignored row may carry any label (-1 by
+        # default), and its row is masked below
+        oh = F.one_hot(label.long().clamp(0, prob.shape[class_axis] - 1),
+                       prob.shape[class_axis]).to(prob.dtype)
         if class_axis == 1:
             oh = oh.movedim(-1, 1)
         grad = prob - oh
@@ -375,6 +390,35 @@ def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
     """Softmax forward; its gradient is the loss's (see
     :func:`_softmax_output_grad`)."""
     return softmax(data, 1 if attr_truthy(multi_output) else -1)
+
+
+def _regression_grad(kind):
+    """``(pred - label)·grad_scale / batch`` (its sign for ``mae``)
+    whatever the output gradient (mxnet_tpu/ops/nn.py:535)."""
+    def grad(params, inputs, outputs, out_grads):
+        data, label = inputs
+        pred = outputs[0]
+        scale = float(params.get("grad_scale", 1.0)) / max(1, data.shape[0])
+        d = pred - label.reshape(pred.shape)
+        if kind == "mae":
+            d = torch.sign(d)
+        return d * scale, None
+    return grad
+
+
+@register("LinearRegressionOutput", nin=2, grad=_regression_grad("mse"))
+def _linear_regression_output(data, label, grad_scale=1.0):
+    return data
+
+
+@register("MAERegressionOutput", nin=2, grad=_regression_grad("mae"))
+def _mae_regression_output(data, label, grad_scale=1.0):
+    return data
+
+
+@register("LogisticRegressionOutput", nin=2, grad=_regression_grad("mse"))
+def _logistic_regression_output(data, label, grad_scale=1.0):
+    return torch.sigmoid(data)
 
 
 # -- shape inference for Symbol.infer_shape: an op's variable inputs
@@ -444,3 +488,17 @@ _get_op("BatchNorm").infer_shapes = _norm_infer_axis(1)
 _get_op("LayerNorm").infer_shapes = _norm_infer_axis(-1)
 _get_op("Embedding").infer_shapes = _embedding_infer
 _get_op("SoftmaxOutput").infer_shapes = _softmax_output_infer
+
+
+def _regression_infer(shapes, params):
+    data = shapes[0]
+    if data is None:
+        return None
+    out = list(shapes)
+    out[1] = out[1] or tuple(data)
+    return out
+
+
+for _name in ("LinearRegressionOutput", "LogisticRegressionOutput",
+              "MAERegressionOutput"):
+    _get_op(_name).infer_shapes = _regression_infer

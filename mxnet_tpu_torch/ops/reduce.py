@@ -67,10 +67,25 @@ def _reduce(fn):
     return impl
 
 
+def _chooser_grad(params, inputs, outputs, out_grads):
+    """JAX's gradient of max/min: the elements equal to the result share
+    it evenly, so a NaN result sends it nowhere (torch's gives NaN)."""
+    x, out, g = inputs[0], outputs[0], out_grads[0]
+    ax = _axes(x, params.get("axis"), params.get("exclude", False))
+    ax = tuple(range(x.ndim)) if ax is None else tuple(a % x.ndim for a in ax)
+    if not params.get("keepdims", False):
+        for a in sorted(ax):
+            out, g = out.unsqueeze(a), g.unsqueeze(a)
+    hit = (x == out).to(g.dtype)
+    return [g * hit / hit.sum(ax, keepdim=True).clamp_min(1)]
+
+
 for _name, _aliases in (("sum", ["sum_axis"]), ("mean", []), ("prod", []),
                         ("nansum", []), ("nanprod", []),
                         ("max", ["max_axis"]), ("min", ["min_axis"])):
-    register(_name, nin=1, aliases=_aliases)(_reduce(_TORCH_REDUCE[_name]))
+    register(_name, nin=1, aliases=_aliases,
+             grad=_chooser_grad if _name in ("max", "min") else None)(
+        _reduce(_TORCH_REDUCE[_name]))
 
 
 @register("norm", nin=1)

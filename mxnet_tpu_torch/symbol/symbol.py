@@ -29,7 +29,8 @@ import numpy as _np
 import torch
 
 from .. import autograd
-from ..base import MXNetError, attr_truthy, dtype_torch, numpy_dtype
+from ..base import (MXNetError, attr_truthy, dtype_torch, narrow_source,
+                    numpy_dtype)
 from ..context import current_context
 from ..ndarray.ndarray import NDArray, invoke as _nd_invoke
 from ..ops import registry as _registry
@@ -592,7 +593,13 @@ class Executor:
         self._graph = None
         for k, v in kwargs.items():
             if k in self.arg_dict:
-                self.arg_dict[k][:] = v
+                # rebound at the input's shape, as the JAX package does: a
+                # batch of another size runs the graph at that size
+                bound = self.arg_dict[k]._data
+                t = v._data if isinstance(v, NDArray) else torch.as_tensor(
+                    narrow_source(_np.asarray(v)))
+                self.arg_dict[k]._set_data(t.detach().to(
+                    device=bound.device, dtype=bound.dtype, copy=True))
         bindings = {k: self._leaf(k, v, is_train)
                     for k, v in self.arg_dict.items()}
         bindings.update((k, NDArray(v._data.detach(), v.context))

@@ -301,3 +301,56 @@ def test_identity_function_leaves_its_input_alone():
     assert y is not x and x._data.grad_fn is None
     loss.backward()
     np.testing.assert_allclose(x.grad.asnumpy(), [-3.0, -3.0])
+
+
+def _untracked_steps(pkg):
+    """One step reaches ``c`` through ``c * c``; the next only through
+    ``one_hot(c)`` and ``c > 0``, which torch does not track."""
+    c = pkg.nd.array(np.array([1.0, 2.0, 3.0], np.float32))
+    w = pkg.nd.array(np.ones((3, 4), np.float32))
+    c.attach_grad()
+    w.attach_grad()
+    with pkg.autograd.record():
+        y = (c * c / 2).sum()
+    y.backward()
+    first = c.grad.asnumpy().copy()
+    with pkg.autograd.record():
+        y = (pkg.nd.one_hot(c, 4) * w).sum() + ((c > 0) * w[:, 0]).sum()
+    y.backward()
+    return first, c.grad.asnumpy(), w.grad.asnumpy()
+
+
+def test_leaf_reached_only_through_untracked_ops_gets_zero_grad():
+    """``grad_req='write'`` overwrites ``c``'s gradient with zeros when
+    the step reaches it only through untracked ops, as the JAX package's
+    tape does (the port kept the last step's [1, 2, 3])."""
+    ref, got = (_untracked_steps(pkg) for pkg in (jmx, tmx))
+    np.testing.assert_array_equal(got[0], [1.0, 2.0, 3.0])
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    np.testing.assert_array_equal(got[1], 0.0)
+
+
+@pytest.mark.parametrize("head", ["compare", "one_hot_sum"])
+def test_head_reached_only_through_untracked_ops(head):
+    """A head that reaches an attached leaf only through untracked ops
+    gives it zeros, as in the JAX package (the port raised 'cannot
+    differentiate')."""
+    def fn(pkg, c):
+        c.grad[:] = 7.0
+        with pkg.autograd.record():
+            y = (c > 0) if head == "compare" else pkg.nd.one_hot(c, 4).sum()
+        y.backward()
+    ref, got = _both(fn, np.array([1.0, -2.0, 3.0], np.float32))
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[0], 0.0)
+
+
+def test_variable_head_takes_its_head_gradient():
+    """A marked variable used as the head itself gets the head gradient."""
+    def fn(pkg, x):
+        with pkg.autograd.record():
+            y = x
+        y.backward(pkg.nd.array(np.array([2.0, 3.0], np.float32)))
+    ref, got = _both(fn, np.array([1.0, 5.0], np.float32))
+    np.testing.assert_array_equal(got[0], ref[0])

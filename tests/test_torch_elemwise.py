@@ -216,3 +216,54 @@ def test_integer_reductions_keep_their_dtype():
         want = getattr(jmx.nd, name)(jmx.nd.array(x))
         got = getattr(tmx.nd, name)(tmx.nd.array(x))
         _check(want, got, name, "int32")
+
+
+_NAN, _INF = np.nan, np.inf
+_POLES = np.array([0.0, -0.0, -1.0, -2.5, 1e-30, -3.0, 0.5], np.float32)
+_EDGE_CASES = {
+    "max_nan": (lambda mx, a: mx.nd.max(a), [1.0, _NAN, 3.0]),
+    "max_tie": (lambda mx, a: mx.nd.max(a), [3.0, 1.0, 3.0]),
+    "max_axis": (lambda mx, a: mx.nd.max(a, axis=1),
+                 [[1.0, _NAN, 3.0], [_INF, _INF, 1.0]]),
+    "max_keepdims": (lambda mx, a: mx.nd.max(a, axis=0, keepdims=True),
+                     [[1.0, 2.0], [1.0, _NAN]]),
+    "min_exclude": (lambda mx, a: mx.nd.min(a, axis=1, exclude=True),
+                    [[[1.0, 2.0], [1.0, _NAN]], [[0.0, 2.0], [3.0, 1.0]]]),
+    "broadcast_maximum": (
+        lambda mx, a: mx.nd.broadcast_maximum(a, mx.nd.array(
+            np.array([[2.0], [_NAN]], np.float32))), [1.0, 2.0, 3.0]),
+    "broadcast_minimum": (
+        lambda mx, a: mx.nd.broadcast_minimum(a, mx.nd.array(
+            np.array([2.0, 2.0, _NAN], np.float32))), [1.0, _NAN, 3.0]),
+    "_maximum_scalar": (lambda mx, a: mx.nd.maximum(a, 2.0),
+                        [2.0, _INF, -_INF, _NAN]),
+    "_minimum_scalar": (lambda mx, a: mx.nd.minimum(a, 2.0),
+                        [2.0, _INF, -_INF, _NAN]),
+    "digamma": (lambda mx, a: mx.nd.digamma(a), _POLES),
+    "gamma": (lambda mx, a: mx.nd.gamma(a), _POLES),
+    "gammaln": (lambda mx, a: mx.nd.gammaln(a), _POLES),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_CASES))
+def test_nan_and_pole_edge_cases_match_jax(case):
+    """NaN inputs, ties and the gamma family's poles: values and
+    gradients as the JAX package's (a NaN max sends its gradient nowhere,
+    a tie splits it; digamma is NaN at 0 and its derivative +inf at the
+    non-positive integers).  NaN and inf must match in place; finite
+    values within the gamma family's 2e-5 relative."""
+    fn, x = _EDGE_CASES[case]
+    got = []
+    for mx in (jmx, tmx):
+        a = mx.nd.array(np.asarray(x, np.float32))
+        a.attach_grad()
+        with mx.autograd.record():
+            y = fn(mx, a)
+        y.backward(mx.nd.ones(y.shape))
+        got.append((y.asnumpy(), a.grad.asnumpy()))
+    for j, t in zip(*got):
+        assert j.shape == t.shape
+        np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
+        np.testing.assert_array_equal(np.isinf(t), np.isinf(j))
+        np.testing.assert_allclose(t, j, rtol=2e-5, atol=1e-6,
+                                   equal_nan=True)

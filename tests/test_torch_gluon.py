@@ -613,8 +613,9 @@ def test_trainer_step_keeps_module_and_parameters_together():
 # ---------------------------------------------------------------------------
 def test_entry_points_default_to_the_card():
     """Without a card, initialize() with no context, the model zoo with
-    no device, and an iterator with no context raise; so does a kvstore
-    across cards."""
+    no device, and an iterator with no context raise; so does
+    optimizer-state sharding, while a dist kvstore is taken (in one
+    process it engages no store)."""
     if torch.cuda.is_available():
         pytest.skip("checks the refusals of a machine without a card")
     mx.set_default_context(None)
@@ -625,5 +626,9 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(MXNetError, match="CUDA is not available"):
         mx.io.NDArrayIter(np.zeros((4, 2), np.float32), batch_size=2)
     net = tg.nn.Dense(2, in_units=2, device="cpu")
-    with pytest.raises(MXNetError, match="kvstore"):
-        tg.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    with pytest.raises(MXNetError, match="A11"):
+        tg.Trainer(net.collect_params(), "sgd", kvstore="dist_sync",
+                   optimizer_state_sharding=True)
+    trainer = tg.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    trainer.allreduce_grads()
+    assert trainer._kvstore is None

@@ -23,6 +23,9 @@ import mxnet_tpu_torch.cached_op, mxnet_tpu_torch.serving.engine
 import mxnet_tpu_torch.serving.batcher, mxnet_tpu_torch.error
 import mxnet_tpu_torch.module, mxnet_tpu_torch.kvstore
 import mxnet_tpu_torch.model, mxnet_tpu_torch.callback
+import mxnet_tpu_torch.distributed, mxnet_tpu_torch.parallel.collectives
+import mxnet_tpu_torch.kvstore.bucketing
+import mxnet_tpu_torch.kvstore.gradient_compression
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -47,7 +50,11 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.module.base_module",
                  "mxnet_tpu_torch.module.bucketing_module",
                  "mxnet_tpu_torch.kvstore", "mxnet_tpu_torch.kvstore.base",
-                 "mxnet_tpu_torch.model", "mxnet_tpu_torch.callback"):
+                 "mxnet_tpu_torch.model", "mxnet_tpu_torch.callback",
+                 "mxnet_tpu_torch.distributed",
+                 "mxnet_tpu_torch.parallel.collectives",
+                 "mxnet_tpu_torch.kvstore.bucketing",
+                 "mxnet_tpu_torch.kvstore.gradient_compression"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad

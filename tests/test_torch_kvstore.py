@@ -3,8 +3,8 @@
 
 The one-process cases of ``tests/test_kvstore.py``: each runs the same
 pushes and pulls in both packages on the same seeded values and compares
-what comes out.  The distributed types, row-sparse pulls and gradient
-compression are not ported: the port raises for them.
+what comes out, the dist stores in one process and 2-bit compression
+included.  Row-sparse pulls are not ported: the port raises for them.
 
 Tolerance: sums and updates of the same fp32 values in the same order
 agree exactly; they are compared within 1e-6 of the largest |value|
@@ -257,19 +257,74 @@ def test_identity_and_optimizer_states(tmp_path):
 @pytest.mark.parametrize("name", ["dist_sync", "dist_device_sync",
                                   "dist_tpu_sync", "dist_async",
                                   "dist_tpu_async"])
+def test_dist_types_in_one_process_are_local(name):
+    """With one process a dist store reduces locally, as the JAX
+    package's does (its ``test_dist_async_single_process_is_local``):
+    pushes of value lists, an updater, and ``barrier``.  Multi-process
+    jobs: ``tests/test_torch_dist_kvstore.py``."""
+    def case(mx, kv_mod):
+        kv = kv_mod.create(name)
+        assert kv.type == name and kv.rank == 0
+        kv.init(3, mx.nd.zeros(SHAPE))
+        kv.push(3, [mx.nd.array(v) for v in _vals(3, seed=4)])
+        summed = kv.pull(3).asnumpy()
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9))
+        kv.init(KEYS, [mx.nd.array(v) for v in _vals(len(KEYS), seed=5)])
+        for g in _vals(2, seed=6):
+            kv.push(KEYS, [mx.nd.array(g * k) for k in KEYS])
+        outs = [mx.nd.empty(SHAPE) for _ in KEYS]
+        kv.pull(KEYS, out=outs)
+        kv.barrier()
+        if "async" in name:
+            kv.sync_all()
+        return [summed] + [o.asnumpy() for o in outs]
+    _same(case)
+    assert tkv.create(name).num_workers == 1
+
+
+@pytest.mark.parametrize("name", ["dist_sync", "dist_device_sync",
+                                  "dist_tpu_sync", "dist_async",
+                                  "dist_tpu_async"])
 def test_dist_types_raise(name):
-    """The distributed stores need processes across cards: the port says
-    so rather than run them in one process."""
-    with pytest.raises(MXNetError, match="distributed kvstore is not ported"):
-        tkv.create(name)
+    """What the dist stores still refuse: row-sparse pulls (ROADMAP A15);
+    an unknown type raises.  Their one-process pushes and pulls:
+    ``test_dist_types_in_one_process_are_local``."""
+    kv = _init_kv(tmx, tkv, name)
+    with pytest.raises(MXNetError, match="A15"):
+        kv.row_sparse_pull(3, out=tmx.nd.zeros(SHAPE),
+                           row_ids=tmx.nd.array([0.0]))
     with pytest.raises(MXNetError, match="unknown kvstore"):
-        tkv.create("nonesuch")
+        tkv.create(name + "_nonesuch")
 
 
 def test_row_sparse_and_compression_raise():
+    """Row-sparse pulls raise (ROADMAP A15); a compression type other than
+    2-bit raises in both packages (2-bit: ``test_gradient_compression``)."""
     kv = _init_kv(tmx, tkv)
     with pytest.raises(MXNetError, match="A15"):
         kv.row_sparse_pull(3, out=tmx.nd.zeros(SHAPE),
                            row_ids=tmx.nd.array([0.0]))
-    with pytest.raises(MXNetError, match="A11"):
-        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    for mx, kv_mod in BOTH:
+        with pytest.raises(ValueError, match="1bit"):
+            _init_kv(mx, kv_mod).set_gradient_compression({"type": "1bit"})
+
+
+@pytest.mark.parametrize("name", ["local", "device"])
+def test_gradient_compression(name):
+    """2-bit compression with error feedback on the merged value, per key,
+    with and without an updater, equal to the JAX package's."""
+    def case(mx, kv_mod):
+        kv = _init_kv(mx, kv_mod, name)
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.25})
+        got = []
+        for g in _vals(3, seed=8):
+            kv.push(3, [mx.nd.array(g * 0.4), mx.nd.array(g * 0.2)])
+            got.append(kv.pull(3).asnumpy())
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.5))
+        for g in _vals(2, seed=9):
+            kv.push(KEYS, [mx.nd.array(g * 0.3) for _ in KEYS])
+            got += [kv.pull(k).asnumpy() for k in KEYS]
+        return got
+    got = _same(case)
+    assert set(np.unique(got[0])) <= {-0.25, 0.0, 0.25}

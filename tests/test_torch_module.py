@@ -232,6 +232,41 @@ def test_fit_matches_jax(opt, kvstore):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
+def test_fit_over_dist_sync_in_one_process():
+    """``Module.fit`` over ``dist_sync`` in one process: per-key push and
+    pull through the dist store, which reduces locally, so the same bits
+    as the ``'device'`` store, and the JAX package's parameters.  Jobs of
+    several processes: ``tests/test_torch_dist_kvstore.py``."""
+    got = _fit("port", "sgd", "dist_sync")
+    for k, v in _fit("port", "sgd", "device").items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    _close_params(got, _fit("jax", "sgd", "dist_sync"), what="dist_sync")
+
+
+def test_fit_with_eval_data_of_another_batch_size():
+    """Training batches of 8 and ``eval_data`` in batches of 12, then
+    ``predict`` and ``score`` at other batch sizes: the executor runs each
+    batch at its own shape, as the JAX package's does."""
+    X, Y = _toy_data(n=48)
+    got = {}
+    for side in SIDES:
+        mx = SIDES[side][0]
+        mod = mx.module.Module(_mlp_softmax(mx))
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=8),
+                eval_data=mx.io.NDArrayIter(X, Y, batch_size=12),
+                num_epoch=2, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.5,
+                                  "rescale_grad": 1.0 / 8},
+                arg_params=_nd_params(side, _mlp_params()), aux_params={})
+        pred = mod.predict(mx.io.NDArrayIter(X, Y, batch_size=12))
+        score = mod.score(mx.io.NDArrayIter(X, Y, batch_size=5), "acc")
+        got[side] = (_numpy(mod.get_params()[0]), pred.asnumpy(), score)
+    assert got["port"][1].shape == (48, 3)
+    _close_params(got["port"][0], got["jax"][0], what="params")
+    _close(got["port"][1], got["jax"][1], what="predict")
+    assert got["port"][2] == got["jax"][2]
+
+
 def test_sgd_resume_is_exact(tmp_path):
     """SGD with momentum resumed from a checkpoint and its optimizer
     states gives the uninterrupted run's parameters, bit for bit, in the
@@ -384,8 +419,6 @@ def test_module_surface():
         mod.install_monitor(object())
     with pytest.raises(MXNetError, match="A10"):
         mod.fit(it, num_epoch=1, prefetch_to_device=True)
-    with pytest.raises(MXNetError, match="distributed"):
-        mod.init_optimizer(kvstore="dist_sync")
     mod.reshape([("data", (4, ENC["seq"]))], [("softmax_label", (4,))])
     assert mod.data_shapes[0].shape == (4, ENC["seq"])
     mod.forward(DataBatch([tmx.nd.ones((4, ENC["seq"]))],

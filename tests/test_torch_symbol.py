@@ -477,6 +477,30 @@ def _cases(rng):
                                      _rand(rng, 5, 3, 1, 1)],
                                     {"with_stats": False, "relu_in": True},
                                     False),
+        # ignored rows: the default ignore_label -1, another label, and the
+        # 'valid' normalisation over the rows kept
+        "SoftmaxOutput_ignore_neg1": (
+            "SoftmaxOutput", [_rand(rng, 5, 4),
+                              np.array([1, -1, 3, -1, 0], np.float32)],
+            {"use_ignore": True}, False),
+        "SoftmaxOutput_ignore_3": (
+            "SoftmaxOutput", [_rand(rng, 5, 4),
+                              np.array([3, 1, 3, 2, 0], np.float32)],
+            {"use_ignore": True, "ignore_label": 3}, False),
+        "SoftmaxOutput_ignore_valid": (
+            "SoftmaxOutput", [_rand(rng, 5, 4),
+                              np.array([-1, 2, 0, -1, 1], np.float32)],
+            {"use_ignore": True, "normalization": "valid",
+             "grad_scale": 2.0}, False),
+        "LinearRegressionOutput": ("LinearRegressionOutput",
+                                   [_rand(rng, 4, 3), _rand(rng, 4, 3)],
+                                   {"grad_scale": 2.0}, False),
+        "MAERegressionOutput": ("MAERegressionOutput",
+                                [_rand(rng, 4, 3), _rand(rng, 4, 3)], {},
+                                False),
+        "LogisticRegressionOutput": ("LogisticRegressionOutput",
+                                     [_rand(rng, 4, 3), _rand(rng, 4, 3)],
+                                     {}, False),
     }
 
 
@@ -496,6 +520,7 @@ def test_nd_nn_op_matches_jax(case):
         # float inputs take gradients (SoftmaxOutput's label does not)
         diff = [a for a, raw in zip(arrs, inputs)
                 if raw.dtype == np.float32][:1 if op == "SoftmaxOutput"
+                                             or op.endswith("RegressionOutput")
                                              else None]
         for a in diff:
             a.attach_grad()
@@ -534,6 +559,59 @@ def test_dropout_op_trains_from_the_device_stream():
     np.testing.assert_allclose(draws[0][kept], 1 / 0.75)
 
 
+def test_embedding_out_of_range_ids_follow_jnp_take():
+    """Ids in [-V, 0) count from the end; any other id outside [0, V)
+    gives a NaN row and adds nothing to the weight's gradient, as the JAX
+    package's ``jnp.take`` does.  No such id reaches ``F.embedding``
+    (on the card it would be a device-side assert)."""
+    rng = np.random.RandomState(2)
+    w = _rand(rng, 7, 3)
+    ids = np.array([[0, -1, 7, 3], [-7, -8, 100, 6]], np.float32)
+    got = []
+    for mx in (jmx, tmx):
+        weight = mx.nd.array(w)
+        weight.attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.Embedding(mx.nd.array(ids), weight, input_dim=7,
+                                  output_dim=3)
+            loss = (mx.nd.where(out == out, out, mx.nd.zeros_like(out))
+                    * mx.nd.array(np.arange(24, dtype=np.float32)
+                                  .reshape(2, 4, 3))).sum()
+        loss.backward()
+        got.append((out.asnumpy(), weight.grad.asnumpy()))
+    (jo, jg), (to, tg) = got
+    np.testing.assert_array_equal(np.isnan(to), np.isnan(jo))
+    np.testing.assert_array_equal(np.isnan(to).all(-1),
+                                  [[False, False, True, False],
+                                   [False, True, True, False]])
+    np.testing.assert_array_equal(np.nan_to_num(to), np.nan_to_num(jo))
+    np.testing.assert_array_equal(to[0, 1], w[6])
+    np.testing.assert_array_equal(tg, jg)
+
+
+def test_executor_forward_rebinds_inputs_at_their_shape():
+    """An executor bound at data (4, 3) and given a (1, 3) batch returns
+    (1, 2), as the JAX package's does (it used to broadcast the row)."""
+    rng = np.random.RandomState(4)
+    values = {"fc_weight": _rand(rng, 2, 3), "fc_bias": _rand(rng, 2)}
+    x1 = _rand(rng, 1, 3)
+    outs = []
+    for mx in (jmx, tmx):
+        sym = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        ex = sym.simple_bind(grad_req="write", data=(4, 3))
+        ex.copy_params_from({k: mx.nd.array(v) for k, v in values.items()})
+        assert ex.forward(data=mx.nd.array(x1))[0].shape == (1, 2)
+        ex.forward(is_train=True, data=mx.nd.array(np.tile(x1, (6, 1))))
+        ex.backward(mx.nd.ones((6, 2)))
+        outs.append((ex.outputs[0].asnumpy(), ex.arg_dict["data"].shape,
+                     ex.grad_dict["fc_weight"].asnumpy()))
+    (jo, js, jg), (to, ts, tg) = outs
+    assert ts == js == (6, 3)
+    _close(to, jo)
+    _close(tg, jg)
+
+
 def test_every_nn_op_composes_in_mx_sym():
     """``mx.sym`` is generated from the same registry: every nn op (and
     its aliases) has a composer, and its shape inference runs on meta
@@ -544,7 +622,8 @@ def test_every_nn_op_composes_in_mx_sym():
              "BatchNorm", "batch_norm", "BatchNorm_v1", "LayerNorm",
              "Embedding", "Dropout", "softmax", "log_softmax",
              "SoftmaxOutput", "Softmax", "flash_attention",
-             "_contrib_conv1x1_bn_stats"]
+             "_contrib_conv1x1_bn_stats", "LinearRegressionOutput",
+             "MAERegressionOutput", "LogisticRegressionOutput"]
     for n in names:
         assert n in registry.REGISTRY
         assert callable(getattr(tmx.nd, n)) and callable(getattr(tmx.sym, n))
