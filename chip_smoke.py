@@ -61,10 +61,21 @@ beside its bound, then drives the port's paths:
   ``'device'`` run with ``rescale_grad`` doubled, bit for bit; then
   ``gluon.Trainer`` over ``dist_sync`` with the bucketed push and with
   one collective per key (``dist_training``).
+- hybridize() and the Executor as CUDA graphs (slice 12): a small
+  hybridized block with Dropout and BatchNorm, a bound symbol and an
+  engine over the block hold the graphs' semantics against eager runs
+  (fresh masks per replay, moving statistics, held outputs, set_data and
+  a rebinding cast, gradients; ``graph_semantics``); the serving phases
+  hold every rung's graph against the eager block and print the execute
+  stage per rung, eager against graph, the device's busy share and the
+  graph pool; ``gluon_training`` replays the resnet50_v1 record entry and
+  holds its moving statistics against the un-hybridized copy;
+  ``module_fit`` and ``dist_training`` run the Executor's graphs, with as
+  many captures as misses.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
-device, flash, flash_timing, fused, fused_timing, model_parity, serving,
+device, graph_semantics, flash, flash_timing, fused, fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, serving_bert,
 serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
 bert_flash, bert_parity, bert_training), for a short call while a kernel
@@ -1074,6 +1085,22 @@ def phase_gluon_training(torch, seed):
     launches = FC.fused_conv_bn_launches
     wgmma = FC.fused_conv_bn_wgmma_launches
     peak = torch.cuda.max_memory_allocated() / 1e9
+    op = net._cached_op
+    graphs = {"misses": op._misses, "hits": op._hits,
+              "captures": op._captures, "replays": op._replays,
+              "pool_gb": _pool_bytes(torch, op._pool) / 1e9}
+
+    # the moving statistics after the timed steps: one more step of the
+    # hybridized net and of the un-hybridized copy from the same state
+    ref.load_state_dict(net.state_dict())
+    for i, mom in zip(learnable, compiled._states):
+        mom.copy_(trainer._updaters[0].states[i])
+    data, label = next_batch()
+    gluon_step(data, label)
+    compiled(data._data, label._data)
+    running = [k for k in ref.state_dict() if "running" in k]
+    stats_gap = _state_gap({k: net.state_dict()[k] for k in running},
+                           {k: ref.state_dict()[k] for k in running})
 
     batches = [next_batch() for _ in range(GLUON["batches"])]
     for i in range(GLUON["warmup"]):
@@ -1101,10 +1128,16 @@ def phase_gluon_training(torch, seed):
            "accuracy": float(metric.get()[1]), "peak_mem_gb": peak,
            "fused_conv_bn_launches": launches,
            "fused_conv_bn_wgmma_launches": wgmma, "parity": parity,
+           "graphs": graphs, "moving_stats_gap_after_timed": stats_gap,
            "tolerance": {k: GLUON[k] for k in ("step_rel", "step_abs")},
            "tf32": _tf32(torch)}
     out["gates"] = {"launches": launches == want and wgmma == want,
                     "parity_with_compiled_train_step": parity_ok,
+                    "record_entry_replayed": graphs["misses"] ==
+                    graphs["captures"] == 1
+                    and graphs["replays"] >= GLUON["steps"],
+                    "moving_stats_as_eager":
+                    stats_gap[0] <= GLUON["step_rel"],
                     "losses_finite": math.isfinite(first)
                     and math.isfinite(last)}
     out["ok"] = all(out["gates"].values())
@@ -1203,12 +1236,82 @@ def _serving_report(server, name, eng, reqs, wall, warm_stats):
            "cache_after_warmup": {k: warm_stats[k]
                                   for k in ("entries", "hits", "misses")},
            "ladder": list(eng.ladder)}
+    out["captures"] = eng._op._captures
     out["cache_ok"] = (warm_stats["entries"] == warm_stats["misses"] == 4
                        and warm_stats["hits"] == 0
+                       and eng._op._captures == 4
                        and cache["entries"] == cache["misses"] == 4
                        and cache["hits"] == snap["batches"]
                        and snap["requests"] == len(reqs))
     return out
+
+
+def _pool_bytes(torch, pool):
+    """Bytes the caching allocator holds in a graph memory pool (its
+    segments, which it keeps while the pool's graphs live: the pool's
+    peak)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _busy_share(torch, fn, n):
+    """``fn`` called ``n`` times under ``torch.profiler``: wall ms per
+    call, device ms per call (the CUDA kernels' self time, graph replays'
+    kernels included) and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"calls": n, "wall_ms_per_call": wall_ms / n,
+            "device_ms_per_call": busy_ms / n,
+            "busy_share": busy_ms / wall_ms if kernels else None,
+            "kernel_launches_per_call": sum(e.count for e in kernels) / n}
+
+
+def _graph_rungs(torch, eng, block, make):
+    """Each rung of ``eng`` against the eager ``block`` on the same rows
+    (``make(b)``, an NDArray of b rows on the card): the worst
+    ``_rows_gate`` and whether every output is bit for bit the eager one,
+    then ms per batch through the rung's graph (execute stage) and through
+    the eager block, the clone of the top rung's outputs timed alone, the
+    graph pool's bytes and the busy share over 20 batches of the top
+    rung, eager against graph."""
+    rungs = {}
+    for b in eng.ladder:
+        x = make(b)
+        got, ref = eng.predict(x), block(x)
+        got = got if isinstance(got, (list, tuple)) else [got]
+        ref = ref if isinstance(ref, (list, tuple)) else [ref]
+        gates = [_rows_gate(g, r, SERVE["card_rel"])
+                 for g, r in zip(got, ref)]
+        rungs[b] = {"worst": max(gates, key=lambda e: e[0] / e[1]),
+                    "ok": all(e <= bound for e, bound in gates),
+                    "bitwise": all(torch.equal(g._data, r._data)
+                                   for g, r in zip(got, ref)),
+                    "graph_ms": _batch_ms(torch, lambda: eng.predict(x)),
+                    "eager_ms": _batch_ms(torch, lambda: block(x))}
+    top = eng.ladder[-1]
+    entry = next(e.predict for e in eng._op._cache.values()
+                 if e.predict is not None
+                 and e.predict.static_in[0].shape[0] == top)
+    x = make(top)
+    return {"rungs": rungs,
+            "clone_ms_top_rung": cuda_ms(
+                torch, lambda: [o.clone() for o in entry.outs], iters=20),
+            "graph_pool_gb": _pool_bytes(torch, eng._op._pool) / 1e9,
+            "busy_eager": _busy_share(torch, lambda: block(x),
+                                      SERVE["timed"]),
+            "busy_graph": _busy_share(torch, lambda: eng.predict(x),
+                                      SERVE["timed"])}
 
 
 def _serve_requests(seed, feat, make):
@@ -1274,8 +1377,13 @@ def phase_serving_bert(torch, seed):
     vocab = net.word_embed._input_dim
     units = net._units
     forwards = [0]
-    hook = net.register_forward_pre_hook(
-        lambda block, args: forwards.__setitem__(0, forwards[0] + 1))
+
+    def count(block, args):
+        # a capture runs the forward without launching: not counted; a
+        # replay launches without a forward: counted by the engine
+        if not torch.cuda.is_current_stream_capturing():
+            forwards[0] += 1
+    hook = net.register_forward_pre_hook(count)
     reqs = _serve_requests(seed, (SERVE_BERT["seq"],),
                            lambda rng, shape: rng.randint(
                                0, vocab, shape).astype(np.int32))
@@ -1308,7 +1416,8 @@ def phase_serving_bert(torch, seed):
     served = {"flash_fwd": A.flash_fwd_launches,
               "tf32": A.flash_fwd_tf32_launches,
               "wgmma": A.flash_fwd_wgmma_launches,
-              "forwards": forwards[0]}
+              "eager_forwards": forwards[0], "replays": eng._op._replays,
+              "forwards": forwards[0] + eng._op._replays}
 
     # gates: solo forwards of the same block on the card, one request on
     # the CPU through the plain versions from the same weights
@@ -1317,7 +1426,7 @@ def phase_serving_bert(torch, seed):
         ref = net(mx.nd.array(x, ctx=mx.gpu(0), dtype="int32"))
         worst_card.append([_rows_gate(g, r, SERVE["card_rel"])
                            for g, r in zip(got, ref)])
-    solo_forwards = forwards[0] - served["forwards"]
+    solo_forwards = forwards[0] - served["eager_forwards"]
     hook.detach()
     i2 = next(i for i, x in enumerate(reqs) if len(x) == 2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1333,6 +1442,9 @@ def phase_serving_bert(torch, seed):
                      ctx=mx.gpu(0), dtype="int32")
     engine_ms = _batch_ms(torch, lambda: eng.predict(x8))
     block_ms = _batch_ms(torch, lambda: net(x8))
+    rows = np.concatenate(reqs)
+    graphs = _graph_rungs(torch, eng, net, lambda b: mx.nd.array(
+        rows[:b], ctx=mx.gpu(0), dtype="int32"))
     out = {"phase": "serving_bert", "model": "bert_12_768_12",
            "layers": layers, "units": units, "seq": SERVE_BERT["seq"],
            "dtype": "float32", **SERVE, **report,
@@ -1342,10 +1454,13 @@ def phase_serving_bert(torch, seed):
            "solo_forwards": solo_forwards,
            "card_worst": max((e / b, e) for r in worst_card for e, b in r),
            "cpu_err_bound": cpu_gate, "flash_at_serving_shapes": kernels,
-           "out_of_vocab_request": bad_gate, "tf32": _tf32(torch)}
+           "out_of_vocab_request": bad_gate, "graphs": graphs,
+           "tf32": _tf32(torch)}
     out["gates"] = {
         "answers_match_solo_forward": all(e <= b for r in worst_card
                                           for e, b in r),
+        "rungs_match_eager_block": all(r["ok"] for r in
+                                       graphs["rungs"].values()),
         "out_of_vocab_id": bad_gate["bad_row_nan"]
         and bad_gate["other_rows_finite"]
         and all(e <= b for e, b in bad_gate["later_answers"]),
@@ -1412,6 +1527,9 @@ def phase_serving_resnet_export(torch, seed):
     engine_ms = _batch_ms(torch, lambda: eng.predict(x8))
     symbol_block_ms = _batch_ms(torch, lambda: eng.block(x8))
     block_ms = _batch_ms(torch, lambda: net(x8))
+    rows = np.concatenate(reqs)
+    graphs = _graph_rungs(torch, eng, eng.block._eager_forward,
+                          lambda b: mx.nd.array(rows[:b], ctx=mx.gpu(0)))
     out = {"phase": "serving_resnet_export", "model": "resnet50_v1",
            "fused": False, "dtype": "float32", "px": SERVE_RESNET["px"],
            "graph_nodes": len(graph["nodes"]),
@@ -1421,9 +1539,12 @@ def phase_serving_resnet_export(torch, seed):
            "symbol_block_ms_per_batch8": symbol_block_ms,
            "block_ms_per_batch8": block_ms,
            "card_worst": max((e / b, e) for e, b in worst_card),
-           "cpu_err_bound": cpu_gate, "tf32": _tf32(torch)}
+           "cpu_err_bound": cpu_gate, "graphs": graphs,
+           "tf32": _tf32(torch)}
     out["gates"] = {
         "answers_match_solo_forward": all(e <= b for e, b in worst_card),
+        "rungs_match_eager_block": all(r["ok"] for r in
+                                       graphs["rungs"].values()),
         "one_request_matches_cpu": cpu_gate[0] <= cpu_gate[1],
         "shapes": all(g.shape == (len(x), SERVE_RESNET["classes"])
                       for x, g in zip(reqs, answers)),
@@ -1592,6 +1713,9 @@ def phase_module_fit(torch, seed):
                 "tf32": A.flash_fwd_tf32_launches,
                 "wgmma": A.flash_fwd_wgmma_launches,
                 "forwards": forwards[0] - fwd0}
+        graphs = {"misses": mod._exec._misses, "hits": mod._exec._hits,
+                  "captures": mod._exec._captures,
+                  "pool_gb": _pool_bytes(torch, mod._exec._pool) / 1e9}
         step_ms = 1e3 * statistics.median(steps)
         final = mod.get_params()[0]
         it.reset()
@@ -1723,6 +1847,7 @@ def phase_module_fit(torch, seed):
            "gluon_step_ms": 1e3 * statistics.median(gluon_times),
            "peak_mem_gb_fit": peak_fit,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "executor_graphs": graphs,
            "score": score, "predict_shape": list(pred.shape),
            "main_path": main, "phase_launches": phase,
            "kvstore_gaps": kv_gaps, "resume_gap": resume,
@@ -1739,6 +1864,8 @@ def phase_module_fit(torch, seed):
         "phase_launches": phase["tf32"] == layers * (
             phase["module_forwards"] + phase["gluon_forwards"])
         and phase["other"] == 0 and phase["wgmma"] == 0,
+        "captures_equal_misses": graphs["captures"] == graphs["misses"]
+        == 2,
         "kvstores_agree": all(g[0] <= 1.0 for g in kv_gaps.values()),
         "resume": resume[0] <= 1.0,
         "module_matches_gluon": gluon_gap[0] <= 1.0 and loss_gap <= 1.0,
@@ -1872,7 +1999,11 @@ def _dist_runs(torch, mx, seed):
                                "forwards": forwards[0]},
                      "step_ms": list(steps), "update_ms": list(updates),
                      "ranks_agree": list(agreed),
-                     "rounds": dict(mod._kvstore._rounds_completed)}
+                     "rounds": dict(mod._kvstore._rounds_completed),
+                     "graphs": {"misses": mod._exec._misses,
+                                "captures": mod._exec._captures,
+                                "pool_gb": _pool_bytes(torch, 
+                                    mod._exec._pool) / 1e9}}
     del mod
     # run A(b): the same batches on every rank; against one process with
     # 'device' and rescale_grad doubled from the same weights (g + g = 2g
@@ -2036,6 +2167,7 @@ def phase_dist_training(torch, seed):
            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
            "flash_main_path": [r["module"]["flash"] for r in ranks],
            "flash_phase": [r["flash_phase"] for r in ranks],
+           "executor_graphs": [r["module"]["graphs"] for r in ranks],
            "losses": [r["trainer"]["4096"]["loss"] for r in ranks]}
     nkeys = bucketed["keys"]
     out["gates"] = {
@@ -2065,6 +2197,8 @@ def phase_dist_training(torch, seed):
             for r in ranks for f in (r["module"]["flash"], r["flash_phase"]))
         and all(r["module"]["flash"]["forwards"] == DIST["batches"]
                 for r in ranks),
+        "captures_equal_misses": all(
+            g["captures"] == g["misses"] > 0 for g in out["executor_graphs"]),
         "losses_finite": all(math.isfinite(v) for v in out["losses"])}
     out["ok"] = all(out["gates"].values())
     emit(out)
@@ -2984,6 +3118,257 @@ def phase_bert_training(torch, seed):
     return sum(r["flash_fwd_tf32_launches"] for r in runs)
 
 
+# ---------------------------------------------------------------------------
+# slice 12: hybridize() and the Executor as CUDA graphs
+# ---------------------------------------------------------------------------
+# A small block (Dense 64 -> 256, BatchNorm, Dropout(0.5); fp32, TF32 off)
+# hybridized on the card beside an eager copy with the same weights.  Three
+# recorded calls (the first eager, then two replays of the record entry's
+# forward graph) must draw three different masks, each keeping 50% of the
+# 16384 outputs within 4 standard deviations (4·sqrt(0.25/16384) = 1.6%);
+# the moving statistics must advance at every call and stay within
+# GRAPH["rel"] of the eager copy's (the batch statistics do not depend on
+# the mask); an output held from a replay must be unchanged by the next
+# one; set_data on a weight must replay without a capture, and a cast that
+# rebinds the weights (fp16 and back) must capture exactly once.  The same
+# block without Dropout checks the backward graph's gradients against the
+# eager copy's; a bound symbol (FullyConnected, BatchNorm, SoftmaxOutput)
+# checks the Executor's graphs against the same executor on the CPU
+# within 1e-4 of each tensor's largest |value| plus 1e-6 (write, add and
+# null gradients, the moving statistics in place); and an
+# InferenceEngine over the block checks each rung's graph against the
+# eager block.
+GRAPH = dict(batch=64, units_in=64, units=256, rate=0.5, calls=3, rel=1e-5,
+             exec_batch=32, exec_classes=10, exec_steps=3, exec_rel=1e-4,
+             exec_abs=1e-6)
+
+
+def _graph_block(mx, dropout):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix="gs_")
+    with net.name_scope():
+        net.add(nn.Dense(GRAPH["units"], in_units=GRAPH["units_in"]),
+                nn.BatchNorm(in_channels=GRAPH["units"]))
+        if dropout:
+            net.add(nn.Dropout(GRAPH["rate"]))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def _graph_twin(mx, net, dropout):
+    """An un-hybridized copy of ``net`` with its weights."""
+    twin = _graph_block(mx, dropout)
+    for (_, p), (_, q) in zip(sorted(net.collect_params().items()),
+                              sorted(twin.collect_params().items())):
+        q.set_data(p.data())
+    return twin
+
+
+def _rel_gap(a, b):
+    a, b = (x._data if hasattr(x, "_data") else x for x in (a, b))
+    return ((a - b).abs().max() / (b.abs().max() + 1e-12)).item()
+
+
+def _graph_executor(torch, mx, seed):
+    """The Executor's graphs on the card against the same executor on the
+    CPU, grad_req write/add/null, 3 training steps and a predict."""
+    import numpy as np
+    g = GRAPH
+    rng = np.random.RandomState(seed)
+    data = mx.sym.var("data")
+    net = mx.sym.FullyConnected(data, num_hidden=32, name="fc1")
+    net = mx.sym.BatchNorm(net, name="bn", fix_gamma=False)
+    net = mx.sym.FullyConnected(mx.sym.Activation(net, act_type="relu"),
+                                num_hidden=g["exec_classes"], name="fc2")
+    sym = mx.sym.SoftmaxOutput(net, mx.sym.var("softmax_label"),
+                               name="softmax")
+    shapes = {"data": (g["exec_batch"], 16),
+              "softmax_label": (g["exec_batch"],)}
+    req = {"data": "null", "softmax_label": "null", "fc1_weight": "write",
+           "fc1_bias": "add", "bn_gamma": "write", "bn_beta": "null",
+           "fc2_weight": "write", "fc2_bias": "write"}
+    sides = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        ex = sym.simple_bind(ctx=ctx, grad_req=req, **shapes)
+        r = np.random.RandomState(seed)
+        for k, a in ex.arg_dict.items():
+            if k not in shapes:
+                a[:] = r.randn(*a.shape).astype(np.float32) * 0.1
+        ex.aux_dict["bn_moving_var"][:] = np.ones(32, np.float32)
+        sides[name] = ex
+    card, cpu = sides["card"], sides["cpu"]
+    aux_ptr = card.aux_dict["bn_moving_mean"]._data.data_ptr()
+    def gap(got, ref):
+        # max |got - ref| over its bound (fc1's bias takes a gradient of
+        # rounding noise: BatchNorm removes it from the output)
+        got, ref = got.as_in_context(mx.cpu())._data, ref._data
+        return ((got - ref).abs().max()
+                / (g["exec_rel"] * ref.abs().max() + g["exec_abs"])).item()
+
+    gaps = []
+    for step in range(g["exec_steps"]):
+        x = rng.randn(*shapes["data"]).astype(np.float32)
+        y = rng.randint(0, g["exec_classes"], shapes["softmax_label"])
+        for ex in (card, cpu):
+            ex.forward(is_train=True, data=x, softmax_label=y)
+            ex.backward()
+        step_gaps = {"output": gap(card.outputs[0], cpu.outputs[0])}
+        step_gaps.update((k, gap(card.grad_dict[k], cpu.grad_dict[k]))
+                         for k in req if req[k] != "null")
+        step_gaps.update((k, gap(card.aux_dict[k], cpu.aux_dict[k]))
+                         for k in card.aux_dict)
+        gaps.append(step_gaps)
+        for ex in (card, cpu):   # an SGD step through the bound arrays
+            for k in req:
+                if req[k] != "null":
+                    ex.arg_dict[k][:] = ex.arg_dict[k] - 0.1 * ex.grad_dict[k]
+    x = rng.randn(*shapes["data"]).astype(np.float32)
+    pred = [ex.forward(is_train=False, data=x)[0] for ex in (card, cpu)]
+    gaps.append({"predict": gap(*pred)})
+    bad = False
+    try:
+        card.backward()
+    except mx.MXNetError:
+        bad = True
+    return {"steps": g["exec_steps"],
+            "worst_gap": max(v for s in gaps for v in s.values()),
+            "gaps": gaps, "misses": card._misses, "hits": card._hits,
+            "captures": card._captures,
+            "aux_in_place": card.aux_dict["bn_moving_mean"]._data.data_ptr()
+            == aux_ptr, "backward_without_forward_raises": bad}
+
+
+def phase_graph_semantics(torch, seed):
+    """CUDA-graph semantics of a hybridized block, the Executor and the
+    engine on the card (see GRAPH)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.serving import InferenceEngine
+    g = GRAPH
+    gpu = mx.gpu(0)
+    mx.random.seed(seed)
+    rng = np.random.RandomState(seed)
+
+    def batch():
+        return mx.nd.array(rng.randn(g["batch"], g["units_in"]).astype(
+            np.float32), ctx=gpu)
+
+    net = _graph_block(mx, True)
+    twin = _graph_twin(mx, net, True)
+    net.hybridize(static_alloc=True, static_shape=True)
+    stats = [[b[1]._reg_params[n].data() for n in ("running_mean",
+                                                   "running_var")]
+             for b in (net, twin)]
+    masks, keep, stat_gaps, advanced, outs = [], [], [], [], []
+    before = [s._data.clone() for s in stats[0]]
+    for _ in range(g["calls"]):
+        x = batch()
+        with autograd.record():
+            out = net(x)
+            twin(x)
+            loss = out.sum()
+        loss.backward()
+        outs.append((out, out._data.clone()))
+        m = out._data != 0
+        masks.append(m)
+        keep.append(m.float().mean().item())
+        stat_gaps.append(max(_rel_gap(a, b) for a, b in zip(*stats)))
+        advanced.append(all(not torch.equal(s._data, b)
+                            for s, b in zip(stats[0], before)))
+        before = [s._data.clone() for s in stats[0]]
+    sigma4 = 4 * math.sqrt(0.25 / masks[0].numel())
+    held = all(torch.equal(o._data, c) for o, c in outs)
+    op = net._cached_op
+    record_misses, record_captures = op._misses, op._captures
+
+    # predict: an output held from a replay, set_data, a cast that rebinds
+    x1, x2 = batch(), batch()
+    net(x2)
+    p1 = net(x1)
+    p1_copy = p1._data.clone()
+    net(x2)
+    predict_held = torch.equal(p1._data, p1_copy)
+    captures = op._captures
+    for b in (net, twin):
+        w = b[0]._reg_params["weight"]
+        w.set_data(w.data() * 0.5)
+    set_data_gap = _rel_gap(net(x1), twin(x1))
+    set_data_captures = op._captures - captures
+    for b in (net, twin):
+        b.cast("float16")
+        b.cast("float32")
+    cast_gap = _rel_gap(net(x1), twin(x1))
+    net(x2)
+    cast_captures = op._captures - captures - set_data_captures
+
+    # the backward graph, without Dropout: gradients against the eager copy
+    nb = _graph_block(mx, False)
+    tb = _graph_twin(mx, nb, False)
+    nb.hybridize()
+    grad_gaps = []
+    for _ in range(g["calls"]):
+        x = batch()
+        for b in (nb, tb):
+            with autograd.record():
+                loss = (b(x) ** 2).mean()
+            loss.backward()
+        grad_gaps.append(max(_rel_gap(p.grad(), q.grad()) for p, q in zip(
+            nb.collect_params().values(), tb.collect_params().values())
+            if p.grad_req != "null"))
+
+    # the engine: one graph per rung, each against the eager block
+    eng = InferenceEngine(nb, input_spec=[((g["units_in"],), "float32")],
+                          max_batch=8)
+    eng.warmup()
+    warm = dict(eng.cache_stats)
+    rung_gaps = {}
+    for b in eng.ladder:
+        xb = mx.nd.array(rng.randn(b, g["units_in"]).astype(np.float32),
+                         ctx=gpu)
+        rung_gaps[b] = _rel_gap(eng.predict(xb), nb._eager_forward(xb))
+    ex = _graph_executor(torch, mx, seed)
+
+    out = {"phase": "graph_semantics", "batch": g["batch"],
+           "keep_fraction": keep, "keep_4sigma": sigma4,
+           "masks_differ": [not torch.equal(masks[i], masks[i + 1])
+                            for i in range(len(masks) - 1)],
+           "stat_gaps": stat_gaps, "stats_advanced": advanced,
+           "record_misses": record_misses,
+           "record_captures": record_captures,
+           "set_data_captures": set_data_captures,
+           "set_data_gap": set_data_gap, "cast_captures": cast_captures,
+           "cast_gap": cast_gap, "grad_gaps": grad_gaps,
+           "engine_cache": {k: warm[k] for k in ("entries", "misses",
+                                                  "hits")},
+           "engine_captures": eng._op._captures, "rung_gaps": rung_gaps,
+           "executor": ex, "tolerance": {
+               k: g[k] for k in ("rel", "exec_rel", "exec_abs")}}
+    out["gates"] = {
+        "masks_differ": all(out["masks_differ"])
+        and not torch.equal(masks[0], masks[-1]),
+        "masks_keep_half": all(abs(k - (1 - g["rate"])) <= sigma4
+                               for k in keep),
+        "stats_advance_as_eager": all(advanced)
+        and max(stat_gaps) <= g["rel"],
+        "held_outputs_unchanged": held and predict_held,
+        "record_entry_captured_once": record_misses == 1
+        and record_captures == 1,
+        "set_data_no_capture": set_data_captures == 0
+        and set_data_gap <= g["rel"],
+        "cast_captures_once": cast_captures == 1 and cast_gap <= g["rel"],
+        "backward_graph_grads": max(grad_gaps) <= g["rel"],
+        "engine_rungs": warm["misses"] == warm["entries"] == 4
+        and eng._op._captures == 4
+        and max(rung_gaps.values()) <= g["rel"],
+        "executor": ex["worst_gap"] <= 1.0
+        and ex["misses"] == ex["captures"] == 2 and ex["aux_in_place"]
+        and ex["backward_without_forward_raises"]}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"graph_semantics failed: {out['gates']}")
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -3006,7 +3391,8 @@ def _kernel_line(name, source, replaces, launches, timing):
             "library_ms": timing["library_ms"]}
 
 
-PHASES = ("build", "device", "flash", "flash_timing", "fused",
+PHASES = ("build", "device", "graph_semantics", "flash", "flash_timing",
+          "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "serving_bert",
           "serving_resnet_export", "module_fit", "dist_training",
@@ -3039,6 +3425,8 @@ def main(argv=None):
     if "build" in only:
         phase_build()
     phase_device(torch)
+    if "graph_semantics" in only:
+        phase_graph_semantics(torch, args.seed)
     if "flash" in only:
         phase_kernels(torch, args.seed)
     if "flash_timing" in only:

@@ -88,6 +88,11 @@ env.declare("MXNET_TPU_FUSE_CONV_BN", 0, int,
             "pairs as FusedConv1x1BN (the CUDA matmul with a BN-statistics "
             "epilogue, ops/fused_conv_bn.py) instead of Conv2D+BatchNorm.  "
             "Read when the block is constructed.")
+env.declare("MXNET_TPU_RECOMPILE_WARN", 16, int,
+            "CachedOp cache misses after which (misses > 2x hits) a "
+            "recompile-storm warning fires once per op: the signature-churn "
+            "failure mode where every request pays a capture.  0 disables "
+            "(mxnet_tpu/base.py:480).")
 
 
 # -- the kvstore (mxnet_tpu/base.py:184, :200, :336-365)

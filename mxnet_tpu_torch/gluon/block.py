@@ -32,8 +32,10 @@ layers keep their tensor ``forward`` as the path every tensor or NDArray
 call takes; their ``hybrid_forward`` is the symbolic form.
 
 ``hybridize()`` routes the block's NDArray calls through a
-:class:`~mxnet_tpu_torch.cached_op.CachedOp`, keyed per input signature;
-each entry runs the block eagerly.
+:class:`~mxnet_tpu_torch.cached_op.CachedOp`, keyed per input signature:
+on the card each entry replays CUDA graphs of the block (its forward, and
+under ``record()`` its forward and backward), on the CPU it runs the
+block eagerly.
 """
 from __future__ import annotations
 
@@ -446,10 +448,14 @@ class HybridBlock(Block):
     def hybridize(self, active=True, **kwargs):
         """Route NDArray calls through a CachedOp (``active``); the
         children run inside this block's entry, as in the JAX package,
-        where only the outermost hybridized block compiles.  The
-        reference's flags (``static_alloc``, ...) are accepted and have
-        nothing to set."""
+        where only the outermost hybridized block compiles (a hybridized
+        child called there runs inside its parent's graph and keeps no
+        entry of its own).  The reference's flags (``static_alloc``,
+        ``static_shape``, ...) become the CachedOp's ``flags``; they select
+        nothing, since an entry on the card is a CUDA graph whatever they
+        say."""
         self._active = active
+        self._flags = kwargs
         self._cached_op = None
         return self
 
@@ -499,7 +505,8 @@ class HybridBlock(Block):
                 if self._cached_op is None:
                     self._cached_op = CachedOp(
                         self._eager_forward,
-                        list(self.collect_params().values()))
+                        list(self.collect_params().values()),
+                        flags=getattr(self, "_flags", {}))
                 return self._cached_op(*args)
         return super().__call__(*args, **kwargs)
 

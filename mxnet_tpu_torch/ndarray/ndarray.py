@@ -309,6 +309,33 @@ class NDArray:
         return method
 
 
+class _BoundArray(NDArray):
+    """An array bound to an ``Executor``: the executor's storage, as the
+    reference's bound NDArrays are.  A write of the same shape, dtype and
+    device (``arr[:] = v``, a kvstore ``pull``, ``Module.set_params``) lands
+    in its buffer in place, so a CUDA graph that reads it there sees it; a
+    write of another shape rebinds it."""
+
+    __slots__ = ()
+
+    def _set_data(self, new: torch.Tensor) -> None:
+        old = self._data
+        if new.shape != old.shape or new.dtype != old.dtype or \
+                new.device != old.device or old.requires_grad:
+            NDArray._set_data(self, new)
+            return
+        with torch.no_grad():
+            old.copy_(new)
+        self._version += 1
+
+
+def bind_in_place(arr: NDArray) -> NDArray:
+    """Make a plain array write in place (:class:`_BoundArray`)."""
+    if type(arr) is NDArray:
+        arr.__class__ = _BoundArray
+    return arr
+
+
 def _clean_index(key, device):
     def one(k):
         if isinstance(k, NDArray):

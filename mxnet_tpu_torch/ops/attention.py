@@ -26,10 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _graphs
 from ..base import MXNetError, attr_truthy
 from . import _build
 from .registry import register
@@ -42,6 +44,10 @@ __all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
 flash_fwd_tf32_launches = 0
+# a CUDA graph's replay advances them by what its capture counted
+_graphs.count_launches(sys.modules[__name__], "flash_fwd_launches",
+                        "flash_fwd_wgmma_launches",
+                        "flash_fwd_tf32_launches")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = -1e30

@@ -20,10 +20,12 @@ calls.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _graphs
 from ..base import MXNetError, attr_truthy
 from . import _build
 from .registry import register
@@ -36,6 +38,9 @@ __all__ = ["fused_matmul_bn_stats", "conv1x1_bn_stats_op"]
 # pre-kernel is part of its one launch.
 fused_conv_bn_launches = 0
 fused_conv_bn_wgmma_launches = 0
+# a CUDA graph's replay advances them by what its capture counted
+_graphs.count_launches(sys.modules[__name__], "fused_conv_bn_launches",
+                        "fused_conv_bn_wgmma_launches")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

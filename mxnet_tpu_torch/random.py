@@ -8,6 +8,13 @@ initializers and ``Dropout`` draw from.  Code that wants a stream of its
 own passes an explicit generator (:func:`generator`).  The same seed
 gives other bits than JAX's, so tests copy weights across rather than
 compare draws.
+
+A CUDA graph replays the random numbers of its capture unless the
+generator it drew from is registered with it; the JAX package passes "a
+fresh threefry key as an input" for the same reason.  A capture registers
+its device's stream (``CUDAGraph.register_generator_state``), so each
+replay draws fresh bits and advances the stream as an eager call would.  :func:`seed` reseeds
+the streams in place, so the graphs they are registered with follow it.
 """
 from __future__ import annotations
 
@@ -23,12 +30,16 @@ _seed = 0
 _streams: Dict[str, torch.Generator] = {}
 
 
+def _new(device: torch.device, seed_state: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed_state))
+    return gen
+
+
 def generator(seed: int, device: Optional[Union[str, torch.device]] = None
               ) -> torch.Generator:
     """A generator on ``device`` (default ``cuda``) seeded with ``seed``."""
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(int(seed))
-    return gen
+    return _new(resolve_device(device), seed)
 
 
 def seed(seed_state: int, ctx=None) -> None:
@@ -37,7 +48,8 @@ def seed(seed_state: int, ctx=None) -> None:
     every device is reseeded)."""
     global _seed
     _seed = int(seed_state)
-    _streams.clear()
+    for gen in _streams.values():
+        gen.manual_seed(_seed)
 
 
 def device_generator(device: Union[str, torch.device]) -> torch.Generator:
@@ -47,6 +59,6 @@ def device_generator(device: Union[str, torch.device]) -> torch.Generator:
     key = str(dev)
     gen = _streams.get(key)
     if gen is None:
-        gen = _streams[key] = torch.Generator(device=dev)
-        gen.manual_seed(_seed)
+        gen = _streams[key] = _new(dev, _seed)
     return gen
+

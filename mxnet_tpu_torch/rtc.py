@@ -49,7 +49,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _cuda_driver
+from . import _cuda_driver, _graphs
 from .base import MXNetError
 from .context import Context, current_context
 
@@ -209,6 +209,8 @@ class CudaKernel:
         self._name = name
         self._spec = arg_spec
         self.launches = 0
+        # a CUDA graph that captured a launch advances it at each replay
+        _graphs.count_launches(self, "launches")
 
     @property
     def name(self) -> str:

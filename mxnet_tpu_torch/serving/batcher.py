@@ -21,8 +21,10 @@ request is refused at submit, and a batch that fails fails only its own
 requests.  ``close()`` refuses new work, drains what was accepted and
 joins the worker; ``fail_pending()`` fails what is still queued.  With
 ``warmup`` the worker runs the engine's ladder once before it takes
-requests, so the first batches do not pay for what a thread's first
-forward on the card sets up (its cuBLAS and cuDNN handles).  The JAX
+requests: on the card that captures each rung's CUDA graph on the worker
+thread, in thread-local mode (other threads may allocate meanwhile), and a
+capture error reaches ``__init__`` (``ModelServer.register``) as any
+warmup error does.  Batches then replay on the worker thread.  The JAX
 package's circuit breaker, tracing spans and goodput accounting are not
 ported yet.
 """
@@ -188,10 +190,12 @@ class DynamicBatcher:
 
     def _pack(self, batch: List[_Request], rows: int) -> List[NDArray]:
         """The batch's rows in one host buffer per input at the rung's
-        size (padding rows zero), each sent to the card in one copy."""
+        size (padding rows zero), each sent to the card in one copy: into
+        the rung graph's static input buffer when it has one."""
         bucket = self._engine.bucket_for(rows)
         ctx = self._engine.context
         dev = ctx.torch_device()
+        staging = self._engine.staging(bucket)
         arrs = []
         for i, (feat, dtype) in enumerate(self._engine.input_spec):
             buf = self._pack_pool.get((bucket,) + tuple(feat), dtype,
@@ -201,8 +205,12 @@ class DynamicBatcher:
                 buf[lo:lo + r.n] = r.arrays[i]
                 lo += r.n
             # a synchronous copy: the buffer is free again on return
-            arrs.append(NDArray(torch.from_numpy(buf).to(dev, copy=True),
-                                ctx))
+            if staging is not None:
+                staging[i]._data.copy_(torch.from_numpy(buf))
+                arrs.append(staging[i])
+            else:
+                arrs.append(NDArray(torch.from_numpy(buf).to(
+                    dev, copy=True), ctx))
         return arrs
 
     def _run(self, batch: List[_Request], rows: int):
@@ -212,9 +220,13 @@ class DynamicBatcher:
         stage = {}
         try:
             if packed:
-                arrs = self._pack(batch, rows)
-                stage["pack"] = time.perf_counter() - t0
-                out_list, single = self._engine.execute_padded(arrs, rows)
+                # the staging buffers are the engine's: no other caller
+                # may run the rung between the pack and the replay
+                with self._engine._lock:
+                    arrs = self._pack(batch, rows)
+                    stage["pack"] = time.perf_counter() - t0
+                    out_list, single = self._engine.execute_padded(arrs,
+                                                                   rows)
             else:
                 # each request to the card, joined there
                 ctx = self._engine.context

@@ -5,8 +5,11 @@ to a fixed ladder of batch sizes (1/2/4/8/... up to ``max_batch``), so
 arbitrary request sizes land on a handful of cache entries; ``warmup()``
 runs every rung once at load time, after which live traffic only hits
 (``cache_stats``: misses == len(ladder), all before the first request).
-Where the JAX package compiles each rung, an entry here runs the block
-eagerly; the ladder is what a later CUDA-graph capture per rung keys on.
+Where the JAX package compiles each rung, the engine's CachedOp captures
+one CUDA graph per rung on the card (the largest rung first, so the
+smaller ones reuse its memory pool), and every later batch replays its
+rung's graph.  A padded batch is staged straight into the graph's static
+input buffer (:meth:`InferenceEngine.staging`), which saves a copy.
 
 Padding rows are zeros, made on the block's device.  In predict mode every
 model-zoo op is row-independent (BatchNorm on its moving statistics,
@@ -223,12 +226,30 @@ class InferenceEngine:
         single = not isinstance(outs, (list, tuple))
         return ([outs] if single else list(outs)), single
 
+    def staging(self, bucket: int) -> Optional[List[NDArray]]:
+        """The static input buffers of ``bucket``'s graph (NDArrays at the
+        rung's size), or None while the rung has none (before warmup, on
+        the CPU).  A batch written there and passed to
+        :meth:`execute_padded` is not copied again."""
+        if self._input_spec is None:
+            return None
+        return self._op.input_buffers([((bucket,) + tuple(feat), dt)
+                                       for feat, dt in self._input_spec])
+
     def _predict_bucket(self, arrs: List[NDArray], n: int):
         bucket = self.bucket_for(n)
         if bucket != n:
-            arrs = [NDArray(torch.cat([a._data, a._data.new_zeros(
-                (bucket - n,) + tuple(a.shape[1:]))]), a.context)
-                for a in arrs]
+            bufs = self.staging(bucket)
+            if bufs is not None:
+                with torch.no_grad():
+                    for buf, a in zip(bufs, arrs):
+                        buf._data[:n].copy_(a._data)
+                        buf._data[n:].zero_()
+                arrs = bufs
+            else:
+                arrs = [NDArray(torch.cat([a._data, a._data.new_zeros(
+                    (bucket - n,) + tuple(a.shape[1:]))]), a.context)
+                    for a in arrs]
         outs = self._op(*arrs)
         if bucket == n:
             return outs
@@ -247,7 +268,8 @@ class InferenceEngine:
                 "block forward once first, or export with a signature sidecar")
         before = self._op.cache_stats["entries"]
         ctx = self.context
-        for b in (buckets or self._ladder):
+        # the largest rung first: the others capture into its pool
+        for b in sorted(buckets or self._ladder, reverse=True):
             self.predict([_nd.zeros((b,) + tuple(feat), ctx, dtype=dt)
                           for feat, dt in self._input_spec])
         return self._op.cache_stats["entries"] - before

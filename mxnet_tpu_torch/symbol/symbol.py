@@ -8,9 +8,10 @@ DAG of op nodes over named variables, composed through the same registry
 ``hybrid_forward(F, ...)`` builds a graph (:func:`trace_to_symbol`).
 
 Where the JAX package compiles a bound graph with XLA and differentiates
-it with ``jax.vjp``, the port walks it eagerly through ``ndarray.invoke``
+it with ``jax.vjp``, the port walks it through ``ndarray.invoke``
 (:func:`_eval_graph`) and differentiates it with torch autograd
-(:class:`Executor`).  Shape and dtype inference run each op on
+(:class:`Executor`); on the card the Executor captures the walk and its
+backward as CUDA graphs.  Shape and dtype inference run each op on
 ``device="meta"`` tensors, which carry shapes only; a kernel wrapper
 given a meta tensor takes its plain version for the shapes.
 
@@ -28,11 +29,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as _np
 import torch
 
-from .. import autograd
+from .. import _graphs, autograd
 from ..base import (MXNetError, attr_truthy, dtype_torch, narrow_source,
                     numpy_dtype)
 from ..context import current_context
-from ..ndarray.ndarray import NDArray, invoke as _nd_invoke
+from ..ndarray.ndarray import NDArray, bind_in_place
+from ..ndarray.ndarray import invoke as _nd_invoke
 from ..ops import registry as _registry
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
@@ -549,18 +551,52 @@ def _eval_graph(outputs: Sequence[Tuple[_Node, int]],
 
 
 # ----------------------------------------------------------------- executor
+class _ExecEntry:
+    """The graphs of one ``(argument shapes, is_train)`` pair: the forward
+    (its outputs and their contexts), in training the backward with its
+    static output gradients, and the addresses the graphs read."""
+
+    __slots__ = ("fwd", "outs", "ctxs", "bwd", "cts", "addr")
+
+    def __init__(self, fwd, outs, ctxs, addr):
+        self.fwd, self.outs, self.ctxs, self.addr = fwd, outs, ctxs, addr
+        self.bwd, self.cts = None, []
+
+
 class Executor:
     """A bound symbol (reference ``include/mxnet/executor.h``).
 
-    ``forward`` walks the graph eagerly through the registry; with
-    ``is_train`` it runs in training mode and records onto torch
-    autograd, updates the BatchNorm moving statistics in ``aux_dict``,
-    and keeps the graph for ``backward``, which writes (``grad_req``
-    ``'write'``), adds (``'add'``) or skips (``'null'``) each argument's
-    gradient in ``grad_dict``.  Each graph serves one ``backward``: a
-    new ``forward`` drops the previous one before it walks, and
-    ``backward`` frees it as it goes, so one step's activations never
-    live beside the next step's."""
+    ``forward`` walks the graph through the registry; with ``is_train`` it
+    runs in training mode and records onto torch autograd, updates the
+    BatchNorm moving statistics in ``aux_dict``, and keeps the graph for
+    ``backward``, which writes (``grad_req`` ``'write'``), adds (``'add'``)
+    or skips (``'null'``) each argument's gradient in ``grad_dict``.  Each
+    forward serves one ``backward``: a second ``backward`` without a
+    ``forward`` raises.
+
+    The bound arrays are the executor's storage, as in the reference:
+    every write the executor makes (inputs, moving statistics, gradients)
+    lands in their buffers in place, and so does a write into them from
+    outside of the same shape (``arr[:] = v``, a kvstore ``pull``,
+    ``Module.set_params``; see ``ndarray._BoundArray``).  A forward whose
+    input has another shape rebinds that argument (and its gradient) at the
+    input's shape, as the JAX package does; the buffer of each shape is
+    kept, so a return to a shape finds its buffer again.
+
+    On CPU tensors every forward walks the graph eagerly.  On the card each
+    ``(argument shapes and dtypes, is_train)`` pair is an entry of CUDA
+    graphs (:mod:`~mxnet_tpu_torch._graphs`), where the JAX package jits
+    ``_compiled(training)`` and runs ``jax.vjp`` through it: the forward,
+    and in training the forward with its residuals and the backward, whose
+    gradient writes are part of the graph.  A pair's first forward walks
+    eagerly (with one extra backward in training, so that the backward's
+    kernels have run once) and is the result; the graphs are captured
+    right after.  Later forwards replay and hand back fresh outputs
+    (clones); the residuals stay in the graphs' memory between steps.  The
+    graphs read the bound arrays at their addresses, kept at capture: an
+    entry whose arrays moved (a rebind of another shape, a cast) is
+    captured again.  ``_hits``/``_misses`` count the pairs as a CachedOp
+    counts signatures, ``_captures`` every capture."""
 
     def __init__(self, symbol: Symbol, ctx, args: "OrderedDict[str, NDArray]",
                  args_grad: Optional["OrderedDict[str, NDArray]"], grad_req,
@@ -570,11 +606,18 @@ class Executor:
         self.arg_dict = args
         self.grad_dict = args_grad or OrderedDict()
         self.aux_dict = aux_states
+        for table in (self.arg_dict, self.grad_dict, self.aux_dict):
+            for arr in table.values():
+                bind_in_place(arr)
         if isinstance(grad_req, str):
             grad_req = {k: grad_req for k in args}
         self._grad_req = {k: grad_req.get(k, "null") for k in args}
         self.outputs: List[NDArray] = []
         self._graph = None
+        self._entries: Dict[Any, _ExecEntry] = {}
+        self._shelf: Dict[Tuple[str, str, Tuple[int, ...]], torch.Tensor] = {}
+        self._hits = self._misses = self._captures = 0
+        self._pool = None
 
     @property
     def output_dict(self):
@@ -589,57 +632,180 @@ class Executor:
             t = t.requires_grad_(True)
         return NDArray(t, arr.context)
 
-    def forward(self, is_train: bool = False, **kwargs):
-        self._graph = None
-        for k, v in kwargs.items():
-            if k in self.arg_dict:
-                # rebound at the input's shape, as the JAX package does: a
-                # batch of another size runs the graph at that size
-                bound = self.arg_dict[k]._data
-                t = v._data if isinstance(v, NDArray) else torch.as_tensor(
-                    narrow_source(_np.asarray(v)))
-                self.arg_dict[k]._set_data(t.detach().to(
-                    device=bound.device, dtype=bound.dtype, copy=True))
+    def _rebind(self, table: str, arr: NDArray, name: str, shape) -> None:
+        """Bind ``arr`` at ``shape``: its buffer of that shape when it had
+        one, else a new one; the current buffer is kept."""
+        bound = arr._data
+        self._shelf[(table, name, tuple(bound.shape))] = bound
+        buf = self._shelf.pop((table, name, shape), None)
+        if buf is None:
+            buf = torch.zeros(shape, dtype=bound.dtype, device=bound.device)
+        NDArray._set_data(arr, buf)
+
+    def _write_input(self, name: str, value) -> None:
+        arr = self.arg_dict[name]
+        t = value._data if isinstance(value, NDArray) else torch.as_tensor(
+            narrow_source(_np.asarray(value)))
+        shape = tuple(t.shape)
+        if shape != tuple(arr.shape):
+            # rebound at the input's shape, as the JAX package does: a
+            # batch of another size runs the graph at that size
+            self._rebind("arg", arr, name, shape)
+            if name in self.grad_dict:
+                self._rebind("grad", self.grad_dict[name], name, shape)
+        with torch.no_grad():
+            arr._data.copy_(t.detach())
+        arr._version += 1
+
+    def _walk(self, is_train: bool):
+        """One walk of the graph on the bound arrays: ``(leaves, raw
+        outputs, their contexts)``; in training the moving statistics are
+        written into ``aux_dict`` in place."""
         bindings = {k: self._leaf(k, v, is_train)
                     for k, v in self.arg_dict.items()}
         bindings.update((k, NDArray(v._data.detach(), v.context))
                         for k, v in self.aux_dict.items())
         leaves = {k: bindings[k]._data for k in self.arg_dict}
-        with autograd._RecordingState(bool(is_train), None):
-            outs = _eval_graph(self._symbol._outputs, bindings,
-                               bool(is_train))
-        for name, arr in self.aux_dict.items():
-            arr._set_data(bindings[name]._data.detach())
-        raw = [o._data for o in outs]
-        self._graph = (leaves, raw) if is_train else None
-        self.outputs = [NDArray(r.detach(), o.context)
-                        for r, o in zip(raw, outs)]
+        with autograd._RecordingState(is_train, None):
+            outs = _eval_graph(self._symbol._outputs, bindings, is_train)
+        with torch.no_grad():
+            for name, arr in self.aux_dict.items():
+                new = bindings[name]._data
+                if new.data_ptr() != arr._data.data_ptr():
+                    arr._data.copy_(new)
+                    arr._version += 1
+        return leaves, [o._data for o in outs], [o.context for o in outs]
+
+    def _write_grads(self, wrt, grads) -> None:
+        """Each gradient into its ``grad_dict`` array in place: written,
+        or added under ``'add'``; an argument the outputs do not reach
+        takes zero."""
+        with torch.no_grad():
+            for (name, _), g in zip(wrt, grads):
+                arr = self.grad_dict[name]
+                if self._grad_req[name] == "add":
+                    if g is not None:
+                        arr._data.add_(g)
+                elif g is None:
+                    arr._data.zero_()
+                else:
+                    arr._data.copy_(g)
+                arr._version += 1
+
+    @staticmethod
+    def _grads(raw, cts, leaves, retain: bool):
+        """``(wrt, gradients)``: the leaves that take a gradient, with
+        their gradients of ``raw`` under the output gradients ``cts``."""
+        pairs = [(r, c) for r, c in zip(raw, cts) if r.requires_grad]
+        wrt = [(k, t) for k, t in leaves.items() if t.requires_grad]
+        if not (pairs and wrt):
+            return wrt, [None] * len(wrt)
+        return wrt, torch.autograd.grad(
+            [r for r, _ in pairs], [t for _, t in wrt],
+            [c for _, c in pairs], retain_graph=retain, allow_unused=True)
+
+    def forward(self, is_train: bool = False, **kwargs):
+        self._graph = None
+        for k, v in kwargs.items():
+            if k in self.arg_dict:
+                self._write_input(k, v)
+        is_train = bool(is_train)
+        first = next(iter(self.arg_dict.values()), None)
+        if first is not None and first._data.is_cuda:
+            self.outputs = self._forward_card(is_train)
+        else:
+            self.outputs = self._forward_eager(is_train)
         return self.outputs
+
+    def _forward_eager(self, is_train: bool) -> List[NDArray]:
+        leaves, raw, ctxs = self._walk(is_train)
+        self._graph = ("eager", leaves, raw) if is_train else None
+        return [NDArray(r.detach(), c) for r, c in zip(raw, ctxs)]
+
+    def _reads(self) -> List[torch.Tensor]:
+        return [a._data for table in (self.arg_dict, self.aux_dict,
+                                      self.grad_dict)
+                for a in table.values()]
+
+    def _forward_card(self, is_train: bool) -> List[NDArray]:
+        key = (tuple((tuple(a.shape), a._data.dtype)
+                     for a in self.arg_dict.values()), is_train)
+        entry = self._entries.get(key)
+        if entry is None:
+            self._misses += 1
+        else:
+            self._hits += 1
+        addr = _graphs.addresses(self._reads())
+        if entry is None or entry.addr != addr:
+            dev = next(iter(self.arg_dict.values()))._data.device
+            outs = _graphs.warm(lambda: self._warm(is_train), dev)
+            self._entries[key] = self._capture(key, is_train, addr, dev)
+            return outs
+        entry.fwd.replay()
+        self._graph = ("card", entry) if is_train else None
+        with torch.no_grad():
+            return [NDArray(o.clone(), c) for o, c in zip(entry.outs,
+                                                          entry.ctxs)]
+
+    def _warm(self, is_train: bool) -> List[NDArray]:
+        """A pair's first forward: the eager walk, and in training one
+        backward that is thrown away (the graph is kept for the
+        caller's)."""
+        outs = self._forward_eager(is_train)
+        if is_train:
+            _, leaves, raw = self._graph
+            self._grads(raw, [torch.ones_like(r) for r in raw], leaves, True)
+        return outs
+
+    def _capture(self, key, is_train: bool, addr, dev) -> _ExecEntry:
+        from .. import random as _random
+        if self._pool is None:
+            self._pool = _graphs.new_pool()
+        gens = [_random.device_generator(dev)]
+        what = (f"Executor {self._symbol.name!r}, arguments "
+                f"{[s for s, _ in key[0]]}, is_train={is_train}")
+        box = []
+
+        def fwd():
+            leaves, raw, ctxs = self._walk(is_train)
+            box.extend((leaves, ctxs))
+            return raw
+        fwd_graph, raw = _graphs.capture(fwd, dev, self._pool, gens,
+                                         what + " forward")
+        entry = _ExecEntry(fwd_graph, raw, box[1], addr)
+        if is_train:
+            entry.cts = [torch.zeros_like(r) for r in raw]
+
+            def bwd():
+                self._write_grads(*self._grads(raw, entry.cts, box[0], True))
+            entry.bwd, _ = _graphs.capture(bwd, dev, self._pool, gens,
+                                           what + " backward")
+        self._captures += 1
+        return entry
 
     def backward(self, out_grads=None):
         if self._graph is None:
             raise MXNetError("backward called without forward(is_train=True)")
-        leaves, raw = self._graph
-        self._graph = None
-        if out_grads is None:
-            cts = [torch.ones_like(r) for r in raw]
-        else:
-            if isinstance(out_grads, NDArray):
-                out_grads = [out_grads]
-            cts = [g._data for g in out_grads]
-        pairs = [(r, c) for r, c in zip(raw, cts) if r.requires_grad]
-        wrt = [(k, t) for k, t in leaves.items() if t.requires_grad]
-        grads = torch.autograd.grad(
-            [r for r, _ in pairs], [t for _, t in wrt],
-            [c for _, c in pairs],
-            allow_unused=True) if pairs and wrt else [None] * len(wrt)
-        for (name, t), g in zip(wrt, grads):
-            g = torch.zeros_like(t) if g is None else g.detach()
-            tgt = self.grad_dict[name]
-            if self._grad_req[name] == "add":
-                tgt._set_data(tgt._data + g)
-            else:
-                tgt._set_data(g.to(tgt._data.dtype))
+        graph, self._graph = self._graph, None
+        if isinstance(out_grads, NDArray):
+            out_grads = [out_grads]
+        if graph[0] == "card":
+            entry = graph[1]
+            with torch.no_grad():
+                for i, c in enumerate(entry.cts):
+                    if out_grads is None:
+                        c.fill_(1)
+                    elif i < len(out_grads):
+                        c.copy_(out_grads[i]._data)
+                    else:
+                        c.zero_()
+            entry.bwd.replay()
+            return
+        _, leaves, raw = graph
+        cts = ([torch.ones_like(r) for r in raw] if out_grads is None
+               else [g._data for g in out_grads])
+        self._write_grads(*self._grads(raw, cts, leaves, False))
+
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params: bool = False):

@@ -25,7 +25,7 @@ import mxnet_tpu_torch.module, mxnet_tpu_torch.kvstore
 import mxnet_tpu_torch.model, mxnet_tpu_torch.callback
 import mxnet_tpu_torch.distributed, mxnet_tpu_torch.parallel.collectives
 import mxnet_tpu_torch.kvstore.bucketing
-import mxnet_tpu_torch.kvstore.gradient_compression
+import mxnet_tpu_torch.kvstore.gradient_compression, mxnet_tpu_torch._graphs
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -54,7 +54,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.distributed",
                  "mxnet_tpu_torch.parallel.collectives",
                  "mxnet_tpu_torch.kvstore.bucketing",
-                 "mxnet_tpu_torch.kvstore.gradient_compression"):
+                 "mxnet_tpu_torch.kvstore.gradient_compression",
+                 "mxnet_tpu_torch._graphs"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
