@@ -18,8 +18,9 @@ runs (seq 128, batch 64, Adam; fp32, and bf16 through
 own.  With ``--model gluon`` it traces the fused fp32 resnet50_v1 trained
 through the Gluon loop of ``chip_smoke.py``'s ``gluon_training`` phase
 (``record()`` -> ``backward()`` -> ``Trainer.step`` with the metric
-update), then the same model through ``CompiledTrainStep``.  The last line
-names the card.
+update), then the same model through ``CompiledTrainStep``.  Since slice 13
+``CompiledTrainStep`` is one CUDA graph per signature: its traced steps are
+replays.  The last line names the card.
 """
 from __future__ import annotations
 
@@ -75,6 +76,10 @@ def gluon_runs(torch, smoke, seed):
                          smoke.GLUON["px"], smoke.GLUON["classes"])
     yield (lambda data, label: step(data, label).mean(), mx.nd.NDArray(x),
            mx.nd.NDArray(y), smoke.GLUON["warmup"])
+    # the record entry's graph pool and the step's do not fit on the card
+    # together at batch 256
+    _net.hybridize(False)
+    torch.cuda.empty_cache()
     yield (smoke._train_step(_net, smoke.GLUON["batch"]), x, y,
            smoke.GLUON["warmup"])
 

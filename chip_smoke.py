@@ -72,15 +72,29 @@ beside its bound, then drives the port's paths:
   holds its moving statistics against the un-hybridized copy;
   ``module_fit`` and ``dist_training`` run the Executor's graphs, with as
   many captures as misses.
+- the training step as one CUDA graph (slice 13): a small Dense,
+  BatchNorm and Dropout net through ``CompiledTrainStep``'s graph beside
+  an eager twin under a learning-rate schedule and Adam (each replay its
+  own lr and step count, fresh masks, moving statistics, the optimizer's
+  counts, one capture per signature, a rebinding cast, K = 4 steps of
+  ``MultiStepTrainStep`` against 4 single steps, ``remat``;
+  ``train_step_graphs``); ``training`` and ``bert_training`` run every
+  resnet50_v1 and BERT-base configuration through the graph, hold its
+  first 2 steps against the eager twin, and print step ms, busy share and
+  peak memory eager against graph.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
-device, graph_semantics, flash, flash_timing, fused, fused_timing, model_parity, serving,
+device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
+fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, serving_bert,
 serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
 bert_flash, bert_parity, bert_training), for a short call while a kernel
 is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
-``--only build,serving_bert,serving_resnet_export`` the serving phases,
+``--only build,train_step_graphs`` the training step's graph semantics
+(``--only build,train_step_graphs,training,bert_training`` this slice
+with its full-width runs), ``--only
+build,serving_bert,serving_resnet_export`` the serving phases,
 ``--only build,module_fit`` the Module loop and ``--only
 build,dist_training`` the two-rank job.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -94,6 +108,7 @@ the fused 1x1-conv + BN-statistics kernels.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -821,68 +836,228 @@ def phase_resnet_parity(torch, seed):
     check(ok, "fused and unfused resnet50_v1 steps disagree")
 
 
-def _train_run(torch, seed, name, fused, dtype):
-    """``TRAIN["warmup"]`` + ``TRAIN["steps"]`` steps of full-width
-    resnet50_v1 with the launch counts set to 0 just before and read just
-    after; images per second from the host clock over the timed steps,
-    ending in a ``loss.item()``."""
-    from mxnet_tpu_torch.ops import attention as A
-    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+def _step_tensors(step):
+    """A CompiledTrainStep's tensors by name: the net's state dict and
+    every optimizer state."""
+    from mxnet_tpu_torch.executor import _leaves
+    out = dict(step._net.state_dict())
+    for i, state in enumerate(step._states):
+        for j, t in enumerate(_leaves(state)):
+            out[f"opt{i}.{j}"] = t
+    return out
+
+
+def _snapshot(step):
+    """CPU copies of :func:`_step_tensors`."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in _step_tensors(step).items()}
+
+
+def _restore(torch, step, snap, count):
+    """Write ``snap`` back into the step's tensors (in place) and set its
+    step count to ``count``."""
+    with torch.no_grad():
+        for k, t in _step_tensors(step).items():
+            t.copy_(snap[k])
+    step._num_update = count
+
+
+def _gap(torch, got, ref):
+    """Tensors equal bit for bit, and the worst ``max|got - ref| /
+    max|ref|`` over the others, with its name."""
+    equal, worst = 0, (0.0, "")
+    for name, r in ref.items():
+        g = got[name]
+        if torch.equal(g, r):
+            equal += 1
+            continue
+        d = (g.float() - r.float()).abs().max().item()
+        m = r.float().abs().max().item()
+        worst = max(worst, (d / m if m else math.inf, name))
+    return {"bitwise_equal": equal, "tensors": len(ref), "worst_rel": worst}
+
+
+# Slice 13: CompiledTrainStep is one CUDA graph per signature on the card.
+# Each training configuration runs four times, one after the other so that
+# no two share the card's memory.  First the parity pair, with
+# torch.use_deterministic_algorithms on (cuDNN's deterministic
+# algorithms: with the defaults two eager runs of the fused resnet50_v1
+# step on an H100 80GB HBM3 at 700 W already differ by 1.05e-4 of a
+# momentum's largest |value|): the
+# graph's first 2 steps (its first step is the signature's eager call,
+# then the capture, then a replay), and a twin built the same way through
+# the step's eager path (``_eager``), each of its 2 steps from the state
+# the graph's step started from.  The twin must give the graph's state
+# (parameters, buffers, optimizer states) bit for bit, else within
+# SERVE["card_rel"] of each tensor's largest |value|, where cuBLAS picks
+# another algorithm under capture.  Then the timed pair with the default
+# algorithms: warmup + steps through the graph with the launch counters
+# set to 0 just before and read just after, and the same steps eagerly;
+# each then traced for its busy share over STEP_GRAPH["busy_steps"] more.
+STEP_GRAPH = dict(parity_steps=2, busy_steps=5)
+
+
+def _free(torch):
+    """Collect what the last run left (a hybridized block and its CachedOp
+    refer to each other) and give the cached memory back to the card, so
+    that the next run's peak is its own."""
+    gc.collect()
     torch.cuda.empty_cache()
-    bf16 = dtype == "bfloat16"
-    net = _resnet50(torch, fused, seed, dtype)
-    step = _train_step(net, TRAIN["batch"])
-    x, y = _images(torch, seed + 7, TRAIN["batch"], TRAIN["px"],
-                   TRAIN["classes"], torch.bfloat16 if bf16 else None)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    FC.fused_conv_bn_launches = 0
-    FC.fused_conv_bn_wgmma_launches = 0
-    A.flash_fwd_launches = 0
-    first = step(x, y).item()
-    for _ in range(TRAIN["warmup"] - 1):
-        step(x, y)
+
+
+def _parity_pair(torch, build):
+    """The graph's first STEP_GRAPH["parity_steps"] steps against the
+    eager twin's, deterministic algorithms on."""
+    n_par = STEP_GRAPH["parity_steps"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _free(torch)
+        net, step, xs, y = build()
+        snaps, losses = [], []
+        for _ in range(n_par):
+            losses.append(step(xs, y).item())
+            snaps.append(_snapshot(step))
+        del net, step, xs, y
+        _free(torch)
+        net, twin, xs, y = build()
+        parity = []
+        for k in range(n_par):
+            if k:
+                _restore(torch, twin, snaps[k - 1], k)
+            eager_loss = twin._eager(xs, y).item()
+            parity.append({"step": k + 1, "loss_graph": losses[k],
+                           "loss_eager": eager_loss,
+                           **_gap(torch, _snapshot(twin), snaps[k])})
+        del net, twin, xs, y
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _free(torch)
+    return parity
+
+
+def _timed(torch, fn, warmup, steps):
+    """``warmup`` + ``steps`` calls of ``fn``; ms per timed step, the first
+    and last losses."""
+    first = fn().item()
+    for _ in range(warmup - 1):
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRAIN["steps"]):
-        loss = step(x, y)
+    for _ in range(steps):
+        loss = fn()
     last = loss.item()
     wall = time.perf_counter() - t0
-    launches = FC.fused_conv_bn_launches
-    wgmma = FC.fused_conv_bn_wgmma_launches
-    flash = A.flash_fwd_launches
+    return {"step_ms": 1e3 * wall / steps, "first_loss": first,
+            "last_loss": last}
+
+
+def _graph_and_eager(torch, build, warmup, steps, reset, read):
+    """``build()`` -> ``(net, step, xs, y)``.  Returns ``(graph, eager,
+    parity, launches)``: ``launches`` is ``read()`` after the graph's
+    ``warmup`` + ``steps`` steps, counted from ``reset()`` just before."""
+    parity = _parity_pair(torch, build)
+    net, step, xs, y = build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    graph = _timed(torch, lambda: step(xs, y), warmup, steps)
+    launches = read()
+    graph.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 pool_gb=_pool_bytes(torch, step._pool) / 1e9,
+                 misses=step._misses, captures=step._captures,
+                 replays=step._replays)
+    graph["busy"] = _busy_share(torch, lambda: step(xs, y),
+                                STEP_GRAPH["busy_steps"])
+    del net, step, xs, y
+    _free(torch)
+
+    net, twin, xs, y = build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = _timed(torch, lambda: twin._eager(xs, y), warmup, steps)
+    eager["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    eager["busy"] = _busy_share(torch, lambda: twin._eager(xs, y),
+                                STEP_GRAPH["busy_steps"])
+    del net, twin, xs, y
+    _free(torch)
+    return graph, eager, parity, launches
+
+
+def _graph_gates(graph, parity, steps):
+    """The gates every configuration holds through the graph: one miss,
+    one capture, a replay for every later step, the first 2 steps as the
+    eager twin's."""
+    return {"one_capture": graph["misses"] == graph["captures"] == 1
+            and graph["replays"] == steps - 1,
+            "parity_with_eager": all(
+                math.isfinite(p["loss_graph"])
+                and p["worst_rel"][0] <= SERVE["card_rel"] for p in parity)}
+
+
+def _train_run(torch, seed, name, fused, dtype):
+    """Full-width resnet50_v1 through CompiledTrainStep's graph and its
+    eager twin (``_graph_and_eager``), ``TRAIN["warmup"]`` +
+    ``TRAIN["steps"]`` steps each; images per second from the host clock
+    over the timed steps, ending in a ``loss.item()``."""
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    bf16 = dtype == "bfloat16"
+
+    def build():
+        net = _resnet50(torch, fused, seed, dtype)
+        x, y = _images(torch, seed + 7, TRAIN["batch"], TRAIN["px"],
+                       TRAIN["classes"], torch.bfloat16 if bf16 else None)
+        return net, _train_step(net, TRAIN["batch"]), (x,), y
+
+    def reset():
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+        A.flash_fwd_launches = 0
+
+    def read():
+        return {"fused_conv_bn_launches": FC.fused_conv_bn_launches,
+                "fused_conv_bn_wgmma_launches":
+                    FC.fused_conv_bn_wgmma_launches,
+                "flash_fwd_launches": A.flash_fwd_launches}
+
+    graph, eager, parity, launches = _graph_and_eager(
+        torch, build, TRAIN["warmup"], TRAIN["steps"], reset, read)
     steps = TRAIN["warmup"] + TRAIN["steps"]
     out = {"run": name, "fused": fused, "dtype": dtype or "float32",
            "batch": TRAIN["batch"], "px": TRAIN["px"], "steps": steps,
-           "timed_steps": TRAIN["steps"],
-           "imgs_per_sec": TRAIN["batch"] * TRAIN["steps"] / wall,
-           "step_ms": 1e3 * wall / TRAIN["steps"], "first_loss": first,
-           "last_loss": last,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "tf32": _tf32(torch), "fused_conv_bn_launches": launches,
-           "fused_conv_bn_wgmma_launches": wgmma,
-           "flash_fwd_launches": flash}
+           "timed_steps": TRAIN["steps"], "through": "cuda_graph",
+           "imgs_per_sec": 1e3 * TRAIN["batch"] / graph["step_ms"],
+           "step_ms": graph["step_ms"], "eager_step_ms": eager["step_ms"],
+           "first_loss": graph["first_loss"],
+           "last_loss": graph["last_loss"],
+           "peak_mem_gb": graph["peak_mem_gb"], "graph": graph,
+           "eager": eager, "parity": parity,
+           "tolerance": {"card_rel": SERVE["card_rel"]},
+           "tf32": _tf32(torch), **launches}
     want = FUSED_LAUNCHES_PER_STEP * steps if fused else 0
-    out["gates"] = {"losses_finite": math.isfinite(first)
-                    and math.isfinite(last),
-                    "launches": launches == want and wgmma == want
-                    and flash == 0}
+    out["gates"] = {"losses_finite": math.isfinite(graph["first_loss"])
+                    and math.isfinite(graph["last_loss"]),
+                    "launches": launches["fused_conv_bn_launches"] == want
+                    and launches["fused_conv_bn_wgmma_launches"] == want
+                    and launches["flash_fwd_launches"] == 0,
+                    **_graph_gates(graph, parity, steps)}
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"training run {name} failed: {out['gates']}")
-    del net, step, x, y
     return out
 
 
 def phase_training(torch, seed):
-    """Full-width resnet50_v1 training: (a) fused fp32, (b) unfused fp32,
-    (c) unfused bf16 (bench.py's main configuration); TF32 off."""
+    """Full-width resnet50_v1 training through CompiledTrainStep's CUDA
+    graph, each run beside its eager twin: (a) fused fp32, (b) unfused
+    fp32, (c) unfused bf16 (bench.py's main configuration); TF32 off."""
     runs = [_train_run(torch, seed, "a_fused_fp32", True, None),
             _train_run(torch, seed, "b_unfused_fp32", False, None),
             _train_run(torch, seed, "c_unfused_bf16", False, "bfloat16")]
     emit({"phase": "training", "ok": True,
           "fused_over_unfused_step_ms": runs[0]["step_ms"]
-          / runs[1]["step_ms"]})
+          / runs[1]["step_ms"],
+          "graph_over_eager_step_ms": {
+              r["run"]: r["step_ms"] / r["eager_step_ms"] for r in runs}})
     return runs[0]["fused_conv_bn_launches"]
 
 
@@ -906,7 +1081,9 @@ def phase_training(torch, seed):
 # and the max-pool backward sum in a run-dependent order), then it
 # trains 3 + 10 steps with the launch counts set to 0 just before and read
 # just after (36 tensor-core fused launches per step), and CompiledTrainStep
-# runs the same 3 + 10 steps after it, timed the same way.
+# runs the same 3 + 10 steps after it, timed the same way.  Since slice 13
+# CompiledTrainStep is one CUDA graph on the card: the loop is held
+# against the graph's steps (its first call eager, the rest replays).
 GLUON = dict(mnist_batch=64, mnist_steps=20, mnist_lr=0.01, batch=256,
              px=224, classes=1000, batches=2, parity_steps=2, warmup=3,
              steps=10, step_rel=1e-3, step_abs=1e-6)
@@ -1039,35 +1216,28 @@ def phase_gluon_training(torch, seed):
             batch = it.next()
         return batch.data[0], batch.label[0]
 
-    compiled = _train_step(ref, GLUON["batch"])
     learnable = [i for i, p in enumerate(net.collect_params().values())
                  if p.grad_req != "null"]
-    parity = []
+
+    def host_state():
+        """The Gluon net's tensors and momenta, copied to the host."""
+        moms = trainer._updaters[0].states if trainer._updaters else {}
+        return ({k: v.detach().cpu().clone()
+                 for k, v in net.state_dict().items()},
+                [moms[i].detach().cpu().clone() if i in moms else None
+                 for i in learnable])
+
+    # the Gluon side of the comparisons: its steps with their start and
+    # end states on the host (the two loops' graph pools, 38-45 GB each
+    # at batch 256 on an H100 80GB HBM3, do not fit on the card together,
+    # so CompiledTrainStep runs after the Gluon net is freed, from the
+    # same states)
+    records = []
     for k in range(GLUON["parity_steps"]):
-        if k:
-            # each step from the same state, as the CPU tests run it: the
-            # card's nondeterministic sums (cuDNN, max-pool backward) grow
-            # through a second step in either loop
-            ref.load_state_dict(net.state_dict())
-            for i, mom in zip(learnable, compiled._states):
-                mom.copy_(trainer._updaters[0].states[i])
         data, label = next_batch()
+        pre = host_state()
         gl = float(gluon_step(data, label).mean().asscalar())
-        cl = compiled(data._data, label._data).item()
-        state = _state_gap(net.state_dict(), ref.state_dict())
-        moms = {str(i): trainer._updaters[0].states[i] for i in learnable}
-        mom = _state_gap(moms, {str(i): m for i, m in
-                                       zip(learnable, compiled._states)})
-        parity.append({"step": k + 1, "loss_gluon": gl, "loss_compiled": cl,
-                       "worst_state": state, "worst_momentum": mom,
-                       "bitwise_equal_tensors": sum(
-                           torch.equal(a, b) for a, b in zip(
-                               net.state_dict().values(),
-                               ref.state_dict().values()))})
-    parity_ok = all(math.isfinite(p["loss_gluon"])
-                    and p["worst_state"][0] <= GLUON["step_rel"]
-                    and p["worst_momentum"][0] <= GLUON["step_rel"]
-                    for p in parity)
+        records.append((data, label, pre, gl, host_state()))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1091,18 +1261,61 @@ def phase_gluon_training(torch, seed):
               "pool_gb": _pool_bytes(torch, op._pool) / 1e9}
 
     # the moving statistics after the timed steps: one more step of the
-    # hybridized net and of the un-hybridized copy from the same state
-    ref.load_state_dict(net.state_dict())
-    for i, mom in zip(learnable, compiled._states):
-        mom.copy_(trainer._updaters[0].states[i])
+    # hybridized net, held below against the un-hybridized copy's
     data, label = next_batch()
+    stats_pre = host_state()
     gluon_step(data, label)
-    compiled(data._data, label._data)
-    running = [k for k in ref.state_dict() if "running" in k]
-    stats_gap = _state_gap({k: net.state_dict()[k] for k in running},
-                           {k: ref.state_dict()[k] for k in running})
-
+    stats_post = host_state()[0]
     batches = [next_batch() for _ in range(GLUON["batches"])]
+    accuracy = float(metric.get()[1])
+    del net, trainer, metric, gluon_step, op, it, loss
+    _free(torch)
+
+    compiled = _train_step(ref, GLUON["batch"])
+
+    def load(state):
+        sd, moms = state
+        ref.load_state_dict(sd)
+        with torch.no_grad():
+            for mom, m in zip(compiled._states, moms):
+                if m is None:
+                    mom.zero_()
+                else:
+                    mom.copy_(m)
+
+    def cpu(sd):
+        return {k: v.detach().cpu() for k, v in sd.items()}
+
+    parity = []
+    for k, (data, label, pre, gl, (post_sd, post_moms)) in \
+            enumerate(records):
+        # each step from the same state, as the CPU tests run it: the
+        # card's nondeterministic sums (cuDNN) grow through a second step
+        # in either loop
+        load(pre)
+        cl = compiled(data._data, label._data).item()
+        got = cpu(ref.state_dict())
+        state = _state_gap(got, post_sd)
+        mom = _state_gap({str(i): m.cpu() for i, m in
+                          zip(learnable, compiled._states)},
+                         {str(i): m for i, m in zip(learnable, post_moms)})
+        parity.append({"step": k + 1, "loss_gluon": gl, "loss_compiled": cl,
+                       "worst_state": state, "worst_momentum": mom,
+                       "bitwise_equal_tensors": sum(
+                           torch.equal(got[n], post_sd[n])
+                           for n in post_sd)})
+    parity_ok = all(math.isfinite(p["loss_gluon"])
+                    and p["worst_state"][0] <= GLUON["step_rel"]
+                    and p["worst_momentum"][0] <= GLUON["step_rel"]
+                    for p in parity)
+
+    load(stats_pre)
+    compiled(data._data, label._data)
+    running = [k for k in stats_post if "running" in k]
+    got = cpu(ref.state_dict())
+    stats_gap = _state_gap({k: got[k] for k in running},
+                           {k: stats_post[k] for k in running})
+
     for i in range(GLUON["warmup"]):
         data, label = batches[i % len(batches)]
         compiled(data._data, label._data)
@@ -1125,10 +1338,17 @@ def phase_gluon_training(torch, seed):
            "compiled_imgs_per_sec":
                GLUON["batch"] * GLUON["steps"] / compiled_wall,
            "first_loss": first, "last_loss": last,
-           "accuracy": float(metric.get()[1]), "peak_mem_gb": peak,
+           "accuracy": accuracy, "peak_mem_gb": peak,
            "fused_conv_bn_launches": launches,
            "fused_conv_bn_wgmma_launches": wgmma, "parity": parity,
            "graphs": graphs, "moving_stats_gap_after_timed": stats_gap,
+           # CompiledTrainStep, held against above, is itself a CUDA graph
+           # (slice 13): its first call eager, then one capture, replays
+           "compiled_train_step": {
+               "through": "cuda_graph", "misses": compiled._misses,
+               "captures": compiled._captures,
+               "replays": compiled._replays,
+               "pool_gb": _pool_bytes(torch, compiled._pool) / 1e9},
            "tolerance": {k: GLUON[k] for k in ("step_rel", "step_abs")},
            "tf32": _tf32(torch)}
     out["gates"] = {"launches": launches == want and wgmma == want,
@@ -1136,6 +1356,9 @@ def phase_gluon_training(torch, seed):
                     "record_entry_replayed": graphs["misses"] ==
                     graphs["captures"] == 1
                     and graphs["replays"] >= GLUON["steps"],
+                    "compiled_step_replayed": compiled._misses
+                    == compiled._captures == 1
+                    and compiled._replays >= GLUON["steps"],
                     "moving_stats_as_eager":
                     stats_gap[0] <= GLUON["step_rel"],
                     "losses_finite": math.isfinite(first)
@@ -1143,7 +1366,8 @@ def phase_gluon_training(torch, seed):
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"gluon_training failed: {out['gates']}")
-    del net, ref, it, trainer, compiled, batches
+    del ref, compiled, batches, records
+    _free(torch)
     return launches
 
 
@@ -3062,59 +3286,69 @@ def _bert_base(torch, seed, dtype):
 
 
 def _bert_run(torch, seed, dtype):
-    """``BERT["warmup"]`` + ``BERT["steps"]`` steps of full-width
-    BERT-base as bench.py builds it, with the flash launch counts set to 0
-    just before and read just after; samples per second from the host
-    clock over the timed steps, ending in a ``loss.item()``."""
+    """Full-width BERT-base as bench.py builds it, through
+    CompiledTrainStep's graph and its eager twin (``_graph_and_eager``),
+    ``BERT["warmup"]`` + ``BERT["steps"]`` steps each, the flash launch
+    counts set to 0 just before the graph's steps and read just after;
+    samples per second from the host clock over the timed steps, ending
+    in a ``loss.item()``."""
     from mxnet_tpu_torch.ops import attention as A
-    torch.cuda.empty_cache()
-    net, step, x, y = _bert_base(torch, seed, dtype)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
-    A.flash_fwd_tf32_launches = 0
-    first = step(x, y).item()
-    for _ in range(BERT["warmup"] - 1):
-        step(x, y)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(BERT["steps"]):
-        loss = step(x, y)
-    last = loss.item()
-    wall = time.perf_counter() - t0
-    launches, wgmma = A.flash_fwd_launches, A.flash_fwd_wgmma_launches
-    tf32 = A.flash_fwd_tf32_launches
+
+    cells = []
+
+    def build():
+        net, step, x, y = _bert_base(torch, seed, dtype)
+        cells[:] = [len(net.bert.encoder.cells)]
+        return net, step, x, y
+
+    def reset():
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = 0
+
+    def read():
+        return {"flash_fwd_launches": A.flash_fwd_launches,
+                "flash_fwd_tf32_launches": A.flash_fwd_tf32_launches,
+                "flash_fwd_wgmma_launches": A.flash_fwd_wgmma_launches}
+
+    graph, eager, parity, launches = _graph_and_eager(
+        torch, build, BERT["warmup"], BERT["steps"], reset, read)
     steps = BERT["warmup"] + BERT["steps"]
-    layers = len(net.bert.encoder.cells)
+    layers = cells[0]
     out = {"run": f"bert_{dtype}", "dtype": dtype, "batch": BERT["batch"],
            "seq": BERT["seq"], "layers": layers, "steps": steps,
-           "timed_steps": BERT["steps"],
-           "samples_per_sec": BERT["batch"] * BERT["steps"] / wall,
-           "step_ms": 1e3 * wall / BERT["steps"], "first_loss": first,
-           "last_loss": last,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "tf32": _tf32(torch), "flash_fwd_launches": launches,
-           "flash_fwd_tf32_launches": tf32,
-           "flash_fwd_wgmma_launches": wgmma}
-    out["gates"] = {"losses_finite": math.isfinite(first)
-                    and math.isfinite(last),
-                    "launches": launches == tf32 == layers * steps == 156
-                    and wgmma == 0}
+           "timed_steps": BERT["steps"], "through": "cuda_graph",
+           "samples_per_sec": 1e3 * BERT["batch"] / graph["step_ms"],
+           "step_ms": graph["step_ms"], "eager_step_ms": eager["step_ms"],
+           "first_loss": graph["first_loss"],
+           "last_loss": graph["last_loss"],
+           "peak_mem_gb": graph["peak_mem_gb"], "graph": graph,
+           "eager": eager, "parity": parity,
+           "tolerance": {"card_rel": SERVE["card_rel"]},
+           "tf32": _tf32(torch), **launches}
+    out["gates"] = {"losses_finite": math.isfinite(graph["first_loss"])
+                    and math.isfinite(graph["last_loss"]),
+                    "launches": launches["flash_fwd_launches"]
+                    == launches["flash_fwd_tf32_launches"]
+                    == layers * steps == 156
+                    and launches["flash_fwd_wgmma_launches"] == 0,
+                    **_graph_gates(graph, parity, steps)}
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"BERT run {dtype} failed: {out['gates']}")
-    del net, step, x, y
     return out
 
 
 def phase_bert_training(torch, seed):
-    """Full-width BERT-base pretraining steps, fp32 then bf16 through
+    """Full-width BERT-base pretraining steps through CompiledTrainStep's
+    CUDA graph, each run beside its eager twin, fp32 then bf16 through
     amp.convert_block; TF32 off.  Returns the fp32 tensor-core flash
-    kernel's launches in both runs."""
+    kernel's launches in both graph runs."""
     runs = [_bert_run(torch, seed, "float32"),
             _bert_run(torch, seed, "bfloat16")]
     emit({"phase": "bert_training", "ok": True,
-          "bf16_over_fp32_step_ms": runs[1]["step_ms"] / runs[0]["step_ms"]})
+          "bf16_over_fp32_step_ms": runs[1]["step_ms"] / runs[0]["step_ms"],
+          "graph_over_eager_step_ms": {
+              r["run"]: r["step_ms"] / r["eager_step_ms"] for r in runs}})
     return sum(r["flash_fwd_tf32_launches"] for r in runs)
 
 
@@ -3369,6 +3603,183 @@ def phase_graph_semantics(torch, seed):
     check(out["ok"], f"graph_semantics failed: {out['gates']}")
 
 
+# ---------------------------------------------------------------------------
+# slice 13: CompiledTrainStep as one CUDA graph
+# ---------------------------------------------------------------------------
+# A small net (Dense 64 -> 256, BatchNorm, Dropout(0.5) on its own
+# generator, Dense 256 -> 10; fp32, TF32 off) through CompiledTrainStep's
+# graph beside a twin from the same weights and generator seed that runs
+# the step's eager path, over TSG["steps"] batches of 64: SGD (momentum,
+# wd) under FactorScheduler(step=1, factor=0.7), so every step has its
+# own lr, and Adam, whose bias correction reads every step's count.  After
+# each step every tensor (parameters, moving statistics, optimizer
+# states) must be the twin's bit for bit, else within TSG["rel"] of its
+# largest |value|; the moving statistics must move at every step; the
+# dropout generator must end where the twin's does; and a third copy
+# whose dropout stream restarts at every step (the same mask each step,
+# what a replay without the generator registered would draw) must end
+# far from the graph (more than 100 x TSG["rel"]): each replay drew fresh
+# masks.  The optimizer's counts must equal the twin's.  One capture for
+# the first batch size, one more for a second (batch 32), one more after
+# a rebinding cast (fp16 and back, on both copies).  MultiStepTrainStep
+# at K = 4 must equal 4 single steps (both through graphs) bit for bit;
+# remat=True must equal remat=False within TSG["rel"] over 3 steps, or
+# raise MXNetError naming its ROADMAP item.
+TSG = dict(batch=64, batch2=32, units_in=64, units=256, classes=10,
+           rate=0.5, steps=5, k=4, remat_steps=3, rel=1e-5)
+
+
+def _tsg_net(seed):
+    """The small net on the card, weights from ``seed``, its Dropout
+    drawing from a generator seeded ``seed + 1``."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    net = nn.HybridSequential(prefix="tsg_")
+    with net.name_scope():
+        net.add(nn.Dense(TSG["units"], in_units=TSG["units_in"],
+                         device="cuda"),
+                nn.BatchNorm(in_channels=TSG["units"], device="cuda"),
+                nn.Dropout(TSG["rate"], generator=generator(seed + 1,
+                                                            "cuda")),
+                nn.Dense(TSG["classes"], in_units=TSG["units"],
+                         device="cuda"))
+    initialize(net, generator(seed, "cuda"))
+    return net
+
+
+def _tsg_step(net, opt_name, cls=None, **kwargs):
+    from mxnet_tpu_torch import lr_scheduler, optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    if opt_name == "sgd":
+        opt = optimizer.create(
+            "sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
+            lr_scheduler=lr_scheduler.FactorScheduler(step=1, factor=0.7))
+    else:
+        opt = optimizer.create("adam", learning_rate=0.01)
+    return (cls or CompiledTrainStep)(net, SoftmaxCrossEntropyLoss(), opt,
+                                      **kwargs)
+
+
+def phase_train_step_graphs(torch, seed):
+    """CompiledTrainStep's CUDA-graph semantics on the card (see TSG)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import MultiStepTrainStep, stack_batches
+    g = TSG
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+
+    def batch(n):
+        x = torch.randn(n, g["units_in"], generator=gen, device="cuda")
+        y = torch.randint(0, g["classes"], (n,), generator=gen,
+                          device="cuda").float()
+        return x, y
+
+    batches = [batch(g["batch"]) for _ in range(g["steps"])]
+    x2, y2 = batch(g["batch2"])
+    ok_rel = lambda gap: gap["worst_rel"][0] <= g["rel"]
+    runs = {}
+    for opt_name in ("sgd", "adam"):
+        net, twin, stale = (_tsg_net(seed) for _ in range(3))
+        step = _tsg_step(net, opt_name)
+        ref = _tsg_step(twin, opt_name)
+        old = _tsg_step(stale, opt_name)
+        gaps, moved, lrs = [], [], []
+        for x, y in batches:
+            before = net[1].running_mean.clone()
+            lrs.append(step._lr_at(0))
+            step(x, y)
+            ref._eager((x,), y)
+            stale[2].generator.manual_seed(seed + 1)
+            old._eager((x,), y)
+            moved.append(not torch.equal(net[1].running_mean, before))
+            gaps.append(_gap(torch, _snapshot(step), _snapshot(ref)))
+        stale_gap = _gap(torch, _snapshot(step), _snapshot(old))
+        same_stream = torch.equal(net[2].generator.get_state(),
+                                  twin[2].generator.get_state())
+        counts = (step._opt.num_update == ref._opt.num_update
+                  and step._opt._index_update_count
+                  == ref._opt._index_update_count)
+        first = (step._misses, step._captures, step._replays)
+        step(x2, y2)
+        ref._eager((x2,), y2)
+        batch2_gap = _gap(torch, _snapshot(step), _snapshot(ref))
+        second = (step._misses, step._captures)
+        for b in (net, twin):
+            b.cast("float16")
+            b.cast("float32")
+        x, y = batches[0]
+        step(x, y)
+        ref._eager((x,), y)
+        cast_gap = _gap(torch, _snapshot(step), _snapshot(ref))
+        runs[opt_name] = {
+            "lrs": lrs, "gaps": gaps, "stats_moved": moved,
+            "stale_mask_gap": stale_gap, "stream_as_eager": same_stream,
+            "counts_as_eager": counts, "num_update": step._opt.num_update,
+            "misses_captures_replays": first,
+            "after_batch2": second, "batch2_gap": batch2_gap,
+            "cast_captures": step._captures - second[1],
+            "cast_gap": cast_gap}
+        del net, twin, stale, step, ref, old
+
+    # MultiStepTrainStep at K = 4 against 4 single steps, both as graphs
+    nets = [_tsg_net(seed) for _ in range(2)]
+    multi = _tsg_step(nets[0], "adam", MultiStepTrainStep)
+    single = _tsg_step(nets[1], "adam")
+    sx, sy = stack_batches(batches[:g["k"]])
+    losses = multi(sx, sy)
+    ref_losses = torch.stack([single(x, y) for x, y in batches[:g["k"]]])
+    multi_gap = _gap(torch, _snapshot(multi), _snapshot(single))
+    multistep = {"k": g["k"], "losses_equal": torch.equal(losses, ref_losses),
+                 "gap": multi_gap, "captures": multi._captures,
+                 "replays": multi._replays}
+    del nets, multi, single
+
+    # remat=True against remat=False
+    nets = [_tsg_net(seed) for _ in range(2)]
+    plain = _tsg_step(nets[0], "adam")
+    try:
+        rm = _tsg_step(nets[1], "adam", remat=True)
+        for x, y in batches[:g["remat_steps"]]:
+            plain(x, y)
+            rm(x, y)
+        remat = {"raised": None,
+                 "gap": _gap(torch, _snapshot(rm), _snapshot(plain)),
+                 "captures": rm._captures}
+    except mx.MXNetError as e:
+        remat = {"raised": str(e)[:300]}
+    del nets, plain
+
+    out = {"phase": "train_step_graphs", "batch": g["batch"],
+           "runs": runs, "multistep": multistep, "remat": remat,
+           "tolerance": {"rel": g["rel"]}, "tf32": _tf32(torch)}
+    gates = {}
+    for name, r in runs.items():
+        gates[name] = {
+            "each_step_as_eager": all(ok_rel(gp) for gp in r["gaps"]),
+            "lr_per_step": name != "sgd" or len(set(r["lrs"])) == g["steps"],
+            "stats_move": all(r["stats_moved"]),
+            "fresh_masks": r["stream_as_eager"]
+            and r["stale_mask_gap"]["worst_rel"][0] > 100 * g["rel"],
+            "counts_as_eager": r["counts_as_eager"],
+            "one_capture_per_signature":
+            r["misses_captures_replays"] == (1, 1, g["steps"] - 1)
+            and r["after_batch2"] == (2, 2) and ok_rel(r["batch2_gap"]),
+            "cast_captures_again": r["cast_captures"] == 1
+            and ok_rel(r["cast_gap"])}
+    gates["multistep_bitwise"] = multistep["losses_equal"] and \
+        multi_gap["bitwise_equal"] == multi_gap["tensors"] and \
+        multistep["captures"] == 1
+    gates["remat"] = (ok_rel(remat["gap"]) and remat["captures"] == 1
+                      if remat["raised"] is None
+                      else "ROADMAP" in remat["raised"])
+    out["gates"] = gates
+    out["ok"] = all(v if isinstance(v, bool) else all(v.values())
+                    for v in gates.values())
+    emit(out)
+    check(out["ok"], f"train_step_graphs failed: {gates}")
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -3391,7 +3802,8 @@ def _kernel_line(name, source, replaces, launches, timing):
             "library_ms": timing["library_ms"]}
 
 
-PHASES = ("build", "device", "graph_semantics", "flash", "flash_timing",
+PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
+          "flash", "flash_timing",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "serving_bert",
@@ -3427,6 +3839,8 @@ def main(argv=None):
     phase_device(torch)
     if "graph_semantics" in only:
         phase_graph_semantics(torch, args.seed)
+    if "train_step_graphs" in only:
+        phase_train_step_graphs(torch, args.seed)
     if "flash" in only:
         phase_kernels(torch, args.seed)
     if "flash_timing" in only:
@@ -3451,12 +3865,13 @@ def main(argv=None):
     if "gluon_training" in only:
         by_path["gluon_training"] = phase_gluon_training(torch, args.seed)
     if by_path and "fused_timing" in only:
-        # launches: this slice's path (the Gluon loop) when it ran
+        # launches: this slice's path (CompiledTrainStep's graph) when it
+        # ran, else the Gluon loop's
         line = _kernel_line(
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            by_path.get("gluon_training", by_path.get("training")), fused)
+            by_path.get("training", by_path.get("gluon_training")), fused)
         line["launches_by_path"] = by_path
         lines.append(line)
     bert_paths = {}
@@ -3480,11 +3895,12 @@ def main(argv=None):
     if "bert_training" in only:
         bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: this slice's path (module_fit) when it ran, else the
-        # latest earlier slice's
-        main_path = next((bert_paths[k] for k in ("module_fit",
-                                                   "serving_bert",
-                                                   "bert_training")
+        # launches: this slice's path (bert_training, through
+        # CompiledTrainStep's graph) when it ran, else the latest earlier
+        # slice's
+        main_path = next((bert_paths[k] for k in ("bert_training",
+                                                   "module_fit",
+                                                   "serving_bert")
                           if k in bert_paths),
                          bert_paths.get("dist_training", [0])[0])
         line = _kernel_line("flash_fwd_bert",

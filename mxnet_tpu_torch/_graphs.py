@@ -12,7 +12,9 @@ has in their place:
   (:class:`~mxnet_tpu_torch.symbol.Executor` captures its forward and
   backward here);
 * ``CompiledTrainStep`` (``mxnet_tpu/executor.py``), the jitted training
-  step, which the port still runs eagerly.
+  step: forward, gradients and every optimizer update
+  (:mod:`~mxnet_tpu_torch.executor` captures the whole step here, with
+  the learning rate and Adam's step count as device tensors it reads).
 
 A signature's first call runs its function eagerly on the device's side
 stream (:func:`warm`): the first use of each kernel (its ``nvcc`` build and
@@ -20,7 +22,8 @@ module load), cuBLAS's handle and workspace for that stream and the
 caching allocator's growth all happen there.  Then :func:`capture`
 records the same function into a
 ``torch.cuda.CUDAGraph`` on that stream, in thread-local mode, from a
-memory pool that the caller shares among its signatures.  A later call
+memory pool that the caller (an op, an Executor, a training step) shares
+among its signatures.  A later call
 copies its inputs into the graph's static buffers and :meth:`Graph.replay`
 launches the recorded kernels in the recorded order at the recorded
 addresses.  What a graph reads in place (parameters, moving statistics)

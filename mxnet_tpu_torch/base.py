@@ -121,6 +121,15 @@ env.declare("MXNET_KVSTORE_OVERLAP", True, bool,
             "end-of-push flush, which issues them in priority order.")
 
 
+# -- the training step (mxnet_tpu/base.py:373)
+env.declare("MXNET_TPU_STEPS_PER_CALL", 1, int,
+            "K for MultiStepTrainStep: training steps one call takes from a "
+            "super-batch with a leading K axis.  On the card they are K "
+            "replays of the step's one CUDA graph, each with its own "
+            "learning rate and step count; the results equal K single "
+            "steps bit for bit.")
+
+
 env.declare("MXNET_SERVING_MAX_QUEUE", 256, int,
             "Admission bound on a DynamicBatcher's queue (pending requests); "
             "submissions beyond it are shed with OverloadedError.")

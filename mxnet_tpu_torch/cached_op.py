@@ -171,6 +171,22 @@ class _Entry:
         self.slots: List[_Slot] = []
 
 
+def generators_of(root, device) -> List[torch.Generator]:
+    """The device's stream, and any generator on the device's type that a
+    module of ``root`` (a module or None) holds (``Dropout(generator=...)``):
+    on the card, the generators a graph over ``root`` registers."""
+    kind = torch.device(device).type
+    gens = [_random.device_generator(device)]
+    if root is not None:
+        for m in root.modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator) and \
+                    g.device.type == kind and \
+                    all(g is not h for h in gens):
+                gens.append(g)
+    return gens
+
+
 class CachedOp:
     def __init__(self, forward_fn: Callable, params: Sequence, flags=()):
         """``forward_fn(*nd_inputs)`` -> NDArray or a list of them, reading
@@ -252,17 +268,7 @@ class CachedOp:
                 if t is not None]
 
     def _generators(self, device) -> List[torch.Generator]:
-        """The device's stream, and any CUDA generator a module of the
-        block holds (``Dropout(generator=...)``)."""
-        gens = [_random.device_generator(device)]
-        if self._owner is not None:
-            for m in self._owner.modules():
-                g = getattr(m, "generator", None)
-                if isinstance(g, torch.Generator) and \
-                        g.device.type == "cuda" and \
-                        all(g is not h for h in gens):
-                    gens.append(g)
-        return gens
+        return generators_of(self._owner, device)
 
     def _capture(self, fn, device, sig, what):
         if self._pool is None:

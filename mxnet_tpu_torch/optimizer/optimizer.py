@@ -13,6 +13,11 @@ index or by name (``param_idx2name``); with no multipliers set, wd applies
 to every parameter, BN gamma and beta included.  Each ``update`` counts
 per index (``_update_count``, ``num_update``); Adam's bias correction reads
 the step count ``_t``, which a training step sets for all its updates.
+While a :class:`~mxnet_tpu_torch.executor.CompiledTrainStep` runs its
+updates, ``lr`` and ``_step`` are 0-dim fp32 tensors on the parameters'
+device (the step writes them before each run, so a replayed CUDA graph
+reads this step's values) and ``lr_scheduler`` is ``None``; the update
+ops then compute as the JAX compiled step does.
 bf16 weights take the plain update with a bf16 momentum, as in the JAX
 package; ``multi_precision`` keeps an fp32 master copy of fp16 weights
 (``update_multi_precision``).  The row-sparse lazy updates wait for a later
@@ -70,9 +75,11 @@ class Optimizer:
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
         self._index_update_count: Dict[Any, int] = {}
-        # The 1-based count of the training step under way, set by
-        # CompiledTrainStep around its updates; None outside a step.
+        # The 1-based count of the training step under way, a 0-dim fp32
+        # tensor set by CompiledTrainStep around its updates, and the
+        # step's step sizes by lr multiplier (a dict); None outside a step.
         self._step = None
+        self._step_sizes = None
 
     def create_state(self, index, weight: torch.Tensor):
         return None
@@ -152,7 +159,10 @@ class Optimizer:
     def _get_lr(self, index):
         lr = (self.lr_scheduler(self.num_update) if self.lr_scheduler
               else self.lr)
-        return lr * self._mult("lr_mult", index)
+        mult = self._mult("lr_mult", index)
+        # no multiply for 1.0 (the JAX package multiplies only by a set
+        # multiplier): inside a training step lr is a device tensor
+        return lr if mult == 1.0 else lr * mult
 
     def _get_wd(self, index):
         return self.wd * self._mult("wd_mult", index)
@@ -208,17 +218,29 @@ class Adam(Optimizer):
     def update(self, index, weight, grad, state):
         weight, grad = _raw(weight), _raw(grad)
         self._update_count(index)
-        t = self._t(index)
-        lr = (self._get_lr(index) * (1.0 - self.beta2 ** t) ** 0.5
-              / (1.0 - self.beta1 ** t))
-        if self._step is not None:
-            # the JAX compiled step traces lr as a float32 array
-            lr = torch.tensor(lr, dtype=torch.float32)
+        lr = self._step_size(index, self._t(index))
         mean, var = state
         adam_update(weight, grad, mean, var, lr=lr, beta1=self.beta1,
                     beta2=self.beta2, epsilon=self.epsilon,
                     wd=self._get_wd(index), rescale_grad=self.rescale_grad,
                     clip_gradient=self.clip_gradient)
+
+
+    def _step_size(self, index, t):
+        """``lr·sqrt(1 − β2^t)/(1 − β1^t)``, in that order.  Inside a
+        training step lr and t are 0-dim fp32 tensors (the JAX compiled
+        step traces them as float32 arrays): the arithmetic is then fp32
+        on the device, made once per lr multiplier for the step
+        (``_step_sizes``; XLA's CSE gives the JAX trace the same)."""
+        sizes = getattr(self, "_step_sizes", None)
+        mult = self._mult("lr_mult", index)
+        if sizes is not None and mult in sizes:
+            return sizes[mult]
+        size = (self._get_lr(index) * (1.0 - self.beta2 ** t) ** 0.5
+                / (1.0 - self.beta1 ** t))
+        if sizes is not None:
+            sizes[mult] = size
+        return size
 
 
 class Updater:
