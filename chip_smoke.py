@@ -82,12 +82,31 @@ beside its bound, then drives the port's paths:
   resnet50_v1 and BERT-base configuration through the graph, hold its
   first 2 steps against the eager twin, and print step ms, busy share and
   peak memory eager against graph.
+- serving over HTTP (slice 14): one ``ModelServer`` serves the full-width
+  BERT-base of ``serving_bert`` and the llama_7b of ``serving`` (dense
+  engine, and a paged twin on the same weights) through ``start_http``,
+  driven through ``Client(url)`` and raw urllib: every rung's answer over
+  the socket bit for bit the in-process one, 24 concurrent requests from
+  8 threads within ``SERVE["card_rel"]``, ``/generate`` and SSE tokens
+  equal to in-process ``generate``, the flash launches over the HTTP
+  traffic alone (12 fp32 tensor-core per BERT forward, 32 bf16 ``wgmma``
+  per llama forward, no other variant); a fault plan on the ``execute``
+  site opens the BERT breaker (500s, ``/ping`` DEGRADED, 503 with
+  ``retry_after_s``) while llama serves, a probe after the cooldown closes
+  it; a dropped SSE connection cancels its request; ``/metrics`` parses
+  as Prometheus 0.0.4 and OpenMetrics with the request counters equal to
+  the requests sent; ``/goodput``'s buckets reconcile with the wall; the
+  memory ledger names the page pool and host buffers; ``stop()`` answers
+  every accepted request while ``/ping`` reads DRAINING.  It prints rows/s
+  and p50/p99 over the socket beside in process, JSON ms per request and
+  tokens/s, each with the card's name and power limit
+  (``serving_http``).
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
-resnet_parity, training, gluon_training, serving_bert,
+resnet_parity, training, gluon_training, serving_bert, serving_http,
 serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
 bert_flash, bert_parity, bert_training), for a short call while a kernel
 is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
@@ -95,6 +114,7 @@ is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
 (``--only build,train_step_graphs,training,bert_training`` this slice
 with its full-width runs), ``--only
 build,serving_bert,serving_resnet_export`` the serving phases,
+``--only build,serving,serving_bert,serving_http`` the HTTP slice,
 ``--only build,module_fit`` the Module loop and ``--only
 build,dist_training`` the two-rank job.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -251,13 +271,18 @@ def phase_build():
           "libraries": {n: str(p) for n, p in libs.items()}, "ptxas": ptxas})
 
 
-def phase_device(torch):
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch):
+    line = _card()
     print(line, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -574,7 +599,7 @@ def phase_serving(torch, seed):
     out["ok"] = all(gates.values())
     emit(out)
     check(out["ok"], f"serving gates failed: {gates}")
-    return wgmma["llama_dense"]
+    return wgmma["llama_dense"], model
 
 
 def _fused_bytes(m, k, n, dtype_bytes):
@@ -1584,7 +1609,8 @@ def _flash_at(torch, seed, batches):
 
 def phase_serving_bert(torch, seed):
     """Full-width BERT-base served from its block (see SERVE); returns the
-    fp32 tensor-core flash kernel's launches on this path."""
+    fp32 tensor-core flash kernel's launches on this path, and the block
+    (serving_http serves it again)."""
     import tempfile
 
     import numpy as np
@@ -1702,8 +1728,446 @@ def phase_serving_bert(torch, seed):
     out["ok"] = all(out["gates"].values())
     emit(out)
     check(out["ok"], f"serving_bert failed: {out['gates']}")
-    del net, eng, answers
-    return served["tf32"]
+    del eng, answers
+    return served["tf32"], net
+
+
+# HTTP serving (slice 14): full-width BERT-base and llama_7b behind one
+# ModelServer's socket.  Breaker threshold 2, cooldown 2 s for the fault
+# script; SSE_DROP is the long request whose client walks away.
+HTTP = dict(threads=8, breaker_threshold=2, breaker_cooldown_s=2.0,
+            drain_requests=32, drop_new_tokens=256, goodput_rel=1e-6)
+
+
+def _pooled(reqs, fn, threads):
+    """``fn(req)`` for every request from ``threads`` threads pulling from
+    one list, released together: (answers, per-request seconds, wall
+    seconds)."""
+    import threading
+    answers, lat = [None] * len(reqs), [0.0] * len(reqs)
+    errors, nxt, lock = [], [0], threading.Lock()
+    gate = threading.Barrier(threads + 1)
+
+    def worker():
+        gate.wait()
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(reqs):
+                return
+            t = time.perf_counter()
+            try:
+                answers[i] = fn(reqs[i])
+            except Exception as e:  # noqa: BLE001 - reported as a gate
+                errors.append(f"{i}: {type(e).__name__}: {e}")
+            lat[i] = time.perf_counter() - t
+
+    ts = [threading.Thread(target=worker) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join()
+    check(not errors, f"requests failed: {errors}")
+    return answers, lat, time.perf_counter() - t0
+
+
+def _latency_line(lat, rows, wall):
+    import numpy as np
+    ms = np.asarray(lat) * 1e3
+    return {"requests": len(lat), "rows": rows, "wall_s": wall,
+            "rows_per_s": rows / wall,
+            "latency_ms_p50": float(np.percentile(ms, 50)),
+            "latency_ms_p99": float(np.percentile(ms, 99))}
+
+
+def _http(url, path, body=None, accept=None):
+    """(status, headers, text) of one raw urllib request."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, method="POST" if body is not None else "GET",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 **({"Accept": accept} if accept else {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read().decode()
+
+
+def _prometheus_ok(text, openmetrics):
+    """Every line of a text exposition parses: comments, or ``name{labels}
+    value`` with an optional OpenMetrics exemplar; OpenMetrics ends in
+    ``# EOF``.  Returns {sample: value}."""
+    import re
+    sample = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|'
+        r'\\.)*",?)*\})? (\S+)( # \{[^}]*\} \S+ \S+)?$')
+    lines = text.rstrip("\n").split("\n")
+    if openmetrics:
+        check(lines[-1] == "# EOF", "OpenMetrics body does not end in # EOF")
+        lines = lines[:-1]
+    out = {}
+    for ln in lines:
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = sample.match(ln)
+        check(m is not None, f"unparsable metrics line: {ln[:120]!r}")
+        check(openmetrics or m.group(4) is None,
+              f"exemplar in a 0.0.4 body: {ln[:120]!r}")
+        float(m.group(3).replace("+Inf", "inf").replace("-Inf", "-inf"))
+        out[m.group(1) + (m.group(2) or "")] = m.group(3)
+    return out
+
+
+def _bucket_ms(model):
+    """The serving goodput ledger's request-ms of ``model`` by bucket, so
+    far (the registry's counters)."""
+    from mxnet_tpu_torch.observability import metrics
+    fam = metrics.registry().get("mxnet_tpu_goodput_serving_seconds_total")
+    out = {}
+    for key, v in fam.sample_dict().items():
+        if f'model="{model}"' in key:
+            out[key.split('bucket="')[1].split('"')[0]] = 1e3 * v
+    return out
+
+
+def _per_request(after, before, n):
+    return {b: (after[b] - before.get(b, 0.0)) / n for b in sorted(after)}
+
+
+def _drop_sse(url, name, prompt, max_new):
+    """Open an SSE stream on a raw socket, read one token event, reset
+    the connection; returns that event."""
+    import socket
+    import struct
+    host, port = url[len("http://"):].split(":")
+    body = json.dumps({"prompt": prompt, "max_new_tokens": max_new,
+                       "eos_id": None, "stream": True}).encode()
+    s = socket.create_connection((host, int(port)), timeout=600)
+    s.sendall(f"POST /generate/{name} HTTP/1.1\r\nHost: x\r\n"
+              f"Content-Type: application/json\r\nContent-Length: "
+              f"{len(body)}\r\n\r\n".encode() + body)
+    buf = b""
+    while b"data:" not in buf or b"\n" not in buf.split(b"data:", 1)[1]:
+        chunk = s.recv(65536)
+        check(chunk, "the server closed the stream before a token")
+        buf += chunk
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+    s.close()
+    return json.loads(buf.split(b"data:", 1)[1].split(b"\n", 1)[0])
+
+
+def phase_serving_http(torch, seed, llama=None, bert=None):
+    """One ModelServer serves full-width BERT-base (fp32, seq 128, SERVE's
+    ladder) and llama_7b (bf16, 32 layers, dense engine; a paged twin on
+    the same weights) over ``start_http``; everything goes through
+    ``Client(url)`` and raw urllib.  ``llama`` and ``bert`` are the
+    models the serving and serving_bert phases built (built here when
+    those phases did not run).  Returns (tf32 launches, wgmma launches)
+    over the HTTP traffic."""
+    import threading
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.observability import tracing
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.serving import ModelServer
+    from mxnet_tpu_torch.serving.server import Client
+    card = _card()
+    torch.cuda.empty_cache()
+    if llama is None:
+        llama = _random_llama(torch, seed, torch.bfloat16, 32)
+    if bert is None:
+        from mxnet_tpu_torch.gluon.model_zoo.language import bert_12_768_12
+        mx.random.seed(seed)
+        bert = bert_12_768_12(ctx=mx.gpu(0))
+        bert.initialize(mx.init.Normal(0.02))
+    layers = len(bert.encoder.cells)
+    vocab = bert.word_embed._input_dim
+    eager = [0]
+
+    def count(block, args):
+        if not torch.cuda.is_current_stream_capturing():
+            eager[0] += 1
+    hook = bert.register_forward_pre_hook(count)
+    seq = SERVE_BERT["seq"]
+    reqs = _serve_requests(seed + 41, (seq,), lambda rng, shape: rng.randint(
+        0, vocab, shape).astype(np.int32))
+    rng = np.random.RandomState(seed + 43)
+    rungs = {b: rng.randint(0, vocab, (b, seq)).astype(np.int32)
+             for b in (1, 2, 4, 8)}
+    prompts = _prompts(seed + 47, PROMPTS)
+    breaker = resilience.CircuitBreaker(
+        failure_threshold=HTTP["breaker_threshold"],
+        cooldown=HTTP["breaker_cooldown_s"], name="serving:bert_http")
+    server = ModelServer()
+    eng = server.register("bert_http", bert, max_batch=SERVE["max_batch"],
+                          max_wait_us=SERVE["max_wait_us"],
+                          input_spec=[((seq,), "int32")], breaker=breaker)
+    dense = server.register_generation("llama_http", llama, max_slots=4,
+                                       kv_cache=False)
+    paged = server.register_generation("llama_paged_http", llama,
+                                       max_slots=4, kv_cache=True,
+                                       page_tokens=16)
+    url = f"http://127.0.0.1:{server.start_http(port=0)}"
+    client = Client(url)
+    sent = {"bert_http": 0, "llama_http": 0, "llama_paged_http": 0}
+    out = {"phase": "serving_http", "card": card, "bert": "bert_12_768_12",
+           "llama": "llama_7b bf16 32 layers", "url": url, **HTTP}
+    try:
+        # -- in process first: the references and the same traffic timed
+        ref_rungs = {b: [o.asnumpy() for o in server.predict("bert_http", x)]
+                     for b, x in rungs.items()}
+        solo = [[o.asnumpy() for o in server.predict("bert_http", x)]
+                for x in reqs]
+        b0 = _bucket_ms("bert_http")
+        _, lat, wall = _pooled(reqs, lambda x: server.predict(
+            "bert_http", x)[0].asnumpy(), HTTP["threads"])
+        rows = sum(len(x) for x in reqs)
+        out["bert_in_process"] = _latency_line(lat, rows, wall)
+        out["bert_in_process"]["goodput_ms_per_request"] = _per_request(
+            _bucket_ms("bert_http"), b0, len(reqs))
+        t = time.perf_counter()
+        ref_tokens = [server.generate("llama_http", p,
+                                      max_new_tokens=NEW_TOKENS, eos_id=None)
+                      for p in prompts]
+        gen_s = time.perf_counter() - t
+        sent["bert_http"] += len(rungs) + 2 * len(reqs)
+        sent["llama_http"] += len(prompts)
+        out["llama_in_process"] = {
+            "tokens_per_s": len(prompts) * NEW_TOKENS / gen_s,
+            "wall_s": gen_s}
+
+        # -- the HTTP traffic alone, its kernel launches counted
+        torch.cuda.synchronize()
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = 0
+        replays0, eager0 = eng._op._replays, eager[0]
+        fwd0 = dense.admitted + dense.steps
+        http_rungs = {b: client.predict("bert_http", [x.tolist()])
+                      for b, x in rungs.items()}
+        b0 = _bucket_ms("bert_http")
+        answers, lat, wall = _pooled(
+            reqs, lambda x: client.predict("bert_http", [x.tolist()]),
+            HTTP["threads"])
+        sent["bert_http"] += len(rungs) + len(reqs)
+        out["bert_http"] = _latency_line(lat, rows, wall)
+        out["bert_http"]["goodput_ms_per_request"] = _per_request(
+            _bucket_ms("bert_http"), b0, len(reqs))
+        t = time.perf_counter()
+        http_tokens = [client.generate("llama_http", p,
+                                       max_new_tokens=NEW_TOKENS,
+                                       eos_id=None) for p in prompts]
+        out["llama_http"] = {"tokens_per_s": len(prompts) * NEW_TOKENS
+                             / (time.perf_counter() - t)}
+        t = time.perf_counter()
+        sse_tokens = [list(client.generate_stream(
+            "llama_http", p, max_new_tokens=NEW_TOKENS, eos_id=None))
+            for p in prompts]
+        out["llama_sse"] = {"tokens_per_s": len(prompts) * NEW_TOKENS
+                            / (time.perf_counter() - t)}
+        paged_tokens = client.generate("llama_paged_http", prompts[0],
+                                       max_new_tokens=NEW_TOKENS, eos_id=None)
+        sent["llama_http"] += 2 * len(prompts)
+        sent["llama_paged_http"] += 1
+        torch.cuda.synchronize()
+        bert_fwd = eng._op._replays - replays0 + eager[0] - eager0
+        llama_fwd = dense.admitted + dense.steps - fwd0
+        launches = {"flash_fwd": A.flash_fwd_launches,
+                    "tf32": A.flash_fwd_tf32_launches,
+                    "wgmma": A.flash_fwd_wgmma_launches,
+                    "bert_forwards": bert_fwd, "llama_forwards": llama_fwd}
+        out["launches"] = launches
+
+        # JSON: what the server's encode and the client's decode cost
+        enc, dec, size = [], [], []
+        for a in answers:
+            t = time.perf_counter()
+            text = json.dumps({"outputs": a})
+            t1 = time.perf_counter()
+            json.loads(text)
+            dec.append(time.perf_counter() - t1)
+            enc.append(t1 - t)
+            size.append(len(text))
+        out["json_per_request"] = {
+            "encode_ms_mean": 1e3 * float(np.mean(enc)),
+            "decode_ms_mean": 1e3 * float(np.mean(dec)),
+            "mb_mean": float(np.mean(size)) / 1e6,
+            "rows_mean": rows / len(reqs)}
+        out["socket_ms_per_rung"] = {}
+        for b, x in rungs.items():
+            t = time.perf_counter()
+            server.predict("bert_http", x)[0].asnumpy()
+            t_in = time.perf_counter() - t
+            t = time.perf_counter()
+            client.predict("bert_http", [x.tolist()])
+            t_http = time.perf_counter() - t
+            out["socket_ms_per_rung"][b] = {"in_process_ms": 1e3 * t_in,
+                                            "http_ms": 1e3 * t_http,
+                                            "cost_ms": 1e3 * (t_http - t_in)}
+        sent["bert_http"] += 2 * len(rungs)
+
+        gates = {
+            "solo_bitwise": all(
+                np.array_equal(np.asarray(h, np.float32), r)
+                for b in rungs for h, r in zip(http_rungs[b], ref_rungs[b])),
+            "concurrent_within_card_rel": all(
+                float(np.abs(np.asarray(h, np.float32) - r).max())
+                <= SERVE["card_rel"] * float(np.abs(r).max()) + SERVE["abs"]
+                for a, s in zip(answers, solo) for h, r in zip(a, s)),
+            "shapes": all(np.asarray(a[0]).shape == (len(x), seq, bert._units)
+                          and np.asarray(a[1]).shape == (len(x), bert._units)
+                          for a, x in zip(answers, reqs)),
+            "generate_tokens_equal": http_tokens == ref_tokens,
+            "sse_tokens_equal": sse_tokens == ref_tokens,
+            "paged_16_tokens": len(paged_tokens) == NEW_TOKENS,
+            "tf32_12_per_bert_forward":
+                launches["tf32"] == layers * bert_fwd and bert_fwd > 0,
+            "wgmma_32_per_llama_forward":
+                launches["wgmma"] == llama.kv_cache_spec()[0] * llama_fwd
+                and llama_fwd > 0,
+            "no_other_variant": launches["flash_fwd"]
+                == launches["tf32"] + launches["wgmma"]}
+
+        # -- resilience: the execute site fails; the breaker opens
+        x1 = [rungs[1].tolist()]
+        seqp = [json.loads(_http(url, "/ping")[2])["status"]]
+        with resilience.FaultPlan(
+                {"execute": ["fatal"] * HTTP["breaker_threshold"]}):
+            fails = [_http(url, "/predict/bert_http", {"inputs": x1})[0]
+                     for _ in range(HTTP["breaker_threshold"])]
+        seqp.append(json.loads(_http(url, "/ping")[2])["status"])
+        code, headers, body = _http(url, "/predict/bert_http",
+                                    {"inputs": x1})
+        shed = (code, json.loads(body).get("retry_after_s"),
+                headers.get("Retry-After"))
+        other = client.generate("llama_http", prompts[0], max_new_tokens=2,
+                                eos_id=None)
+        sent["llama_http"] += 1
+        time.sleep(HTTP["breaker_cooldown_s"] + 0.2)
+        seqp.append(json.loads(_http(url, "/ping")[2])["status"])
+        probe = _http(url, "/predict/bert_http", {"inputs": x1})[0]
+        sent["bert_http"] += 1
+        seqp.append(json.loads(_http(url, "/ping")[2])["status"])
+        out["breaker"] = {"ping": seqp, "failed": fails, "shed": shed,
+                          "probe": probe, "open_events": breaker.open_events}
+        gates["breaker_degraded_then_serving"] = (
+            fails == [500] * HTTP["breaker_threshold"]
+            and seqp == ["SERVING", "DEGRADED", "DEGRADED", "SERVING"]
+            and shed[0] == 503 and shed[1] is not None and probe == 200
+            and other == ref_tokens[0][:2])
+
+        # -- a client that drops its SSE stream cancels its request
+        before = dense.cancelled
+        first = _drop_sse(url, "llama_http", prompts[0],
+                          HTTP["drop_new_tokens"])
+        t = time.perf_counter()
+        while dense.cancelled == before and time.perf_counter() - t < 120:
+            time.sleep(0.01)
+        while server._generators["llama_http"].in_flight() and \
+                time.perf_counter() - t < 120:
+            time.sleep(0.01)
+        out["dropped_stream"] = {
+            "first_event": first, "cancelled": dense.cancelled - before,
+            "active_after": sum(s is not None for s in dense._slots),
+            "seconds_to_cancel": time.perf_counter() - t}
+        gates["dropped_stream_cancelled"] = (
+            dense.cancelled - before == 1 and "token" in first
+            and out["dropped_stream"]["active_after"] == 0)
+
+        # -- telemetry
+        code, headers, plain = _http(url, "/metrics")
+        samples = _prometheus_ok(plain, False)
+        code2, headers2, om = _http(url, "/metrics",
+                                    accept="application/openmetrics-text")
+        _prometheus_ok(om, True)
+        counted = {m: float(samples.get(
+            f'mxnet_tpu_serving_requests_total{{model="{m}"}}', "nan"))
+            for m in sent}
+        gp = json.loads(_http(url, "/goodput")[2])
+        bucket_sum = {m: 0.0 for m in sent}
+        for key, v in gp["serving"]["totals"]["bucket_seconds"].items():
+            for m in sent:
+                if f'model="{m}"' in key:
+                    bucket_sum[m] += v
+        walls = {m: float(samples[
+            f'mxnet_tpu_goodput_serving_wall_seconds_total{{model="{m}"}}'])
+            for m in sent}
+        last = gp["serving"]["last_request"]
+        mem = gp["memory"]["components"]
+        tails = gp["tail"]["traces"]
+        doc = tracing.export_chrome_trace(tails[-1]["trace_id"]) if tails \
+            else {"traceEvents": []}
+        exemplar = client.stats("bert_http")["p99_exemplar"]
+        out["telemetry"] = {
+            "metrics_types": [headers.get("Content-Type"),
+                              headers2.get("Content-Type")],
+            "requests_counted": counted, "requests_sent": sent,
+            "bucket_seconds": bucket_sum, "wall_seconds": walls,
+            "last_request_buckets": last["buckets"],
+            "memory_components": {k: v for k, v in mem.items()
+                                  if k.startswith("serving:")},
+            "retained_traces": len(tails),
+            "exported_spans": sorted({e["name"] for e in
+                                      doc["traceEvents"]}),
+            "p99_exemplar": exemplar}
+        gates["metrics_parse"] = code == code2 == 200 and \
+            "version=0.0.4" in headers.get("Content-Type", "")
+        gates["request_counters"] = all(counted[m] == sent[m] for m in sent)
+        gates["goodput_reconciles"] = all(
+            abs(bucket_sum[m] - walls[m]) <= HTTP["goodput_rel"] * walls[m]
+            and walls[m] > 0 for m in sent) and abs(
+            sum(last["buckets"].values()) - last["wall_seconds"]) \
+            <= HTTP["goodput_rel"] * last["wall_seconds"]
+        gates["memory_ledger"] = (
+            "serving:kv_pages:llama_paged_http" in mem
+            and "serving:host_buffers:bert_http" in mem
+            and mem["serving:kv_pages:llama_paged_http"] > 0)
+        gates["trace_exported"] = bool(doc["traceEvents"]) and (
+            exemplar is None or tracing.retained_trace(
+                exemplar["trace_id"]) is not None)
+
+        # -- stop() drains: /ping reads DRAINING while accepted work runs
+        futs = [server.predict_async("bert_http", reqs[i % len(reqs)])
+                for i in range(HTTP["drain_requests"])]
+        stopper = threading.Thread(target=server.stop)
+        stopper.start()
+        pings = []
+        while stopper.is_alive():
+            try:
+                c, _, b = _http(url, "/ping")
+                pings.append((c, json.loads(b)))
+            except OSError:
+                break
+        stopper.join()
+        done = [f.result(timeout=600) for f in futs]
+        draining = [p for c, p in pings if c == 503
+                    and p.get("status") == "DRAINING"]
+        out["drain"] = {"pings": len(pings), "draining_seen": len(draining),
+                        "max_in_flight": max((p["in_flight"]
+                                              for p in draining), default=0),
+                        "answered": len(done)}
+        gates["drain"] = (len(done) == HTTP["drain_requests"]
+                          and any(p["in_flight"] > 0 for p in draining))
+    finally:
+        server.stop()
+        hook.detach()
+    out["gates"] = gates
+    out["ok"] = all(gates.values())
+    emit(out)
+    for key in ("bert_in_process", "bert_http", "llama_in_process",
+                "llama_http", "llama_sse", "json_per_request",
+                "socket_ms_per_rung"):
+        print(f"serving_http {key} [{card}]: {json.dumps(out[key])}",
+              flush=True)
+    check(out["ok"], f"serving_http failed: {gates}")
+    return launches["tf32"], launches["wgmma"]
 
 
 def phase_serving_resnet_export(torch, seed):
@@ -3807,7 +4271,7 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "serving_bert",
-          "serving_resnet_export", "module_fit", "dist_training",
+          "serving_http", "serving_resnet_export", "module_fit", "dist_training",
           "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
           "bert_training")
 
@@ -3851,12 +4315,6 @@ def main(argv=None):
         fused = phase_fused_timing(torch, args.seed)
     if "model_parity" in only:
         phase_model_parity(torch, args.seed)
-    if "serving" in only:
-        launches = phase_serving(torch, args.seed)
-        if "flash_timing" in only:
-            lines.append(_kernel_line(
-                "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
-                "mxnet_tpu/ops/attention.py:51", launches, timing))
     if "resnet_parity" in only:
         phase_resnet_parity(torch, args.seed)
     by_path = {}
@@ -3874,9 +4332,30 @@ def main(argv=None):
             by_path.get("training", by_path.get("gluon_training")), fused)
         line["launches_by_path"] = by_path
         lines.append(line)
-    bert_paths = {}
+    # llama_7b and BERT-base stay alive from their serving phases to the
+    # HTTP phase, which serves them again
+    wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
+    if "serving" in only:
+        wgmma_paths["serving"], llama = phase_serving(torch, args.seed)
     if "serving_bert" in only:
-        bert_paths["serving_bert"] = phase_serving_bert(torch, args.seed)
+        bert_paths["serving_bert"], bert = phase_serving_bert(torch,
+                                                              args.seed)
+    if "serving_http" in only:
+        bert_paths["serving_http"], wgmma_paths["serving_http"] = \
+            phase_serving_http(torch, args.seed, llama, bert)
+    del llama, bert
+    gc.collect()
+    torch.cuda.empty_cache()
+    if wgmma_paths and "flash_timing" in only:
+        # launches: this slice's path (llama_7b behind POST /generate) when
+        # it ran, else slice 1's in-process serving
+        line = _kernel_line(
+            "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
+            "mxnet_tpu/ops/attention.py:51",
+            wgmma_paths.get("serving_http", wgmma_paths.get("serving")),
+            timing)
+        line["launches_by_path"] = wgmma_paths
+        lines.insert(0, line)
     if "serving_resnet_export" in only:
         phase_serving_resnet_export(torch, args.seed)
     if "module_fit" in only:
@@ -3895,10 +4374,10 @@ def main(argv=None):
     if "bert_training" in only:
         bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: this slice's path (bert_training, through
-        # CompiledTrainStep's graph) when it ran, else the latest earlier
-        # slice's
-        main_path = next((bert_paths[k] for k in ("bert_training",
+        # launches: this slice's path (BERT-base behind POST /predict) when
+        # it ran, else the latest earlier slice's
+        main_path = next((bert_paths[k] for k in ("serving_http",
+                                                   "bert_training",
                                                    "module_fit",
                                                    "serving_bert")
                           if k in bert_paths),

@@ -63,6 +63,13 @@ class EnvRegistry:
             return flags[name].read()
         raise AttributeError(name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._flags
+
+    def names(self):
+        """Every declared flag name, sorted."""
+        return sorted(self._flags)
+
 
 env = EnvRegistry()
 env.declare("MXNET_SERVING_KV_CACHE", True, bool,
@@ -137,6 +144,89 @@ env.declare("MXNET_SERVING_DEADLINE_MS", 0, int,
             "Default per-request serving deadline in milliseconds; a request "
             "still queued past it fails with DeadlineExceededError instead "
             "of occupying the batch.  0 = no default deadline.")
+env.declare("MXNET_SERVING_WARMUP", True, bool,
+            "ModelServer.register runs the model's whole bucket ladder "
+            "before it takes traffic (on the card: captures each rung's "
+            "CUDA graph), so no live request pays a capture.  0 = first-"
+            "seen rungs capture inside live request latency.")
+
+
+# -- the distributed job (mxnet_tpu/base.py:571-579; read by distributed.py)
+env.declare("MXNET_DIST_COORDINATOR", "", str,
+            "host:port of rank 0 for the multi-process process group "
+            "(reference DMLC_PS_ROOT_URI; set by tools/launch.py).")
+env.declare("MXNET_DIST_NUM_PROCESSES", 1, int,
+            "Process count of the distributed job (reference "
+            "DMLC_NUM_WORKER).")
+env.declare("MXNET_DIST_PROCESS_ID", 0, int,
+            "This process's rank (reference DMLC_WORKER_ID).")
+env.declare("MXNET_DIST_LOCAL_RANK", 0, int,
+            "Rank within the host, for device pinning in multi-process "
+            "runs.")
+
+
+# -- resilience (mxnet_tpu/base.py:286-307; resilience/)
+env.declare("MXNET_TPU_RETRY_MAX", 3, int,
+            "Attempts (including the first) for transient backend errors "
+            "(UNAVAILABLE / DEADLINE_EXCEEDED / connection refused) at the "
+            "compile (graph capture) and execute (replay) sites.  A CUDA "
+            "error is never transient: the context is broken for good.")
+env.declare("MXNET_TPU_RETRY_BACKOFF", 0.5, float,
+            "Base backoff delay in seconds between backend retries "
+            "(decorrelated jitter grows it toward RetryPolicy.max_delay).")
+env.declare("MXNET_TPU_BREAKER_THRESHOLD", 5, int,
+            "Consecutive transient backend failures that trip the circuit "
+            "breaker from closed to open.")
+env.declare("MXNET_TPU_BREAKER_COOLDOWN", 30.0, float,
+            "Seconds an open breaker denies calls before letting a "
+            "half-open probe through.")
+env.declare("MXNET_TPU_DEGRADE_TO_CPU", False, bool,
+            "The JAX package's opt-in fallback to the CPU platform when the "
+            "backend breaker is open.  The port never falls back to the "
+            "CPU: with this set, backend_call raises MXNetError instead.")
+env.declare("MXNET_TPU_FAULT_PLAN", "", str,
+            "JSON fault plan ({site: [kind, ...]}) armed process-wide for "
+            "chaos runs and subprocess workers; see resilience/faults.py. "
+            "Sites: compile/execute/allreduce/decode/http/... .")
+
+
+# -- observability (mxnet_tpu/base.py:469-545; observability/)
+env.declare("MXNET_TPU_FLIGHT_CAPACITY", 512, int,
+            "Bounded size of the flight recorder's in-memory ring of recent "
+            "spans/logs/metric snapshots (always on; one deque append per "
+            "record).  Read once at recorder construction.")
+env.declare("MXNET_TPU_FLIGHT_DIR", "", str,
+            "Directory for crash flight-recorder JSON artifacts, written "
+            "when resilience raises BackendUnavailableError or a fault site "
+            "fires fatal.  '' (default) keeps the recorder in memory only.")
+env.declare("MXNET_TPU_TRACE_RETAIN_PCT", 99.0, float,
+            "Tail-based trace retention percentile: a completed request "
+            "keeps its full span slice only when its wall time reaches this "
+            "percentile of its own latency histogram (threshold = the lower "
+            "edge of the quantile's bucket).  <= 0 retains every offered "
+            "trace (subject to the caps).")
+env.declare("MXNET_TPU_TRACE_RETAIN_CAP", 64, int,
+            "Maximum retained trace slices (oldest evicted beyond it).  0 "
+            "disables promotion entirely.")
+env.declare("MXNET_TPU_TRACE_PENDING_CAP", 256, int,
+            "Maximum in-flight traces buffering spans while their request "
+            "is still running (LRU-evicted beyond it; 512 spans per "
+            "trace).  0 disables span buffering and tail retention.")
+env.declare("MXNET_TPU_GOODPUT_RECORDS", 128, int,
+            "Recent per-step / per-request goodput attribution records each "
+            "ledger keeps in memory for the /goodput route and the flight-"
+            "recorder post-mortem.  Read once at ledger construction.")
+env.declare("MXNET_TPU_HEALTH", False, bool,
+            "Arm the serving decode-path non-finite logit sentinel "
+            "(observability/health.py check_logits): each decode step's "
+            "logits are copied to the host and swept for NaN/Inf.  Off by "
+            "default: the decode path then copies only the sampled rows.  "
+            "The training monitor is not ported.")
+env.declare("MXNET_TPU_HEALTH_ACTION", "log", str,
+            "Response when the sentinel trips: 'log' (warn + count), 'dump' "
+            "(write a flight-recorder post-mortem), 'raise' (typed "
+            "NumericsError; the request fails and its pages are freed).  "
+            "'skip' is a training policy and acts as 'log' here.")
 
 
 def attr_truthy(v) -> bool:

@@ -37,9 +37,17 @@ On CPU tensors an entry runs the block eagerly (torch's autograd records
 it under ``record()``), as every kernel wrapper takes its plain version
 there.  A hybridized block called inside another's entry runs inside it
 and keys nothing (only the outermost hybridized block compiles).
+
+Every call opens a ``cachedop.execute`` span and goes through
+:func:`~mxnet_tpu_torch.resilience.backend_call`: a capture (with the
+eager first run before it) is the ``compile`` site, a replay, or on the
+CPU the eager run, the ``execute`` site.  An injected transient fault
+fires before the call it precedes, so a retried replay never follows a
+half-run one; a CUDA error passes through and is not retried.
 """
 from __future__ import annotations
 
+import time
 import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Sequence
@@ -50,8 +58,26 @@ from . import _graphs, autograd
 from . import random as _random
 from .base import MXNetError, env
 from .ndarray.ndarray import NDArray
+from .observability import metrics as _metrics, tracing as _tracing
+from .resilience import backend_call
 
 __all__ = ["CachedOp"]
+
+_M_HITS = _metrics.registry().counter(
+    "mxnet_tpu_cachedop_cache_hits_total",
+    "CachedOp signature-cache hits (warm executable reused).")
+_M_MISSES = _metrics.registry().counter(
+    "mxnet_tpu_cachedop_cache_misses_total",
+    "CachedOp signature-cache misses (on the card, a fresh CUDA graph "
+    "capture).")
+_M_COMPILE_SECONDS = _metrics.registry().histogram(
+    "mxnet_tpu_cachedop_compile_seconds",
+    "Wall time of a signature's first call on the card: the eager run "
+    "and the CUDA graph capture.")
+_M_STORMS = _metrics.registry().counter(
+    "mxnet_tpu_cachedop_recompile_storms_total",
+    "Ops whose compile-cache miss pattern tripped the recompile-storm "
+    "warning (signature churn: every request pays a capture).")
 
 
 # ------------------------------------------------------------ output trees
@@ -236,6 +262,7 @@ class CachedOp:
                 or self._misses <= 2 * self._hits):
             return
         self._storm_warned = True
+        _M_STORMS.inc()
         warnings.warn(
             f"cached_op {self.__name__!r}: {self._misses} compiles vs "
             f"{self._hits} cache hits — recompile storm? {len(self._cache)} "
@@ -249,17 +276,26 @@ class CachedOp:
             return self._fwd(*inputs)
         sig = self._signature(inputs, autograd.is_training())
         entry = self._cache.get(sig)
-        if entry is None:
+        miss = entry is None
+        if miss:
             self._misses += 1
+            _M_MISSES.inc()
             entry = self._cache[sig] = _Entry()
             self._maybe_warn_recompile_storm()
         else:
             self._hits += 1
-        if not inputs or not inputs[0]._data.is_cuda:
-            return _graphs.run_inside(lambda: self._fwd(*inputs))
-        if autograd.is_recording():
-            return self._record(entry, sig, inputs)
-        return self._predict(entry, sig, inputs)
+            _M_HITS.inc()
+        recording = autograd.is_recording()
+        with _tracing.span("cachedop.execute",
+                           attrs={"op": self.__name__,
+                                  "cache": "miss" if miss else "hit",
+                                  "recording": recording}):
+            if not inputs or not inputs[0]._data.is_cuda:
+                return backend_call("execute", lambda: _graphs.run_inside(
+                    lambda: self._fwd(*inputs)))
+            if recording:
+                return self._record(entry, sig, inputs)
+            return self._predict(entry, sig, inputs)
 
     # --------------------------------------------------------------- card
     def _reads(self) -> List[torch.Tensor]:
@@ -285,7 +321,19 @@ class CachedOp:
         if g is not None and g.addr == addr and \
                 g.static_in[0].device == inputs[0]._data.device:
             self._replays += 1
-            return g(inputs)
+            return backend_call("execute", lambda: g(inputs))
+        t0 = time.perf_counter()
+        with _tracing.span("cachedop.compile",
+                           attrs={"op": self.__name__,
+                                  "signature": repr(sig[0])}):
+            out = backend_call("compile", lambda: self._capture_predict(
+                entry, sig, inputs, addr))
+        _M_COMPILE_SECONDS.observe(time.perf_counter() - t0)
+        return out
+
+    def _capture_predict(self, entry: _Entry, sig, inputs, addr):
+        """A signature's first call: the eager run (the result), then the
+        capture of its predict graph."""
         dev = inputs[0]._data.device
         out = _graphs.warm(lambda: self._fwd(*inputs), dev)
         ctx = inputs[0].context
@@ -311,17 +359,27 @@ class CachedOp:
         slot = next((s for s in entry.slots
                      if not s.busy and s.in_grad == in_grad), None)
         if slot is None:
-            _graphs.warm(lambda: self._warm_record(inputs), dev)
-            slot = self._capture_record(inputs, sig, in_grad, addr)
+            def capture():
+                _graphs.warm(lambda: self._warm_record(inputs), dev)
+                return self._capture_record(inputs, sig, in_grad, addr)
+            t0 = time.perf_counter()
+            with _tracing.span("cachedop.compile",
+                               attrs={"op": self.__name__,
+                                      "signature": repr(sig[0])}):
+                slot = backend_call("compile", capture)
+            _M_COMPILE_SECONDS.observe(time.perf_counter() - t0)
             entry.slots.append(slot)
         else:
             self._replays += 1
-        if slot.bwd is None:
-            leaves = slot.forward([x._data for x in inputs])
-            slot.busy = False
-        else:
-            leaves = _Replay.apply(slot, *[x._data for x in inputs],
-                                   *self._learnable())
+
+        def replay():
+            if slot.bwd is None:
+                outs = slot.forward([x._data for x in inputs])
+                slot.busy = False
+                return outs
+            return _Replay.apply(slot, *[x._data for x in inputs],
+                                 *self._learnable())
+        leaves = backend_call("execute", replay)
         return _unflatten(slot.struct,
                           [NDArray(t, slot.ctx) for t in leaves])
 

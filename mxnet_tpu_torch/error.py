@@ -3,15 +3,18 @@
 Counterpart of ``mxnet_tpu/error.py``: a registry maps error *names* to
 exception classes with the reference's public surface.  It also holds the
 port's copies of the serving errors of ``mxnet_tpu/resilience/policy.py``
-that the dynamic batcher raises (overload, deadline, backend down).
+that the serving and resilience layers raise (overload, deadline,
+backend down, a dead rank).  ``mxnet_tpu_torch.resilience`` re-exports
+these very classes, so an ``except`` on either name catches both.
 """
 from __future__ import annotations
 
-from .base import MXNetError, ServerClosedError
+from .base import MXNetError, RequestCancelledError, ServerClosedError
 
 __all__ = ["MXNetError", "register_error", "register", "InternalError",
            "get_error_class", "OverloadedError", "DeadlineExceededError",
-           "BackendUnavailableError", "ServerClosedError"]
+           "BackendUnavailableError", "ServerClosedError",
+           "RequestCancelledError", "RankFailureError"]
 
 _ERROR_TYPES = {}
 
@@ -47,7 +50,9 @@ class InternalError(MXNetError):
 
 @register_error
 class BackendUnavailableError(MXNetError):
-    """The model's backend is unavailable; the request was refused."""
+    """The backend (or one served model) is unavailable: its circuit
+    breaker is open, or the retry budget gave up.  Unlike the JAX package,
+    the port never degrades to the CPU instead of raising this."""
 
 
 @register_error
@@ -65,7 +70,14 @@ class OverloadedError(MXNetError):
         self.retry_after_s = retry_after_s
 
 
+@register_error
+class RankFailureError(MXNetError):
+    """A distributed collective did not complete within
+    ``MXNET_KVSTORE_TIMEOUT``: a peer rank is dead or wedged."""
+
+
 register_error("ServerClosedError", ServerClosedError)
+register_error("RequestCancelledError", RequestCancelledError)
 register_error("ValueError", ValueError)
 register_error("TypeError", TypeError)
 register_error("AttributeError", AttributeError)

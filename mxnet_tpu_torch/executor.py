@@ -39,6 +39,12 @@ allocated outside the graph's pool; only the step's temporaries and its
 loss live in it.  On CPU tensors the step runs eagerly with the same
 scalars.
 
+A capture is the ``compile`` site and a replay the ``execute`` site of
+:func:`~mxnet_tpu_torch.resilience.backend_call` (spans
+``trainstep.compile`` / ``trainstep.execute``); a step object accounts its
+parameters and optimizer states in the memory ledger as
+``trainstep:<net class>``.
+
 Deliberate differences from the JAX package: the optimizer's per-index
 counts and ``num_update`` advance once per step (MXNet's count; the JAX
 step counts once per trace); ``donate`` has no effect (the graph updates
@@ -56,6 +62,8 @@ import torch
 from . import _graphs
 from .base import MXNetError, env
 from .cached_op import generators_of
+from .observability import memory as _memory, tracing as _tracing
+from .resilience import backend_call
 
 __all__ = ["CompiledTrainStep", "MultiStepTrainStep", "compile_train_step",
            "compile_forward", "stack_batches"]
@@ -193,6 +201,16 @@ class CompiledTrainStep:
         self._graphs = {}
         self._pool = None
         self._misses = self._captures = self._replays = 0
+        _memory.ledger().register_object(
+            f"trainstep:{type(net).__name__}", self,
+            lambda step: float(step.live_bytes()))
+
+    def live_bytes(self) -> int:
+        """Bytes of the parameters, buffers and optimizer states the step
+        holds (the memory ledger's ``trainstep:`` component)."""
+        return sum(t.numel() * t.element_size() for t in (
+            list(self._net.parameters()) + list(self._net.buffers())
+            + [t for s in self._states for t in _leaves(s)]))
 
     # ------------------------------------------------------------ scalars
     def _lr_at(self, i: int) -> float:
@@ -274,9 +292,13 @@ class CompiledTrainStep:
                tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
         entry = self._graphs.get(sig)
         if entry is not None and entry.addr == _graphs.addresses(self._reads()):
-            for s, t in zip(entry.static_in, flat):
-                s.copy_(t)
-            entry.graph.replay()
+            def replay():
+                for s, t in zip(entry.static_in, flat):
+                    s.copy_(t)
+                entry.graph.replay()
+            with _tracing.span("trainstep.execute",
+                               attrs={"step": self._num_update + 1}):
+                backend_call("execute", replay)
             self._replays += 1
             for i in range(len(self._learnable)):
                 self._opt._update_count(i)
@@ -289,9 +311,14 @@ class CompiledTrainStep:
             # pool before the new capture takes its own
             del self._graphs[sig], entry
         dev = xs[0].device
-        loss = _graphs.warm(lambda: self._eager(xs, y), dev)
-        self._graphs[sig] = self._capture(sig, flat, dev)
-        return loss
+
+        def compile_step():
+            loss = _graphs.warm(lambda: self._eager(xs, y), dev)
+            self._graphs[sig] = self._capture(sig, flat, dev)
+            return loss
+        with _tracing.span("trainstep.compile",
+                           attrs={"net": type(self._net).__name__}):
+            return backend_call("compile", compile_step)
 
     def _eager(self, xs: tuple, y) -> torch.Tensor:
         """One step run eagerly: the CPU's path, a signature's first call

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import os
 import sys as _sys
+import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as _np
@@ -39,6 +40,10 @@ __all__ = [
     "NDArray", "invoke", "array", "zeros", "ones", "empty", "full", "arange",
     "concatenate", "save", "load", "waitall",
 ]
+
+# set by mxnet_tpu_torch.profiler while it collects: called as
+# hook(op_name, t0, t1) around each op's dispatch (host time)
+_PROFILE_HOOK = None
 
 
 class NDArray:
@@ -435,6 +440,8 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
         params.pop("ctx", None)
         return sym.invoke_symbol(op.name, list(inputs), params,
                                  name=params.pop("name", None))
+    hook = _PROFILE_HOOK
+    t0 = hook and _time.perf_counter()
     ctx = params.pop("ctx", None)
     nd_inputs: List[NDArray] = []
     for x in inputs:
@@ -473,6 +480,8 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
             result = _OpGrad.apply(op, params, *raw)
         else:
             result = op.fn(*raw, **params)
+    if hook is not None:
+        hook(op.name, t0, _time.perf_counter())
     multi = isinstance(result, (tuple, list))
     outs_raw = _own(list(result) if multi else [result], raw)
     if autograd.is_recording():

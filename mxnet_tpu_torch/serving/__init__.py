@@ -1,6 +1,6 @@
 """``mxnet_tpu_torch.serving``: dynamic batching over a bucket ladder for
 any block, and continuous-batching generation over a paged KV cache (or
-the dense no-cache engine), served in-process.
+the dense no-cache engine), served in process and over HTTP.
 
 * :mod:`engine` — :class:`InferenceEngine`: the bucket ladder over a
   :class:`~mxnet_tpu_torch.cached_op.CachedOp`, from a block or an
@@ -12,7 +12,9 @@ the dense no-cache engine), served in-process.
 * :mod:`generation` — :class:`GenerationScheduler`: iteration-level
   continuous batching, and :func:`greedy_decode`, its solo oracle;
 * :mod:`server` — :class:`ModelServer` (``register`` /
-  ``register_generation``) and the in-process :class:`Client`;
+  ``register_generation``, ``start_http``: predict, generate with SSE,
+  cancel, ping, stats, metrics, goodput) and :class:`Client`, in process
+  or over the socket;
 * :mod:`stats`, :mod:`hostbuf` — per-model statistics and reusable host
   staging buffers.
 """

@@ -14,19 +14,35 @@ host time of each stage (pack, execute, split) goes to the statistics.
 
 Admission control: the queue is bounded (``max_queue`` /
 ``MXNET_SERVING_MAX_QUEUE``, overload raises :class:`OverloadedError`); a
-request may carry a deadline (``deadline_ms`` /
-``MXNET_SERVING_DEADLINE_MS``) after which it fails with
-:class:`DeadlineExceededError` instead of taking a batch slot; a bad
-request is refused at submit, and a batch that fails fails only its own
-requests.  ``close()`` refuses new work, drains what was accepted and
-joins the worker; ``fail_pending()`` fails what is still queued.  With
-``warmup`` the worker runs the engine's ladder once before it takes
-requests: on the card that captures each rung's CUDA graph on the worker
-thread, in thread-local mode (other threads may allocate meanwhile), and a
-capture error reaches ``__init__`` (``ModelServer.register``) as any
-warmup error does.  Batches then replay on the worker thread.  The JAX
-package's circuit breaker, tracing spans and goodput accounting are not
-ported yet.
+model's :class:`~mxnet_tpu_torch.resilience.CircuitBreaker` (``breaker``)
+refuses with :class:`BackendUnavailableError` while open; a request may
+carry a deadline (``deadline_ms`` / ``MXNET_SERVING_DEADLINE_MS``) after
+which it fails with :class:`DeadlineExceededError` instead of taking a
+batch slot; a bad request is refused at submit, and a batch that fails
+fails only its own requests.  The breaker is taken last, so only a
+request that really enqueues consumes a half-open probe slot, and one
+that expires or is failed at shutdown gives the slot back; a batch that
+runs records a success, one that fails a failure.  ``close()`` refuses new
+work, drains what was accepted and joins the worker; ``fail_pending()``
+fails what is still queued.  With ``warmup`` the worker runs the engine's
+ladder once before it takes requests: on the card that captures each
+rung's CUDA graph on the worker thread, in thread-local mode (other
+threads may allocate meanwhile), and a capture error reaches ``__init__``
+(``ModelServer.register``) as any warmup error does.  Batches then replay
+on the worker thread.
+
+A request submitted with ``host=True`` gets host numpy outputs: the worker
+copies each output of the batch to the host once and hands out row
+slices, so the submitting thread (an HTTP handler) never touches the
+device.
+
+Telemetry: ``submit`` opens a ``serving.enqueue`` span under the caller's
+context and starts a ``serving.queue`` flow; the worker's
+``serving.batcher.pack`` / ``.execute`` / ``.split`` spans take the first
+request's context as explicit parent (contextvars do not cross threads).
+Each delivered request is recorded in the serving goodput ledger as
+``queue`` / ``pack`` / ``execute`` / ``split`` (+ ``other``), and its
+latency with its trace id as exemplar.
 """
 from __future__ import annotations
 
@@ -39,36 +55,46 @@ from typing import List, Optional
 import torch
 
 from ..base import env
-from ..error import DeadlineExceededError, OverloadedError, ServerClosedError
+from ..error import (BackendUnavailableError, DeadlineExceededError,
+                     OverloadedError, ServerClosedError)
 from ..ndarray.ndarray import NDArray
+from ..observability import goodput as _goodput, tracing as _tracing
 from .hostbuf import HostBufferPool
 
 __all__ = ["DynamicBatcher"]
 
 
 class _Request:
-    __slots__ = ("arrays", "n", "future", "t_enqueue", "deadline")
+    __slots__ = ("arrays", "n", "future", "t_enqueue", "deadline", "host",
+                 "probe", "ctx", "flow")
 
-    def __init__(self, arrays, n, deadline: Optional[float] = None):
+    def __init__(self, arrays, n, deadline: Optional[float] = None,
+                 host: bool = False):
         self.arrays = arrays          # host numpy arrays, [n, ...]
         self.n = n
         self.future: Future = Future()
         self.t_enqueue = time.monotonic()
         self.deadline = deadline      # a monotonic instant, or None
+        self.host = host              # outputs as host numpy arrays
+        self.probe = False            # admitted on a half-open probe slot
+        self.ctx = None               # the serving.enqueue span's context
+        self.flow = None              # the serving.queue flow id
 
 
 class DynamicBatcher:
     def __init__(self, engine, max_batch: Optional[int] = None,
                  max_wait_us: int = 2000, stats=None,
                  name: Optional[str] = None, max_queue: Optional[int] = None,
-                 warmup: bool = False):
+                 warmup: bool = False, breaker=None):
         self._engine = engine
         self.max_batch = max_batch or engine.max_batch
         self.max_wait_us = int(max_wait_us)
         self.max_queue = int(env.MXNET_SERVING_MAX_QUEUE
                              if max_queue is None else max_queue)
+        self._breaker = breaker
         self._stats = stats
-        self._pack_pool = HostBufferPool()   # the worker's alone
+        # the worker's alone; in the memory ledger as serving:host_buffers
+        self._pack_pool = HostBufferPool(owner=name or engine.name)
         self._q: "queue.Queue" = queue.Queue()
         self._carry: Optional[_Request] = None  # opens the next batch
         self._carry_lock = threading.Lock()
@@ -90,17 +116,36 @@ class DynamicBatcher:
                 raise self._warm_error
 
     # -------------------------------------------------------------- submit
-    def submit(self, inputs, deadline_ms: Optional[float] = None) -> Future:
+    def submit(self, inputs, deadline_ms: Optional[float] = None,
+               host: bool = False) -> Future:
         """Enqueue one request (any number of rows); the Future's result
-        is the engine's output for this request's rows.  Raises at once
-        for a bad request, after shutdown (:class:`ServerClosedError`)
-        and when the queue is full (:class:`OverloadedError`)."""
+        is the engine's output for this request's rows (host numpy arrays
+        with ``host``).  Raises at once for a bad request, after shutdown
+        (:class:`ServerClosedError`), when the queue is full
+        (:class:`OverloadedError`) and while the model's breaker is open
+        (:class:`BackendUnavailableError`)."""
         arrs = self._engine.normalize_host(inputs)
         if deadline_ms is None:
             deadline_ms = float(env.MXNET_SERVING_DEADLINE_MS)
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms and deadline_ms > 0 else None)
-        req = _Request(arrs, arrs[0].shape[0], deadline)
+        req = _Request(arrs, arrs[0].shape[0], deadline, host)
+        # the enqueue span's context rides the request through the queue:
+        # the worker's spans parent onto it
+        enq = _tracing.start_span(
+            "serving.enqueue",
+            attrs={"model": self._engine.name, "rows": req.n})
+        req.ctx = enq.context()
+        try:
+            self._enqueue(req)
+        except Exception as e:
+            enq.set_attr("error", f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            enq.end()
+        return req.future
+
+    def _enqueue(self, req: _Request):
         with self._submit_lock:
             if self._closing:
                 raise ServerClosedError(
@@ -114,13 +159,22 @@ class DynamicBatcher:
                     f"{self._engine.name}: queue full ({self.pending} pending"
                     f" >= max_queue {self.max_queue}); shedding load",
                     retry_after_s=retry_after)
+            if self._breaker is not None:
+                # last, so that only a request that enqueues takes a probe
+                allowed, req.probe = self._breaker.acquire()
+                if not allowed:
+                    if self._stats is not None:
+                        self._stats.record_shed()
+                    raise BackendUnavailableError(
+                        f"model {self._engine.name!r} circuit breaker is "
+                        f"open (cooling down {self._breaker.cooldown:g}s)")
+            req.flow = _tracing.flow_start("serving.queue")
             self._q.put(req)
             self._set_depth()
-        return req.future
 
     def _set_depth(self):
         if self._stats is not None:
-            self._stats.queue_depth = self.pending
+            self._stats.queue_depth_gauge.set(self.pending)
 
     # -------------------------------------------------------------- worker
     def _next(self, timeout: Optional[float]):
@@ -138,6 +192,7 @@ class DynamicBatcher:
         if req is None or req.deadline is None or \
                 time.monotonic() < req.deadline:
             return req
+        _tracing.flow_end(req.flow, "serving.queue")
         if req.future.set_running_or_notify_cancel():
             req.future.set_exception(DeadlineExceededError(
                 f"request expired after "
@@ -146,6 +201,8 @@ class DynamicBatcher:
         if self._stats is not None:
             self._stats.record_expired()
         self._set_depth()
+        if self._breaker is not None and req.probe:
+            self._breaker.release_probe()  # it will never reach the engine
         return None
 
     def _worker(self):
@@ -163,6 +220,10 @@ class DynamicBatcher:
                 if self._closing and self._carry is None and self._q.empty():
                     break
                 continue
+            # pack/execute/split parent onto the first request's enqueue
+            # span: the batch exists because that request opened it
+            pack = _tracing.start_span("serving.batcher.pack", parent=req.ctx,
+                                       attrs={"model": self._engine.name})
             batch: List[_Request] = [req]
             rows = req.n
             deadline = time.monotonic() + self.max_wait_us / 1e6
@@ -185,6 +246,8 @@ class DynamicBatcher:
                     break
                 batch.append(nxt)
                 rows += nxt.n
+            pack.set_attr("n_requests", len(batch)).set_attr("rows", rows)
+            pack.end()
             self._run(batch, rows)
         self._closed.set()
 
@@ -214,61 +277,109 @@ class DynamicBatcher:
         return arrs
 
     def _run(self, batch: List[_Request], rows: int):
+        for r in batch:  # the queue's flow arrows end here
+            _tracing.flow_end(r.flow, "serving.queue")
+        parent = batch[0].ctx
+        led = _goodput.serving()
         packed = (self._engine.input_spec is not None
                   and rows <= self.max_batch)
-        t0 = time.perf_counter()
-        stage = {}
+        # the goodput boundaries: queue = enqueue -> here; pack, execute and
+        # split are measured once per batch and shared by its requests.
+        # owned() keeps nested intervals out of the train ledger.
+        t_run = time.monotonic()
         try:
-            if packed:
-                # the staging buffers are the engine's: no other caller
-                # may run the rung between the pack and the replay
-                with self._engine._lock:
-                    arrs = self._pack(batch, rows)
-                    stage["pack"] = time.perf_counter() - t0
-                    out_list, single = self._engine.execute_padded(arrs,
-                                                                   rows)
-            else:
-                # each request to the card, joined there
-                ctx = self._engine.context
-                parts = [[torch.from_numpy(a).to(ctx.torch_device())
-                          for a in r.arrays] for r in batch]
-                arrs = [NDArray(torch.cat([p[i] for p in parts]), ctx)
-                        for i in range(len(parts[0]))]
-                stage["pack"] = time.perf_counter() - t0
-                outs = self._engine.predict(arrs)
-                single = not isinstance(outs, (list, tuple))
-                out_list = [outs] if single else list(outs)
-            t1 = time.perf_counter()
-            stage["execute"] = t1 - t0 - stage["pack"]
-            delivered: List[_Request] = []
-            lo = 0
-            for r in batch:
-                piece = [o if o.shape[0] == r.n else o[lo:lo + r.n]
-                         for o in out_list]
-                lo += r.n
-                # a caller may have cancelled its future while queued;
-                # that must not reach the other requests of the batch
-                if r.future.set_running_or_notify_cancel():
-                    r.future.set_result(piece[0] if single else piece)
-                    delivered.append(r)
+            with _tracing.span(
+                    "serving.batcher.execute", parent=parent,
+                    attrs={"model": self._engine.name,
+                           "n_requests": len(batch), "rows": rows,
+                           "packed": packed,
+                           "traces": [r.ctx.trace_id for r in batch
+                                      if r.ctx is not None]}), led.owned():
+                t0 = time.monotonic()
+                if packed:
+                    # the staging buffers are the engine's: no other caller
+                    # may run the rung between the pack and the replay
+                    with self._engine._lock:
+                        arrs = self._pack(batch, rows)
+                        pack_s = time.monotonic() - t0
+                        t0 = time.monotonic()
+                        out_list, single = self._engine.execute_padded(
+                            arrs, rows)
+                else:
+                    # each request to the card, joined there
+                    ctx = self._engine.context
+                    parts = [[torch.from_numpy(a).to(ctx.torch_device())
+                              for a in r.arrays] for r in batch]
+                    arrs = [NDArray(torch.cat([p[i] for p in parts]), ctx)
+                            for i in range(len(parts[0]))]
+                    pack_s = time.monotonic() - t0
+                    t0 = time.monotonic()
+                    outs = self._engine.predict(arrs)
+                    single = not isinstance(outs, (list, tuple))
+                    out_list = [outs] if single else list(outs)
+                exec_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            with _tracing.span("serving.batcher.split", parent=parent,
+                               attrs={"n_requests": len(batch),
+                                      "packed": packed}), led.owned():
+                delivered = self._split(batch, out_list, single)
             t_done = time.monotonic()
-            stage["split"] = time.perf_counter() - t1
+            split_s = t_done - t0
+            for r in delivered:
+                tid = r.ctx.trace_id if r.ctx is not None else None
+                wall = t_done - r.t_enqueue
+                if self._stats is not None:
+                    self._stats.record_request(wall * 1e6, trace_id=tid)
+                led.record_request(
+                    self._engine.name, wall,
+                    {"queue": t_run - r.t_enqueue, "pack": pack_s,
+                     "execute": exec_s, "split": split_s}, trace_id=tid)
             if self._stats is not None:
-                for r in delivered:
-                    self._stats.record_request((t_done - r.t_enqueue) * 1e6)
                 top = self._engine.ladder[-1]
                 self._stats.record_batch(
                     len(batch), rows,
                     self._engine.bucket_for(rows) if rows <= top else top,
-                    **stage)
+                    pack=pack_s, execute=exec_s, split=split_s)
+            if self._breaker is not None:
+                self._breaker.record_success()
         except Exception as e:  # noqa: BLE001 - a failed batch fails its own
+            if self._breaker is not None:
+                # a model that fails to execute is unhealthy; a bad request
+                # is refused at submit and never gets here
+                self._breaker.record_failure()
             for r in batch:
+                if r.ctx is not None:  # a failed trace: drop its spans
+                    _tracing.discard_trace(r.ctx.trace_id)
                 if not r.future.done():
                     r.future.set_exception(e)
                     if self._stats is not None:
                         self._stats.record_error()
         finally:
             self._set_depth()
+
+    @staticmethod
+    def _split(batch: List[_Request], out_list, single) -> List[_Request]:
+        """Each request's rows of the batch's outputs, into its future:
+        device slices, or for a ``host`` request slices of one host copy of
+        each output (on the card, the first wait on the batch's work).
+        Returns the requests delivered: a caller may have cancelled its
+        future while it queued, which must not reach the others."""
+        host = None
+        delivered: List[_Request] = []
+        lo = 0
+        for r in batch:
+            if r.host:
+                if host is None:
+                    host = [o.asnumpy() for o in out_list]
+                piece = [h[lo:lo + r.n] for h in host]
+            else:
+                piece = [o if o.shape[0] == r.n else o[lo:lo + r.n]
+                         for o in out_list]
+            lo += r.n
+            if r.future.set_running_or_notify_cancel():
+                r.future.set_result(piece[0] if single else piece)
+                delivered.append(r)
+        return delivered
 
     # ------------------------------------------------------------ shutdown
     def close(self, timeout: Optional[float] = 30.0) -> bool:
@@ -295,11 +406,14 @@ class DynamicBatcher:
                     req = self._q.get_nowait()
                 except queue.Empty:
                     break
+            _tracing.flow_end(req.flow, "serving.queue")
             if req.future.set_running_or_notify_cancel():
                 req.future.set_exception(exc)
                 failed += 1
                 if self._stats is not None:
                     self._stats.record_error()
+            if self._breaker is not None and req.probe:
+                self._breaker.release_probe()  # it will never run
         self._set_depth()
         return failed
 

@@ -15,6 +15,11 @@ Padding rows are zeros, made on the block's device.  In predict mode every
 model-zoo op is row-independent (BatchNorm on its moving statistics,
 Dropout the identity), so padding and co-batched requests cannot reach a
 request's rows.
+
+Each run opens a ``serving.engine.predict`` span (a child of the batcher's
+``serving.batcher.execute``) inside a serving-owned goodput interval.  On
+the card the span holds the replay's launch: the graph's work is still
+queued when it ends.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from ..cached_op import CachedOp
 from ..context import Context, current_context
 from ..ndarray import ndarray as _nd
 from ..ndarray.ndarray import NDArray
+from ..observability import goodput as _goodput, tracing as _tracing
 
 __all__ = ["InferenceEngine", "bucket_ladder", "bucket_for"]
 
@@ -202,12 +208,18 @@ class InferenceEngine:
             n = arrs[0].shape[0]
             chunks: List[List[NDArray]] = []
             single = None
-            for lo in range(0, n, self.max_batch):
-                hi = min(n, lo + self.max_batch)
-                outs = self._predict_bucket([a[lo:hi] for a in arrs],
-                                            hi - lo)
-                single = not isinstance(outs, (list, tuple))
-                chunks.append([outs] if single else list(outs))
+            with _tracing.span("serving.engine.predict",
+                               attrs={"model": self.name, "rows": n,
+                                      "bucket": (self.bucket_for(n)
+                                                 if n <= self.max_batch
+                                                 else self.max_batch)}), \
+                    _goodput.serving().owned():
+                for lo in range(0, n, self.max_batch):
+                    hi = min(n, lo + self.max_batch)
+                    outs = self._predict_bucket([a[lo:hi] for a in arrs],
+                                                hi - lo)
+                    single = not isinstance(outs, (list, tuple))
+                    chunks.append([outs] if single else list(outs))
             if len(chunks) == 1:
                 outs = chunks[0]
             else:
@@ -222,7 +234,11 @@ class InferenceEngine:
         size; the caller splits them by request."""
         with self._lock:
             self._ensure_init(arrs)
-            outs = self._op(*arrs)
+            with _tracing.span("serving.engine.predict",
+                               attrs={"model": self.name, "rows": rows,
+                                      "bucket": arrs[0].shape[0]}), \
+                    _goodput.serving().owned():
+                outs = self._op(*arrs)
         single = not isinstance(outs, (list, tuple))
         return ([outs] if single else list(outs)), single
 

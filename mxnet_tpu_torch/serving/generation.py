@@ -20,9 +20,21 @@ so where the JAX package compiled one executable per shape the port calls
 the model directly; the power-of-two length and page ladders stay, so the
 two packages run the same shapes.
 
-Speculative decoding, KV export and import between replicas, warmup, and
-the tracing, metrics, fault-injection and health hooks wait for later
-slices.
+Telemetry and resilience follow the JAX package: each sequence keeps the
+span context it was submitted under (``http.generate`` behind the HTTP
+surface); the paged engine's forwards open ``serving.generation.prefill``
+/ ``.decode`` spans under it; every forward passes the ``decode`` fault
+site; with ``MXNET_TPU_HEALTH`` set the whole logits batch goes to the
+host for :func:`~mxnet_tpu_torch.observability.health.check_logits`
+(unset, only the sampled rows leave the device); the step loop counts
+steps, tokens and cancellations as ``mxnet_tpu_serving_*`` metrics and
+records each finished request in the serving goodput ledger as ``queue``
+(submit to admission), ``execute`` (admission to retirement) and
+``stream`` (retirement to resolution).
+
+Speculative decoding, KV export and import between replicas
+(``export_request``, ``prefill_only``, ``ext_kv``) and warmup wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -38,12 +50,38 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, RequestCancelledError, env as _env, row_bucket
+from ..observability import (goodput as _goodput, health as _health,
+                             metrics as _metrics, tracing as _tracing)
+from ..resilience import maybe_fault
 from .hostbuf import HostBufferPool
 from .paged_cache import PagePool, page_hash_chain, pages_needed
 from .stats import ServingStats
 
 __all__ = ["GenerationScheduler", "TokenStream", "greedy_decode",
            "length_bucket", "DEFAULT_EOS"]
+
+
+_REG = _metrics.registry()
+_M_STEPS = _REG.counter(
+    "mxnet_tpu_serving_decode_steps_total",
+    "Scheduler decode iterations executed (one batched forward each, or "
+    "one draft+verify round under speculation).", labels=("model",))
+_M_TOKENS = _REG.counter(
+    "mxnet_tpu_serving_decode_tokens_total",
+    "Tokens emitted across all sequences.", labels=("model",))
+# declared for the dashboards; speculative decoding is not ported, so
+# they have no series yet
+_REG.counter(
+    "mxnet_tpu_serving_spec_proposed_total",
+    "Draft tokens proposed by the speculative decoder.", labels=("model",))
+_REG.counter(
+    "mxnet_tpu_serving_spec_accepted_total",
+    "Draft tokens accepted by target verification.", labels=("model",))
+_M_CANCELLED = _REG.counter(
+    "mxnet_tpu_serving_cancelled_total",
+    "Requests cancelled mid-flight via GenerationScheduler.cancel (client "
+    "disconnect, hedge loser, migration source); pages freed immediately.",
+    labels=("model",))
 
 
 class _DefaultEos:
@@ -61,12 +99,14 @@ class TokenStream:
     """Incremental consumer surface for one generation request: the step
     loop pushes each token as it is produced and the consumer iterates
     them as they arrive.  Ends when generation is done, or re-raises the
-    request's failure at the iteration site."""
+    request's failure at the iteration site.  ``rid`` is the request id the
+    HTTP layer cancels when its client disconnects."""
 
-    __slots__ = ("_q",)
+    __slots__ = ("_q", "rid")
 
-    def __init__(self):
+    def __init__(self, rid: Optional[str] = None):
         self._q = queue.Queue()
+        self.rid = rid
 
     def _push(self, tokens) -> None:
         for t in tokens:
@@ -149,8 +189,8 @@ def greedy_decode(model, prompt: Sequence[int], max_new_tokens: int,
 
 class _Sequence:
     __slots__ = ("prompt", "max_new", "eos_id", "generated", "future",
-                 "pages", "cached", "prefix_pages", "t_submit", "stream",
-                 "streamed", "rid")
+                 "pages", "cached", "prefix_pages", "t_submit", "t_admit",
+                 "t_retire", "ctx", "stream", "streamed", "rid")
 
     def __init__(self, prompt, max_new, eos_id, stream=None, rid=None):
         self.prompt = [int(t) for t in prompt]
@@ -158,7 +198,11 @@ class _Sequence:
         self.eos_id = eos_id
         self.generated: List[int] = []
         self.future: Future = Future()
+        # goodput marks: pending-queue wait, decode residency, delivery
         self.t_submit = time.monotonic()
+        self.t_admit: Optional[float] = None
+        self.t_retire: Optional[float] = None
+        self.ctx = _tracing.current_context()  # http.generate root, if any
         self.pages: List[int] = []       # page table (physical ids)
         self.cached = 0                  # valid cache length
         self.prefix_pages = 0            # pages mapped from the prefix cache
@@ -184,7 +228,7 @@ class _PagedLM:
     def __init__(self, model, pool: PagePool):
         self.model = model
         self.pool = pool
-        self._hb = HostBufferPool()
+        self._hb = HostBufferPool(owner=f"{pool.name}-tables")
 
     def forward(self, tok: np.ndarray, pos: np.ndarray, lens: np.ndarray,
                 tables: Sequence[Sequence[int]], page_bucket: int):
@@ -196,10 +240,15 @@ class _PagedLM:
         for i, row in enumerate(tables):
             if len(row):
                 table[i, :len(row)] = row
+        maybe_fault("decode")
         dev = self.pool.k.device
         put = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64)).to(dev)
-        return self.model.cache_forward(put(tok), put(pos), put(lens),
-                                        put(table), self.pool.k, self.pool.v)
+        out = self.model.cache_forward(put(tok), put(pos), put(lens),
+                                       put(table), self.pool.k, self.pool.v)
+        if _health.serving_sentinel_enabled():
+            _health.check_logits(f"decode:{self.pool.name}",
+                                 out[0].float().cpu().numpy())
+        return out
 
 
 def _page_bucket(n_pages: int) -> int:
@@ -245,9 +294,11 @@ class GenerationScheduler:
         self.admitted = 0
         self.retired = 0
         self.cancelled = 0
+        self._m_steps = _M_STEPS.labels(model=self.name)
+        self._m_tokens = _M_TOKENS.labels(model=self.name)
         self.logit_rows = 0     # logits rows copied to the host and sampled
         self.nonfinite_rows = 0  # of those, rows holding a NaN or Inf
-        self._hb = HostBufferPool()
+        self._hb = HostBufferPool(owner=self.name)
 
         if kv_cache is None:
             kv_cache = (bool(_env.MXNET_SERVING_KV_CACHE)
@@ -338,6 +389,7 @@ class GenerationScheduler:
             if self.paged:
                 self._free_pages(seq)
             self.cancelled += 1
+        _M_CANCELLED.labels(model=self.name).inc()
         exc = RequestCancelledError(
             f"{self.name}: request {rid} cancelled "
             f"({len(seq.generated)} tokens generated)")
@@ -353,13 +405,18 @@ class GenerationScheduler:
         """Greedy tokens at ``logits[rows[i], cols[i]]``; counts the rows
         that hold a non-finite value."""
         host = _rows(logits, rows, cols)
+        self._m_tokens.inc(len(host))
         self.logit_rows += len(host)
         self.nonfinite_rows += int((~np.isfinite(host).all(axis=1)).sum())
         return [_next_token(r) for r in host]
 
     # ------------------------------------------------------------- dense
     def _forward(self, tokens_np: np.ndarray) -> torch.Tensor:
-        return self.model(torch.from_numpy(tokens_np).to(self._device))
+        maybe_fault("decode")
+        out = self.model(torch.from_numpy(tokens_np).to(self._device))
+        if _health.serving_sentinel_enabled():
+            _health.check_logits("decode:dense", out.float().cpu().numpy())
+        return out
 
     def _prefill_dense(self, seq: _Sequence) -> None:
         L = length_bucket(len(seq.prompt), self.min_bucket, self.max_length)
@@ -413,9 +470,14 @@ class GenerationScheduler:
         L = length_bucket(len(suffix), self.min_bucket, self.max_length)
         tok = self._hb.get((1, L), np.int64, tag="prefill")
         tok[0, :len(suffix)] = suffix
-        logits, k_new, v_new = self._target.forward(
-            tok, np.array([c]), np.array([c]),
-            [seq.pages[:seq.prefix_pages]], _page_bucket(seq.prefix_pages))
+        with _tracing.span("serving.generation.prefill",
+                           attrs={"model": self.name, "tokens": len(suffix),
+                                  "prefix_hit_tokens": c},
+                           parent=seq.ctx):
+            logits, k_new, v_new = self._target.forward(
+                tok, np.array([c]), np.array([c]),
+                [seq.pages[:seq.prefix_pages]],
+                _page_bucket(seq.prefix_pages))
         # write the suffix K/V (positions c .. m-1) into this request's pages
         where = [pool.locate(seq.pages, p) for p in range(c, m)]
         pool.write(k_new[:, 0, :len(suffix)], v_new[:, 0, :len(suffix)],
@@ -439,7 +501,15 @@ class GenerationScheduler:
             pos[i] = lens[i] = s.cached
             tables[i] = s.pages[:pages_needed(s.cached, self.page_tokens)]
         pb = _page_bucket(max(len(t) for t in tables))
-        logits, k_new, v_new = self._target.forward(tok, pos, lens, tables, pb)
+        # one batched step: the span goes to the oldest active request's
+        # trace (one causal chain per request would need span links)
+        parent = next((s.ctx for _, s in active if s.ctx is not None), None)
+        with _tracing.span("serving.generation.decode",
+                           attrs={"model": self.name, "slots": len(active),
+                                  "page_bucket": pb},
+                           parent=parent):
+            logits, k_new, v_new = self._target.forward(tok, pos, lens,
+                                                        tables, pb)
         idx = torch.as_tensor([i for i, _ in active], device=k_new.device)
         where = [pool.locate(s.pages, s.cached) for _, s in active]
         pool.write(k_new[:, idx, 0], v_new[:, idx, 0],
@@ -457,7 +527,8 @@ class GenerationScheduler:
         active sequence, retire.  Returns True while any work remains."""
         finished: List[_Sequence] = []
         failed: List = []  # (sequence, exception): fault isolation per step
-        with self._lock:
+        # serving-owned: the forwards belong to request-time attribution
+        with _goodput.serving().owned(), self._lock:
             # admission at the step boundary: prefill fills each free slot
             # (a sequence that finishes at prefill retires at once and the
             # slot admits the next request).  set_running_or_notify_cancel
@@ -475,6 +546,7 @@ class GenerationScheduler:
                             self._free_pages(seq)
                         self._rids.pop(seq.rid, None)
                         continue
+                    seq.t_admit = time.monotonic()  # the queue wait ends
                     try:
                         if self.paged:
                             self._prefill_paged(seq)
@@ -503,6 +575,7 @@ class GenerationScheduler:
                         if s.done():
                             self._retire(i, s, finished)
                     self.steps += 1
+                    self._m_steps.inc()
                     self._stats.record_batch(len(active), len(active), L)
                 except Exception as e:  # noqa: BLE001 — a decode fault fails
                     # every in-flight sequence instead of wedging its future
@@ -530,9 +603,23 @@ class GenerationScheduler:
                 seq.streamed = len(seq.generated)
                 seq.stream._finish()
             seq.future.set_result(list(seq.generated))
-            self._stats.record_request(
-                (time.monotonic() - seq.t_submit) * 1e6)
+            t_res = time.monotonic()
+            t_admit = seq.t_admit if seq.t_admit is not None else seq.t_submit
+            t_retire = seq.t_retire if seq.t_retire is not None else t_res
+            tid = seq.ctx.trace_id if seq.ctx is not None else None
+            # the latency histogram first: the retention percentile of the
+            # goodput offer below is computed from it
+            self._stats.record_request((t_res - seq.t_submit) * 1e6,
+                                       trace_id=tid)
+            _goodput.serving().record_request(
+                self.name, t_res - seq.t_submit,
+                {"queue": t_admit - seq.t_submit,
+                 "execute": t_retire - t_admit,
+                 "stream": t_res - t_retire},
+                trace_id=tid, attrs={"tokens": len(seq.generated)})
         for seq, e in failed:
+            if seq.ctx is not None:  # a failed trace: drop its spans
+                _tracing.discard_trace(seq.ctx.trace_id)
             if seq.stream is not None:
                 seq.stream._fail(e)
             if not seq.future.done():
@@ -541,6 +628,7 @@ class GenerationScheduler:
 
     def _retire(self, slot: int, seq: _Sequence, finished: List[_Sequence],
                 occupied: bool = True):
+        seq.t_retire = time.monotonic()
         if occupied:
             self._slots[slot] = None
         if self.paged:

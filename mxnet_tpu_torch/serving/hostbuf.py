@@ -7,7 +7,9 @@ same preallocated numpy array for each (shape, dtype, tag), zero-filled on
 reuse so a previous step's rows never leak into this one's padding.
 ``torch.as_tensor(buf).to(device)`` copies it to the card, so the buffer
 is free again once that call returns.  Single owner (the scheduler under
-its lock, or the batcher's worker thread): no internal locking.
+its lock, or the batcher's worker thread): no internal locking.  A pool
+given an ``owner`` accounts its bytes in the memory ledger as
+``serving:host_buffers:<owner>``.
 """
 from __future__ import annotations
 
@@ -27,8 +29,18 @@ MAX_BUFFERS = 64
 class HostBufferPool:
     """Reusable host staging arrays keyed by (shape, dtype, tag)."""
 
-    def __init__(self):
+    def __init__(self, owner: str = ""):
         self._bufs: Dict[Tuple, np.ndarray] = {}
+        if owner:
+            from ..observability import memory as _memory
+            _memory.ledger().register_object(
+                f"serving:host_buffers:{owner}", self,
+                lambda p: float(p.nbytes))
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held by the pooled arrays."""
+        return int(sum(b.nbytes for b in list(self._bufs.values())))
 
     def get(self, shape, dtype, tag: str = "", zero: bool = True
             ) -> np.ndarray:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,8 +29,39 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..observability import metrics as _metrics
 
 __all__ = ["PagePool", "pages_needed", "page_hash_chain"]
+
+
+_REG = _metrics.registry()
+_M_PAGES = _REG.gauge(
+    "mxnet_tpu_serving_kv_pages",
+    "Allocatable pages in a model's KV page pool (excludes the reserved "
+    "scratch page).", labels=("model",))
+_M_FREE = _REG.gauge(
+    "mxnet_tpu_serving_kv_pages_free",
+    "Clean free pages (no live references, no retained prefix hash).",
+    labels=("model",))
+_M_CACHED = _REG.gauge(
+    "mxnet_tpu_serving_kv_pages_cached",
+    "Zero-reference pages retained for prefix reuse (reclaimable LRU).",
+    labels=("model",))
+_M_ACTIVE = _REG.gauge(
+    "mxnet_tpu_serving_kv_pages_active",
+    "Pages currently referenced by live sequences.", labels=("model",))
+_M_PREFIX_LOOKUPS = _REG.counter(
+    "mxnet_tpu_serving_prefix_lookup_pages_total",
+    "Complete prompt pages offered to the prefix cache at admission.",
+    labels=("model",))
+_M_PREFIX_HITS = _REG.counter(
+    "mxnet_tpu_serving_prefix_hit_pages_total",
+    "Prompt pages satisfied by an existing physical page (prefill skipped "
+    "those tokens).", labels=("model",))
+_M_EVICTIONS = _REG.counter(
+    "mxnet_tpu_serving_prefix_evictions_total",
+    "Cached zero-reference pages reclaimed to serve new allocations.",
+    labels=("model",))
 
 
 def pages_needed(tokens: int, page_tokens: int) -> int:
@@ -87,6 +119,22 @@ class PagePool:
         self.prefix_lookups = 0  # complete prompt pages offered at admission
         self.prefix_hits = 0     # of those, pages mapped onto a live page
         self.evictions = 0       # cached pages reclaimed for new allocations
+        # the memory ledger: the K/V reservation this model's cache holds
+        # whatever its occupancy (weakly held: a dropped pool stops
+        # reporting)
+        from ..observability import memory as _memory
+        _memory.ledger().register_object(
+            f"serving:kv_pages:{self.name}", self,
+            lambda p: float(p.k.nbytes + p.v.nbytes))
+        # the page gauges read the pool at scrape time (weakly held)
+        ref = weakref.ref(self)
+        for fam, key in ((_M_PAGES, "pages"), (_M_FREE, "free"),
+                         (_M_CACHED, "cached"), (_M_ACTIVE, "active")):
+            fam.labels(model=self.name).set_function(
+                lambda k=key: ref().stats()[k] if ref() is not None else 0)
+        self._c_lookups = _M_PREFIX_LOOKUPS.labels(model=self.name)
+        self._c_hits = _M_PREFIX_HITS.labels(model=self.name)
+        self._c_evict = _M_EVICTIONS.labels(model=self.name)
 
     # ------------------------------------------------------------ accounting
     def available(self) -> int:
@@ -112,6 +160,7 @@ class PagePool:
         del self._pid_of[hsh]
         del self._hash_of[pid]
         self.evictions += 1
+        self._c_evict.inc()
         return pid
 
     def allocate(self, n: int) -> List[int]:
@@ -163,6 +212,7 @@ class PagePool:
         out: List[int] = []
         with self._lock:
             self.prefix_lookups += len(hashes)
+            self._c_lookups.inc(len(hashes))
             for hsh in hashes:
                 pid = self._pid_of.get(hsh)
                 if pid is None:
@@ -174,6 +224,7 @@ class PagePool:
                     self._ref[pid] = 1
                 out.append(pid)
             self.prefix_hits += len(out)
+            self._c_hits.inc(len(out))
         return out
 
     def register(self, pid: int, hsh: str) -> None:

@@ -26,6 +26,8 @@ import mxnet_tpu_torch.model, mxnet_tpu_torch.callback
 import mxnet_tpu_torch.distributed, mxnet_tpu_torch.parallel.collectives
 import mxnet_tpu_torch.kvstore.bucketing
 import mxnet_tpu_torch.kvstore.gradient_compression, mxnet_tpu_torch._graphs
+import mxnet_tpu_torch.resilience, mxnet_tpu_torch.observability
+import mxnet_tpu_torch.profiler, mxnet_tpu_torch.serving.server
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -55,7 +57,18 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.parallel.collectives",
                  "mxnet_tpu_torch.kvstore.bucketing",
                  "mxnet_tpu_torch.kvstore.gradient_compression",
-                 "mxnet_tpu_torch._graphs"):
+                 "mxnet_tpu_torch._graphs", "mxnet_tpu_torch.resilience",
+                 "mxnet_tpu_torch.resilience.policy",
+                 "mxnet_tpu_torch.resilience.faults",
+                 "mxnet_tpu_torch.observability",
+                 "mxnet_tpu_torch.observability.metrics",
+                 "mxnet_tpu_torch.observability.tracing",
+                 "mxnet_tpu_torch.observability.flight_recorder",
+                 "mxnet_tpu_torch.observability.goodput",
+                 "mxnet_tpu_torch.observability.memory",
+                 "mxnet_tpu_torch.observability.health",
+                 "mxnet_tpu_torch.profiler",
+                 "mxnet_tpu_torch.serving.server"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
