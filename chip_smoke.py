@@ -101,6 +101,22 @@ beside its bound, then drives the port's paths:
   and p50/p99 over the socket beside in process, JSON ms per request and
   tokens/s, each with the card's name and power limit
   (``serving_http``).
+- training that survives faults (slice 15): full-width BERT-base (fp32,
+  seq 128, batch 64, Adam, dropout 0.1) through ``CompiledTrainStep``'s
+  graph, one net whose initial weights and random streams are written
+  back before each run: two health-off runs (bit for bit?), a copy /
+  2 replays / restore / 2 replays probe of the random streams, health
+  watchpoints at ``every=1`` against off (the state, the first grad norm
+  against an eager autograd pass, 12 fp32 tensor-core flash launches per
+  forward), step ms off / ``every=16`` / ``every=1`` with the pool bytes,
+  ``FaultTolerantStep`` under transient ``execute`` faults, an
+  ``AsyncCheckpointer`` every 4 steps with a resume into a BERT-base from
+  another seed, a truncated and a manifest-less checkpoint, a
+  ``NumericsFaultPlan`` on encoder layer 6's ``ffn2`` (``bwd:nan`` and
+  ``fwd:inf`` raised and localized, ``bwd:nan`` skipped), and the goodput
+  records' reconciliation (``resilient_training``); ``dist_training``
+  ends with two divergence-checksum rounds, the second after rank 1
+  moved one weight by one ulp.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
@@ -108,15 +124,17 @@ device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, serving_bert, serving_http,
 serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
-bert_flash, bert_parity, bert_training), for a short call while a kernel
+bert_flash, bert_parity, bert_training, resilient_training), for a short
+call while a kernel
 is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
 ``--only build,train_step_graphs`` the training step's graph semantics
 (``--only build,train_step_graphs,training,bert_training`` this slice
 with its full-width runs), ``--only
 build,serving_bert,serving_resnet_export`` the serving phases,
 ``--only build,serving,serving_bert,serving_http`` the HTTP slice,
-``--only build,module_fit`` the Module loop and ``--only
-build,dist_training`` the two-rank job.  The line before the last is the kernel table; the
+``--only build,module_fit`` the Module loop, ``--only
+build,dist_training`` the two-rank job and ``--only
+build,resilient_training,dist_training`` slice 15.  The line before the last is the kernel table; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.  ``--only build,flash`` is the short first call after a change
@@ -2771,6 +2789,26 @@ def _dist_runs(torch, mx, seed):
                           "all": A.flash_fwd_launches,
                           "wgmma": A.flash_fwd_wgmma_launches,
                           "forwards": forwards[0] + gforwards[0]}
+    # divergence checksums over the trained weights: a round that agrees,
+    # then rank 1 moves one weight by one ulp and rank 0's round names it
+    kv = mx.kv.create("dist_sync")
+    named = {p.name: p.data()._data for p in net.collect_params().values()}
+    t0 = time.perf_counter()
+    first = kv.divergence_round(named)
+    round_s = time.perf_counter() - t0
+    key = next(iter(named))
+    if rank == 1:
+        with torch.no_grad():
+            flat = named[key].view(-1)
+            flat[0] = torch.nextafter(flat[0], torch.tensor(
+                math.inf, device=flat.device))
+    second = kv.divergence_round(named)
+    out["divergence"] = {"key": key, "first_agree": first["agree"],
+                         "second_diverging": second["diverging"],
+                         "rounds": kv._rounds_completed.get(
+                             "divergence_checksum", 0),
+                         "round_s": round_s, "keys": len(named)}
+    del kv, named
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["module_step_ms_median"] = statistics.median(out["module"]["step_ms"])
     return out
@@ -2856,7 +2894,8 @@ def phase_dist_training(torch, seed):
            "flash_main_path": [r["module"]["flash"] for r in ranks],
            "flash_phase": [r["flash_phase"] for r in ranks],
            "executor_graphs": [r["module"]["graphs"] for r in ranks],
-           "losses": [r["trainer"]["4096"]["loss"] for r in ranks]}
+           "losses": [r["trainer"]["4096"]["loss"] for r in ranks],
+           "divergence": [r["divergence"] for r in ranks]}
     nkeys = bucketed["keys"]
     out["gates"] = {
         "backend_gloo": all(r["backend"] == "gloo" for r in ranks),
@@ -2887,6 +2926,11 @@ def phase_dist_training(torch, seed):
                 for r in ranks),
         "captures_equal_misses": all(
             g["captures"] == g["misses"] > 0 for g in out["executor_graphs"]),
+        "divergence_named": all(r["divergence"]["first_agree"]
+                                and r["divergence"]["rounds"] == 2
+                                for r in ranks)
+        and r0["divergence"]["second_diverging"] == [
+            {"rank": 1, "key": r0["divergence"]["key"], "scope": "process"}],
         "losses_finite": all(math.isfinite(v) for v in out["losses"])}
     out["ok"] = all(out["gates"].values())
     emit(out)
@@ -3817,6 +3861,521 @@ def phase_bert_training(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# slice 15: training that survives faults
+# ---------------------------------------------------------------------------
+# Full-width BERT-base as bert_training builds it (fp32, TF32 off, seq 128,
+# batch 64, Adam lr 1e-4, dropout 0.1 from the net's own generator, seed
+# 0), one net reused: before each run its initial weights and the random
+# streams the step's graphs register are written back, and each run takes
+# a fresh CompiledTrainStep (fresh Adam slots).  RESIL["steps"] batches of
+# their own, the same in every run.  Gates, each held bit for bit when the
+# two health-off baselines agree bit for bit, else to their spread:
+#   baseline     two health-off runs; equal losses and state?
+#   probe        the random streams under graphs: copy, 2 replays, restore,
+#                2 replays, equal losses (FaultTolerantStep's copy/restore)
+#   watchpoints  health every=1 (log) ends where the off run ends; its
+#                first grad_norm within RESIL["norm_rel"] of the norm of an
+#                eager autograd pass's gradients from the same state; on
+#                a graph replay (the third call), grad_norm, param_norm and
+#                update_ratio within RESIL["norm_rel"] of an eager pass
+#                from the pre-step copy and of the parameters the replay
+#                left; non-finite counts 0; 12 tf32 flash launches per forward
+#                and no other variant; step ms off / every=16 / every=1 and
+#                the pool bytes off against on, over 3 + 16 steps
+#   replay       FaultTolerantStep with transient execute faults at call 5
+#                (the inner ladder exhausted): one replay, the off run's
+#                state, no new capture
+#   checkpoints  AsyncCheckpointer(every=4): durable steps 0, 4, 8, 12; a
+#                BERT-base from another seed, warmed one step, restored from
+#                step 8 by load_elastic_checkpoint and fed steps 9-12 ends
+#                at the off run's state; a truncated copy of a file raises
+#                CheckpointCorruptError naming it; a manifest-less step-
+#                directory is never chosen
+#   numerics     after 2 clean steps, a NumericsFaultPlan on encoder layer
+#                6's ffn2 makes a new graph: bwd:nan raises NumericsError
+#                with first_bwd that block, fwd:inf with first_fwd that
+#                block, bwd:nan under skip restores the world and the
+#                optimizer's counts and the next clean step proceeds
+#   goodput      every step record's buckets sum to its wall within 1e-6 s
+RESIL = dict(steps=12, every=4, fault_call=5, layer=6, timed=16, warmup=3,
+             norm_rel=1e-5, goodput_abs=1e-6)
+
+
+def _resil_tensors(step):
+    """The step's world as device copies: the net's state dict, then every
+    optimizer state."""
+    return {k: v.detach().clone() for k, v in _step_tensors(step).items()}
+
+
+def _resil_gap(got, ref):
+    """``(bit for bit, worst max|got - ref| / max|ref|, its name)``."""
+    worst, name = 0.0, ""
+    for k, r in ref.items():
+        g = got[k]
+        if g.shape != r.shape or not bool((g == r).all()):
+            m = r.float().abs().max().item()
+            d = (g.float() - r.float()).abs().max().item()
+            rel = d / m if m else math.inf
+            if not math.isfinite(d) or rel > worst:
+                worst, name = (rel if math.isfinite(d) else math.inf), k
+    return worst == 0.0 and name == "", worst, name
+
+
+def phase_resilient_training(torch, seed):
+    """Training that survives faults on full-width BERT-base (see RESIL);
+    returns the fp32 tensor-core flash kernel's launches over the
+    health-on run (the main path)."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.cached_op import generators_of
+    from mxnet_tpu_torch.checkpoint import (MANIFEST_NAME,
+                                            CheckpointCorruptError)
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.observability import goodput, health, metrics
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.resilience import (FaultPlan, FaultTolerantStep,
+                                            RetryPolicy)
+    from mxnet_tpu_torch.resilience.elastic import (AsyncCheckpointer,
+                                                    latest_checkpoint,
+                                                    load_elastic_checkpoint)
+    t_phase = time.perf_counter()
+    _free(torch)
+    vocab, n = BERT["vocab_size"], RESIL["steps"]
+    net, step, _, _ = _bert_base(torch, seed, "float32")
+    del step
+    layers = len(net.bert.encoder.cells)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    gens = generators_of(net, "cuda")
+    gen0 = [g.get_state() for g in gens]
+    total = n + RESIL["timed"] + RESIL["warmup"]
+    data = [_bert_batch(torch, seed + 100 + i, vocab, BERT["batch"],
+                        BERT["seq"], "cuda") for i in range(total)]
+
+    def reset():
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                v.copy_(init[k])
+        for g, s in zip(gens, gen0):
+            g.set_state(s)
+
+    def new_step(health_cfg=None):
+        return CompiledTrainStep(
+            net, _bert_loss(vocab),
+            optimizer.create("adam", learning_rate=BERT["lr"]),
+            batch_size=BERT["batch"], health=health_cfg)
+
+    def run(health_cfg=None, wrap=None, before=None, after_each=None):
+        """``n`` steps from the initial state: (losses, final world,
+        step)."""
+        reset()
+        step = new_step(health_cfg)
+        call = wrap(step) if wrap else step
+        if before:
+            before(step)
+        losses = []
+        for i in range(n):
+            losses.append(call(*data[i]))
+            if after_each:
+                after_each(step)
+        losses = [v.item() for v in losses]
+        return losses, _resil_tensors(step), step
+
+    out = {"phase": "resilient_training", "model": "bert_base_pretraining",
+           "layers": layers, "batch": BERT["batch"], "seq": BERT["seq"],
+           "steps": n, "dtype": "float32", "tf32": _tf32(torch),
+           "card": _card()}
+    gates = {}
+
+    def pair():
+        """Two health-off runs: (losses, world, bit for bit, spread, worst
+        tensor, largest loss gap)."""
+        losses, world, s = run()
+        del s
+        _free(torch)
+        losses2, world2, s = run()
+        del s
+        _free(torch)
+        same, spread, worst = _resil_gap(world2, world)
+        gap = max(abs(a - b) for a, b in zip(losses2, losses))
+        return losses, world, same and losses2 == losses, spread, worst, gap
+
+    def unstable_grads():
+        """The parameters whose gradient differs between two eager passes
+        from the same state and random streams, in the net's order."""
+        out_ = []
+        for _ in range(2):
+            reset()
+            net.train()
+            loss = _bert_loss(vocab)(net(*data[0][0]), data[0][1]).mean()
+            names = [k for k, p in net.named_parameters() if p.requires_grad]
+            grads = torch.autograd.grad(
+                loss, [p for p in net.parameters() if p.requires_grad],
+                allow_unused=True)
+            out_.append(grads)
+            del loss
+        bad = [(k, type(net.get_submodule(k.rsplit(".", 1)[0])).__name__)
+               for k, a, b in zip(names, *out_)
+               if a is not None and not torch.equal(a, b)]
+        del out_
+        return bad
+
+    # 1. baseline, the default algorithms: two health-off runs, and the
+    # parameters whose gradients two eager passes disagree on
+    _, _, same, spread, worst, gap = pair()
+    bad = unstable_grads()
+    out["baseline_default"] = {
+        "bitwise": same, "spread": spread, "worst_tensor": worst,
+        "loss_gap": gap, "unstable_grads": len(bad),
+        "nearest_loss": bad[-1] if bad else None,
+        "farthest_from_loss": bad[0] if bad else None}
+    # step ms with the default algorithms: off, armed without a fetch,
+    # every=16, every=1, over warmup + timed steps; then the two costs of
+    # a fetch alone (the healthy host copy, the stats' copy) and the
+    # watchpoints' reductions alone, eagerly on the step's tensors
+    fetch = metrics.registry().get("mxnet_tpu_health_fetch_seconds")
+    timing = {}
+    for label, cfg in (("off", None), ("armed_no_fetch", {"every": 10 ** 9}),
+                       ("every16", {"every": 16}), ("every1", {"every": 1})):
+        reset()
+        s = new_step(cfg)
+        for i in range(RESIL["warmup"]):
+            s(*data[n + i])
+        torch.cuda.synchronize()
+        c0, f0 = fetch.count, fetch.sum
+        t0 = time.perf_counter()
+        for i in range(RESIL["timed"]):
+            loss = s(*data[n + RESIL["warmup"] + i])
+        loss.item()
+        wall = time.perf_counter() - t0
+        fetches = fetch.count - c0
+        timing[label] = {
+            "step_ms": 1e3 * wall / RESIL["timed"],
+            "fetches": fetches,
+            "fetch_ms": 1e3 * (fetch.sum - f0) / fetches if fetches else None,
+            "pool_gb": _pool_bytes(torch, s._pool) / 1e9}
+        if label == "every1":
+            learn = list(s._learnable)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = [p.detach().to("cpu", copy=True) for p in learn]
+            timing["healthy_copy_ms"] = 1e3 * (time.perf_counter() - t0)
+            del host
+            grads = [torch.randn_like(p) for p in learn]
+            old = [p.detach().clone() for p in learn]
+            timing["stats_ms"] = cuda_ms(torch, lambda: health.graph_stats(
+                grads, old, learn, loss), 5)
+            del grads, old, learn
+        del s, loss
+        _free(torch)
+    for label in ("armed_no_fetch", "every16", "every1"):
+        timing[f"{label}_over_off"] = (timing[label]["step_ms"]
+                                       / timing["off"]["step_ms"])
+    out["timing"] = timing
+
+    # the gates run with torch's deterministic algorithms (as
+    # train_step_graphs' parity pairs do): their baseline pair again
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        base_losses, base, bitwise, spread, worst, gap = pair()
+        tol = 0.0 if bitwise else spread
+        out["baseline"] = {"deterministic_algorithms": True, "bitwise": bitwise,
+                           "spread": spread, "worst_tensor": worst,
+                           "losses": base_losses, "loss_gap": gap,
+                           "unstable_grads": len(unstable_grads())}
+        out["tolerance"] = {"state_rel": tol, "norm_rel": RESIL["norm_rel"],
+                            "goodput_abs_s": RESIL["goodput_abs"]}
+
+        def held(world, losses=None):
+            """The baseline gate: bit for bit (losses too, when given) while
+            the baselines agree bit for bit, else within their spread."""
+            ok, rel, name = _resil_gap(world, base)
+            if bitwise:
+                ok = ok and (losses is None or losses == base_losses)
+            else:
+                ok = rel <= tol
+            return ok, rel, name
+
+        # 2. the random streams under graphs: copy, 2 replays, restore, 2
+        reset()
+        s = new_step()
+        for i in range(2):
+            s(*data[i])
+        ft = FaultTolerantStep(s)
+        snap = ft._capture()
+        first = [s(*data[2 + i]).item() for i in range(2)]
+        ft._restore(snap)
+        again = [s(*data[2 + i]).item() for i in range(2)]
+        out["rng_probe"] = {"losses": first, "after_restore": again,
+                            "captures": s._captures}
+        gates["rng_probe"] = first == again and s._captures == 1
+        del snap, ft, s
+        _free(torch)
+
+        # 3. watchpoints: health every=1, launches counted over the whole run
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = 0
+        n_rec = len(goodput.train().records())
+        h_losses, h_world, hs = run({"every": 1, "action": "log"})
+        launches = {"tf32": A.flash_fwd_tf32_launches,
+                    "all": A.flash_fwd_launches,
+                    "wgmma": A.flash_fwd_wgmma_launches, "forwards": n}
+        records = goodput.train().records()[-n:]
+        led = health.ledger().last_step
+        ok, rel, name = held(h_world, h_losses)
+        del h_world
+        gates["health_on_equals_off"] = ok
+        out["watchpoints"] = {"state_rel": rel, "worst_tensor": name,
+                              "last": {k: led[k] for k in
+                                       ("step", "grad_norm", "param_norm",
+                                        "update_ratio", "loss")},
+                              "nonfinite": sum(v["nonfinite"] for v in
+                                               led["per_param"].values())}
+        del hs
+        _free(torch)
+        # the first step's grad norm against an eager autograd pass
+        reset()
+        hs = new_step({"every": 1, "action": "log"})
+        hs(*data[0])
+        first_norm = health.ledger().last_step["grad_norm"]
+        del hs
+        _free(torch)
+        reset()
+        net.train()
+        loss = _bert_loss(vocab)(net(*data[0][0]), data[0][1]).mean()
+        learn = [p for p in net.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(loss, learn, allow_unused=True)
+        eager_norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                                   for g in grads if g is not None))
+        del loss, grads
+        out["watchpoints"].update(first_grad_norm=first_norm,
+                                  eager_grad_norm=eager_norm)
+        gates["grad_norm"] = (abs(first_norm - eager_norm)
+                              <= RESIL["norm_rel"] * eager_norm)
+        # the stats the captured graph outputs on a replay (the third call,
+        # the second replay) against reductions taken outside it: the
+        # gradients of an eager autograd pass from the pre-step copy (the
+        # random streams rewound), and the parameters the replay left
+        # against those before it
+        reset()
+        hs = new_step({"every": 1, "action": "log"})
+        hft = FaultTolerantStep(hs)
+        for i in range(2):
+            hs(*data[i])
+        snap = hft._capture()
+        replays0 = hs._replays
+        hs(*data[2])
+        led = health.ledger().last_step
+        graph_stats = {k: led[k] for k in ("grad_norm", "param_norm",
+                                           "update_ratio")}
+        replayed = hs._replays == replays0 + 1 and hs._captures == 1
+        learn = list(hs._learnable)
+        after = [p.detach().clone() for p in learn]
+        hft._restore(snap)
+        del snap
+        net.train()
+        loss = _bert_loss(vocab)(net(*data[2][0]), data[2][1]).mean()
+        grads = torch.autograd.grad(loss, learn, allow_unused=True)
+
+        def norm(ts):
+            return math.sqrt(sum(float((t.detach().double() ** 2).sum())
+                                 for t in ts if t is not None))
+        pnorm = norm(after)
+        eager_stats = {"grad_norm": norm(grads), "param_norm": pnorm,
+                       "update_ratio": norm(a.double() - p.double()
+                                            for a, p in zip(after, learn))
+                       / pnorm}
+        del loss, grads, after, learn, hs, hft
+        _free(torch)
+        rels = {k: abs(graph_stats[k] - v) / abs(v)
+                for k, v in eager_stats.items()}
+        out["watchpoints"].update(replay_stats=graph_stats,
+                                  replay_eager=eager_stats, replay_rel=rels,
+                                  replay_was_graph=replayed)
+        gates["replay_stats"] = replayed and all(
+            r <= RESIL["norm_rel"] for r in rels.values())
+        gates["nonfinite_zero"] = out["watchpoints"]["nonfinite"] == 0
+        gates["launches"] = (launches["tf32"] == layers * n == launches["all"]
+                             and launches["wgmma"] == 0)
+        out["flash_launches"] = launches
+        # 4. replay: transient execute faults at call fault_call exhaust the
+        # inner ladder; FaultTolerantStep restores its copy and replays
+        attempts = RetryPolicy().max_attempts
+        os.environ["MXNET_TPU_RETRY_BACKOFF"] = "0.01"
+        resilience.reset_backend_state()
+        replays0 = resilience.counters.replays
+        captures = []
+        # the first call is the compile site (its eager run and the capture),
+        # so the execute site's entries start at call 2
+        plan = {"execute": ["ok"] * (RESIL["fault_call"] - 2)
+                + ["unavailable"] * attempts}
+        try:
+            with FaultPlan(plan) as fp:
+                r_losses, r_world, rs = run(
+                    wrap=FaultTolerantStep,
+                    after_each=lambda st: captures.append(st._captures))
+                pending = fp.pending("execute")
+            replays = resilience.counters.replays - replays0
+        finally:
+            del os.environ["MXNET_TPU_RETRY_BACKOFF"]
+            resilience.reset_backend_state()
+        ok, rel, name = held(r_world, r_losses)
+        out["replay"] = {"replays": replays, "captures_after_each": captures,
+                         "state_rel": rel, "worst_tensor": name,
+                         "faults_left": pending}
+        gates["replay"] = (ok and replays == 1 and pending == 0
+                           and set(captures) == {1})
+        del r_world, rs
+        _free(torch)
+
+        # 5. async checkpoints every 4 steps, a resume, a torn and a corrupt one
+        ck_dir = tempfile.mkdtemp(prefix="resilient_training_")
+        try:
+            ck = AsyncCheckpointer(ck_dir, every=RESIL["every"])
+
+            def cadence(st):
+                if ck.due(st._num_update):
+                    ck.save(st)
+            try:
+                c_losses, c_world, cs = run(before=ck.save, after_each=cadence)
+                ck.wait()
+            finally:
+                ck.close()
+            ok, rel, name = held(c_world, c_losses)
+            del c_world, cs
+            _free(torch)
+            dirs = sorted(d for d in os.listdir(ck_dir) if d.startswith("step-"))
+            out["checkpoints"] = {
+                "dirs": dirs, "waits_s": list(ck.waits),
+                "writes": list(ck.writes),
+                "state_rel": rel, "disk_free_gb":
+                    shutil.disk_usage(ck_dir).free / 1e9}
+            gates["checkpoints"] = ok and dirs == [
+                f"step-{i:08d}" for i in range(0, n + 1, RESIL["every"])]
+            # resume: BERT-base from another seed, warmed, restored from step 8
+            other, fresh, _, _ = _bert_base(torch, seed + 1000, "float32")
+            fresh(*data[0])
+            ptrs = [t.data_ptr() for t in fresh._learnable]
+            resume_at = n - RESIL["every"]
+            t0 = time.perf_counter()
+            meta = load_elastic_checkpoint(
+                os.path.join(ck_dir, f"step-{resume_at:08d}"), fresh)
+            load_s = time.perf_counter() - t0
+            for i in range(resume_at, n):
+                fresh(*data[i])
+            world = _resil_tensors(fresh)
+            ok, rel, name = held(world)
+            out["resume"] = {"from_step": meta["step"], "load_s": load_s,
+                             "state_rel": rel, "worst_tensor": name,
+                             "captures": fresh._captures,
+                             "addresses_kept": ptrs == [
+                                 t.data_ptr() for t in fresh._learnable]}
+            gates["resume"] = (ok and fresh._captures == 1
+                               and out["resume"]["addresses_kept"]
+                               and meta["step"] == resume_at)
+            del world, fresh, other
+            _free(torch)
+            # a truncated copy of one file, and a manifest-less directory
+            torn = os.path.join(ck_dir, "torn")
+            shutil.copytree(os.path.join(ck_dir, f"step-{RESIL['every']:08d}"),
+                            torn)
+            victim = os.path.join(torn, "params", "p0.bin")
+            with open(victim, "r+b") as f:
+                f.truncate(os.path.getsize(victim) // 2)
+            try:
+                from mxnet_tpu_torch.checkpoint import verify_manifest
+                verify_manifest(torn, required=True)
+                named = None
+            except CheckpointCorruptError as e:
+                named = str(e)
+            os.makedirs(os.path.join(ck_dir, f"step-{n + 99:08d}"))
+            with open(os.path.join(ck_dir, f"step-{n + 99:08d}", "x.bin"),
+                      "wb") as f:
+                f.write(b"0")
+            latest = latest_checkpoint(ck_dir)
+            out["corrupt"] = {"error": named, "latest": latest[1]}
+            gates["corrupt_named"] = named is not None and "p0.bin" in named
+            gates["manifestless_skipped"] = latest[1] == n and not os.path.exists(
+                os.path.join(ck_dir, f"step-{n + 99:08d}", MANIFEST_NAME))
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+
+        # 6. numerics: a fault plan on encoder layer 6's ffn2
+        target = next(health._block_name(b) for b in health._leaf_blocks(net)
+                      if health._block_name(b).endswith(
+                          f"enc_layer{RESIL['layer']}_ffn_ffn2"))
+        numerics = {"block": target}
+        for label, spec, action in (("bwd_raise", "bwd:nan", "raise"),
+                                    ("fwd_raise", "fwd:inf", "raise"),
+                                    ("bwd_skip", "bwd:nan", "skip")):
+            reset()
+            s = new_step({"every": 1, "action": action})
+            for i in range(2):
+                s(*data[i])
+            o = s._opt
+            before = _resil_tensors(s)
+            counts = (s._num_update, o.num_update, dict(o._index_update_count))
+            err = None
+            with health.NumericsFaultPlan(net, {target: spec}):
+                try:
+                    s(*data[2])
+                except health.NumericsError as e:
+                    err = e
+            trip = health.ledger().trips[-1]
+            row = {"raised": err is not None,
+                   "first_fwd": trip.get("first_fwd"),
+                   "first_bwd": trip.get("first_bwd"),
+                   "localize_ms": 1e3 * trip.get("localization", {}).get(
+                       "seconds", float("nan")),
+                   "captures": s._captures}
+            if action == "skip":
+                same = _resil_gap(_resil_tensors(s), before)[0]
+                now = (s._num_update, o.num_update, dict(o._index_update_count))
+                nxt = s(*data[2]).item()
+                row.update(world_restored=same, counts_restored=now == counts,
+                           next_loss=nxt, next_step=s._num_update)
+                gates["skip"] = (same and now == counts and math.isfinite(nxt)
+                                 and s._num_update == counts[0] + 1
+                                 and err is None)
+            else:
+                key = "first_bwd" if spec.startswith("bwd") else "first_fwd"
+                gates[label] = (err is not None
+                                and err.detail.get(key) == target)
+            numerics[label] = row
+            del before, s, err
+            _free(torch)
+        out["numerics"] = numerics
+        # 7. goodput: every step record of the health-on run, and the rest
+        recs = [r for r in goodput.train().records()
+                if r["kind"] == "train_step"]
+        worst = max(abs(sum(r["buckets"].values()) - r["wall_seconds"])
+                    for r in recs)
+        means = {}
+        for r in records:
+            for b, v in r["buckets"].items():
+                means[b] = means.get(b, 0.0) + 1e3 * v / len(records)
+        out["goodput"] = {"records": len(recs), "worst_residual_s": worst,
+                          "health_run_bucket_ms_mean": means,
+                          "health_run_wall_ms_mean": 1e3 * sum(
+                              r["wall_seconds"] for r in records) / len(records),
+                          "records_before_health_run": n_rec}
+        gates["goodput_reconciles"] = worst <= RESIL["goodput_abs"]
+        del base, init, data, net
+        _free(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["gates"] = gates
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = all(gates.values())
+    emit(out)
+    check(out["ok"], f"resilient_training failed: "
+          f"{[k for k, v in gates.items() if not v]}")
+    return launches["tf32"]
+
+
+# ---------------------------------------------------------------------------
 # slice 12: hybridize() and the Executor as CUDA graphs
 # ---------------------------------------------------------------------------
 # A small block (Dense 64 -> 256, BatchNorm, Dropout(0.5); fp32, TF32 off)
@@ -4273,10 +4832,11 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "resnet_parity", "training", "gluon_training", "serving_bert",
           "serving_http", "serving_resnet_export", "module_fit", "dist_training",
           "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
-          "bert_training")
+          "bert_training", "resilient_training")
 
 
 def main(argv=None):
+    t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default=",".join(PHASES),
@@ -4373,10 +4933,14 @@ def main(argv=None):
         phase_bert_parity(torch, args.seed)
     if "bert_training" in only:
         bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
+    if "resilient_training" in only:
+        bert_paths["resilient_training"] = phase_resilient_training(
+            torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: this slice's path (BERT-base behind POST /predict) when
-        # it ran, else the latest earlier slice's
-        main_path = next((bert_paths[k] for k in ("serving_http",
+        # launches: this slice's path (BERT-base training with health
+        # watchpoints) when it ran, else the latest earlier slice's
+        main_path = next((bert_paths[k] for k in ("resilient_training",
+                                                   "serving_http",
                                                    "bert_training",
                                                    "module_fit",
                                                    "serving_bert")
@@ -4390,6 +4954,8 @@ def main(argv=None):
         line["shape"], line["dtype"] = BERT_FLASH, "float32"
         line["simt_ms"] = bert_timing["simt_ms"]
         lines.append(line)
+    emit({"script_seconds": time.perf_counter() - t_script,
+          "phases": sorted(only)})
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -110,9 +110,11 @@ env.declare("MXNET_ASYNC_SYNC_INTERVAL", 16, int,
             "dist_async: pushes per key between cross-process averaging "
             "rounds of its stored value.")
 env.declare("MXNET_KVSTORE_TIMEOUT", 0.0, float,
-            "Seconds a dist kvstore collective may block: the process "
-            "group's timeout (torch.distributed raises past it).  0 keeps "
-            "torch's default.")
+            "Seconds a dist kvstore collective (push all-reduce, init "
+            "broadcast, async average, barrier, divergence round) may block "
+            "before raising RankFailureError naming the stuck collective; "
+            "also the process group's timeout.  0 disables the bound (a "
+            "dead peer then blocks until torch.distributed's own timeout).")
 env.declare("MXNET_KVSTORE_BUCKET_KB", 4096, int,
             "Bucket capacity in KiB for a multi-key dense push: keys are "
             "concatenated into dtype-grouped flat buckets of at most this "
@@ -188,6 +190,20 @@ env.declare("MXNET_TPU_FAULT_PLAN", "", str,
             "JSON fault plan ({site: [kind, ...]}) armed process-wide for "
             "chaos runs and subprocess workers; see resilience/faults.py. "
             "Sites: compile/execute/allreduce/decode/http/... .")
+env.declare("MXNET_TPU_ELASTIC_DIR", "", str,
+            "Directory for async elastic-training checkpoints "
+            "(resilience/elastic.py).  Each cadence point publishes "
+            "<dir>/step-NNNNNNNN via temp-dir + integrity manifest + atomic "
+            "rename, so a torn write is never loadable.  The default of "
+            "AsyncCheckpointer(directory=).")
+env.declare("MXNET_TPU_ELASTIC_CKPT_STEPS", 8, int,
+            "Async elastic checkpoint cadence in training steps: once a "
+            "full window has elapsed the train thread takes device copies "
+            "of the step's state on a side stream and a worker thread "
+            "writes them off the critical path.  A crash between cadence "
+            "points loses at most one window of steps (a cadence point "
+            "waits for a still-in-flight write instead of skipping).  0 "
+            "disables cadence saves.")
 
 
 # -- observability (mxnet_tpu/base.py:469-545; observability/)
@@ -217,16 +233,44 @@ env.declare("MXNET_TPU_GOODPUT_RECORDS", 128, int,
             "ledger keeps in memory for the /goodput route and the flight-"
             "recorder post-mortem.  Read once at ledger construction.")
 env.declare("MXNET_TPU_HEALTH", False, bool,
-            "Arm the serving decode-path non-finite logit sentinel "
-            "(observability/health.py check_logits): each decode step's "
-            "logits are copied to the host and swept for NaN/Inf.  Off by "
-            "default: the decode path then copies only the sampled rows.  "
-            "The training monitor is not ported.")
+            "Arm the health sentinel (observability/health.py): in-graph "
+            "numerics watchpoints on CompiledTrainStep (per-parameter "
+            "grad/param/update sums of squares and non-finite counts, "
+            "computed inside the step's CUDA graph and fetched every "
+            "MXNET_TPU_HEALTH_EVERY steps) and the serving decode-path "
+            "non-finite logit sentinel (each decode step's logits copied "
+            "to the host and swept for NaN/Inf).  Off by default: the "
+            "step's graph is then exactly the watchpoint-free one and the "
+            "decode path copies only the sampled rows.  "
+            "CompiledTrainStep(health=...) overrides per step.")
+env.declare("MXNET_TPU_HEALTH_EVERY", 16, int,
+            "Watchpoint fetch cadence in training steps: the stats are "
+            "outputs of every step, but the device->host fetch and the "
+            "sentinel/spike evaluation run once per window (threshold-"
+            "based, so a K-step call crossing a boundary fetches once).  "
+            "1 = every step.")
 env.declare("MXNET_TPU_HEALTH_ACTION", "log", str,
-            "Response when the sentinel trips: 'log' (warn + count), 'dump' "
-            "(write a flight-recorder post-mortem), 'raise' (typed "
-            "NumericsError; the request fails and its pages are freed).  "
-            "'skip' is a training policy and acts as 'log' here.")
+            "Response when the sentinel trips or a spike fires: 'log' "
+            "(warn + count), 'dump' (write a flight-recorder post-mortem), "
+            "'raise' (typed NumericsError naming the first faulting layer "
+            "or the diverging rank), 'skip' (CompiledTrainStep only: "
+            "restore the pre-step copy of parameters, buffers, optimizer "
+            "states and counts, and drop the step; copies the step's "
+            "world every call and forces the cadence to 1).  On the "
+            "serving sentinel 'skip' acts as 'log'.")
+env.declare("MXNET_TPU_HEALTH_WINDOW", 64, int,
+            "Rolling window (observations) for the loss / grad-norm "
+            "z-score spike detectors.")
+env.declare("MXNET_TPU_HEALTH_ZSCORE", 6.0, float,
+            "Spike threshold in standard deviations over the rolling "
+            "window: value > mean + zscore*std flags an anomaly "
+            "(mxnet_tpu_health_spikes_total).")
+env.declare("MXNET_TPU_HEALTH_CHECKSUM_EVERY", 0, int,
+            "Cross-rank divergence-checksum cadence in training steps: "
+            "every window each parameter's bytes fold into a sha256 "
+            "digest, compared across processes; a mismatch names the "
+            "diverging rank and keys.  0 = off (a round copies every "
+            "parameter to the host).")
 
 
 def attr_truthy(v) -> bool:

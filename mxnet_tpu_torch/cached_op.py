@@ -43,7 +43,9 @@ Every call opens a ``cachedop.execute`` span and goes through
 eager first run before it) is the ``compile`` site, a replay, or on the
 CPU the eager run, the ``execute`` site.  An injected transient fault
 fires before the call it precedes, so a retried replay never follows a
-half-run one; a CUDA error passes through and is not retried.
+half-run one; a CUDA error passes through and is not retried.  Both
+sites are train goodput intervals (``compile``, ``device_compute``), which
+a serving worker's own interval swallows.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ from . import _graphs, autograd
 from . import random as _random
 from .base import MXNetError, env
 from .ndarray.ndarray import NDArray
-from .observability import metrics as _metrics, tracing as _tracing
+from .observability import (goodput as _goodput, metrics as _metrics,
+                            tracing as _tracing)
 from .resilience import backend_call
 
 __all__ = ["CachedOp"]
@@ -291,8 +294,9 @@ class CachedOp:
                                   "cache": "miss" if miss else "hit",
                                   "recording": recording}):
             if not inputs or not inputs[0]._data.is_cuda:
-                return backend_call("execute", lambda: _graphs.run_inside(
-                    lambda: self._fwd(*inputs)))
+                with _goodput.train().timed("device_compute"):
+                    return backend_call("execute", lambda: _graphs.run_inside(
+                        lambda: self._fwd(*inputs)))
             if recording:
                 return self._record(entry, sig, inputs)
             return self._predict(entry, sig, inputs)
@@ -321,11 +325,13 @@ class CachedOp:
         if g is not None and g.addr == addr and \
                 g.static_in[0].device == inputs[0]._data.device:
             self._replays += 1
-            return backend_call("execute", lambda: g(inputs))
+            with _goodput.train().timed("device_compute"):
+                return backend_call("execute", lambda: g(inputs))
         t0 = time.perf_counter()
         with _tracing.span("cachedop.compile",
                            attrs={"op": self.__name__,
-                                  "signature": repr(sig[0])}):
+                                  "signature": repr(sig[0])}), \
+                _goodput.train().timed("compile"):
             out = backend_call("compile", lambda: self._capture_predict(
                 entry, sig, inputs, addr))
         _M_COMPILE_SECONDS.observe(time.perf_counter() - t0)
@@ -365,7 +371,8 @@ class CachedOp:
             t0 = time.perf_counter()
             with _tracing.span("cachedop.compile",
                                attrs={"op": self.__name__,
-                                      "signature": repr(sig[0])}):
+                                      "signature": repr(sig[0])}), \
+                    _goodput.train().timed("compile"):
                 slot = backend_call("compile", capture)
             _M_COMPILE_SECONDS.observe(time.perf_counter() - t0)
             entry.slots.append(slot)
@@ -379,7 +386,8 @@ class CachedOp:
                 return outs
             return _Replay.apply(slot, *[x._data for x in inputs],
                                  *self._learnable())
-        leaves = backend_call("execute", replay)
+        with _goodput.train().timed("device_compute"):
+            leaves = backend_call("execute", replay)
         return _unflatten(slot.struct,
                           [NDArray(t, slot.ctx) for t in leaves])
 

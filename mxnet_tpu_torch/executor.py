@@ -45,16 +45,39 @@ A capture is the ``compile`` site and a replay the ``execute`` site of
 parameters and optimizer states in the memory ledger as
 ``trainstep:<net class>``.
 
+``health`` arms the numerics watchpoints of
+:mod:`~mxnet_tpu_torch.observability.health` (None defers to
+``MXNET_TPU_HEALTH``): the step computes per-parameter statistics after
+its updates, inside the graph, from a clone of the parameters taken
+before them (one more set of parameters in the graph's pool), and its
+:class:`~mxnet_tpu_torch.observability.health.HealthMonitor` reads them
+at its cadence.  With health armed, the modules' patched forwards and
+forward hooks (:func:`~mxnet_tpu_torch.observability.health.hook_fingerprint`)
+join the graph signature.  Under ``action="skip"`` each call first takes
+a device copy of the parameters, the net's other tensors and the
+optimizer states; a dropped call copies it back in place and rewinds the
+step count and the optimizer's counts.
+
+Each call is one record of the train goodput ledger: ``dispatch`` (input
+unwrapping, scalars, staging), ``compile`` (a signature's eager first
+call and capture), ``device_compute`` (the replay or the eager step);
+``mxnet_tpu_executor_steps_total`` and ``mxnet_tpu_executor_step_seconds``
+count the steps and their host time past any capture.  A replay returns
+once its work is queued, so the device's time lands in whatever waits
+for it next: the health fetch, the next call's staging, or the caller.
+
 Deliberate differences from the JAX package: the optimizer's per-index
 counts and ``num_update`` advance once per step (MXNet's count; the JAX
-step counts once per trace); ``donate`` has no effect (the graph updates
-in place already); a signature's first call is eager; the returned loss
-is a clone.  ``mesh``, ``param_spec_fn`` and ``shard_optimizer_state``
-raise :class:`MXNetError` (ROADMAP A11), as does ``health`` (A12).
+step counts once per trace), so the skip rewinds them too; ``donate``
+has no effect (the graph updates in place already); a signature's first
+call is eager; the returned loss is a clone.  ``mesh``,
+``param_spec_fn`` and ``shard_optimizer_state`` raise
+:class:`MXNetError` (ROADMAP A11).
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -62,11 +85,22 @@ import torch
 from . import _graphs
 from .base import MXNetError, env
 from .cached_op import generators_of
-from .observability import memory as _memory, tracing as _tracing
+from .observability import (goodput as _goodput, health as _health,
+                            memory as _memory, metrics as _metrics,
+                            tracing as _tracing)
 from .resilience import backend_call
 
 __all__ = ["CompiledTrainStep", "MultiStepTrainStep", "compile_train_step",
            "compile_forward", "stack_batches"]
+
+
+_M_STEPS = _metrics.registry().counter(
+    "mxnet_tpu_executor_steps_total",
+    "CompiledTrainStep steps taken (a MultiStepTrainStep call counts K).")
+_M_STEP_SECONDS = _metrics.registry().histogram(
+    "mxnet_tpu_executor_step_seconds",
+    "Host wall time of one training-step call past any capture (on the "
+    "card a replay returns once queued).")
 
 
 def _fuse_grad_buckets(grads, buckets):
@@ -139,13 +173,14 @@ def _remat_contexts(gens: Sequence[torch.Generator],
 
 
 class _StepGraph:
-    """One signature's captured step."""
+    """One signature's captured step (``stats``: the watchpoints' outputs,
+    None with health off)."""
 
-    __slots__ = ("graph", "static_in", "loss", "addr")
+    __slots__ = ("graph", "static_in", "loss", "stats", "addr")
 
-    def __init__(self, graph, static_in, loss, addr):
+    def __init__(self, graph, static_in, loss, stats, addr):
         self.graph, self.static_in = graph, static_in
-        self.loss, self.addr = loss, addr
+        self.loss, self.stats, self.addr = loss, stats, addr
 
 
 class CompiledTrainStep:
@@ -160,8 +195,10 @@ class CompiledTrainStep:
     backward, drawing the same masks).  ``fuse_grad_buckets`` (default
     off, as the JAX package without a mesh) concatenates the gradients
     into ``MXNET_KVSTORE_BUCKET_KB`` buckets and splits them back, which
-    changes no value.  ``mesh``, ``param_spec_fn``,
-    ``shard_optimizer_state`` and ``health`` are not ported."""
+    changes no value.  ``health`` (True, a dict, a
+    :class:`~mxnet_tpu_torch.observability.health.HealthConfig`; None
+    defers to ``MXNET_TPU_HEALTH``) arms the watchpoints.  ``mesh``,
+    ``param_spec_fn`` and ``shard_optimizer_state`` are not ported."""
 
     def __init__(self, net, loss_fn, optimizer, batch_size: Optional[int] = None,
                  mesh=None, data_axis: str = "dp", param_spec_fn=None,
@@ -173,9 +210,14 @@ class CompiledTrainStep:
             raise MXNetError(
                 "CompiledTrainStep: mesh, param_spec_fn and "
                 "shard_optimizer_state are not ported yet (ROADMAP A11)")
-        if health not in (None, False):
-            raise MXNetError("CompiledTrainStep: health watchpoints are not "
-                             "ported yet (ROADMAP A12)")
+        if health is None:
+            health = bool(env.MXNET_TPU_HEALTH)
+        cfg = _health.HealthConfig.coerce(health)
+        self._hmon = (_health.HealthMonitor(cfg)
+                      if cfg is not None and cfg.watchpoints else None)
+        self._health = self._hmon is not None
+        # a MultiStepTrainStep's stats carry a leading K axis
+        self._stats_stacked = False
         self._net = net
         self._loss_fn = loss_fn
         self._opt = optimizer
@@ -194,7 +236,10 @@ class CompiledTrainStep:
         self.grad_bucket_count = (len(self._grad_buckets)
                                   if self._grad_buckets
                                   else len(self._learnable))
+        self._names = _health.param_names(net, self._learnable)
         self._num_update = 0
+        self._compile_seconds = 0.0
+        self._trace_id: Optional[int] = None
         # lr and the 1-based step count, 0-dim fp32 on the parameters'
         # device: what the optimizer reads inside a step
         self._scalars: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -204,6 +249,14 @@ class CompiledTrainStep:
         _memory.ledger().register_object(
             f"trainstep:{type(net).__name__}", self,
             lambda step: float(step.live_bytes()))
+
+    @property
+    def _aux(self) -> List[torch.Tensor]:
+        """The net's tensors without a gradient, in ``compile_forward``'s
+        order: the frozen parameters, then the buffers (BatchNorm's
+        moving statistics).  What a checkpoint's ``aux`` holds."""
+        return ([p for p in self._net.parameters() if not p.requires_grad]
+                + list(self._net.buffers()))
 
     def live_bytes(self) -> int:
         """Bytes of the parameters, buffers and optimizer states the step
@@ -246,14 +299,18 @@ class CompiledTrainStep:
                           preserve_rng_state=False,
                           context_fn=lambda: _remat_contexts(gens, buffers))
 
-    def _run(self, xs, y) -> torch.Tensor:
+    def _run(self, xs, y):
         """Forward, gradients and every update, the optimizer reading the
-        scalars; returns the detached mean loss.  What the graph records."""
+        scalars; returns the detached mean loss and, with health armed,
+        the watchpoints' statistics (else None).  What the graph
+        records."""
         net, opt = self._net, self._opt
         was_training = net.training
         net.train()
         try:
-            loss = self._loss(xs, y)
+            with (_health.capture_taps() if self._health
+                  else contextlib.nullcontext({})) as taps:
+                loss = self._loss(xs, y)
             grads = torch.autograd.grad(loss, self._learnable,
                                         allow_unused=True)
         finally:
@@ -262,6 +319,10 @@ class CompiledTrainStep:
                  for p, g in zip(self._learnable, grads)]
         if self._grad_buckets is not None:
             grads = _fuse_grad_buckets(grads, self._grad_buckets)
+        # the update's delta needs the parameters it started from, which
+        # the updates overwrite in place
+        old = ([p.detach().clone() for p in self._learnable]
+               if self._health else None)
         lr, t = self._scalars
         names = ("lr", "lr_scheduler", "rescale_grad", "_step", "_step_sizes")
         saved = [getattr(opt, n, None) for n in names]
@@ -274,7 +335,11 @@ class CompiledTrainStep:
         finally:
             for n, v in zip(names, saved):
                 setattr(opt, n, v)
-        return loss.detach()
+        loss = loss.detach()
+        if not self._health:
+            return loss, None
+        return loss, _health.graph_stats(grads, old, self._learnable, loss,
+                                         taps)
 
     def _reads(self) -> List[torch.Tensor]:
         """The tensors a graph reads or writes in place."""
@@ -282,28 +347,51 @@ class CompiledTrainStep:
                 + [t for s in self._states for t in _leaves(s)]
                 + list(self._scalars))
 
-    def _step(self, xs: tuple, y) -> torch.Tensor:
-        """One step on tensors; the loss (0-dim, not synchronised)."""
-        if xs[0].device.type != "cuda":
-            return self._eager(xs, y)
-        self._write_scalars()
+    def _signature(self, xs: tuple, y):
+        """``(signature, flat inputs)``: each input's shape, dtype and
+        device; with health armed, the net's hooks and patched forwards
+        too (a fault plan entered after a capture takes a new graph)."""
         flat = list(xs) + (list(y) if isinstance(y, tuple) else [y])
         sig = (len(xs), isinstance(y, tuple),
                tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
-        entry = self._graphs.get(sig)
-        if entry is not None and entry.addr == _graphs.addresses(self._reads()):
+        if self._health:
+            sig += (_health.hook_fingerprint(self._net),)
+        return sig, flat
+
+    def _step(self, xs: tuple, y):
+        """One step on tensors: ``(loss, stats)``, the loss 0-dim and not
+        synchronised, the stats None with health off (on the card a
+        replay's stats are the graph's outputs, valid until the next
+        replay)."""
+        ledger = _goodput.train()
+        if xs[0].device.type != "cuda":
+            with _tracing.span("trainstep.execute",
+                               attrs={"step": self._num_update + 1}) as sp, \
+                    ledger.timed("device_compute"):
+                self._trace_id = sp.trace_id
+                return backend_call("execute",
+                                    lambda: self._eager_stats(xs, y))
+        with ledger.timed("dispatch"):
+            self._write_scalars()
+            sig, flat = self._signature(xs, y)
+            entry = self._graphs.get(sig)
+            live = entry is not None and \
+                entry.addr == _graphs.addresses(self._reads())
+        if live:
             def replay():
                 for s, t in zip(entry.static_in, flat):
                     s.copy_(t)
                 entry.graph.replay()
             with _tracing.span("trainstep.execute",
-                               attrs={"step": self._num_update + 1}):
+                               attrs={"step": self._num_update + 1}) as sp, \
+                    ledger.timed("device_compute"):
+                self._trace_id = sp.trace_id
                 backend_call("execute", replay)
-            self._replays += 1
-            for i in range(len(self._learnable)):
-                self._opt._update_count(i)
-            self._num_update += 1
-            return entry.loss.clone()
+                self._replays += 1
+                for i in range(len(self._learnable)):
+                    self._opt._update_count(i)
+                self._num_update += 1
+                return entry.loss.clone(), entry.stats
         if entry is None:
             self._misses += 1
         else:
@@ -313,21 +401,30 @@ class CompiledTrainStep:
         dev = xs[0].device
 
         def compile_step():
-            loss = _graphs.warm(lambda: self._eager(xs, y), dev)
+            out = _graphs.warm(lambda: self._eager_stats(xs, y), dev)
             self._graphs[sig] = self._capture(sig, flat, dev)
-            return loss
+            return out
+        t0 = time.perf_counter()
         with _tracing.span("trainstep.compile",
-                           attrs={"net": type(self._net).__name__}):
-            return backend_call("compile", compile_step)
+                           attrs={"net": type(self._net).__name__}) as sp, \
+                ledger.timed("compile"):
+            self._trace_id = sp.trace_id
+            out = backend_call("compile", compile_step)
+        self._compile_seconds += time.perf_counter() - t0
+        return out
+
+    def _eager_stats(self, xs: tuple, y):
+        """One step run eagerly: ``(loss, stats)``."""
+        self._write_scalars()
+        out = self._run(xs, y)
+        self._num_update += 1
+        return out
 
     def _eager(self, xs: tuple, y) -> torch.Tensor:
-        """One step run eagerly: the CPU's path, a signature's first call
-        on the card, and the eager twin ``chip_smoke.py`` holds the graph
-        against."""
-        self._write_scalars()
-        loss = self._run(xs, y)
-        self._num_update += 1
-        return loss
+        """One step run eagerly, its loss: the CPU's path, a signature's
+        first call on the card, and the eager twin ``chip_smoke.py``
+        holds the graph against."""
+        return self._eager_stats(xs, y)[0]
 
     def _capture(self, sig, flat, dev) -> _StepGraph:
         """The step recorded on static copies of ``flat``; the optimizer's
@@ -341,7 +438,7 @@ class CompiledTrainStep:
         if self._pool is None:
             self._pool = _graphs.new_pool()
         try:
-            graph, loss = _graphs.capture(
+            graph, (loss, stats) = _graphs.capture(
                 lambda: self._run(xs, y), dev, self._pool,
                 generators_of(self._net, dev),
                 f"CompiledTrainStep {type(self._net).__name__}, inputs "
@@ -349,8 +446,45 @@ class CompiledTrainStep:
         finally:
             opt._index_update_count, opt.num_update = counts
         self._captures += 1
-        return _StepGraph(graph, static_in, loss,
+        return _StepGraph(graph, static_in, loss, stats,
                           _graphs.addresses(self._reads()))
+
+    # ------------------------------------------------------------- calls
+    def _steps_in(self, xs: tuple) -> int:
+        return 1
+
+    def _steps(self, xs: tuple, y):
+        return self._step(xs, y)
+
+    def _world(self) -> List[torch.Tensor]:
+        """Every tensor a step changes in place: the learnable parameters,
+        the net's other tensors, the optimizer states."""
+        return (list(self._learnable) + list(self._aux)
+                + [t for s in self._states for t in _leaves(s)])
+
+    @torch.no_grad()
+    def _world_copy(self) -> dict:
+        """A device copy of :meth:`_world` and the step's and the
+        optimizer's counts (the ``skip`` action's and
+        ``FaultTolerantStep``'s snapshot)."""
+        return {"tensors": [t.detach().clone() for t in self._world()],
+                "num_update": self._num_update,
+                "opt": (self._opt.num_update,
+                        dict(self._opt._index_update_count))}
+
+    def _restore_world(self, snap) -> None:
+        """Copy a :meth:`_world_copy` back into the live tensors in place
+        (no tensor moves: the graphs replay without a new capture) and
+        rewind the step's and the optimizer's counts."""
+        with torch.no_grad():
+            for t, c in zip(self._world(), snap["tensors"]):
+                t.copy_(c)
+        self._num_update = snap["num_update"]
+        opt = self._opt
+        opt.num_update = snap["opt"][0]
+        # in place: other holders may alias the dict
+        opt._index_update_count.clear()
+        opt._index_update_count.update(snap["opt"][1])
 
     def __call__(self, x, y):
         """Run one step on a batch (``x`` a tensor or a tuple of the net's
@@ -360,8 +494,33 @@ class CompiledTrainStep:
         inputs (a Gluon iterator's batches) run on their tensors and give
         an NDArray loss."""
         from .ndarray.ndarray import NDArray
-        (x, cx), (y, cy) = _unwrap(x), _unwrap(y)
-        loss = self._step(x if isinstance(x, tuple) else (x,), y)
+        ledger = _goodput.train()
+        with ledger.step() as info:
+            with ledger.timed("dispatch"):
+                (x, cx), (y, cy) = _unwrap(x), _unwrap(y)
+                xs = x if isinstance(x, tuple) else (x,)
+            k = self._steps_in(xs)
+            info["steps"] = k
+            t0 = time.perf_counter()
+            compiled = self._compile_seconds
+            pre = (self._hmon.snapshot_for_skip(self)
+                   if self._hmon is not None else None)
+            prev = self._num_update
+            self._trace_id = None
+            loss, stats = self._steps(xs, y)
+            info["trace_id"] = self._trace_id
+            if self._hmon is not None:
+                verdict = self._hmon.after_call(self, stats, k, prev, xs, y,
+                                                loss, pre_snap=pre)
+                if verdict == "skip":
+                    self._restore_world(pre)
+            _M_STEPS.inc(k)
+            hist = (time.perf_counter() - t0
+                    - (self._compile_seconds - compiled))
+            _M_STEP_SECONDS.observe(
+                hist, exemplar=(None if self._trace_id is None
+                                else {"trace_id": self._trace_id}))
+            info["hist_seconds"] = hist
         ctx = cx or cy
         return NDArray(loss, ctx) if ctx is not None else loss
 
@@ -373,9 +532,11 @@ class MultiStepTrainStep(CompiledTrainStep):
     are K replays of the one-step graph, each staging its slice and
     writing its own learning rate and step count; a shorter tail K
     replays fewer times.  The results equal K :class:`CompiledTrainStep`
-    calls bit for bit.  ``steps_per_call`` defaults to
-    ``MXNET_TPU_STEPS_PER_CALL`` (informational, as in the JAX package:
-    K is the super-batch's)."""
+    calls bit for bit.  With health armed, each step's statistics are
+    copied into a K-row device buffer after it (a replay overwrites the
+    graph's outputs), which the monitor reads as K rows.
+    ``steps_per_call`` defaults to ``MXNET_TPU_STEPS_PER_CALL``
+    (informational, as in the JAX package: K is the super-batch's)."""
 
     def __init__(self, net, loss_fn, optimizer, batch_size: Optional[int] = None,
                  steps_per_call: Optional[int] = None, **kwargs):
@@ -383,19 +544,37 @@ class MultiStepTrainStep(CompiledTrainStep):
         if steps_per_call is None:
             steps_per_call = int(env.MXNET_TPU_STEPS_PER_CALL)
         self.steps_per_call = max(int(steps_per_call), 1)
+        self._stats_stacked = True
 
-    def __call__(self, x, y):
-        from .ndarray.ndarray import NDArray
-        (x, cx), (y, cy) = _unwrap(x), _unwrap(y)
-        xs = x if isinstance(x, tuple) else (x,)
-        k = int(xs[0].shape[0])
+    def _steps_in(self, xs: tuple) -> int:
+        return int(xs[0].shape[0])
+
+    def _steps(self, xs: tuple, y):
+        k = self._steps_in(xs)
 
         def at(v, i):
             return tuple(a[i] for a in v) if isinstance(v, tuple) else v[i]
-        losses = torch.stack([self._step(at(xs, i), at(y, i))
-                              for i in range(k)])
-        ctx = cx or cy
-        return NDArray(losses, ctx) if ctx is not None else losses
+        losses, rows = [], None
+        for i in range(k):
+            loss, stats = self._step(at(xs, i), at(y, i))
+            losses.append(loss)
+            if stats is None:
+                continue
+            if rows is None:
+                rows = {key: torch.empty((k,) + tuple(v.shape),
+                                         dtype=v.dtype, device=v.device)
+                        for key, v in stats.items() if key != "taps"}
+                rows["taps"] = {n: torch.empty((k,) + tuple(v.shape),
+                                               dtype=v.dtype,
+                                               device=v.device)
+                                for n, v in stats["taps"].items()}
+            with torch.no_grad():
+                for key, v in stats.items():
+                    if key != "taps":
+                        rows[key][i].copy_(v)
+                for n, v in stats["taps"].items():
+                    rows["taps"][n][i].copy_(v)
+        return torch.stack(losses), rows
 
 
 def stack_batches(batches: Sequence[Tuple[Any, Any]]):

@@ -141,13 +141,15 @@ class Dropout(HybridBlock):
     ``torch.Generator`` on the input's device, or, under the Gluon
     boundary without one, from the device's ``mx.random`` stream;
     identity in evaluation.  The layer holds the generator, so the layers
-    of one model can share one stream."""
+    of one model can share one stream; ``Trainer.snapshot()`` rewinds
+    it."""
 
     def __init__(self, rate, axes=(), generator=None, **kwargs):
         super().__init__(**kwargs)
         self._rate = rate
         self._axes = tuple(axes)
         self.generator = generator
+        _random._holders.add(self)
 
     def forward(self, x):
         gen = self.generator

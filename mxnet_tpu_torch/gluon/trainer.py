@@ -19,6 +19,13 @@ when ``update_on_kvstore`` (default ``MXNET_UPDATE_ON_KVSTORE``) is true:
 ``update`` pulls every weight; otherwise it pushpulls the gradients and
 the Trainer's own updater applies them.  Optimizer-state sharding is not
 ported (ROADMAP A11, the rest) and raises.
+
+``update`` passes the ``execute`` fault site once per parameter (the
+eager loop is not atomic: a fault there leaves the model half-stepped),
+:meth:`Trainer.snapshot` captures everything a replay must rewind
+(:class:`~mxnet_tpu_torch.resilience.training.TrainerSnapshot`), and
+:meth:`Trainer.clip_global_norm` scales every gradient by one global
+norm.
 """
 from __future__ import annotations
 
@@ -149,16 +156,49 @@ class Trainer:
         """Update every parameter from its gradient scaled by
         ``1 / batch_size``: pulled from the kvstore when the optimizer
         runs there, else applied here."""
+        from ..resilience import maybe_fault
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         if self._kvstore is not None and self._update_on_kvstore:
             for i, p in self._live():
+                maybe_fault("execute")
                 self._kvstore.pull(i, out=p.data())
             return
         updater = self._updaters[0]
         for i, p in self._live():
+            maybe_fault("execute")
             updater(i, p.grad(), p.data())
+
+    def clip_global_norm(self, max_norm: float) -> float:
+        """Global-norm gradient clipping over every trainable gradient in
+        one measure-and-scale pass
+        (:func:`~mxnet_tpu_torch.observability.health.clip_global_norm`,
+        the watchpoints' fp32 sum of squares): the direction is kept,
+        gradients within budget come back bit for bit, and the result
+        equals measuring then scaling.  Call between ``backward()`` and
+        ``step()``/``update()``; the gradients are written in place.
+        Returns the measured global norm (also the
+        ``mxnet_tpu_health_grad_norm`` gauge)."""
+        import torch
+        from ..observability import health as _health
+        grads = [p.grad() for _, p in self._live()]
+        if not grads:
+            return 0.0
+        norm, scaled = _health.clip_global_norm([g._data for g in grads],
+                                                float(max_norm))
+        with torch.no_grad():
+            for g, s in zip(grads, scaled):
+                g._data.copy_(s)
+        return float(norm)
+
+    def snapshot(self):
+        """Capture this trainer's mutable training state (parameters,
+        gradients, optimizer states and counts, the random streams, the
+        kvstore's values) as device copies; ``snapshot().restore()``
+        rewinds a half-applied step in place, bit for bit."""
+        from ..resilience.training import TrainerSnapshot
+        return TrainerSnapshot(self)
 
     def save_states(self, fname):
         with open(fname, "wb") as f:

@@ -22,10 +22,12 @@ as the JAX package's do.
 """
 from __future__ import annotations
 
+import time
 from typing import List
 
 from .. import distributed
 from ..base import MXNetError, env
+from ..observability import metrics as _metrics
 from ..ndarray.ndarray import NDArray
 from ..parallel.collectives import (allreduce_flat, broadcast_from,
                                     cross_process_allreduce, pairwise_sum)
@@ -33,6 +35,13 @@ from .base import KVStoreBase, TestStore, _copy, create, register
 
 __all__ = ["KVStoreBase", "TestStore", "KVStore", "DeviceKVStore",
            "DistSyncKVStore", "DistAsyncKVStore", "create"]
+
+_M_COLLECTIVES = _metrics.registry().counter(
+    "mxnet_tpu_kvstore_collectives_total",
+    "Dist-kvstore collective rounds completed, by kind.", labels=("kind",))
+_M_COLLECTIVE_SECONDS = _metrics.registry().histogram(
+    "mxnet_tpu_kvstore_collective_seconds",
+    "Wall time of one bounded dist-kvstore collective round.")
 
 
 def _tree_sum(vals: List[NDArray]) -> NDArray:
@@ -137,8 +146,13 @@ class DistSyncKVStore(DeviceKVStore):
     into buckets and all-reduces each bucket once.  ``_rounds_completed``
     counts the collective rounds by kind.  With one process every push
     reduces locally.  Every rank must call the same collectives in the
-    same order; a failed one raises (``MXNET_KVSTORE_TIMEOUT`` bounds the
-    wait) and nothing here carries on past it."""
+    same order.  Each round runs under the guard of :meth:`_collective`:
+    the ``allreduce`` fault site, ``MXNET_KVSTORE_TIMEOUT`` turning a
+    wedged round into :class:`~mxnet_tpu_torch.resilience.RankFailureError`
+    (with this rank's progress in the flight recorder's post-mortem), a
+    ``kvstore.<kind>`` span, the goodput ``collective`` bucket, and the
+    ``mxnet_tpu_kvstore_collectives_total`` / ``_collective_seconds``
+    metrics; nothing here carries on past a failed round."""
 
     def __init__(self):
         super().__init__()
@@ -147,10 +161,58 @@ class DistSyncKVStore(DeviceKVStore):
         self._rounds_completed: dict = {}
 
     def _collective(self, what: str, fn):
-        out = fn()
-        kind = what.split("(", 1)[0]
+        """Run one collective round under the guard (see the class
+        docstring); ``what`` names it (``allreduce(key=3)``), its kind is
+        the part before ``(``."""
+        from ..observability import goodput as _goodput
+        from ..observability import tracing as _tracing
+        from ..resilience import (RankFailureError, _flight_notify,
+                                  call_with_timeout, maybe_fault)
+
+        def run():
+            maybe_fault("allreduce")
+            return fn()
+
+        desc = (f"kvstore collective {what} (rank {self._rank}/"
+                f"{self._nproc} workers)")
+        kind = what.split("(", 1)[0]  # key names stay out of label space
+
+        def rank_failure(m):
+            exc = RankFailureError(
+                m + "; a peer rank is dead or wedged — every rank must call "
+                    "the same collectives in the same order")
+            _flight_notify(exc, "allreduce", context={
+                "collective": what, "kind": kind,
+                "rank": self._rank, "nproc": self._nproc,
+                "rounds_completed": dict(self._rounds_completed),
+                "optimizer_updates": getattr(self._optimizer, "num_update",
+                                             None),
+            })
+            return exc
+
+        span_name = "kvstore." + kind   # the JAX package's span names
+        with _tracing.span(span_name,
+                           attrs={"what": what, "rank": self._rank,
+                                  "nproc": self._nproc}), \
+                _goodput.train().timed("collective"):
+            t0 = time.perf_counter()
+            out = call_with_timeout(run, float(env.MXNET_KVSTORE_TIMEOUT),
+                                    desc, error=rank_failure)
         self._rounds_completed[kind] = self._rounds_completed.get(kind, 0) + 1
+        _M_COLLECTIVES.labels(kind=kind).inc()
+        _M_COLLECTIVE_SECONDS.observe(time.perf_counter() - t0)
         return out
+
+    def divergence_round(self, named):
+        """One cross-rank divergence-checksum round over ``named`` (key ->
+        tensor) under the same guard as every collective: every rank must
+        call it in the same order.  Returns the
+        :func:`~mxnet_tpu_torch.observability.health.divergence_report`
+        record (on rank 0 a mismatch names the diverging rank and keys)."""
+        from ..observability import health as _health
+        return self._collective(
+            f"divergence_checksum({len(named)}keys)",
+            lambda: _health.divergence_report(named))
 
     @property
     def rank(self) -> int:

@@ -11,18 +11,20 @@ Counterpart of ``mxnet_tpu/observability/__init__.py``:
 * :mod:`flight_recorder` — an always-on bounded ring of recent spans, log
   records and metric snapshots, dumped as a JSON post-mortem on a fatal
   resilience failure;
-* :mod:`goodput` — per-request wall-time attribution that reconciles
-  against measured wall (the train ledger is ported; its call sites are
-  not);
+* :mod:`goodput` — per-request and per-step wall-time attribution that
+  reconciles against measured wall;
 * :mod:`memory` — the live-bytes ledger with a high-water mark;
-* :mod:`health` — the serving decode-path sentinel (the training monitor
-  is not ported).
+* :mod:`health` — the training health sentinel (in-step watchpoints,
+  NaN/Inf localization, divergence checksums, spike detection) and the
+  serving decode-path sentinel.
 
 Env knobs (declared in ``base.py``): ``MXNET_TPU_FLIGHT_CAPACITY``,
 ``MXNET_TPU_FLIGHT_DIR``, ``MXNET_TPU_TRACE_RETAIN_PCT``,
 ``MXNET_TPU_TRACE_RETAIN_CAP``, ``MXNET_TPU_TRACE_PENDING_CAP``,
 ``MXNET_TPU_GOODPUT_RECORDS``, ``MXNET_TPU_HEALTH``,
-``MXNET_TPU_HEALTH_ACTION``.
+``MXNET_TPU_HEALTH_EVERY``, ``MXNET_TPU_HEALTH_ACTION``,
+``MXNET_TPU_HEALTH_WINDOW``, ``MXNET_TPU_HEALTH_ZSCORE``,
+``MXNET_TPU_HEALTH_CHECKSUM_EVERY``.
 """
 from __future__ import annotations
 

@@ -179,8 +179,9 @@ class FlightRecorder:
             }
         except Exception:  # pragma: no cover — see above
             pass
-        # numerics health at crash time: the serving sentinel's trips, the
-        # third leg of the post-mortem beside "memory" and "goodput"
+        # numerics health at crash time (the last watchpoint fetch, trips
+        # with their localization, spikes, checksum rounds), the third leg
+        # of the post-mortem beside "memory" and "goodput"
         hlth = None
         try:
             from . import health as _health

@@ -19,8 +19,16 @@ Counterpart of ``mxnet_tpu/observability/goodput.py``:
 * **Train ledger** — the driver's critical path by bucket
   (:data:`TRAIN_BUCKETS`) with :meth:`Ledger.timed` intervals that split
   nested self time exactly, :meth:`TrainLedger.step` and
-  :meth:`TrainLedger.window` reconciliations.  Ported as a module; the
-  executor, ``module/`` and ``gluon.Trainer`` do not call it yet.
+  :meth:`TrainLedger.window` reconciliations.  The call sites are the JAX
+  package's: ``CompiledTrainStep`` (one ``step`` record per call:
+  ``dispatch``, ``compile``, ``device_compute``), ``CachedOp``
+  (``compile``, ``device_compute``), the dist kvstore's collective guard
+  (``collective``) and ``AsyncCheckpointer.save`` (``checkpoint``, the
+  wait for the previous write).  ``io/device_prefetch.py`` (A10) and the
+  Estimator (A5) wait for their modules.  On the card a replay returns
+  once queued, so a step's device time lands in whatever waits for it
+  first: the health fetch (``other``), the next call's staging, or the
+  caller's own copy after the record closes.
 
 * **Tail attribution** — request completion *offers* its trace to
   tail-based retention: kept in full only when the wall time reaches the

@@ -5,7 +5,10 @@ The port keeps one generator per device instead: :func:`seed` (the
 reference's ``mx.random.seed``) reseeds every device's stream, and
 :func:`device_generator` gives the stream of a device, which Gluon's
 initializers and ``Dropout`` draw from.  Code that wants a stream of its
-own passes an explicit generator (:func:`generator`).  The same seed
+own passes an explicit generator (:func:`generator`); a ``Dropout`` that
+holds one is kept here by weak reference, so a Trainer snapshot rewinds
+its generator with the device streams (the JAX package's one global
+stream is what its snapshot rewinds).  The same seed
 gives other bits than JAX's, so tests copy weights across rather than
 compare draws.
 
@@ -18,7 +21,8 @@ the streams in place, so the graphs they are registered with follow it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import weakref
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -28,6 +32,7 @@ __all__ = ["generator", "seed", "device_generator"]
 
 _seed = 0
 _streams: Dict[str, torch.Generator] = {}
+_holders: "weakref.WeakSet" = weakref.WeakSet()  # Dropout blocks
 
 
 def _new(device: torch.device, seed_state: int) -> torch.Generator:
@@ -40,6 +45,17 @@ def generator(seed: int, device: Optional[Union[str, torch.device]] = None
               ) -> torch.Generator:
     """A generator on ``device`` (default ``cuda``) seeded with ``seed``."""
     return _new(resolve_device(device), seed)
+
+
+def _all_streams() -> List[torch.Generator]:
+    """Every device's stream, then the generator of every live block that
+    holds one of its own."""
+    gens = list(_streams.values())
+    for block in list(_holders):
+        g = getattr(block, "generator", None)
+        if isinstance(g, torch.Generator) and all(g is not h for h in gens):
+            gens.append(g)
+    return gens
 
 
 def seed(seed_state: int, ctx=None) -> None:

@@ -21,9 +21,17 @@ CUDA error is not transient (:func:`is_transient`), so it passes through
 untouched and does not move the breaker; an injected fault fires before
 the call, so a retried replay never follows a half-run one.
 
+* :mod:`training` — :class:`FaultTolerantStep` and
+  :class:`TrainerSnapshot`: snapshot-replay, with device copies restored
+  in place (the step's graphs replay with no new capture);
+* :mod:`elastic` — :class:`AsyncCheckpointer` (device copies on a side
+  stream, written off the train thread, published atomically with an
+  integrity manifest), :func:`~elastic.load_elastic_checkpoint`;
+  :class:`ElasticTrainStep`, which reforms the
+  mesh on rank loss, waits for the device mesh (ROADMAP A11) and raises.
+
 The counters export through ``profiler.register_stats_provider`` as the
-``resilience`` section, and as ``mxnet_tpu_resilience_*`` metrics.  The
-JAX package's ``training`` and ``elastic`` modules are not ported.
+``resilience`` section, and as ``mxnet_tpu_resilience_*`` metrics.
 """
 from __future__ import annotations
 
@@ -136,6 +144,8 @@ __all__ = [
     "counters", "reset_backend_state", "BackendUnavailableError",
     "DeadlineExceededError", "RankFailureError", "OverloadedError",
     "ServerClosedError", "RequestCancelledError", "faults", "policy",
+    "training", "elastic", "FaultTolerantStep", "TrainerSnapshot",
+    "AsyncCheckpointer", "ElasticTrainStep",
 ]
 
 # ---------------------------------------------------------------------------
@@ -241,3 +251,8 @@ def _stats_provider() -> dict:
 from .. import profiler as _profiler  # noqa: E402
 
 _profiler.register_stats_provider("resilience", _stats_provider)
+
+from . import training  # noqa: E402  (imports policy/faults above)
+from .training import FaultTolerantStep, TrainerSnapshot  # noqa: E402
+from . import elastic  # noqa: E402
+from .elastic import AsyncCheckpointer, ElasticTrainStep  # noqa: E402

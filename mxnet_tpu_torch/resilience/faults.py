@@ -8,7 +8,7 @@ site        where it fires in the port
 ==========  ==============================================================
 compile     CachedOp / CompiledTrainStep capturing a signature's CUDA graph
 execute     replaying a graph (on the CPU: running the entry eagerly)
-allreduce   dist kvstore collectives (not wired in the port yet)
+allreduce   dist kvstore collectives (every `_collective` round)
 decode      the generation scheduler's forward
 http        the serving HTTP predict handler, before dispatch
 route       the fleet Router (not ported)

@@ -439,7 +439,7 @@ def test_remat_and_grad_buckets_change_no_bit(option, opt_name, monkeypatch):
     ({"mesh": object()}, "A11"),
     ({"shard_optimizer_state": True}, "A11"),
     ({"param_spec_fn": lambda p: None}, "A11"),
-    ({"health": True}, "A12")])
+    ({"mesh": object(), "health": True}, "A11")])
 def test_unported_options_raise_naming_the_roadmap(kwargs, item):
     from mxnet_tpu_torch.base import MXNetError
     _, tnet = _dense_pair()

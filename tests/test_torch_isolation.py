@@ -28,6 +28,9 @@ import mxnet_tpu_torch.kvstore.bucketing
 import mxnet_tpu_torch.kvstore.gradient_compression, mxnet_tpu_torch._graphs
 import mxnet_tpu_torch.resilience, mxnet_tpu_torch.observability
 import mxnet_tpu_torch.profiler, mxnet_tpu_torch.serving.server
+import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.resilience.training
+import mxnet_tpu_torch.resilience.elastic
+import mxnet_tpu_torch.observability.health
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -68,7 +71,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.observability.memory",
                  "mxnet_tpu_torch.observability.health",
                  "mxnet_tpu_torch.profiler",
-                 "mxnet_tpu_torch.serving.server"):
+                 "mxnet_tpu_torch.serving.server",
+                 "mxnet_tpu_torch.checkpoint",
+                 "mxnet_tpu_torch.resilience.training",
+                 "mxnet_tpu_torch.resilience.elastic"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
