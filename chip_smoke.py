@@ -117,16 +117,34 @@ beside its bound, then drives the port's paths:
   records' reconciliation (``resilient_training``); ``dist_training``
   ends with two divergence-checksum rounds, the second after rank 1
   moved one weight by one ulp.
+- the input pipeline (slice 16): full-width resnet50_v1 (fused fp32,
+  batch 256, CompiledTrainStep's graph) fed from a RecordIO file of 1024
+  JPEGs written from the seed, through ``ImageRecordIter`` (the native
+  reader, 4 decode threads, random crop and mirror) and
+  ``DevicePrefetchIter`` (a pinned ring, copies on a side CUDA stream):
+  every staged batch equal to its host batch, one unshuffled epoch bit for
+  bit against a twin fed the same host batches with a plain ``.to()``,
+  4 epochs with the fused kernel's 36 launches per step counted, the
+  goodput ledger's ``input_wait`` against ``stats()``, the copies' stream
+  against the step's under ``torch.profiler``, and step ms fed by the
+  prefetcher, synchronously and from a resident batch
+  (``input_pipeline``); ``module_fit`` adds a fit over a host
+  ``NDArrayIter`` with ``prefetch_to_device=True``, bit for bit against
+  the fit over the on-card iterator; the deterministic Embedding backward
+  (``csrc/embedding_bwd.cu``, C12) is held against its plain version at
+  BERT-base's shapes and run twice for the same bits
+  (``embedding_bwd``), and ``resilient_training``'s baseline pair runs
+  with the default algorithms, bit for bit.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
-resnet_parity, training, gluon_training, serving_bert, serving_http,
-serving_resnet_export, module_fit, dist_training, rtc_kernels, rtc_ffn,
-bert_flash, bert_parity, bert_training, resilient_training), for a short
-call while a kernel
-is brought up; ``--only build,gluon_training`` runs just the Gluon loop,
+resnet_parity, training, gluon_training, input_pipeline, serving_bert,
+serving_http, serving_resnet_export, module_fit, dist_training,
+rtc_kernels, rtc_ffn, bert_flash, bert_parity, bert_training,
+embedding_bwd, resilient_training), for a short call while a kernel
+is brought up; ``--only build,input_pipeline,module_fit`` runs slice 16; ``--only build,gluon_training`` runs just the Gluon loop,
 ``--only build,train_step_graphs`` the training step's graph semantics
 (``--only build,train_step_graphs,training,bert_training`` this slice
 with its full-width runs), ``--only
@@ -2359,6 +2377,7 @@ def phase_module_fit(torch, seed):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import embedding as EMB
     m = MODULE
     gpu = mx.gpu(0)
     torch.cuda.empty_cache()
@@ -2443,6 +2462,44 @@ def phase_module_fit(torch, seed):
             if kv == "local":
                 mod.save_checkpoint(f"{tmp}/b", 1, save_optimizer_states=True)
             del mod
+        # prefetch (run P): epoch 0 again from run A's start over a host
+        # NDArrayIter (CPU arrays) through fit(prefetch_to_device=True),
+        # which stages each batch onto the card from a pinned ring on a
+        # side stream; its parameters must be run A's after epoch 0 bit
+        # for bit (the Embedding backward is deterministic on the card)
+        host_it = mx.io.NDArrayIter(mx.nd.array(x, ctx=mx.cpu()),
+                                    mx.nd.array(y, ctx=mx.cpu()),
+                                    batch_size=m["batch"])
+        steps_pf = []
+
+        def step_end_pf(param):
+            torch.cuda.synchronize()
+            steps_pf.append(time.perf_counter() - param.locals["self"]._t0)
+
+        fl0 = (A.flash_fwd_launches, A.flash_fwd_tf32_launches,
+               A.flash_fwd_wgmma_launches, forwards[0],
+               EMB.embedding_bwd_launches)
+        mod = Module(sym, context=gpu)
+        mod.fit(host_it, num_epoch=1, kvstore="device", arg_params=init,
+                aux_params={}, batch_end_callback=step_end_pf,
+                prefetch_to_device=True, **fit)
+        torch.cuda.synchronize()
+        pf_params = mod.get_params()[0]
+        prefetch = {
+            "flash_fwd": A.flash_fwd_launches - fl0[0],
+            "tf32": A.flash_fwd_tf32_launches - fl0[1],
+            "wgmma": A.flash_fwd_wgmma_launches - fl0[2],
+            "forwards": forwards[0] - fl0[3],
+            "embedding_bwd": EMB.embedding_bwd_launches - fl0[4],
+            "step_ms": 1e3 * statistics.median(steps_pf),
+            "steps": len(steps_pf),
+            "bitwise_equal": sum(torch.equal(v._data.cpu(),
+                                             epoch0[k]._data.cpu())
+                                 for k, v in pf_params.items()),
+            "params": len(epoch0),
+            "gap": _param_gap(pf_params, epoch0, m["kv_rel"], m["kv_abs"])}
+        del mod, pf_params, host_it
+        torch.cuda.empty_cache()
         # resume: a new module from run B's checkpoint fits epoch 1
         rsym, rarg, raux = mx.model.load_checkpoint(f"{tmp}/b", 1)
         mod = Module(rsym, context=gpu)
@@ -2557,6 +2614,7 @@ def phase_module_fit(torch, seed):
            "score": score, "predict_shape": list(pred.shape),
            "main_path": main, "phase_launches": phase,
            "kvstore_gaps": kv_gaps, "resume_gap": resume,
+           "prefetch": prefetch,
            "gluon_loss": gluon_losses, "module_loss": mod_losses,
            "gluon_param_gap": gluon_gap, "gluon_loss_gap": loss_gap,
            "card_cpu_gap": cpu_gap,
@@ -2573,6 +2631,15 @@ def phase_module_fit(torch, seed):
         "captures_equal_misses": graphs["captures"] == graphs["misses"]
         == 2,
         "kvstores_agree": all(g[0] <= 1.0 for g in kv_gaps.values()),
+        "prefetch_bitwise": prefetch["bitwise_equal"] == prefetch["params"]
+        and prefetch["steps"] == batches_per_epoch,
+        "prefetch_launches": prefetch["tf32"] == layers * prefetch["forwards"]
+        and prefetch["flash_fwd"] == prefetch["tf32"]
+        and prefetch["wgmma"] == 0
+        and prefetch["forwards"] == batches_per_epoch
+        # one per step, and one in the first step's warm-up backward,
+        # which the Executor runs before it captures and throws away
+        and prefetch["embedding_bwd"] == batches_per_epoch + 1,
         "resume": resume[0] <= 1.0,
         "module_matches_gluon": gluon_gap[0] <= 1.0 and loss_gap <= 1.0,
         "card_matches_cpu": cpu_gap[0] <= 1.0,
@@ -2584,7 +2651,312 @@ def phase_module_fit(torch, seed):
     emit(out)
     check(out["ok"], f"module_fit failed: {out['gates']}")
     del net, it, pred
-    return main["tf32"]
+    return main["tf32"], prefetch["tf32"], prefetch["embedding_bwd"]
+
+
+# ---------------------------------------------------------------------------
+# slice 16: the input pipeline
+# ---------------------------------------------------------------------------
+# Full-width resnet50_v1 (fused fp32, bench.py's step: 224 px, batch 256,
+# SGD lr 0.1, momentum 0.9, wd 1e-4, CompiledTrainStep's graph) fed from a
+# RecordIO file on local disk through ImageRecordIter (native reader, 4
+# decode threads, random crop and mirror, ImageNet mean/std) and
+# DevicePrefetchIter(ctx=mx.gpu(0)).  The file is written from the seed
+# into a temporary directory and deleted after the phase: 1024 JPEG
+# records (quality 90) of 256x256x3 images (a random 32x32 image scaled up
+# bilinearly, plus uniform noise in [-8, 8]) with labels in [0, 1000).
+# Pillow imports on the card's machine (PIL 12.2.0), so the records are
+# JPEGs through pack_img.
+#
+# The twin gate runs with torch's deterministic algorithms (cuDNN's
+# deterministic choices, as the training phases' parity pairs): one
+# unshuffled epoch through the prefetcher, the host batches kept aside as
+# they leave ImageRecordIter (so the random crops and flips are the ones
+# staged), then a twin from the same weights fed those host batches with a
+# plain synchronous .to(device): the parameters, buffers and momenta must
+# agree bit for bit.  Each staged batch must equal its host batch bit for
+# bit on INPUT["sample_rows"] rows.  The main path runs with the default
+# algorithms: INPUT["epochs"] epochs of INPUT["batches"] batches (reset()
+# between epochs), the fused kernel's launches counted over all of them,
+# epochs 2..epochs-1 timed and the last traced with torch.profiler (the
+# device's busy share, and the streams of the host-to-device copies
+# against those of the step's kernels).
+INPUT = dict(records=1024, side=256, px=224, batch=256, batches=4, epochs=4,
+             classes=1000, quality=90, threads=4, sample_rows=8,
+             mean=(123.68, 116.779, 103.939), std=(58.393, 57.12, 57.375),
+             big_copy_bytes=1 << 20, goodput_abs=1e-5)
+
+
+def _write_image_records(seed, path_rec, path_idx):
+    """INPUT["records"] JPEG records from ``seed`` (see INPUT)."""
+    import numpy as np
+    from PIL import Image
+
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(seed)
+    side = INPUT["side"]
+    w = recordio.MXIndexedRecordIO(path_idx, path_rec, "w")
+    for i in range(INPUT["records"]):
+        small = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+        big = np.asarray(Image.fromarray(small).resize((side, side),
+                                                       Image.BILINEAR))
+        img = np.clip(big.astype(np.int16)
+                      + rng.randint(-8, 9, big.shape), 0, 255)
+        label = float(rng.randint(0, INPUT["classes"]))
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, label, i, 0),
+                                         img.astype(np.uint8),
+                                         quality=INPUT["quality"]))
+    w.close()
+
+
+class _KeepHost:
+    """A DataIter over ``inner`` that keeps a copy of each host batch it
+    hands out (before the prefetcher stages it)."""
+
+    def __init__(self, inner, keep):
+        self._inner, self._keep = inner, keep
+        self.batch_size = inner.batch_size
+
+    def next(self):
+        b = self._inner.next()
+        if self._keep is not None:
+            self._keep.append((b.data[0]._data.clone(),
+                               b.label[0]._data.clone()))
+        return b
+
+    def reset(self):
+        self._inner.reset()
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+
+def _trace_gpu(torch, fn):
+    """``fn()`` under torch.profiler: (wall ms, the device's busy share of
+    it (union of kernels, copies and sets), the kernels' alone, the
+    streams of kernels, the streams and bytes of host-to-device copies)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name))["traceEvents"]
+
+    def union_ms(spans):
+        total, end = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset")
+           and "dur" in e]
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    h2d = [e for e in gpu if e["cat"] == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    return {"wall_ms": wall_ms,
+            "busy_share": union_ms([(e["ts"], e["ts"] + e["dur"])
+                                    for e in gpu]) / wall_ms,
+            "kernel_share": union_ms([(e["ts"], e["ts"] + e["dur"])
+                                      for e in kernels]) / wall_ms,
+            "kernel_streams": sorted({e["args"].get("stream")
+                                      for e in kernels}),
+            "h2d": [(e["args"].get("stream"), e["args"].get("bytes", 0),
+                     e["dur"]) for e in h2d]}
+
+
+def phase_input_pipeline(torch, seed):
+    """Full-width resnet50_v1 fed from a RecordIO file through
+    DevicePrefetchIter (see INPUT); returns the fused kernel's launches on
+    the main path."""
+    import itertools
+    import shutil
+    import statistics
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import native
+    from mxnet_tpu_torch.io.io import _M_PREFETCH_SECONDS
+    from mxnet_tpu_torch.observability import goodput, metrics
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    t_phase = time.perf_counter()
+    inp = INPUT
+    check(native.available(), "input_pipeline: the native recordio reader "
+          "did not build")
+    _free(torch)
+    tmp = tempfile.mkdtemp(prefix="input_pipeline_")
+    out = {"phase": "input_pipeline", "model": "resnet50_v1", "fused": True,
+           "dtype": "float32", "batch": inp["batch"], "px": inp["px"],
+           "records": inp["records"], "record_side": inp["side"],
+           "jpeg_quality": inp["quality"], "decode_threads": inp["threads"],
+           "card": _card(), "tf32": _tf32(torch)}
+    gates = {}
+    try:
+        rec, idx = f"{tmp}/train.rec", f"{tmp}/train.idx"
+        t0 = time.perf_counter()
+        _write_image_records(seed, rec, idx)
+        out["write_s"] = time.perf_counter() - t0
+        out["file_mb"] = os.path.getsize(rec) / 1e6
+        mean = dict(zip(("mean_r", "mean_g", "mean_b"), inp["mean"]))
+        std = dict(zip(("std_r", "std_g", "std_b"), inp["std"]))
+
+        def records(keep=None):
+            it = mx.io.ImageRecordIter(
+                path_imgrec=rec, path_imgidx=idx,
+                data_shape=(3, inp["px"], inp["px"]),
+                batch_size=inp["batch"], shuffle=False, rand_crop=True,
+                rand_mirror=True, preprocess_threads=inp["threads"],
+                seed=seed, **mean, **std)
+            return it, _KeepHost(it, keep)
+
+        def build():
+            net = _resnet50(torch, True, seed)
+            return net, _train_step(net, inp["batch"])
+
+        # 1. the twin gate, deterministic algorithms on
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            kept, staged_equal = [], []
+            reader, src = records(kept)
+            net, step = build()
+            with mx.io.DevicePrefetchIter(src, ctx=mx.gpu(0)) as pf:
+                for i, b in enumerate(pf):
+                    x, y = b.data[0]._data, b.label[0]._data
+                    step(x, y)
+                    rows = torch.linspace(0, inp["batch"] - 1,
+                                          inp["sample_rows"]).long()
+                    staged_equal.append(
+                        torch.equal(x[rows.cuda()].cpu(), kept[i][0][rows])
+                        and torch.equal(y.cpu(), kept[i][1]))
+            reader.close()
+            fed = _snapshot(step)
+            del net, step
+            _free(torch)
+            net, twin = build()
+            for hx, hy in kept:
+                twin(hx.to("cuda"), hy.to("cuda"))
+            twin_gap = _gap(torch, _snapshot(twin), fed)
+            del net, twin, fed
+            _free(torch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["twin"] = {"batches": len(kept), **twin_gap}
+        gates["staged_equals_host"] = (len(staged_equal) == inp["batches"]
+                                       and all(staged_equal))
+        gates["twin_bitwise"] = (len(kept) == inp["batches"]
+                                 and twin_gap["bitwise_equal"]
+                                 == twin_gap["tensors"])
+
+        # 2. the main path, default algorithms
+        reader, src = records()
+        net, step = build()
+        pf = mx.io.DevicePrefetchIter(src, ctx=mx.gpu(0))
+        wait0 = goodput.train().totals()["buckets"].get("input_wait", 0.0)
+        put = metrics.registry().get("mxnet_tpu_io_device_put_seconds")
+        h0 = (_M_PREFETCH_SECONDS.count, _M_PREFETCH_SECONDS.sum,
+              put.count, put.sum)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+        losses, epoch_ms, steps = [], [], 0
+
+        def epoch():
+            nonlocal steps
+            pf.reset()
+            t0 = time.perf_counter()
+            n = 0
+            for b in pf:
+                loss = step(b.data[0]._data, b.label[0]._data)
+                n += 1
+            losses.append(loss.item())
+            steps += n
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        for e in range(inp["epochs"] - 1):
+            epoch_ms.append(epoch())
+        trace = _trace_gpu(torch, lambda: epoch_ms.append(epoch()))
+        launches = {"fused_conv_bn_launches": FC.fused_conv_bn_launches,
+                    "fused_conv_bn_wgmma_launches":
+                        FC.fused_conv_bn_wgmma_launches}
+        stats = pf.stats()
+        pf.close()
+        pf._loop._thread.join(timeout=60)
+        reader.close()
+        wait = (goodput.train().totals()["buckets"].get("input_wait", 0.0)
+                - wait0)
+        n_host = _M_PREFETCH_SECONDS.count - h0[0]
+        out["main"] = {
+            "epochs": inp["epochs"], "steps": steps,
+            "step_ms_prefetch": statistics.mean(epoch_ms[1:-1]),
+            "epoch_step_ms": epoch_ms, "losses": losses,
+            "stats": stats, "input_wait_s": wait,
+            "host_ms_per_batch": 1e3 * (_M_PREFETCH_SECONDS.sum - h0[1])
+            / max(n_host, 1),
+            "stage_host_ms_per_batch": 1e3 * (put.sum - h0[3])
+            / max(put.count - h0[2], 1),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pinned_mb": stats["pinned_bytes"] / 1e6, **launches}
+        big = [h for h in trace["h2d"] if h[1] >= inp["big_copy_bytes"]]
+        out["trace"] = {
+            "wall_ms": trace["wall_ms"], "busy_share": trace["busy_share"],
+            "kernel_share": trace["kernel_share"],
+            "kernel_streams": trace["kernel_streams"],
+            "h2d_streams": sorted({h[0] for h in big}),
+            "h2d_copies": len(big),
+            "h2d_ms_mean_traced": (statistics.mean(h[2] for h in big) / 1e3
+                                   if big else None)}
+        want = FUSED_LAUNCHES_PER_STEP * steps
+        gates["launches"] = (steps == inp["epochs"] * inp["batches"]
+                             and launches["fused_conv_bn_launches"] == want
+                             and launches["fused_conv_bn_wgmma_launches"]
+                             == want)
+        gates["input_wait_matches_stats"] = (
+            abs(wait - stats["wait_seconds"]) <= inp["goodput_abs"])
+        gates["copies_on_side_stream"] = bool(big) and not (
+            set(out["trace"]["h2d_streams"]) & set(trace["kernel_streams"]))
+        gates["losses_finite"] = all(math.isfinite(v) for v in losses)
+
+        # 3. the same step fed the kept host batches synchronously, then
+        # one batch resident on the card; and one batch's copy alone
+        hx, hy = kept[0]
+        cycle = itertools.cycle(kept)
+        sync_ms = _timed(torch, lambda: step(*[t.to("cuda") for t in
+                                               next(cycle)]),
+                         2, 2 * len(kept))["step_ms"]
+        dx, dy = hx.to("cuda"), hy.to("cuda")
+        resident_ms = _timed(torch, lambda: step(dx, dy), 2,
+                             2 * len(kept))["step_ms"]
+        pinned = hx.pin_memory()
+        out["step_ms"] = {"prefetch": out["main"]["step_ms_prefetch"],
+                          "sync_to_device": sync_ms, "resident": resident_ms}
+        out["h2d_ms"] = {
+            "pinned": cuda_ms(torch, lambda: dx.copy_(pinned,
+                                                      non_blocking=True), 5),
+            "pageable": cuda_ms(torch, lambda: dx.copy_(hx), 5),
+            "batch_mb": hx.numel() * hx.element_size() / 1e6}
+        del net, step, dx, dy, pinned, kept, pf
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["gates"] = gates
+    out["seconds"] = time.perf_counter() - t_phase
+    out["ok"] = all(gates.values())
+    emit(out)
+    check(out["ok"], f"input_pipeline failed: "
+          f"{[k for k, v in gates.items() if not v]}")
+    return out["main"]["fused_conv_bn_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3601,6 +3973,92 @@ BERT_PARITY = dict(batch=8, seq=32, steps=2, loss_rel=1e-5, grad_rel=1e-4)
 BERT_BWD_REL = 1e-4
 
 
+# The Embedding backward (csrc/embedding_bwd.cu, C12): BERT-base's two
+# tables at its step's ids ([64, 128]: random token ids into word_embed
+# [30522, 768], all-zero token types into token_type_embed [2, 768], one
+# segment of 8192 rows), and a bf16 case with 1000 ids, some out of range,
+# into [1000, 96].  The kernel against the plain version (zeros().index_add_
+# in fp32, on the card): fp32 within 1e-5 of the plain table's largest
+# |value| (the two add up to 8192 rows in other orders); bf16 per element
+# within half a bf16 ulp of the plain fp32 sum plus that order term (the
+# kernel rounds its fp32 sum once).  Two launches on the same inputs must
+# give the same bits.  Timed beside the plain version and F.embedding's
+# backward (aten::embedding_dense_backward, the library call).
+EMB_CASES = (("word_embed", 30522, 768, (64, 128), "random", "float32"),
+             ("token_type_embed", 2, 768, (64, 128), "zeros", "float32"),
+             ("ragged_bf16", 1000, 96, (1000,), "out_of_range", "bfloat16"))
+EMB_TOL = dict(fp32_rel=1e-5, bf16_rel=2.0 ** -8)
+EMBEDDINGS_PER_BERT_STEP = 2
+
+
+def phase_embedding_bwd(torch, seed):
+    """C12's kernel at BERT-base's shapes (see EMB_CASES); returns the
+    word_embed case's timing for the kernel line."""
+    from mxnet_tpu_torch.ops import embedding as EMB
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    cases, timed = {}, None
+    for name, vocab, d, shape, kind, dtype in EMB_CASES:
+        dt = getattr(torch, dtype)
+        if kind == "random":
+            ids = torch.randint(0, vocab, shape, generator=gen, device="cuda")
+        elif kind == "zeros":
+            ids = torch.zeros(shape, dtype=torch.int64, device="cuda")
+        else:
+            ids = torch.randint(-vocab - 200, vocab + 200, shape,
+                                generator=gen, device="cuda")
+        dy = torch.randn(*shape, d, generator=gen, device="cuda").to(dt)
+        got = EMB.embedding_backward(ids, dy, vocab)
+        again = EMB.embedding_backward(ids, dy, vocab)
+        ref32 = EMB._reference_embedding_bwd(ids, dy.float(), vocab)
+        err = (got.float() - ref32).abs()
+        scale = ref32.abs().max().item()
+        if dtype == "float32":
+            ok_close = err.max().item() <= EMB_TOL["fp32_rel"] * scale
+        else:
+            ok_close = bool((err <= EMB_TOL["bf16_rel"] * ref32.abs()
+                             + EMB_TOL["fp32_rel"] * scale).all())
+        # the library call takes valid ids only (an id outside [0, V)
+        # faults on the card): invalid ids read row 0 with a zero gradient
+        idx = torch.where(ids < 0, ids + vocab, ids)
+        ok = (idx >= 0) & (idx < vocab)
+        lib_ids = torch.where(ok, idx, 0)
+        lib_dy = dy * ok.unsqueeze(-1).to(dt)
+        lib = torch.ops.aten.embedding_dense_backward
+        lib_a = lib(lib_dy, lib_ids, vocab, -1, False)
+        lib_b = lib(lib_dy, lib_ids, vocab, -1, False)
+        n = ids.numel()
+        nbytes = (n * d * dy.element_size() + n * 8
+                  + vocab * d * dy.element_size())
+        t_bytes, t_ops = nbytes / PEAK_BYTES, n * d / PEAK_FP32_FLOPS
+        row = {"vocab": vocab, "d": d, "ids": list(shape), "dtype": dtype,
+               "segments": int(torch.unique(ids[(ids >= -vocab)
+                                                & (ids < vocab)]).numel()),
+               "max_abs_err": err.max().item(), "max_abs_ref": scale,
+               "close": ok_close, "bitwise_rerun": torch.equal(got, again),
+               "library_bitwise_rerun": torch.equal(lib_a, lib_b),
+               "ms": cuda_ms(torch, lambda: EMB.embedding_backward(
+                   ids, dy, vocab), 20),
+               "plain_ms": cuda_ms(torch, lambda: EMB._reference_embedding_bwd(
+                   ids, dy, vocab), 20),
+               "library_ms": cuda_ms(torch, lambda: lib(
+                   lib_dy, lib_ids, vocab, -1, False), 20),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        cases[name] = row
+        if name == "word_embed":
+            timed = row
+        del ids, dy, got, again, ref32, err, lib_a, lib_b, lib_ids, lib_dy
+    gates = {f"{k}_close": v["close"] for k, v in cases.items()}
+    gates.update((f"{k}_bitwise", v["bitwise_rerun"]) for k, v in
+                 cases.items())
+    out = {"phase": "embedding_bwd", "cases": cases, "tolerance": EMB_TOL,
+           "card": _card(), "gates": gates, "ok": all(gates.values())}
+    emit(out)
+    check(out["ok"], f"embedding_bwd failed: "
+          f"{[k for k, v in gates.items() if not v]}")
+    return timed
+
+
 def phase_bert_flash(torch, seed):
     """The fp32 tensor-core flash forward at BERT-base's shape, non-causal,
     against its plain version; the autograd Function's backward on the card
@@ -3935,6 +4393,7 @@ def phase_resilient_training(torch, seed):
     from mxnet_tpu_torch.executor import CompiledTrainStep
     from mxnet_tpu_torch.observability import goodput, health, metrics
     from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import embedding as EMB
     from mxnet_tpu_torch import resilience
     from mxnet_tpu_torch.resilience import (FaultPlan, FaultTolerantStep,
                                             RetryPolicy)
@@ -4022,15 +4481,34 @@ def phase_resilient_training(torch, seed):
         del out_
         return bad
 
-    # 1. baseline, the default algorithms: two health-off runs, and the
-    # parameters whose gradients two eager passes disagree on
-    _, _, same, spread, worst, gap = pair()
+    # 1. baseline, the default algorithms (Embedding's backward is the
+    # deterministic csrc/embedding_bwd.cu): two health-off runs, and the
+    # parameters whose gradients two eager passes disagree on.  Every later
+    # gate holds its run to this pair: bit for bit while the pair agrees bit
+    # for bit, else within its spread.
+    base_losses, base, bitwise, spread, worst, gap = pair()
     bad = unstable_grads()
-    out["baseline_default"] = {
-        "bitwise": same, "spread": spread, "worst_tensor": worst,
+    out["baseline"] = {
+        "deterministic_algorithms": False, "bitwise": bitwise,
+        "spread": spread, "worst_tensor": worst, "losses": base_losses,
         "loss_gap": gap, "unstable_grads": len(bad),
         "nearest_loss": bad[-1] if bad else None,
         "farthest_from_loss": bad[0] if bad else None}
+    gates["baseline_bitwise"] = bitwise and not bad
+    tol = 0.0 if bitwise else spread
+    out["tolerance"] = {"state_rel": tol, "norm_rel": RESIL["norm_rel"],
+                        "goodput_abs_s": RESIL["goodput_abs"]}
+
+    def held(world, losses=None):
+        """The baseline gate: bit for bit (losses too, when given) while
+        the baselines agree bit for bit, else within their spread."""
+        ok, rel, name = _resil_gap(world, base)
+        if bitwise:
+            ok = ok and (losses is None or losses == base_losses)
+        else:
+            ok = rel <= tol
+        return ok, rel, name
+
     # step ms with the default algorithms: off, armed without a fetch,
     # every=16, every=1, over warmup + timed steps; then the two costs of
     # a fetch alone (the healthy host copy, the stats' copy) and the
@@ -4075,304 +4553,282 @@ def phase_resilient_training(torch, seed):
                                        / timing["off"]["step_ms"])
     out["timing"] = timing
 
-    # the gates run with torch's deterministic algorithms (as
-    # train_step_graphs' parity pairs do): their baseline pair again
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    # 2. the random streams under graphs: copy, 2 replays, restore, 2
+    reset()
+    s = new_step()
+    for i in range(2):
+        s(*data[i])
+    ft = FaultTolerantStep(s)
+    snap = ft._capture()
+    first = [s(*data[2 + i]).item() for i in range(2)]
+    ft._restore(snap)
+    again = [s(*data[2 + i]).item() for i in range(2)]
+    out["rng_probe"] = {"losses": first, "after_restore": again,
+                        "captures": s._captures}
+    gates["rng_probe"] = first == again and s._captures == 1
+    del snap, ft, s
+    _free(torch)
+
+    # 3. watchpoints: health every=1, launches counted over the whole run
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = EMB.embedding_bwd_launches = 0
+    n_rec = len(goodput.train().records())
+    h_losses, h_world, hs = run({"every": 1, "action": "log"})
+    launches = {"tf32": A.flash_fwd_tf32_launches,
+                "all": A.flash_fwd_launches,
+                "wgmma": A.flash_fwd_wgmma_launches, "forwards": n,
+                "embedding_bwd": EMB.embedding_bwd_launches}
+    records = goodput.train().records()[-n:]
+    led = health.ledger().last_step
+    ok, rel, name = held(h_world, h_losses)
+    del h_world
+    gates["health_on_equals_off"] = ok
+    out["watchpoints"] = {"state_rel": rel, "worst_tensor": name,
+                          "last": {k: led[k] for k in
+                                   ("step", "grad_norm", "param_norm",
+                                    "update_ratio", "loss")},
+                          "nonfinite": sum(v["nonfinite"] for v in
+                                           led["per_param"].values())}
+    del hs
+    _free(torch)
+    # the first step's grad norm against an eager autograd pass
+    reset()
+    hs = new_step({"every": 1, "action": "log"})
+    hs(*data[0])
+    first_norm = health.ledger().last_step["grad_norm"]
+    del hs
+    _free(torch)
+    reset()
+    net.train()
+    loss = _bert_loss(vocab)(net(*data[0][0]), data[0][1]).mean()
+    learn = [p for p in net.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, learn, allow_unused=True)
+    eager_norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                               for g in grads if g is not None))
+    del loss, grads
+    out["watchpoints"].update(first_grad_norm=first_norm,
+                              eager_grad_norm=eager_norm)
+    gates["grad_norm"] = (abs(first_norm - eager_norm)
+                          <= RESIL["norm_rel"] * eager_norm)
+    # the stats the captured graph outputs on a replay (the third call,
+    # the second replay) against reductions taken outside it: the
+    # gradients of an eager autograd pass from the pre-step copy (the
+    # random streams rewound), and the parameters the replay left
+    # against those before it
+    reset()
+    hs = new_step({"every": 1, "action": "log"})
+    hft = FaultTolerantStep(hs)
+    for i in range(2):
+        hs(*data[i])
+    snap = hft._capture()
+    replays0 = hs._replays
+    hs(*data[2])
+    led = health.ledger().last_step
+    graph_stats = {k: led[k] for k in ("grad_norm", "param_norm",
+                                       "update_ratio")}
+    replayed = hs._replays == replays0 + 1 and hs._captures == 1
+    learn = list(hs._learnable)
+    after = [p.detach().clone() for p in learn]
+    hft._restore(snap)
+    del snap
+    net.train()
+    loss = _bert_loss(vocab)(net(*data[2][0]), data[2][1]).mean()
+    grads = torch.autograd.grad(loss, learn, allow_unused=True)
+
+    def norm(ts):
+        return math.sqrt(sum(float((t.detach().double() ** 2).sum())
+                             for t in ts if t is not None))
+    pnorm = norm(after)
+    eager_stats = {"grad_norm": norm(grads), "param_norm": pnorm,
+                   "update_ratio": norm(a.double() - p.double()
+                                        for a, p in zip(after, learn))
+                   / pnorm}
+    del loss, grads, after, learn, hs, hft
+    _free(torch)
+    rels = {k: abs(graph_stats[k] - v) / abs(v)
+            for k, v in eager_stats.items()}
+    out["watchpoints"].update(replay_stats=graph_stats,
+                              replay_eager=eager_stats, replay_rel=rels,
+                              replay_was_graph=replayed)
+    gates["replay_stats"] = replayed and all(
+        r <= RESIL["norm_rel"] for r in rels.values())
+    gates["nonfinite_zero"] = out["watchpoints"]["nonfinite"] == 0
+    gates["launches"] = (launches["tf32"] == layers * n == launches["all"]
+                         and launches["wgmma"] == 0
+                         and launches["embedding_bwd"]
+                         == EMBEDDINGS_PER_BERT_STEP * n)
+    out["flash_launches"] = launches
+    # 4. replay: transient execute faults at call fault_call exhaust the
+    # inner ladder; FaultTolerantStep restores its copy and replays
+    attempts = RetryPolicy().max_attempts
+    os.environ["MXNET_TPU_RETRY_BACKOFF"] = "0.01"
+    resilience.reset_backend_state()
+    replays0 = resilience.counters.replays
+    captures = []
+    # the first call is the compile site (its eager run and the capture),
+    # so the execute site's entries start at call 2
+    plan = {"execute": ["ok"] * (RESIL["fault_call"] - 2)
+            + ["unavailable"] * attempts}
     try:
-        base_losses, base, bitwise, spread, worst, gap = pair()
-        tol = 0.0 if bitwise else spread
-        out["baseline"] = {"deterministic_algorithms": True, "bitwise": bitwise,
-                           "spread": spread, "worst_tensor": worst,
-                           "losses": base_losses, "loss_gap": gap,
-                           "unstable_grads": len(unstable_grads())}
-        out["tolerance"] = {"state_rel": tol, "norm_rel": RESIL["norm_rel"],
-                            "goodput_abs_s": RESIL["goodput_abs"]}
+        with FaultPlan(plan) as fp:
+            r_losses, r_world, rs = run(
+                wrap=FaultTolerantStep,
+                after_each=lambda st: captures.append(st._captures))
+            pending = fp.pending("execute")
+        replays = resilience.counters.replays - replays0
+    finally:
+        del os.environ["MXNET_TPU_RETRY_BACKOFF"]
+        resilience.reset_backend_state()
+    ok, rel, name = held(r_world, r_losses)
+    out["replay"] = {"replays": replays, "captures_after_each": captures,
+                     "state_rel": rel, "worst_tensor": name,
+                     "faults_left": pending}
+    gates["replay"] = (ok and replays == 1 and pending == 0
+                       and set(captures) == {1})
+    del r_world, rs
+    _free(torch)
 
-        def held(world, losses=None):
-            """The baseline gate: bit for bit (losses too, when given) while
-            the baselines agree bit for bit, else within their spread."""
-            ok, rel, name = _resil_gap(world, base)
-            if bitwise:
-                ok = ok and (losses is None or losses == base_losses)
-            else:
-                ok = rel <= tol
-            return ok, rel, name
+    # 5. async checkpoints every 4 steps, a resume, a torn and a corrupt one
+    ck_dir = tempfile.mkdtemp(prefix="resilient_training_")
+    try:
+        ck = AsyncCheckpointer(ck_dir, every=RESIL["every"])
 
-        # 2. the random streams under graphs: copy, 2 replays, restore, 2
+        def cadence(st):
+            if ck.due(st._num_update):
+                ck.save(st)
+        try:
+            c_losses, c_world, cs = run(before=ck.save, after_each=cadence)
+            ck.wait()
+        finally:
+            ck.close()
+        ok, rel, name = held(c_world, c_losses)
+        del c_world, cs
+        _free(torch)
+        dirs = sorted(d for d in os.listdir(ck_dir) if d.startswith("step-"))
+        out["checkpoints"] = {
+            "dirs": dirs, "waits_s": list(ck.waits),
+            "writes": list(ck.writes),
+            "state_rel": rel, "disk_free_gb":
+                shutil.disk_usage(ck_dir).free / 1e9}
+        gates["checkpoints"] = ok and dirs == [
+            f"step-{i:08d}" for i in range(0, n + 1, RESIL["every"])]
+        # resume: BERT-base from another seed, warmed, restored from step 8
+        other, fresh, _, _ = _bert_base(torch, seed + 1000, "float32")
+        fresh(*data[0])
+        ptrs = [t.data_ptr() for t in fresh._learnable]
+        resume_at = n - RESIL["every"]
+        t0 = time.perf_counter()
+        meta = load_elastic_checkpoint(
+            os.path.join(ck_dir, f"step-{resume_at:08d}"), fresh)
+        load_s = time.perf_counter() - t0
+        for i in range(resume_at, n):
+            fresh(*data[i])
+        world = _resil_tensors(fresh)
+        ok, rel, name = held(world)
+        out["resume"] = {"from_step": meta["step"], "load_s": load_s,
+                         "state_rel": rel, "worst_tensor": name,
+                         "captures": fresh._captures,
+                         "addresses_kept": ptrs == [
+                             t.data_ptr() for t in fresh._learnable]}
+        gates["resume"] = (ok and fresh._captures == 1
+                           and out["resume"]["addresses_kept"]
+                           and meta["step"] == resume_at)
+        del world, fresh, other
+        _free(torch)
+        # a truncated copy of one file, and a manifest-less directory
+        torn = os.path.join(ck_dir, "torn")
+        shutil.copytree(os.path.join(ck_dir, f"step-{RESIL['every']:08d}"),
+                        torn)
+        victim = os.path.join(torn, "params", "p0.bin")
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        try:
+            from mxnet_tpu_torch.checkpoint import verify_manifest
+            verify_manifest(torn, required=True)
+            named = None
+        except CheckpointCorruptError as e:
+            named = str(e)
+        os.makedirs(os.path.join(ck_dir, f"step-{n + 99:08d}"))
+        with open(os.path.join(ck_dir, f"step-{n + 99:08d}", "x.bin"),
+                  "wb") as f:
+            f.write(b"0")
+        latest = latest_checkpoint(ck_dir)
+        out["corrupt"] = {"error": named, "latest": latest[1]}
+        gates["corrupt_named"] = named is not None and "p0.bin" in named
+        gates["manifestless_skipped"] = latest[1] == n and not os.path.exists(
+            os.path.join(ck_dir, f"step-{n + 99:08d}", MANIFEST_NAME))
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    # 6. numerics: a fault plan on encoder layer 6's ffn2
+    target = next(health._block_name(b) for b in health._leaf_blocks(net)
+                  if health._block_name(b).endswith(
+                      f"enc_layer{RESIL['layer']}_ffn_ffn2"))
+    numerics = {"block": target}
+    for label, spec, action in (("bwd_raise", "bwd:nan", "raise"),
+                                ("fwd_raise", "fwd:inf", "raise"),
+                                ("bwd_skip", "bwd:nan", "skip")):
         reset()
-        s = new_step()
+        s = new_step({"every": 1, "action": action})
         for i in range(2):
             s(*data[i])
-        ft = FaultTolerantStep(s)
-        snap = ft._capture()
-        first = [s(*data[2 + i]).item() for i in range(2)]
-        ft._restore(snap)
-        again = [s(*data[2 + i]).item() for i in range(2)]
-        out["rng_probe"] = {"losses": first, "after_restore": again,
-                            "captures": s._captures}
-        gates["rng_probe"] = first == again and s._captures == 1
-        del snap, ft, s
-        _free(torch)
-
-        # 3. watchpoints: health every=1, launches counted over the whole run
-        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
-        A.flash_fwd_tf32_launches = 0
-        n_rec = len(goodput.train().records())
-        h_losses, h_world, hs = run({"every": 1, "action": "log"})
-        launches = {"tf32": A.flash_fwd_tf32_launches,
-                    "all": A.flash_fwd_launches,
-                    "wgmma": A.flash_fwd_wgmma_launches, "forwards": n}
-        records = goodput.train().records()[-n:]
-        led = health.ledger().last_step
-        ok, rel, name = held(h_world, h_losses)
-        del h_world
-        gates["health_on_equals_off"] = ok
-        out["watchpoints"] = {"state_rel": rel, "worst_tensor": name,
-                              "last": {k: led[k] for k in
-                                       ("step", "grad_norm", "param_norm",
-                                        "update_ratio", "loss")},
-                              "nonfinite": sum(v["nonfinite"] for v in
-                                               led["per_param"].values())}
-        del hs
-        _free(torch)
-        # the first step's grad norm against an eager autograd pass
-        reset()
-        hs = new_step({"every": 1, "action": "log"})
-        hs(*data[0])
-        first_norm = health.ledger().last_step["grad_norm"]
-        del hs
-        _free(torch)
-        reset()
-        net.train()
-        loss = _bert_loss(vocab)(net(*data[0][0]), data[0][1]).mean()
-        learn = [p for p in net.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(loss, learn, allow_unused=True)
-        eager_norm = math.sqrt(sum(float((g.double() ** 2).sum())
-                                   for g in grads if g is not None))
-        del loss, grads
-        out["watchpoints"].update(first_grad_norm=first_norm,
-                                  eager_grad_norm=eager_norm)
-        gates["grad_norm"] = (abs(first_norm - eager_norm)
-                              <= RESIL["norm_rel"] * eager_norm)
-        # the stats the captured graph outputs on a replay (the third call,
-        # the second replay) against reductions taken outside it: the
-        # gradients of an eager autograd pass from the pre-step copy (the
-        # random streams rewound), and the parameters the replay left
-        # against those before it
-        reset()
-        hs = new_step({"every": 1, "action": "log"})
-        hft = FaultTolerantStep(hs)
-        for i in range(2):
-            hs(*data[i])
-        snap = hft._capture()
-        replays0 = hs._replays
-        hs(*data[2])
-        led = health.ledger().last_step
-        graph_stats = {k: led[k] for k in ("grad_norm", "param_norm",
-                                           "update_ratio")}
-        replayed = hs._replays == replays0 + 1 and hs._captures == 1
-        learn = list(hs._learnable)
-        after = [p.detach().clone() for p in learn]
-        hft._restore(snap)
-        del snap
-        net.train()
-        loss = _bert_loss(vocab)(net(*data[2][0]), data[2][1]).mean()
-        grads = torch.autograd.grad(loss, learn, allow_unused=True)
-
-        def norm(ts):
-            return math.sqrt(sum(float((t.detach().double() ** 2).sum())
-                                 for t in ts if t is not None))
-        pnorm = norm(after)
-        eager_stats = {"grad_norm": norm(grads), "param_norm": pnorm,
-                       "update_ratio": norm(a.double() - p.double()
-                                            for a, p in zip(after, learn))
-                       / pnorm}
-        del loss, grads, after, learn, hs, hft
-        _free(torch)
-        rels = {k: abs(graph_stats[k] - v) / abs(v)
-                for k, v in eager_stats.items()}
-        out["watchpoints"].update(replay_stats=graph_stats,
-                                  replay_eager=eager_stats, replay_rel=rels,
-                                  replay_was_graph=replayed)
-        gates["replay_stats"] = replayed and all(
-            r <= RESIL["norm_rel"] for r in rels.values())
-        gates["nonfinite_zero"] = out["watchpoints"]["nonfinite"] == 0
-        gates["launches"] = (launches["tf32"] == layers * n == launches["all"]
-                             and launches["wgmma"] == 0)
-        out["flash_launches"] = launches
-        # 4. replay: transient execute faults at call fault_call exhaust the
-        # inner ladder; FaultTolerantStep restores its copy and replays
-        attempts = RetryPolicy().max_attempts
-        os.environ["MXNET_TPU_RETRY_BACKOFF"] = "0.01"
-        resilience.reset_backend_state()
-        replays0 = resilience.counters.replays
-        captures = []
-        # the first call is the compile site (its eager run and the capture),
-        # so the execute site's entries start at call 2
-        plan = {"execute": ["ok"] * (RESIL["fault_call"] - 2)
-                + ["unavailable"] * attempts}
-        try:
-            with FaultPlan(plan) as fp:
-                r_losses, r_world, rs = run(
-                    wrap=FaultTolerantStep,
-                    after_each=lambda st: captures.append(st._captures))
-                pending = fp.pending("execute")
-            replays = resilience.counters.replays - replays0
-        finally:
-            del os.environ["MXNET_TPU_RETRY_BACKOFF"]
-            resilience.reset_backend_state()
-        ok, rel, name = held(r_world, r_losses)
-        out["replay"] = {"replays": replays, "captures_after_each": captures,
-                         "state_rel": rel, "worst_tensor": name,
-                         "faults_left": pending}
-        gates["replay"] = (ok and replays == 1 and pending == 0
-                           and set(captures) == {1})
-        del r_world, rs
-        _free(torch)
-
-        # 5. async checkpoints every 4 steps, a resume, a torn and a corrupt one
-        ck_dir = tempfile.mkdtemp(prefix="resilient_training_")
-        try:
-            ck = AsyncCheckpointer(ck_dir, every=RESIL["every"])
-
-            def cadence(st):
-                if ck.due(st._num_update):
-                    ck.save(st)
+        o = s._opt
+        before = _resil_tensors(s)
+        counts = (s._num_update, o.num_update, dict(o._index_update_count))
+        err = None
+        with health.NumericsFaultPlan(net, {target: spec}):
             try:
-                c_losses, c_world, cs = run(before=ck.save, after_each=cadence)
-                ck.wait()
-            finally:
-                ck.close()
-            ok, rel, name = held(c_world, c_losses)
-            del c_world, cs
-            _free(torch)
-            dirs = sorted(d for d in os.listdir(ck_dir) if d.startswith("step-"))
-            out["checkpoints"] = {
-                "dirs": dirs, "waits_s": list(ck.waits),
-                "writes": list(ck.writes),
-                "state_rel": rel, "disk_free_gb":
-                    shutil.disk_usage(ck_dir).free / 1e9}
-            gates["checkpoints"] = ok and dirs == [
-                f"step-{i:08d}" for i in range(0, n + 1, RESIL["every"])]
-            # resume: BERT-base from another seed, warmed, restored from step 8
-            other, fresh, _, _ = _bert_base(torch, seed + 1000, "float32")
-            fresh(*data[0])
-            ptrs = [t.data_ptr() for t in fresh._learnable]
-            resume_at = n - RESIL["every"]
-            t0 = time.perf_counter()
-            meta = load_elastic_checkpoint(
-                os.path.join(ck_dir, f"step-{resume_at:08d}"), fresh)
-            load_s = time.perf_counter() - t0
-            for i in range(resume_at, n):
-                fresh(*data[i])
-            world = _resil_tensors(fresh)
-            ok, rel, name = held(world)
-            out["resume"] = {"from_step": meta["step"], "load_s": load_s,
-                             "state_rel": rel, "worst_tensor": name,
-                             "captures": fresh._captures,
-                             "addresses_kept": ptrs == [
-                                 t.data_ptr() for t in fresh._learnable]}
-            gates["resume"] = (ok and fresh._captures == 1
-                               and out["resume"]["addresses_kept"]
-                               and meta["step"] == resume_at)
-            del world, fresh, other
-            _free(torch)
-            # a truncated copy of one file, and a manifest-less directory
-            torn = os.path.join(ck_dir, "torn")
-            shutil.copytree(os.path.join(ck_dir, f"step-{RESIL['every']:08d}"),
-                            torn)
-            victim = os.path.join(torn, "params", "p0.bin")
-            with open(victim, "r+b") as f:
-                f.truncate(os.path.getsize(victim) // 2)
-            try:
-                from mxnet_tpu_torch.checkpoint import verify_manifest
-                verify_manifest(torn, required=True)
-                named = None
-            except CheckpointCorruptError as e:
-                named = str(e)
-            os.makedirs(os.path.join(ck_dir, f"step-{n + 99:08d}"))
-            with open(os.path.join(ck_dir, f"step-{n + 99:08d}", "x.bin"),
-                      "wb") as f:
-                f.write(b"0")
-            latest = latest_checkpoint(ck_dir)
-            out["corrupt"] = {"error": named, "latest": latest[1]}
-            gates["corrupt_named"] = named is not None and "p0.bin" in named
-            gates["manifestless_skipped"] = latest[1] == n and not os.path.exists(
-                os.path.join(ck_dir, f"step-{n + 99:08d}", MANIFEST_NAME))
-        finally:
-            shutil.rmtree(ck_dir, ignore_errors=True)
-
-        # 6. numerics: a fault plan on encoder layer 6's ffn2
-        target = next(health._block_name(b) for b in health._leaf_blocks(net)
-                      if health._block_name(b).endswith(
-                          f"enc_layer{RESIL['layer']}_ffn_ffn2"))
-        numerics = {"block": target}
-        for label, spec, action in (("bwd_raise", "bwd:nan", "raise"),
-                                    ("fwd_raise", "fwd:inf", "raise"),
-                                    ("bwd_skip", "bwd:nan", "skip")):
-            reset()
-            s = new_step({"every": 1, "action": action})
-            for i in range(2):
-                s(*data[i])
-            o = s._opt
-            before = _resil_tensors(s)
-            counts = (s._num_update, o.num_update, dict(o._index_update_count))
-            err = None
-            with health.NumericsFaultPlan(net, {target: spec}):
-                try:
-                    s(*data[2])
-                except health.NumericsError as e:
-                    err = e
-            trip = health.ledger().trips[-1]
-            row = {"raised": err is not None,
-                   "first_fwd": trip.get("first_fwd"),
-                   "first_bwd": trip.get("first_bwd"),
-                   "localize_ms": 1e3 * trip.get("localization", {}).get(
-                       "seconds", float("nan")),
-                   "captures": s._captures}
-            if action == "skip":
-                same = _resil_gap(_resil_tensors(s), before)[0]
-                now = (s._num_update, o.num_update, dict(o._index_update_count))
-                nxt = s(*data[2]).item()
-                row.update(world_restored=same, counts_restored=now == counts,
-                           next_loss=nxt, next_step=s._num_update)
-                gates["skip"] = (same and now == counts and math.isfinite(nxt)
-                                 and s._num_update == counts[0] + 1
-                                 and err is None)
-            else:
-                key = "first_bwd" if spec.startswith("bwd") else "first_fwd"
-                gates[label] = (err is not None
-                                and err.detail.get(key) == target)
-            numerics[label] = row
-            del before, s, err
-            _free(torch)
-        out["numerics"] = numerics
-        # 7. goodput: every step record of the health-on run, and the rest
-        recs = [r for r in goodput.train().records()
-                if r["kind"] == "train_step"]
-        worst = max(abs(sum(r["buckets"].values()) - r["wall_seconds"])
-                    for r in recs)
-        means = {}
-        for r in records:
-            for b, v in r["buckets"].items():
-                means[b] = means.get(b, 0.0) + 1e3 * v / len(records)
-        out["goodput"] = {"records": len(recs), "worst_residual_s": worst,
-                          "health_run_bucket_ms_mean": means,
-                          "health_run_wall_ms_mean": 1e3 * sum(
-                              r["wall_seconds"] for r in records) / len(records),
-                          "records_before_health_run": n_rec}
-        gates["goodput_reconciles"] = worst <= RESIL["goodput_abs"]
-        del base, init, data, net
+                s(*data[2])
+            except health.NumericsError as e:
+                err = e
+        trip = health.ledger().trips[-1]
+        row = {"raised": err is not None,
+               "first_fwd": trip.get("first_fwd"),
+               "first_bwd": trip.get("first_bwd"),
+               "localize_ms": 1e3 * trip.get("localization", {}).get(
+                   "seconds", float("nan")),
+               "captures": s._captures}
+        if action == "skip":
+            same = _resil_gap(_resil_tensors(s), before)[0]
+            now = (s._num_update, o.num_update, dict(o._index_update_count))
+            nxt = s(*data[2]).item()
+            row.update(world_restored=same, counts_restored=now == counts,
+                       next_loss=nxt, next_step=s._num_update)
+            gates["skip"] = (same and now == counts and math.isfinite(nxt)
+                             and s._num_update == counts[0] + 1
+                             and err is None)
+        else:
+            key = "first_bwd" if spec.startswith("bwd") else "first_fwd"
+            gates[label] = (err is not None
+                            and err.detail.get(key) == target)
+        numerics[label] = row
+        del before, s, err
         _free(torch)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    out["numerics"] = numerics
+    # 7. goodput: every step record of the health-on run, and the rest
+    recs = [r for r in goodput.train().records()
+            if r["kind"] == "train_step"]
+    worst = max(abs(sum(r["buckets"].values()) - r["wall_seconds"])
+                for r in recs)
+    means = {}
+    for r in records:
+        for b, v in r["buckets"].items():
+            means[b] = means.get(b, 0.0) + 1e3 * v / len(records)
+    out["goodput"] = {"records": len(recs), "worst_residual_s": worst,
+                      "health_run_bucket_ms_mean": means,
+                      "health_run_wall_ms_mean": 1e3 * sum(
+                          r["wall_seconds"] for r in records) / len(records),
+                      "records_before_health_run": n_rec}
+    gates["goodput_reconciles"] = worst <= RESIL["goodput_abs"]
+    del base, init, data, net
+    _free(torch)
     out["gates"] = gates
     out["seconds"] = time.perf_counter() - t_phase
     out["ok"] = all(gates.values())
     emit(out)
     check(out["ok"], f"resilient_training failed: "
           f"{[k for k, v in gates.items() if not v]}")
-    return launches["tf32"]
+    return launches["tf32"], launches["embedding_bwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -4829,10 +5285,11 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "flash", "flash_timing",
           "fused",
           "fused_timing", "model_parity", "serving",
-          "resnet_parity", "training", "gluon_training", "serving_bert",
+          "resnet_parity", "training", "gluon_training", "input_pipeline",
+          "serving_bert",
           "serving_http", "serving_resnet_export", "module_fit", "dist_training",
           "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
-          "bert_training", "resilient_training")
+          "bert_training", "embedding_bwd", "resilient_training")
 
 
 def main(argv=None):
@@ -4882,19 +5339,25 @@ def main(argv=None):
         by_path["training"] = phase_training(torch, args.seed)
     if "gluon_training" in only:
         by_path["gluon_training"] = phase_gluon_training(torch, args.seed)
+    if "input_pipeline" in only:
+        by_path["input_pipeline"] = phase_input_pipeline(torch, args.seed)
     if by_path and "fused_timing" in only:
-        # launches: this slice's path (CompiledTrainStep's graph) when it
-        # ran, else the Gluon loop's
+        # launches: the latest slice's path that ran (the input pipeline,
+        # then CompiledTrainStep's graph on a resident batch, then the
+        # Gluon loop)
         line = _kernel_line(
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            by_path.get("training", by_path.get("gluon_training")), fused)
+            next(by_path[k] for k in ("input_pipeline", "training",
+                                      "gluon_training") if k in by_path),
+            fused)
         line["launches_by_path"] = by_path
         lines.append(line)
     # llama_7b and BERT-base stay alive from their serving phases to the
     # HTTP phase, which serves them again
     wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
+    emb_paths = {}
     if "serving" in only:
         wgmma_paths["serving"], llama = phase_serving(torch, args.seed)
     if "serving_bert" in only:
@@ -4919,7 +5382,9 @@ def main(argv=None):
     if "serving_resnet_export" in only:
         phase_serving_resnet_export(torch, args.seed)
     if "module_fit" in only:
-        bert_paths["module_fit"] = phase_module_fit(torch, args.seed)
+        (bert_paths["module_fit"], bert_paths["module_fit_prefetch"],
+         emb_paths["module_fit_prefetch"]) = phase_module_fit(torch,
+                                                              args.seed)
     if "dist_training" in only:
         bert_paths["dist_training"] = phase_dist_training(torch, args.seed)
     if "rtc_kernels" in only or "rtc_ffn" in only:
@@ -4933,13 +5398,16 @@ def main(argv=None):
         phase_bert_parity(torch, args.seed)
     if "bert_training" in only:
         bert_paths["bert_training"] = phase_bert_training(torch, args.seed)
+    if "embedding_bwd" in only:
+        emb_timing = phase_embedding_bwd(torch, args.seed)
     if "resilient_training" in only:
-        bert_paths["resilient_training"] = phase_resilient_training(
-            torch, args.seed)
+        bert_paths["resilient_training"], emb_paths["resilient_training"] = \
+            phase_resilient_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
         # launches: this slice's path (BERT-base training with health
         # watchpoints) when it ran, else the latest earlier slice's
-        main_path = next((bert_paths[k] for k in ("resilient_training",
+        main_path = next((bert_paths[k] for k in ("module_fit_prefetch",
+                                                   "resilient_training",
                                                    "serving_http",
                                                    "bert_training",
                                                    "module_fit",
@@ -4953,6 +5421,17 @@ def main(argv=None):
         line["launches_by_path"] = bert_paths
         line["shape"], line["dtype"] = BERT_FLASH, "float32"
         line["simt_ms"] = bert_timing["simt_ms"]
+        lines.append(line)
+    if emb_paths and "embedding_bwd" in only:
+        # the port's own kernel (C12); it replaces no TPU kernel, so
+        # "replaces" names the JAX package's op whose gradient it computes
+        line = _kernel_line("embedding_bwd",
+                            "mxnet_tpu_torch/csrc/embedding_bwd.cu",
+                            "mxnet_tpu/ops/nn.py:486",
+                            next(emb_paths[k] for k in (
+                                "resilient_training", "module_fit_prefetch")
+                                if k in emb_paths), emb_timing)
+        line["launches_by_path"] = emb_paths
         lines.append(line)
     emit({"script_seconds": time.perf_counter() - t_script,
           "phases": sorted(only)})

@@ -17,7 +17,10 @@ Slice 10 is the symbolic training loop: ``mx.module`` (``Module``,
 ``BucketingModule``), ``mx.model`` checkpoints, ``mx.callback`` and the
 one-process ``mx.kvstore`` (``'local'``, ``'device'``).  Slice 11 is the
 distributed kvstore: ``mx.distributed`` over ``torch.distributed``, the
-``dist_*`` stores, bucketed pushes and 2-bit compression.
+``dist_*`` stores, bucketed pushes and 2-bit compression.  Slice 16 is the
+input pipeline: ``mx.io`` (``DevicePrefetchIter`` on pinned memory and a
+side CUDA stream, the file iterators), ``mx.recordio`` with its native
+reader, ``gluon.data`` and ``rnn.BucketSentenceIter``.
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
@@ -25,7 +28,8 @@ Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 from . import (autograd, base, callback, context, contrib, convert,
                distributed, error, executor, gluon, initializer, io, kvstore,
                lr_scheduler, metric, model, module, name, ndarray, ops,
-               optimizer, parallel, random, rtc, serving, symbol)
+               optimizer, parallel, random, recordio, rnn, rtc, serving,
+               symbol)
 from .base import MXNetError, env
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       resolve_device, set_default_context, tpu)
@@ -41,7 +45,7 @@ __all__ = ["autograd", "base", "callback", "context", "contrib", "convert",
            "distributed", "error", "executor", "gluon", "init", "initializer",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "model", "module",
            "name", "nd", "ndarray", "ops", "optimizer", "parallel", "random",
-           "rtc", "serving",
+           "recordio", "rnn", "rtc", "serving",
            "sym", "symbol", "save_checkpoint", "load_checkpoint",
            "MXNetError", "env",
            "Context", "cpu", "gpu", "tpu", "current_context",

@@ -273,6 +273,19 @@ env.declare("MXNET_TPU_HEALTH_CHECKSUM_EVERY", 0, int,
             "parameter to the host).")
 
 
+# -- the input pipeline (io/device_prefetch.py) --
+env.declare("MXNET_IO_DEVICE_QUEUE", 2, int,
+            "Batches a DevicePrefetchIter stages onto the card ahead of the "
+            "training loop (host assembly on a background thread, copies on "
+            "a side CUDA stream from a pinned ring).  Each staged batch "
+            "holds its device memory, so this bounds the input pipeline's "
+            "share of the card; 2 double-buffers the copies against the "
+            "step.")
+env.declare("MXNET_TPU_NO_NATIVE", False, bool,
+            "1 = do not build or load the native recordio reader "
+            "(io/native.py); recordio reads through its Python reader.")
+
+
 def attr_truthy(v) -> bool:
     """Truth of an op attribute that survives symbol-JSON round trips,
     where attrs can arrive as repr strings (``'False'``, ``'0'``): a plain

@@ -117,50 +117,75 @@ class BaseModule:
             monitor=None, sparse_row_id_fn=None, prefetch_to_device=False):
         """The reference's symbolic training loop (``base_module.py:409``),
         epochs ``begin_epoch`` to ``num_epoch - 1``.  ``monitor`` is
-        accepted and unused, as in the JAX package."""
+        accepted and unused, as in the JAX package.
+
+        ``prefetch_to_device=True`` wraps ``train_data`` in a
+        :class:`~mxnet_tpu_torch.io.DevicePrefetchIter` staging to the
+        module's context, so each batch's copy to the card overlaps the
+        step before it; the wrapper is closed when ``fit`` returns or
+        raises."""
         assert num_epoch is not None, "please specify num_epoch"
-        if prefetch_to_device:
-            raise MXNetError("fit(prefetch_to_device=True): DevicePrefetchIter"
-                             " is not ported yet (ROADMAP A10)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
-        self.init_params(initializer=initializer, arg_params=arg_params,
-                         aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init)
-        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
-                            optimizer_params=optimizer_params)
-        if validation_metric is None:
-            validation_metric = eval_metric
-        eval_metric = _as_metric(eval_metric)
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            train_data.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if batch_end_callback is not None:
-                    for cb in _as_list(batch_end_callback):
-                        cb(BatchEndParam(epoch, nbatch, eval_metric,
-                                         locals()))
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
-            if epoch_end_callback is not None:
-                arg, aux = self.get_params()
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg, aux)
-            if eval_data is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
+        own_prefetch = None
+        if prefetch_to_device:
+            from ..context import current_context
+            from ..io import DevicePrefetchIter
+            if not isinstance(train_data, DevicePrefetchIter):
+                ctx = getattr(self, "_context", None) or current_context()
+                if isinstance(ctx, (list, tuple)):
+                    ctx = ctx[0]
+                train_data = own_prefetch = DevicePrefetchIter(train_data,
+                                                               ctx=ctx)
+        try:
+            self.init_params(initializer=initializer, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init)
+            self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                                optimizer_params=optimizer_params)
+            if validation_metric is None:
+                validation_metric = eval_metric
+            eval_metric = _as_metric(eval_metric)
+            for epoch in range(begin_epoch, num_epoch):
+                self._fit_epoch(epoch, train_data, eval_data, eval_metric,
+                                validation_metric, epoch_end_callback,
+                                batch_end_callback, eval_end_callback,
+                                eval_batch_end_callback)
+        finally:
+            # a wrapper this fit made does not outlive it, even on a raise
+            if own_prefetch is not None:
+                own_prefetch.close()
+
+    def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
+                   validation_metric, epoch_end_callback, batch_end_callback,
+                   eval_end_callback, eval_batch_end_callback):
+        tic = time.time()
+        eval_metric.reset()
+        train_data.reset()
+        for nbatch, data_batch in enumerate(train_data):
+            self.forward_backward(data_batch)
+            self.update()
+            self.update_metric(eval_metric, data_batch.label)
+            if batch_end_callback is not None:
+                for cb in _as_list(batch_end_callback):
+                    cb(BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        for name, val in eval_metric.get_name_value():
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+        if epoch_end_callback is not None:
+            arg, aux = self.get_params()
+            for cb in _as_list(epoch_end_callback):
+                cb(epoch, self.symbol, arg, aux)
+        if eval_data is not None:
+            res = self.score(eval_data, validation_metric,
+                             score_end_callback=eval_end_callback,
+                             batch_end_callback=eval_batch_end_callback,
+                             epoch=epoch)
+            for name, val in res:
+                self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
+                                 val)
 
     # ---------------------------------------------------------- to implement
     def bind(self, data_shapes, label_shapes=None, for_training=True,

@@ -484,7 +484,10 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
         hook(op.name, t0, _time.perf_counter())
     multi = isinstance(result, (tuple, list))
     outs_raw = _own(list(result) if multi else [result], raw)
-    if autograd.is_recording():
+    if autograd.is_recording() and op.differentiable:
+        # a non-differentiable op (isnan, isinf, isfinite, logical_not)
+        # puts no node on the tape, as in the JAX package: a head it made
+        # cannot be differentiated
         autograd.link_untracked([x._data for x in nd_inputs], outs_raw)
     if out is not None:
         out_list = out if isinstance(out, (list, tuple)) else [out]

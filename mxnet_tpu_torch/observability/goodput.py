@@ -24,8 +24,9 @@ Counterpart of ``mxnet_tpu/observability/goodput.py``:
   ``dispatch``, ``compile``, ``device_compute``), ``CachedOp``
   (``compile``, ``device_compute``), the dist kvstore's collective guard
   (``collective``) and ``AsyncCheckpointer.save`` (``checkpoint``, the
-  wait for the previous write).  ``io/device_prefetch.py`` (A10) and the
-  Estimator (A5) wait for their modules.  On the card a replay returns
+  wait for the previous write) and ``DevicePrefetchIter`` (``input_wait``,
+  the consumer's wait for a staged batch).  The Estimator (A5) waits for
+  its module.  On the card a replay returns
   once queued, so a step's device time lands in whatever waits for it
   first: the health fetch (``other``), the next call's staging, or the
   caller's own copy after the record closes.

@@ -28,7 +28,7 @@ __all__ = ["KERNEL_SOURCES", "build", "load"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tf32", "flash_fwd_wgmma",
-                  "fused_conv_bn", "fused_conv_bn_wgmma")
+                  "fused_conv_bn", "fused_conv_bn_wgmma", "embedding_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -175,14 +175,33 @@ def _getitem(data, key=None):
 # ---------------------------------------------------------------------------
 # binary broadcast ops (reference elemwise_binary_broadcast_op_*.cc)
 # ---------------------------------------------------------------------------
+def _float_floor_divide(a, b):
+    """``jnp.floor_divide``'s float form: q = (a - fmod(a, b)) / b, one
+    less where the remainder's sign differs from b's, rounded half away
+    from zero.  So a nonzero a over a zero b gives NaN (not ±inf) and
+    -0 // 2 gives +0."""
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    fix = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    div = torch.where(fix, div - 1, div)
+    rounded = torch.round(div)                      # half to even
+    trunc = torch.trunc(div)
+    tie = (div - trunc).abs() == 0.5
+    return torch.where(tie, trunc + torch.sign(div), rounded)
+
+
 class _FloorDivide(torch.autograd.Function):
     """Floor division, whose gradient is zero wherever it has one (as the
-    JAX package's is); torch defines none."""
+    JAX package's is); torch defines none.  Floats follow
+    :func:`_float_floor_divide`, integers ``torch.floor_divide``."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.like = [(t.shape, t.dtype) if t.requires_grad else None
                     for t in (a, b)]
+        if torch.result_type(a, b).is_floating_point:
+            dtype = torch.result_type(a, b)
+            return _float_floor_divide(a.to(dtype), b.to(dtype))
         return torch.floor_divide(a, b)
 
     @staticmethod

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, attr_truthy, dtype_torch, env
+from .embedding import embedding_lookup
 from .registry import get as _get_op
 from .registry import register
 
@@ -161,12 +162,10 @@ def embedding(data, weight):
     Out-of-range ids follow the JAX package's ``jnp.take``: an id in
     [-V, 0) counts from the end, and any other id outside [0, V) gives a
     NaN row (a floating table) and adds nothing to the gradient.  No bad
-    id reaches ``F.embedding``, where the card would fault."""
-    rows = weight.shape[0]
-    idx = data.long()
-    idx = torch.where(idx < 0, idx + rows, idx)
-    ok = (idx >= 0) & (idx < rows)
-    out = F.embedding(torch.where(ok, idx, 0), weight)
+    id reaches ``F.embedding``, where the card would fault.  The backward
+    is :func:`.embedding.embedding_backward`, which adds in the same order
+    on every run (``csrc/embedding_bwd.cu`` on the card)."""
+    out, ok = embedding_lookup(data, weight)
     if not weight.is_floating_point():
         return out
     return torch.where(ok.unsqueeze(-1), out, torch.nan)

@@ -31,6 +31,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..base import BFLOAT16, dtype_name, dtype_torch
 from ..ops.optimizer_ops import adam_update, sgd_mom_update, sgd_update
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
@@ -283,22 +284,37 @@ class Updater:
 
 
 def _serialize(state):
+    """The JAX package's form: ``("nd", array, dtype)`` for a tensor (a
+    bfloat16 one as numpy's bfloat16 from ``ml_dtypes`` where that package
+    is installed, else as its uint16 bits), ``None`` for a missing state,
+    ``("tuple", ...)`` and ``("raw", value)`` for the rest."""
+    if state is None:
+        return None
     if isinstance(state, torch.Tensor):
         t = state.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return ("bf16", t.view(torch.int16).numpy())
-        return ("nd", t.numpy())
+            bits = t.view(torch.int16).numpy().view(np.uint16)
+            if not isinstance(BFLOAT16, str):
+                bits = bits.view(BFLOAT16)
+            return ("nd", bits, "bfloat16")
+        return ("nd", t.numpy(), dtype_name(t.dtype))
     if isinstance(state, tuple):
         return ("tuple", tuple(_serialize(s) for s in state))
     return ("raw", state)
 
 
 def _deserialize(blob):
-    kind, value = blob
+    """Inverse of :func:`_serialize` (the JAX package's files too)."""
+    if blob is None:
+        return None
+    kind, value = blob[0], blob[1]
     if kind == "nd":
-        return torch.from_numpy(np.array(value))
-    if kind == "bf16":
-        return torch.from_numpy(np.array(value)).view(torch.bfloat16)
+        arr, dtype = np.array(value), blob[2]
+        if dtype == "bfloat16":
+            # numpy's bfloat16 (ml_dtypes) or its uint16 bits
+            return torch.from_numpy(arr.view(np.uint16).view(np.int16)
+                                    ).view(torch.bfloat16)
+        return torch.from_numpy(arr).to(dtype_torch(dtype, narrow=False))
     if kind == "tuple":
         return tuple(_deserialize(s) for s in value)
     return value

@@ -31,6 +31,10 @@ import mxnet_tpu_torch.profiler, mxnet_tpu_torch.serving.server
 import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.resilience.training
 import mxnet_tpu_torch.resilience.elastic
 import mxnet_tpu_torch.observability.health
+import mxnet_tpu_torch.io.device_prefetch, mxnet_tpu_torch.io.native
+import mxnet_tpu_torch.recordio, mxnet_tpu_torch.gluon.data
+import mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.rnn
+import mxnet_tpu_torch.ops.embedding
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -74,7 +78,18 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.serving.server",
                  "mxnet_tpu_torch.checkpoint",
                  "mxnet_tpu_torch.resilience.training",
-                 "mxnet_tpu_torch.resilience.elastic"):
+                 "mxnet_tpu_torch.resilience.elastic",
+                 "mxnet_tpu_torch.io.io", "mxnet_tpu_torch.io.device_prefetch",
+                 "mxnet_tpu_torch.io.native", "mxnet_tpu_torch.recordio",
+                 "mxnet_tpu_torch.gluon.data",
+                 "mxnet_tpu_torch.gluon.data.dataset",
+                 "mxnet_tpu_torch.gluon.data.sampler",
+                 "mxnet_tpu_torch.gluon.data.dataloader",
+                 "mxnet_tpu_torch.gluon.data.vision",
+                 "mxnet_tpu_torch.gluon.data.vision.datasets",
+                 "mxnet_tpu_torch.gluon.data.vision.transforms",
+                 "mxnet_tpu_torch.rnn", "mxnet_tpu_torch.rnn.io",
+                 "mxnet_tpu_torch.ops.embedding"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
@@ -88,3 +103,22 @@ def test_sources_import_no_jax_and_no_jax_package():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in IMPORT.finditer(f.read_text())]
     assert not hits, hits
+
+
+def test_native_sources_are_the_ports_own():
+    """The port builds its kernels and its recordio reader from its own
+    ``csrc/``: every source there includes nothing of the JAX package, and
+    no file of the port reads under the JAX package's ``src/recordio/``."""
+    csrc = ROOT / "mxnet_tpu_torch" / "csrc"
+    for name in ("embedding_bwd.cu", "recordio_core.cc"):
+        assert (csrc / name).exists(), name
+    sources = sorted(csrc.glob("*.c*"))
+    includes = [f"{f.name}: {m}" for f in sources
+                for m in re.findall(r'#\s*include\s+"([^"]+)"', f.read_text())
+                if not (csrc / m).exists()]
+    assert not includes, includes
+    files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
+    reads = [str(f.relative_to(ROOT)) for f in files
+             if re.search(r"(?<![A-Za-z])src[/\\]recordio|[\"']src[\"']\s*,\s*[\"']recordio",
+                          f.read_text())]
+    assert not reads, reads
