@@ -135,16 +135,33 @@ beside its bound, then drives the port's paths:
   BERT-base's shapes and run twice for the same bits
   (``embedding_bwd``), and ``resilient_training``'s baseline pair runs
   with the default algorithms, bit for bit.
+- speculative decoding and generation warmup (slice 17): both generation
+  engines run through the port's ``CachedOp``, so ``serving`` and
+  ``serving_http`` warm them (``register_generation(warmup=True)``: each
+  signature's CUDA graph captured before traffic) and gate that the
+  traffic replays them with no new entry; ``speculative`` holds
+  speculation (4 draft tokens a round) to plain paged decode at llama_7b's
+  width with 4 layers in fp32, token for token or at a near-tie, with the
+  target as its own draft and with a random 1-layer one, then serves the
+  ``serving`` phase's llama_7b behind ``ModelServer`` unwarmed, warmed
+  plain, speculative with itself as draft and with a TinyLlama-1.1B-shaped
+  draft: the warmup's captures, seconds and graph pool, tokens/s,
+  acceptance and agreement with plain paged, warmed tokens bit for bit
+  the unwarmed ones, and a ``torch.profiler`` trace of 16 warmed decode
+  steps (busy share, device ms by GEMM, elementwise and other).
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, serving_bert,
-serving_http, serving_resnet_export, module_fit, dist_training,
-rtc_kernels, rtc_ffn, bert_flash, bert_parity, bert_training,
-embedding_bwd, resilient_training), for a short call while a kernel
-is brought up; ``--only build,input_pipeline,module_fit`` runs slice 16; ``--only build,gluon_training`` runs just the Gluon loop,
+serving_http, speculative, serving_resnet_export, module_fit,
+dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
+bert_training, embedding_bwd, resilient_training), for a short call while
+a kernel is brought up; ``--only build,serving,speculative`` runs slice 17
+(``speculative`` needs ``serving``, whose llama_7b it reuses); ``--only
+build,input_pipeline,module_fit`` runs slice 16; ``--only
+build,gluon_training`` runs just the Gluon loop,
 ``--only build,train_step_graphs`` the training step's graph semantics
 (``--only build,train_step_graphs,training,bert_training`` this slice
 with its full-width runs), ``--only
@@ -256,6 +273,21 @@ LLAMA_7B = dict(vocab_size=32000, units=4096, hidden=11008, num_heads=32,
                 max_length=2048)
 PROMPTS = (96, 200, 511, 1000)
 NEW_TOKENS = 16
+# Speculative decoding (slice 17), 4 draft tokens a round.  The exact gate
+# runs llama_7b's width at 4 layers in fp32 with TF32 off, where plain paged
+# decode and speculation may part only at a near-tie: the plain run's top-2
+# margin at the first divergence must be below near_tie_rel of its largest
+# |logit| (fp32 products of [4, 5] and [4, 1] rows round apart by ~1e-6 of
+# it after 4 layers).  The full-width runs trace trace_steps warmed decode
+# steps of the plain paged engine.
+SPEC = dict(spec_tokens=4, exact_layers=4, near_tie_rel=1e-4, trace_steps=16)
+# The draft of the full-width run: TinyLlama-1.1B's published geometry
+# (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, config.json:
+# vocab 32000, hidden 2048, intermediate 5632, 22 layers, 32 heads, 4 KV
+# heads, untied head, 2048 positions), random weights from the seed.
+TINYLLAMA = dict(vocab_size=32000, units=2048, hidden=5632, num_layers=22,
+                 num_heads=32, num_kv_heads=4, tie_embeddings=False,
+                 max_length=2048)
 
 
 class SmokeFailure(SystemExit):
@@ -567,7 +599,24 @@ def _bf16_logit_noise(torch, model, prompt):
             "argmax_paged_equal": int(exact.argmax()) == int(paged.argmax())}
 
 
+def _gen_graphs(torch, sched):
+    """The generation scheduler's CachedOp entries (target or dense, and
+    the draft's), their captures and replays, and their graph pools' GB."""
+    ops = ([sched._target._op] + ([sched._draft._op] if sched._draft else [])
+           if sched.paged else [sched._op])
+    return {"entries": sum(len(op._cache) for op in ops),
+            "captures": sum(op._captures for op in ops),
+            "replays": sum(op._replays for op in ops),
+            "pool_gb": sum(_pool_bytes(torch, op._pool) for op in ops
+                           if op._pool is not None) / 1e9}
+
+
 def phase_serving(torch, seed):
+    """llama_7b (bf16, 32 layers) on both generation engines behind
+    ModelServer, each warmed over prompts up to max(PROMPTS) first (its
+    CUDA graphs captured), then 4 prompts of 16 tokens through replays.
+    Returns (wgmma launches of the dense run, the model, wgmma launches per
+    dense forward)."""
     from mxnet_tpu_torch.ops import attention as A
     from mxnet_tpu_torch.serving import ModelServer
     t0 = time.perf_counter()
@@ -582,12 +631,18 @@ def phase_serving(torch, seed):
     tokens = {}
     launches = {}
     wgmma = {}
+    warm = {}
     with ModelServer() as server:
-        server.register_generation("llama_dense", model, max_slots=4,
-                                   kv_cache=False)
-        server.register_generation("llama", model, max_slots=4,
-                                   kv_cache=True, page_tokens=16,
-                                   prefix_cache=True)
+        for name, paged in (("llama_dense", {"kv_cache": False}),
+                            ("llama", {"kv_cache": True, "page_tokens": 16,
+                                       "prefix_cache": True})):
+            t = time.perf_counter()
+            sched = server.register_generation(
+                name, model, max_slots=4, warmup=True,
+                warmup_prompt_len=max(PROMPTS), **paged)
+            torch.cuda.synchronize()
+            warm[name] = {"seconds": time.perf_counter() - t,
+                          **_gen_graphs(torch, sched)}
         for name in ("llama_dense", "llama"):
             torch.cuda.synchronize()
             A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
@@ -608,7 +663,10 @@ def phase_serving(torch, seed):
                          "flash_fwd_wgmma_launches": wgmma[name],
                          "logit_rows": st["logit_rows"],
                          "nonfinite_rows": st["nonfinite_rows"],
-                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "warmup": warm[name],
+                         "graphs_after": _gen_graphs(
+                             torch, server._generators[name].scheduler)}
     agree = sum(a == b for x, y in zip(tokens["llama_dense"], tokens["llama"])
                 for a, b in zip(x, y))
     out["tokens_agree"] = f"{agree}/{len(prompts) * NEW_TOKENS}"
@@ -630,12 +688,20 @@ def phase_serving(torch, seed):
                                  and launches["llama_dense"]
                                  == wgmma["llama_dense"]),
         "paged_launched_no_flash": launches["llama"] == 0,
+        # every signature was captured at warmup; the traffic replayed it
+        "warmed_no_new_entries": all(
+            out[n]["graphs_after"]["entries"] == warm[n]["entries"]
+            == warm[n]["captures"] == out[n]["graphs_after"]["captures"]
+            and out[n]["graphs_after"]["replays"] > 0 for n in tokens),
     }
     out["gates"] = gates
     out["ok"] = all(gates.values())
     emit(out)
+    del server, sched
+    gc.collect()
+    torch.cuda.empty_cache()
     check(out["ok"], f"serving gates failed: {gates}")
-    return wgmma["llama_dense"], model
+    return wgmma["llama_dense"], model, out["launches_per_dense_forward"]
 
 
 def _fused_bytes(m, k, n, dtype_bytes):
@@ -1946,11 +2012,14 @@ def phase_serving_http(torch, seed, llama=None, bert=None):
     eng = server.register("bert_http", bert, max_batch=SERVE["max_batch"],
                           max_wait_us=SERVE["max_wait_us"],
                           input_spec=[((seq,), "int32")], breaker=breaker)
+    # the dense engine warmed over the prompts (its graphs captured); the
+    # paged twin serves one request and captures on the step loop's thread
     dense = server.register_generation("llama_http", llama, max_slots=4,
-                                       kv_cache=False)
+                                       kv_cache=False, warmup=True,
+                                       warmup_prompt_len=max(PROMPTS))
     paged = server.register_generation("llama_paged_http", llama,
                                        max_slots=4, kv_cache=True,
-                                       page_tokens=16)
+                                       page_tokens=16, warmup=False)
     url = f"http://127.0.0.1:{server.start_http(port=0)}"
     client = Client(url)
     sent = {"bert_http": 0, "llama_http": 0, "llama_paged_http": 0}
@@ -2194,6 +2263,11 @@ def phase_serving_http(torch, seed, llama=None, bert=None):
     finally:
         server.stop()
         hook.detach()
+    out["llama_graphs"] = {"llama_http": _gen_graphs(torch, dense),
+                           "llama_paged_http": _gen_graphs(torch, paged)}
+    gates["llama_replayed_captures"] = all(
+        g["captures"] == g["entries"] and g["replays"] > 0
+        for g in out["llama_graphs"].values())
     out["gates"] = gates
     out["ok"] = all(gates.values())
     emit(out)
@@ -2204,6 +2278,288 @@ def phase_serving_http(torch, seed, llama=None, bert=None):
               flush=True)
     check(out["ok"], f"serving_http failed: {gates}")
     return launches["tf32"], launches["wgmma"]
+
+
+def _gen_tokens(sched, prompts):
+    """Every prompt's NEW_TOKENS greedy tokens through ``sched``'s own
+    step loop (no eos)."""
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=None)
+            for p in prompts]
+    sched.run()
+    return [f.result(timeout=0) for f in futs]
+
+
+def _last_logits(torch, model, tokens):
+    """The last position's logits of ``tokens`` (fp32), by cache_forward
+    over an empty cache."""
+    layers, kv_units, _ = model.kv_cache_spec()
+    empty = torch.zeros(layers, 1, 16, kv_units, device="cuda",
+                        dtype=model.dtype)
+    zero = torch.zeros(1, dtype=torch.long, device="cuda")
+    no_table = torch.zeros(1, 0, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        return model.cache_forward(torch.tensor([tokens], device="cuda"),
+                                   zero, zero, no_table, empty,
+                                   empty)[0][0, -1].float()
+
+
+def _divergences(torch, model, prompts, got, want):
+    """Per prompt: None where ``got`` equals ``want``, else the first step
+    where they part with ``want``'s top-2 margin and largest |logit|
+    there."""
+    out = []
+    for p, g, w in zip(prompts, got, want):
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            out.append(None)
+            continue
+        row = _last_logits(torch, model, list(p) + w[:j])
+        top2 = torch.topk(row, 2).values
+        out.append({"step": j, "top2_margin": (top2[0] - top2[1]).item(),
+                    "max_abs_logit": row.abs().max().item()})
+    return out
+
+
+def _agree(got, want):
+    return sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+
+
+def _spec_exact(torch, seed, prompts):
+    """(a) llama_7b's width at SPEC["exact_layers"] layers, fp32, TF32 off:
+    plain paged against speculation with the target as its own draft
+    (whole rounds accepted, then the 2-token catch-up) and with a random
+    1-layer draft of the same width (rejections)."""
+    from mxnet_tpu_torch.serving import GenerationScheduler
+    fp32 = _random_llama(torch, seed, torch.float32, SPEC["exact_layers"])
+    draft1 = _random_llama(torch, seed + 5, torch.float32, 1)
+    kw = dict(max_slots=4, kv_cache=True, page_tokens=16, prefix_cache=True)
+    plain = _gen_tokens(GenerationScheduler(fp32, name="spec_exact_plain",
+                                            **kw), prompts)
+    out, gates = {}, {}
+    for run, draft in (("self", fp32), ("draft_1_layer", draft1)):
+        sched = GenerationScheduler(fp32, draft_model=draft,
+                                    spec_tokens=SPEC["spec_tokens"],
+                                    name=f"spec_exact_{run}", **kw)
+        got = _gen_tokens(sched, prompts)
+        snap = sched.stats_snapshot()
+        div = _divergences(torch, fp32, prompts, got, plain)
+        chunks = {sig[0][0][0][1] for sig in
+                  sched._draft.cache_stats["signatures"]}
+        out[run] = {"tokens_agree": f"{_agree(got, plain)}/"
+                    f"{len(prompts) * NEW_TOKENS}", "divergences": div,
+                    "acceptance": snap["spec_acceptance"],
+                    "steps": snap["steps"], "draft_chunk_widths":
+                    sorted(chunks),
+                    "pools_active": [snap["page_pool"]["active"],
+                                     snap["draft_page_pool"]["active"]]}
+        gates[f"{run}_identity_or_near_tie"] = all(
+            d is None or d["top2_margin"]
+            < SPEC["near_tie_rel"] * d["max_abs_logit"] for d in div) and \
+            all(len(g) == NEW_TOKENS for g in got)
+        gates[f"{run}_acceptance_in_0_1"] = \
+            0.0 <= snap["spec_acceptance"] <= 1.0
+        gates[f"{run}_pools_drained"] = out[run]["pools_active"] == [0, 0]
+        del sched
+    gates["self_catch_up_2_tokens"] = 2 in out["self"]["draft_chunk_widths"]
+    gates["draft_1_layer_rejections"] = out["draft_1_layer"]["acceptance"] < 1
+    del fp32, draft1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, gates
+
+
+def _kernel_family(name):
+    n = name.lower()
+    if any(k in n for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                            "splitk")):
+        return "gemm"
+    if "elementwise" in n and "index" not in n:
+        return "elementwise"
+    return "other"
+
+
+def _decode_trace(torch, sched, prompts):
+    """SPEC["trace_steps"] warmed decode steps of the paged engine, 4
+    active slots: their wall ms untraced, then under torch.profiler the
+    busy share, device ms per step by family (GEMM, elementwise, other),
+    the kernels that take most and the host's CUDA runtime calls (count
+    and ms per step by name)."""
+    steps = SPEC["trace_steps"]
+    entries = len(sched._target._op._cache)
+
+    def decode(trace):
+        futs = [sched.submit(p, max_new_tokens=steps + 2, eos_id=None)
+                for p in prompts]
+        sched.step()                   # the prefills and one decode step
+
+        def run():
+            for _ in range(steps):
+                sched.step()
+        if trace:
+            got = _trace_events(torch, run, runtime=True)
+        else:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            got = 1e3 * (time.perf_counter() - t)
+        sched.run()
+        return got, [len(f.result(timeout=0)) for f in futs]
+    untraced_ms, _ = decode(False)
+    (wall_ms, events), tokens = decode(True)
+    gpu = [e for e in events if not e["cat"].startswith("cuda_")]
+    calls = {}
+    for e in events:
+        if e["cat"].startswith("cuda_"):
+            n, ms = calls.get(e["name"], (0, 0.0))
+            calls[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    fam, top = {"gemm": 0.0, "elementwise": 0.0, "other": 0.0}, {}
+    for e in kernels:
+        fam[_kernel_family(e["name"])] += e["dur"] / 1e3
+        ms, n = top.get(e["name"], (0.0, 0))
+        top[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    busy = _union_ms([(e["ts"], e["ts"] + e["dur"]) for e in gpu])
+    return {"steps": steps, "wall_ms_per_step_untraced": untraced_ms / steps,
+            "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy / steps, "busy_share": busy / wall_ms,
+            "kernels_per_step": len(kernels) / steps,
+            "ms_per_step_by_family": {k: v / steps for k, v in fam.items()},
+            "top_kernels_ms_per_step": [
+                (name[:80], ms / steps, n // steps) for name, (ms, n) in
+                sorted(top.items(), key=lambda kv: -kv[1][0])[:8]],
+            "runtime_calls_per_step": {
+                name: (n / steps, ms / steps) for name, (n, ms) in
+                sorted(calls.items(), key=lambda kv: -kv[1][1])[:6]},
+            "new_entries": len(sched._target._op._cache) - entries,
+            "tokens": tokens}
+
+
+def _spec_serve(torch, run, model, draft, prompts, warm):
+    """``prompts`` through ModelServer.register_generation (the paged
+    engine; speculative with ``draft``), warmed first when ``warm``:
+    (figures, tokens, the scheduler)."""
+    from mxnet_tpu_torch.serving import ModelServer
+    name = f"spec_{run}"
+    server = ModelServer()
+    try:
+        t = time.perf_counter()
+        sched = server.register_generation(
+            name, model, max_slots=4, kv_cache=True, page_tokens=16,
+            prefix_cache=True, draft_model=draft,
+            spec_tokens=SPEC["spec_tokens"] if draft is not None else None,
+            warmup=warm, warmup_prompt_len=max(PROMPTS))
+        torch.cuda.synchronize()
+        out = {"warmup_s": time.perf_counter() - t,
+               "warm": _gen_graphs(torch, sched)}
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        futs = [server.generate_async(name, p, max_new_tokens=NEW_TOKENS,
+                                      eos_id=None) for p in prompts]
+        tokens = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        st = server.stats(name)
+    finally:
+        server.stop()
+    out.update({"wall_s": wall,
+                "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+                "steps": st["steps"], "acceptance": st.get("spec_acceptance"),
+                "logit_rows": st["logit_rows"],
+                "nonfinite_rows": st["nonfinite_rows"],
+                "pools_active": [st["page_pool"]["active"],
+                                 st.get("draft_page_pool", {}).get("active",
+                                                                   0)],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "after": _gen_graphs(torch, sched)})
+    return out, tokens, sched
+
+
+def phase_speculative(torch, seed, model, dense_per_forward):
+    """Speculative decoding and warmup (slice 17).  (a) The exact gate
+    (``_spec_exact``).  (b) The serving phase's llama_7b (bf16, 32 layers)
+    behind ModelServer on the paged engine with the serving phase's 4
+    prompts: unwarmed (captures on the step loop's thread), then warmed
+    plain, speculative with the target as its own draft and speculative
+    with a TinyLlama-1.1B draft; tokens/s, acceptance, agreement with plain
+    paged, the warmup's captures, seconds and graph pool, no new entry
+    under traffic, warmed tokens bit for bit the unwarmed ones; a trace of
+    warmed decode steps.  ``dense_per_forward`` is the serving phase's
+    flash launches per dense forward, through replays."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import LlamaModel
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    card = _card()
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = _prompts(seed + 3, PROMPTS)
+    exact, gates = _spec_exact(torch, seed, prompts)
+    out = {"phase": "speculative", "card": card, "spec_tokens":
+           SPEC["spec_tokens"], "exact_fp32_4_layers": exact,
+           "near_tie_rel": SPEC["near_tie_rel"]}
+    tiny = LlamaModel(dtype=torch.bfloat16, **TINYLLAMA)
+    initialize(tiny, generator(seed + 7))
+    tiny.eval().requires_grad_(False)
+    runs, tokens = {}, {}
+    for run, draft, warm in (("plain_cold", None, False),
+                             ("plain", None, True),
+                             ("self", model, True),
+                             ("tinyllama", tiny, True)):
+        runs[run], tokens[run], sched = _spec_serve(torch, run, model, draft,
+                                                    prompts, warm)
+        if run == "plain":
+            runs[run]["trace"] = _decode_trace(torch, sched, prompts)
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    for run in ("self", "tinyllama"):
+        runs[run]["tokens_agree_with_plain"] = (
+            f"{_agree(tokens[run], tokens['plain'])}/"
+            f"{len(prompts) * NEW_TOKENS}")
+        runs[run]["divergences"] = _divergences(torch, model, prompts,
+                                                tokens[run], tokens["plain"])
+    del tiny
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16_logit_noise"] = _bf16_logit_noise(torch, model, prompts[0])
+    out["full_width_bf16"] = runs
+    out["dense_flash_per_forward"] = dense_per_forward
+    warmed = ("plain", "self", "tinyllama")
+    gates.update({
+        "warm_no_new_entries": all(
+            runs[r]["after"]["entries"] == runs[r]["warm"]["entries"]
+            == runs[r]["warm"]["captures"] > 0 for r in warmed)
+        and runs["plain"]["trace"]["new_entries"] == 0,
+        "warmed_equal_unwarmed": tokens["plain"] == tokens["plain_cold"],
+        "cold_captured_in_traffic": runs["plain_cold"]["warm"]["entries"] == 0
+        and runs["plain_cold"]["after"]["captures"]
+        == runs["plain_cold"]["after"]["entries"] > 0,
+        "16_tokens_each": all(len(t) == NEW_TOKENS for ts in tokens.values()
+                              for t in ts),
+        "logits_finite": all(r["nonfinite_rows"] == 0 and r["logit_rows"] > 0
+                             for r in runs.values()),
+        "acceptance_in_0_1": all(0.0 <= runs[r]["acceptance"] <= 1.0
+                                 for r in ("self", "tinyllama")),
+        "pools_drained": all(r["pools_active"] == [0, 0]
+                             for r in runs.values()),
+        "dense_32_flash_per_forward_through_replays":
+            dense_per_forward == 32,
+    })
+    out["gates"] = gates
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = all(gates.values())
+    emit(out)
+    for run in ("plain_cold",) + warmed:
+        r = runs[run]
+        print(f"speculative {run} [{card}]: " + json.dumps(
+            {k: r[k] for k in ("tokens_per_s", "acceptance", "warmup_s",
+                               "steps", "peak_mem_gb")}
+            | {"captures": r["warm"]["captures"],
+               "pool_gb": r["warm"]["pool_gb"]}), flush=True)
+    print(f"speculative decode trace [{card}]: "
+          f"{json.dumps(runs['plain']['trace'])}", flush=True)
+    check(out["ok"], f"speculative gates failed: {gates}")
 
 
 def phase_serving_resnet_export(torch, seed):
@@ -2736,10 +3092,10 @@ class _KeepHost:
         return self._inner.provide_label
 
 
-def _trace_gpu(torch, fn):
-    """``fn()`` under torch.profiler: (wall ms, the device's busy share of
-    it (union of kernels, copies and sets), the kernels' alone, the
-    streams of kernels, the streams and bytes of host-to-device copies)."""
+def _trace_events(torch, fn, runtime=False):
+    """``fn()`` under torch.profiler: (wall ms, the device's events: its
+    kernels, copies and sets; with ``runtime``, the host's CUDA runtime
+    calls too)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2752,25 +3108,33 @@ def _trace_gpu(torch, fn):
     with tempfile.NamedTemporaryFile(suffix=".json") as f:
         prof.export_chrome_trace(f.name)
         events = json.load(open(f.name))["traceEvents"]
+    cats = ("kernel", "gpu_memcpy", "gpu_memset") + (
+        ("cuda_runtime",) if runtime else ())
+    return wall_ms, [e for e in events if e.get("cat") in cats and "dur" in e]
 
-    def union_ms(spans):
-        total, end = 0.0, -math.inf
-        for a, b in sorted(spans):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total / 1e3
-    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
-                                                  "gpu_memset")
-           and "dur" in e]
+
+def _union_ms(spans):
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _trace_gpu(torch, fn):
+    """``fn()`` under torch.profiler: (wall ms, the device's busy share of
+    it (union of kernels, copies and sets), the kernels' alone, the
+    streams of kernels, the streams and bytes of host-to-device copies)."""
+    wall_ms, gpu = _trace_events(torch, fn)
     kernels = [e for e in gpu if e["cat"] == "kernel"]
     h2d = [e for e in gpu if e["cat"] == "gpu_memcpy"
            and "HtoD" in e.get("name", "")]
     return {"wall_ms": wall_ms,
-            "busy_share": union_ms([(e["ts"], e["ts"] + e["dur"])
-                                    for e in gpu]) / wall_ms,
-            "kernel_share": union_ms([(e["ts"], e["ts"] + e["dur"])
-                                      for e in kernels]) / wall_ms,
+            "busy_share": _union_ms([(e["ts"], e["ts"] + e["dur"])
+                                     for e in gpu]) / wall_ms,
+            "kernel_share": _union_ms([(e["ts"], e["ts"] + e["dur"])
+                                       for e in kernels]) / wall_ms,
             "kernel_streams": sorted({e["args"].get("stream")
                                       for e in kernels}),
             "h2d": [(e["args"].get("stream"), e["args"].get("bytes", 0),
@@ -5287,7 +5651,8 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
           "serving_bert",
-          "serving_http", "serving_resnet_export", "module_fit", "dist_training",
+          "serving_http", "speculative", "serving_resnet_export", "module_fit",
+          "dist_training",
           "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
           "bert_training", "embedding_bwd", "resilient_training")
 
@@ -5306,6 +5671,8 @@ def main(argv=None):
         return dist_worker(args.seed, args.dist_out)
     only = set(args.only.split(","))
     check(only <= set(PHASES), f"unknown phases {sorted(only - set(PHASES))}")
+    check("speculative" not in only or "serving" in only,
+          "speculative reuses serving's llama_7b: run it with serving")
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available")
@@ -5359,13 +5726,16 @@ def main(argv=None):
     wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
     emb_paths = {}
     if "serving" in only:
-        wgmma_paths["serving"], llama = phase_serving(torch, args.seed)
+        wgmma_paths["serving"], llama, dense_per_forward = phase_serving(
+            torch, args.seed)
     if "serving_bert" in only:
         bert_paths["serving_bert"], bert = phase_serving_bert(torch,
                                                               args.seed)
     if "serving_http" in only:
         bert_paths["serving_http"], wgmma_paths["serving_http"] = \
             phase_serving_http(torch, args.seed, llama, bert)
+    if "speculative" in only:
+        phase_speculative(torch, args.seed, llama, dense_per_forward)
     del llama, bert
     gc.collect()
     torch.cuda.empty_cache()

@@ -86,6 +86,13 @@ env.declare("MXNET_SERVING_PREFIX_CACHE", True, bool,
             "Content-hash completed KV-cache pages so a later request with "
             "the same prompt prefix maps the same physical pages; 0 "
             "disables sharing.")
+env.declare("MXNET_SERVING_SPEC_TOKENS", 4, int,
+            "Draft tokens proposed per speculative-decoding step when a "
+            "GenerationScheduler has a draft model: the draft proposes N "
+            "tokens, the target verifies them in one batched forward "
+            "against the same paged cache, and greedy accept/rollback "
+            "keeps output token-identical to target-only greedy decode.  "
+            "0 disables speculation even when a draft model is given.")
 env.declare("MXNET_TPU_FAST_VARIANCE", 1, int,
             "Norm layers compute the variance one-pass as E[x^2]-E[x]^2, "
             "clamped at 0.  For activations with |mean| >> std the "
@@ -147,10 +154,12 @@ env.declare("MXNET_SERVING_DEADLINE_MS", 0, int,
             "still queued past it fails with DeadlineExceededError instead "
             "of occupying the batch.  0 = no default deadline.")
 env.declare("MXNET_SERVING_WARMUP", True, bool,
-            "ModelServer.register runs the model's whole bucket ladder "
-            "before it takes traffic (on the card: captures each rung's "
-            "CUDA graph), so no live request pays a capture.  0 = first-"
-            "seen rungs capture inside live request latency.")
+            "ModelServer.register runs the model's whole bucket ladder, and "
+            "register_generation the scheduler's prefill, decode and "
+            "draft/verify ladders, before they take traffic (on the card: "
+            "captures each signature's CUDA graph), so no live request "
+            "pays a capture.  0 = first-seen signatures capture inside "
+            "live request latency.")
 
 
 # -- the distributed job (mxnet_tpu/base.py:571-579; read by distributed.py)

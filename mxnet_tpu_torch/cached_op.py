@@ -33,6 +33,14 @@ and moving statistics are read in place; their addresses are kept at
 capture, and an entry whose addresses moved (``Parameter.cast``,
 ``module.to``) captures again (``_captures`` counts every capture).
 
+An op over an ``nn.Module``'s method (``params`` the module) takes and
+returns tensors and runs in predict only.  It reads the module's
+parameters and buffers in place, and so the last ``in_place`` inputs of
+a call (the generation engines' KV page pools): those are neither copied
+nor keyed, and an entry captures again when one of their addresses
+moved.  With ``fresh_outputs=False`` a replay hands back the graph's
+static outputs themselves, which the op's next call overwrites.
+
 On CPU tensors an entry runs the block eagerly (torch's autograd records
 it under ``record()``), as every kernel wrapper takes its plain version
 there.  A hybridized block called inside another's entry runs inside it
@@ -84,11 +92,23 @@ _M_STORMS = _metrics.registry().counter(
 
 
 # ------------------------------------------------------------ output trees
-def _flatten(x, leaves: List[NDArray]):
-    """The structure of a forward's result with each NDArray replaced by
-    its index in ``leaves``."""
-    if isinstance(x, NDArray):
-        leaves.append(x)
+def _tensor(x) -> torch.Tensor:
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _wrap(tensors, ctx):
+    """The tensors as NDArrays on ``ctx``, or as they are (ctx None: an op
+    over an nn.Module)."""
+    if ctx is None:
+        return list(tensors)
+    return [NDArray(t, ctx) for t in tensors]
+
+
+def _flatten(x, leaves: List[torch.Tensor]):
+    """The structure of a forward's result with each NDArray (or tensor)
+    replaced by its index in ``leaves``, which gets its tensor."""
+    if isinstance(x, (NDArray, torch.Tensor)):
+        leaves.append(_tensor(x))
         return len(leaves) - 1
     if isinstance(x, (list, tuple)):
         return type(x)(_flatten(e, leaves) for e in x)
@@ -107,18 +127,21 @@ class _Predict:
     """The predict graph of an entry: static inputs, the graph, its
     outputs."""
 
-    def __init__(self, graph, static_in, outs, struct, ctx, addr):
+    def __init__(self, graph, static_in, outs, struct, ctx, addr, fresh):
         self.graph, self.static_in, self.outs = graph, static_in, outs
         self.struct, self.ctx, self.addr = struct, ctx, addr
+        self.fresh = fresh
 
     def __call__(self, inputs):
         with torch.no_grad():
+            # the in-place inputs past the static ones are read in place
             for s, x in zip(self.static_in, inputs):
-                if x._data is not s:
-                    s.copy_(x._data)
+                if _tensor(x) is not s:
+                    s.copy_(_tensor(x))
             self.graph.replay()
-            outs = [NDArray(o.clone(), self.ctx) for o in self.outs]
-        return _unflatten(self.struct, outs)
+            outs = [o.clone() for o in self.outs] if self.fresh \
+                else self.outs
+        return _unflatten(self.struct, _wrap(outs, self.ctx))
 
 
 class _Token:
@@ -217,14 +240,24 @@ def generators_of(root, device) -> List[torch.Generator]:
 
 
 class CachedOp:
-    def __init__(self, forward_fn: Callable, params: Sequence, flags=()):
+    def __init__(self, forward_fn: Callable, params, flags=(),
+                 in_place: int = 0, fresh_outputs: bool = True):
         """``forward_fn(*nd_inputs)`` -> NDArray or a list of them, reading
-        ``params`` (Gluon Parameters) itself.  ``flags`` (the reference's
-        ``static_alloc``, ``static_shape``, ...) are kept and select
-        nothing: an entry on the card is a graph whatever they say, as the
-        JAX package compiles whatever they say."""
+        ``params`` (Gluon Parameters) itself; or, when ``params`` is an
+        ``nn.Module``, ``forward_fn(*tensors)`` -> tensors, reading the
+        module's parameters and buffers.  The last ``in_place`` inputs of
+        every call are read in place, out of the key; ``fresh_outputs``
+        False returns a replay's static outputs uncopied.  ``flags`` (the
+        reference's ``static_alloc``, ``static_shape``, ...) are kept and
+        select nothing: an entry on the card is a graph whatever they say,
+        as the JAX package compiles whatever they say."""
         self._fwd = forward_fn
-        self._params = list(params)
+        if isinstance(params, torch.nn.Module):
+            self._module, self._params = params, []
+        else:
+            self._module, self._params = None, list(params)
+        self._in_place = int(in_place)
+        self._fresh = bool(fresh_outputs)
         self._flags = dict(flags)
         self._cache: Dict[Any, _Entry] = {}  # the signatures, in order
         self._hits = 0
@@ -248,8 +281,9 @@ class CachedOp:
                 "signatures": list(self._cache.keys())}
 
     def _signature(self, inputs: Sequence[NDArray], training: bool):
-        return self._key(tuple((x.shape, str(x.dtype)) for x in inputs),
-                         training)
+        keyed = inputs[:len(inputs) - self._in_place]
+        return self._key(tuple((tuple(x.shape), str(x.dtype))
+                               for x in keyed), training)
 
     def _key(self, shapes_dtypes, training: bool):
         # grad_req is part of the key: a fine-tune unfreeze (null -> write)
@@ -293,19 +327,29 @@ class CachedOp:
                            attrs={"op": self.__name__,
                                   "cache": "miss" if miss else "hit",
                                   "recording": recording}):
-            if not inputs or not inputs[0]._data.is_cuda:
+            if not inputs or not _tensor(inputs[0]).is_cuda:
                 with _goodput.train().timed("device_compute"):
                     return backend_call("execute", lambda: _graphs.run_inside(
                         lambda: self._fwd(*inputs)))
             if recording:
+                if self._module is not None or self._in_place:
+                    raise MXNetError(f"CachedOp {self.__name__!r} over an "
+                                     "nn.Module or with in-place inputs "
+                                     "runs in predict only")
                 return self._record(entry, sig, inputs)
             return self._predict(entry, sig, inputs)
 
     # --------------------------------------------------------------- card
-    def _reads(self) -> List[torch.Tensor]:
-        """The parameter tensors a graph reads in place."""
-        return [t for t in (p._tensor() for p in self._params)
-                if t is not None]
+    def _reads(self, inputs=()) -> List[torch.Tensor]:
+        """The tensors a graph reads in place: the parameters (and an
+        nn.Module's buffers), then the in-place ones of ``inputs``."""
+        if self._module is not None:
+            own = [*self._module.parameters(), *self._module.buffers()]
+        else:
+            own = [t for t in (p._tensor() for p in self._params)
+                   if t is not None]
+        return own + [_tensor(x)
+                      for x in inputs[len(inputs) - self._in_place:]]
 
     def _generators(self, device) -> List[torch.Generator]:
         return generators_of(self._owner, device)
@@ -320,10 +364,10 @@ class CachedOp:
         return graph, out
 
     def _predict(self, entry: _Entry, sig, inputs):
-        addr = _graphs.addresses(self._reads())
+        addr = _graphs.addresses(self._reads(inputs))
         g = entry.predict
         if g is not None and g.addr == addr and \
-                g.static_in[0].device == inputs[0]._data.device:
+                g.static_in[0].device == _tensor(inputs[0]).device:
             self._replays += 1
             with _goodput.train().timed("device_compute"):
                 return backend_call("execute", lambda: g(inputs))
@@ -340,19 +384,21 @@ class CachedOp:
     def _capture_predict(self, entry: _Entry, sig, inputs, addr):
         """A signature's first call: the eager run (the result), then the
         capture of its predict graph."""
-        dev = inputs[0]._data.device
+        dev = _tensor(inputs[0]).device
         out = _graphs.warm(lambda: self._fwd(*inputs), dev)
-        ctx = inputs[0].context
-        static_in = [x._data.detach().clone() for x in inputs]
+        ctx = inputs[0].context if self._module is None else None
+        n = len(inputs) - self._in_place
+        static_in = [_tensor(x).detach().clone() for x in inputs[:n]]
         box = []
 
         def fwd():
-            leaves: List[NDArray] = []
-            box.append(_flatten(self._fwd(*[NDArray(s, ctx)
-                                             for s in static_in]), leaves))
-            return [a._data for a in leaves]
+            leaves: List[torch.Tensor] = []
+            box.append(_flatten(self._fwd(*_wrap(static_in, ctx),
+                                          *inputs[n:]), leaves))
+            return leaves
         graph, outs = self._capture(fwd, dev, sig, "forward")
-        entry.predict = _Predict(graph, static_in, outs, box[0], ctx, addr)
+        entry.predict = _Predict(graph, static_in, outs, box[0], ctx, addr,
+                                 self._fresh)
         self._captures += 1
         return out
 
@@ -402,9 +448,9 @@ class CachedOp:
         fixed = [t for t in (p._tensor() for p in self._params
                              if p.grad_req == "null") if t is not None]
         saved = [t.detach().clone() for t in fixed]
-        leaves: List[NDArray] = []
+        leaves: List[torch.Tensor] = []
         _flatten(self._fwd(*inputs), leaves)
-        heads = [a._data for a in leaves if a._data.requires_grad]
+        heads = [t for t in leaves if t.requires_grad]
         wrt = [x._data for x in inputs if x._data.requires_grad] + [
             t for t in self._learnable() if t.requires_grad]
         if heads and wrt:
@@ -423,10 +469,9 @@ class CachedOp:
         box = []
 
         def fwd():
-            leaves: List[NDArray] = []
-            box.append(_flatten(self._fwd(*[NDArray(s, ctx)
-                                             for s in static_in]), leaves))
-            return [a._data for a in leaves]
+            leaves: List[torch.Tensor] = []
+            box.append(_flatten(self._fwd(*_wrap(static_in, ctx)), leaves))
+            return leaves
         fwd_graph, outs = self._capture(fwd, dev, sig, "forward")
         diff = [o.requires_grad for o in outs]
         heads = [o for o, d in zip(outs, diff) if d]
@@ -460,4 +505,4 @@ class CachedOp:
         g = entry.predict if entry is not None else None
         if g is None:
             return None
-        return [NDArray(s, g.ctx) for s in g.static_in]
+        return _wrap(g.static_in, g.ctx)

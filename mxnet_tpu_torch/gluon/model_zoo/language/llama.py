@@ -9,7 +9,9 @@ on the card), and the paged-KV :meth:`LlamaModel.cache_forward` attends
 with plain tensor ops, as the JAX package does.  The RoPE tables are built
 in numpy exactly as there, so both packages hold the same bits.
 
-Ring/Ulysses sequence parallelism and MoE blocks wait for later slices.
+Ring/Ulysses sequence parallelism and the MoE blocks wait for the
+device mesh (ROADMAP A11): both shard over its axes, and the JAX MoE
+model's ``(logits, aux)`` output serves neither generation engine.
 """
 from __future__ import annotations
 

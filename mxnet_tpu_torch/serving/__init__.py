@@ -10,7 +10,9 @@ the dense no-cache engine), served in process and over HTTP.
 * :mod:`paged_cache` — :class:`PagePool`: device page pool with prefix
   sharing;
 * :mod:`generation` — :class:`GenerationScheduler`: iteration-level
-  continuous batching, and :func:`greedy_decode`, its solo oracle;
+  continuous batching with speculative decoding and warmup, each engine
+  through one CachedOp (CUDA graphs on the card), and
+  :func:`greedy_decode`, its solo oracle;
 * :mod:`server` — :class:`ModelServer` (``register`` /
   ``register_generation``, ``start_http``: predict, generate with SSE,
   cancel, ping, stats, metrics, goodput) and :class:`Client`, in process

@@ -9,16 +9,28 @@ share one scheduler:
   ``[slots, 1]`` single-token forward that gathers each slot's pages and
   attends over them.  Admission is governed by free pages, retirement
   recycles them, and identical prompt prefixes map onto the same pages.
+  **Speculative decoding** (``draft_model``): a smaller draft model, with
+  its own page pool, proposes ``spec_tokens`` tokens in 1- or 2-token
+  chunks, the target verifies them in one ``[slots, spec+1]`` forward, and
+  greedy accept/rollback keeps the stream target-only greedy; rejected
+  positions were never written inside the valid cache length.
 * **dense no-cache** (``kv_cache=False``): every step re-runs the full
   ``[slots, L]`` prefix through the model's ``forward``, whose attention
   is the flash kernel.
 
 Both engines emit the token streams of solo greedy decoding
 (:func:`greedy_decode`): the paged attention reproduces the dense causal
-support and follows the flash op's plain formula.  PyTorch runs eagerly,
-so where the JAX package compiled one executable per shape the port calls
-the model directly; the power-of-two length and page ladders stay, so the
-two packages run the same shapes.
+support and follows the flash op's plain formula.  Each engine runs its
+model through one :class:`~mxnet_tpu_torch.cached_op.CachedOp`, as the
+JAX package does (``cache_forward`` for the paged engine and the draft,
+``forward`` for the dense one), keyed on the shapes of the tokens,
+positions, lengths and page table, so a signature is one JAX executable.
+On the card a signature's first call runs eagerly and is the result, and
+later calls replay its CUDA graph; the weights and the page pools are
+read in place, and the graph's static outputs are consumed under the
+scheduler lock before the next replay.  :meth:`GenerationScheduler.warmup`
+makes the whole family (the power-of-two length and page ladders) before
+traffic.
 
 Telemetry and resilience follow the JAX package: each sequence keeps the
 span context it was submitted under (``http.generate`` behind the HTTP
@@ -32,9 +44,8 @@ records each finished request in the serving goodput ledger as ``queue``
 (submit to admission), ``execute`` (admission to retirement) and
 ``stream`` (retirement to resolution).
 
-Speculative decoding, KV export and import between replicas
-(``export_request``, ``prefill_only``, ``ext_kv``) and warmup wait for
-later slices.
+KV export and import between replicas (``export_request``,
+``prefill_only``, ``ext_kv``) wait for the fleet (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, RequestCancelledError, env as _env, row_bucket
+from ..cached_op import CachedOp
 from ..observability import (goodput as _goodput, health as _health,
                              metrics as _metrics, tracing as _tracing)
 from ..resilience import maybe_fault
@@ -69,12 +81,10 @@ _M_STEPS = _REG.counter(
 _M_TOKENS = _REG.counter(
     "mxnet_tpu_serving_decode_tokens_total",
     "Tokens emitted across all sequences.", labels=("model",))
-# declared for the dashboards; speculative decoding is not ported, so
-# they have no series yet
-_REG.counter(
+_M_PROPOSED = _REG.counter(
     "mxnet_tpu_serving_spec_proposed_total",
     "Draft tokens proposed by the speculative decoder.", labels=("model",))
-_REG.counter(
+_M_ACCEPTED = _REG.counter(
     "mxnet_tpu_serving_spec_accepted_total",
     "Draft tokens accepted by target verification.", labels=("model",))
 _M_CANCELLED = _REG.counter(
@@ -155,14 +165,16 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _index(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
 def _rows(logits: torch.Tensor, rows: Sequence[int], cols: Sequence[int]
           ) -> np.ndarray:
     """Host float32 copy of ``logits[rows[i], cols[i]]``, one row each:
     only the rows that are sampled leave the device."""
     dev = logits.device
-    r = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=dev)
-    c = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=dev)
-    return logits[r, c].float().cpu().numpy()
+    return logits[_index(rows, dev), _index(cols, dev)].float().cpu().numpy()
 
 
 @torch.no_grad()
@@ -189,8 +201,9 @@ def greedy_decode(model, prompt: Sequence[int], max_new_tokens: int,
 
 class _Sequence:
     __slots__ = ("prompt", "max_new", "eos_id", "generated", "future",
-                 "pages", "cached", "prefix_pages", "t_submit", "t_admit",
-                 "t_retire", "ctx", "stream", "streamed", "rid")
+                 "pages", "dpages", "cached", "dcached", "prefix_pages",
+                 "t_submit", "t_admit", "t_retire", "ctx", "stream",
+                 "streamed", "rid")
 
     def __init__(self, prompt, max_new, eos_id, stream=None, rid=None):
         self.prompt = [int(t) for t in prompt]
@@ -203,8 +216,10 @@ class _Sequence:
         self.t_admit: Optional[float] = None
         self.t_retire: Optional[float] = None
         self.ctx = _tracing.current_context()  # http.generate root, if any
-        self.pages: List[int] = []       # page table (physical ids)
-        self.cached = 0                  # valid cache length
+        self.pages: List[int] = []       # target page table (physical ids)
+        self.dpages: List[int] = []      # draft page table
+        self.cached = 0                  # valid target cache length
+        self.dcached = 0                 # valid draft cache length
         self.prefix_pages = 0            # pages mapped from the prefix cache
         self.stream: Optional[TokenStream] = stream
         self.streamed = 0                # tokens already pushed to `stream`
@@ -222,19 +237,25 @@ class _Sequence:
 
 
 class _PagedLM:
-    """One model's cached-decode surface: a page pool plus the model's
-    ``cache_forward``."""
+    """One model's cached-decode surface: a page pool plus one
+    :class:`CachedOp` over the model's ``cache_forward``.  Signatures are
+    ``(B, C, P)`` (batch rows, chunk tokens, table pages), all on
+    power-of-two ladders; the pools are read in place."""
 
     def __init__(self, model, pool: PagePool):
         self.model = model
         self.pool = pool
+        self._op = CachedOp(model.cache_forward, model, in_place=2,
+                            fresh_outputs=False)
         self._hb = HostBufferPool(owner=f"{pool.name}-tables")
 
+    @torch.no_grad()
     def forward(self, tok: np.ndarray, pos: np.ndarray, lens: np.ndarray,
                 tables: Sequence[Sequence[int]], page_bucket: int):
         """One chunk forward; returns device tensors (logits [B, C, V],
-        k_new, v_new [layers, B, C, kv]).  ``tables`` rows are padded with
-        the scratch page to ``page_bucket`` columns."""
+        k_new, v_new [layers, B, C, kv]), on the card the graph's static
+        outputs, which the next call overwrites.  ``tables`` rows are
+        padded with the scratch page to ``page_bucket`` columns."""
         b = tok.shape[0]
         table = self._hb.get((b, page_bucket), np.int64, tag="table")
         for i, row in enumerate(tables):
@@ -242,18 +263,31 @@ class _PagedLM:
                 table[i, :len(row)] = row
         maybe_fault("decode")
         dev = self.pool.k.device
-        put = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64)).to(dev)
-        out = self.model.cache_forward(put(tok), put(pos), put(lens),
-                                       put(table), self.pool.k, self.pool.v)
+        out = self._op(_index(tok, dev), _index(pos, dev), _index(lens, dev),
+                       _index(table, dev), self.pool.k, self.pool.v)
         if _health.serving_sentinel_enabled():
             _health.check_logits(f"decode:{self.pool.name}",
                                  out[0].float().cpu().numpy())
         return out
 
+    @property
+    def cache_stats(self):
+        return self._op.cache_stats
+
 
 def _page_bucket(n_pages: int) -> int:
     """Power-of-two page-table width (0 stays 0: the empty-window prefill)."""
     return 0 if n_pages <= 0 else row_bucket(n_pages, 1)
+
+
+def _ladder(lo: int, hi: int) -> List[int]:
+    """lo, 2 lo, 4 lo, ... below hi, then hi."""
+    out, b = [], lo
+    while b < hi:
+        out.append(b)
+        b *= 2
+    out.append(hi)
+    return sorted(set(out))
 
 
 class GenerationScheduler:
@@ -262,13 +296,17 @@ class GenerationScheduler:
     ``model`` is an ``nn.Module`` mapping int64 tokens ``[B, S]`` on its
     device to logits ``[B, S, vocab]`` (the :class:`LlamaModel` contract).
     Requests enter via :meth:`submit`; :meth:`step` admits queued requests
-    into free slots, advances every active sequence by one token and
-    retires finished ones; :meth:`run` steps until idle.
+    into free slots, advances every active sequence by one token (or one
+    speculative round) and retires finished ones; :meth:`run` steps until
+    idle.
 
     Engine selection: ``kv_cache=None`` uses the paged engine when the
     model has ``cache_forward`` and ``MXNET_SERVING_KV_CACHE`` is on, else
     the dense engine; ``True``/``False`` force it.  The page pool lives on
-    the model's device in the model's dtype.
+    the model's device in the model's dtype.  ``draft_model`` (a model
+    with ``cache_forward`` and the same vocabulary) with ``spec_tokens`` /
+    ``MXNET_SERVING_SPEC_TOKENS`` > 0 turns on speculative decoding on the
+    paged engine; its pool lives on its own device in its own dtype.
     """
 
     def __init__(self, model, max_slots: int = 4, eos_id: Optional[int] = None,
@@ -277,6 +315,7 @@ class GenerationScheduler:
                  page_tokens: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
+                 draft_model=None, spec_tokens: Optional[int] = None,
                  name: Optional[str] = None):
         self.model = model
         self.max_slots = int(max_slots)
@@ -299,6 +338,8 @@ class GenerationScheduler:
         self.logit_rows = 0     # logits rows copied to the host and sampled
         self.nonfinite_rows = 0  # of those, rows holding a NaN or Inf
         self._hb = HostBufferPool(owner=self.name)
+        self.spec_tokens = 0
+        self._draft: Optional[_PagedLM] = None
 
         if kv_cache is None:
             kv_cache = (bool(_env.MXNET_SERVING_KV_CACHE)
@@ -309,27 +350,50 @@ class GenerationScheduler:
                 "cache_forward; pass kv_cache=False for the dense path")
         self.paged = bool(kv_cache)
 
-        if self.paged:
-            self.page_tokens = int(page_tokens
-                                   or _env.MXNET_SERVING_PAGE_TOKENS)
-            if prefix_cache is None:
-                prefix_cache = bool(_env.MXNET_SERVING_PREFIX_CACHE)
-            layers, kv_units, model_max = model.kv_cache_spec()
-            if self.max_length is None:
-                # past the RoPE table, cache_forward's position clamp would
-                # decode garbage: the table is the honest default limit
-                self.max_length = model_max
-            elif self.max_length > model_max:
-                raise MXNetError(f"max_length {self.max_length} exceeds the "
-                                 f"model's RoPE table ({model_max})")
-            np_pages = int(num_pages or _env.MXNET_SERVING_KV_PAGES)
-            if not np_pages:
-                np_pages = 1 + self.max_slots * pages_needed(
-                    self.max_length, self.page_tokens)
-            dtype = next(model.parameters()).dtype
-            self._target = _PagedLM(model, PagePool(
-                layers, np_pages, self.page_tokens, kv_units, name=self.name,
-                prefix_cache=prefix_cache, dtype=dtype, device=self._device))
+        if not self.paged:
+            self._op = CachedOp(model.forward, model, fresh_outputs=False)
+            return
+        self.page_tokens = int(page_tokens or _env.MXNET_SERVING_PAGE_TOKENS)
+        if prefix_cache is None:
+            prefix_cache = bool(_env.MXNET_SERVING_PREFIX_CACHE)
+        layers, kv_units, model_max = model.kv_cache_spec()
+        if self.max_length is None:
+            # past the RoPE table, cache_forward's position clamp would
+            # decode garbage: the table is the honest default limit
+            self.max_length = model_max
+        elif self.max_length > model_max:
+            raise MXNetError(f"max_length {self.max_length} exceeds the "
+                             f"model's RoPE table ({model_max})")
+        np_pages = int(num_pages or _env.MXNET_SERVING_KV_PAGES)
+        if not np_pages:
+            np_pages = 1 + self.max_slots * pages_needed(
+                self.max_length, self.page_tokens)
+        dtype = next(model.parameters()).dtype
+        self._target = _PagedLM(model, PagePool(
+            layers, np_pages, self.page_tokens, kv_units, name=self.name,
+            prefix_cache=prefix_cache, dtype=dtype, device=self._device))
+        if draft_model is not None:
+            self.spec_tokens = int(_env.MXNET_SERVING_SPEC_TOKENS
+                                   if spec_tokens is None else spec_tokens)
+        if self.spec_tokens > 0:
+            if not hasattr(draft_model, "cache_forward"):
+                raise MXNetError("draft_model needs cache_forward")
+            dl, dkv, dmax = draft_model.kv_cache_spec()
+            if self.max_length > dmax:
+                raise MXNetError(
+                    f"max_length {self.max_length} exceeds the draft "
+                    f"model's RoPE table ({dmax})")
+            # the draft's cache runs a few speculative tokens ahead
+            dpages = int(num_pages or _env.MXNET_SERVING_KV_PAGES)
+            if not dpages:
+                dpages = 1 + self.max_slots * pages_needed(
+                    self.max_length + self.spec_tokens, self.page_tokens)
+            self._draft = _PagedLM(draft_model, PagePool(
+                dl, dpages, self.page_tokens, dkv, name=f"{self.name}-draft",
+                prefix_cache=False, dtype=next(draft_model.parameters()).dtype,
+                device=_model_device(draft_model)))
+            self._m_proposed = _M_PROPOSED.labels(model=self.name)
+            self._m_accepted = _M_ACCEPTED.labels(model=self.name)
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -340,9 +404,9 @@ class GenerationScheduler:
 
         ``eos_id`` defaults to the scheduler's own; pass ``None`` to disable
         eos for this request.  Rejects up front anything that could outgrow
-        ``max_length`` (or the page pool) mid-decode.  ``stream`` receives
-        every token as it is produced; ``rid`` names the request for
-        :meth:`cancel` (assigned when omitted)."""
+        ``max_length`` (or either page pool) mid-decode.  ``stream``
+        receives every token as it is produced; ``rid`` names the request
+        for :meth:`cancel` (assigned when omitted)."""
         if not len(prompt):
             raise MXNetError("empty prompt")
         if (self.max_length is not None
@@ -351,13 +415,23 @@ class GenerationScheduler:
                 f"prompt of {len(prompt)} tokens + max_new_tokens "
                 f"{max_new_tokens} exceeds max_length {self.max_length}")
         if self.paged:
-            need = pages_needed(len(prompt) + int(max_new_tokens),
-                                self.page_tokens)
+            total = len(prompt) + int(max_new_tokens)
+            need = pages_needed(total, self.page_tokens)
             cap = self._target.pool.num_pages - 1
             if need > cap:
                 raise MXNetError(
                     f"request needs {need} KV pages but the pool only has "
                     f"{cap}; raise MXNET_SERVING_KV_PAGES or num_pages")
+            if self._draft is not None:
+                dcap = self._draft.pool.num_pages - 1
+                dneed = pages_needed(total + self.spec_tokens,
+                                     self.page_tokens)
+                if dneed > dcap:
+                    raise MXNetError(
+                        f"request needs {dneed} DRAFT KV pages (budget + "
+                        f"{self.spec_tokens} speculative) but the draft "
+                        f"pool only has {dcap}; an accepted-but-never-"
+                        "admissible request would wedge the step loop")
         seq = _Sequence(prompt, max_new_tokens,
                         self.eos_id if eos_id is DEFAULT_EOS else eos_id,
                         stream=stream,
@@ -372,9 +446,9 @@ class GenerationScheduler:
 
     def cancel(self, rid: str) -> bool:
         """Cancel the live request ``rid`` wherever it is (pending queue or
-        active slot), freeing its KV pages at once and failing its Future
-        and stream with :class:`RequestCancelledError`.  Returns False when
-        the rid is unknown or already finished."""
+        active slot), freeing its KV pages (target and draft) at once and
+        failing its Future and stream with :class:`RequestCancelledError`.
+        Returns False when the rid is unknown or already finished."""
         with self._lock:
             seq = self._rids.pop(str(rid), None)
             if seq is None:
@@ -386,8 +460,7 @@ class GenerationScheduler:
                     if s is seq:
                         self._slots[i] = None
                         break
-            if self.paged:
-                self._free_pages(seq)
+            self._free_pages(seq)
             self.cancelled += 1
         _M_CANCELLED.labels(model=self.name).inc()
         exc = RequestCancelledError(
@@ -402,18 +475,21 @@ class GenerationScheduler:
     # ------------------------------------------------------------- sampling
     def _sample(self, logits: torch.Tensor, rows: Sequence[int],
                 cols: Sequence[int]) -> List[int]:
-        """Greedy tokens at ``logits[rows[i], cols[i]]``; counts the rows
-        that hold a non-finite value."""
+        """Greedy tokens at ``logits[rows[i], cols[i]]``, rows copied to the
+        host; counts them and the ones that hold a non-finite value."""
         host = _rows(logits, rows, cols)
-        self._m_tokens.inc(len(host))
         self.logit_rows += len(host)
         self.nonfinite_rows += int((~np.isfinite(host).all(axis=1)).sum())
         return [_next_token(r) for r in host]
 
+    def _count_tokens(self, n: int) -> None:
+        self._m_tokens.inc(n)
+
     # ------------------------------------------------------------- dense
+    @torch.no_grad()
     def _forward(self, tokens_np: np.ndarray) -> torch.Tensor:
         maybe_fault("decode")
-        out = self.model(torch.from_numpy(tokens_np).to(self._device))
+        out = self._op(torch.from_numpy(tokens_np).to(self._device))
         if _health.serving_sentinel_enabled():
             _health.check_logits("decode:dense", out.float().cpu().numpy())
         return out
@@ -424,6 +500,7 @@ class GenerationScheduler:
         arr[0, :len(seq.prompt)] = seq.prompt
         seq.generated.extend(self._sample(self._forward(arr), [0],
                                           [len(seq.prompt) - 1]))
+        self._count_tokens(1)
 
     def _decode_dense(self, active) -> int:
         L = length_bucket(max(len(s.tokens) for _, s in active),
@@ -435,32 +512,44 @@ class GenerationScheduler:
                             [len(s.tokens) - 1 for _, s in active])
         for (_, s), t in zip(active, toks):
             s.generated.append(t)
+        self._count_tokens(len(active))
         return L
 
     # ------------------------------------------------------------- paged
     def _admission_ok(self, seq: _Sequence) -> bool:
         """Page-governed admission: map the prompt's cached prefix, then
-        reserve the worst-case page need up front so the step loop can
-        never strand a half-grown sequence."""
+        reserve the worst-case page need (and the draft's) up front so the
+        step loop can never strand a half-grown sequence."""
         pool = self._target.pool
         m = len(seq.prompt)
+        total = m + seq.max_new
         hashes = page_hash_chain(seq.prompt, self.page_tokens)
         # share only complete pages strictly before the last prompt token:
         # the final token always runs through prefill for its logits
         shareable = min(len(hashes), (m - 1) // self.page_tokens)
         shared = pool.match_prefix(hashes[:shareable])
-        own = pages_needed(m + seq.max_new, self.page_tokens) - len(shared)
-        if pool.available() < own:
+        own = pages_needed(total, self.page_tokens) - len(shared)
+        dneed = 0
+        if self._draft is not None:
+            dneed = pages_needed(total + self.spec_tokens, self.page_tokens)
+        if pool.available() < own or (
+                self._draft is not None
+                and self._draft.pool.available() < dneed):
             pool.release(shared)
             return False
         seq.pages = shared + pool.allocate(own)
         seq.prefix_pages = len(shared)
+        if self._draft is not None:
+            seq.dpages = self._draft.pool.allocate(dneed)
         return True
 
     def _free_pages(self, seq: _Sequence) -> None:
         if seq.pages:
             self._target.pool.release(seq.pages)
             seq.pages = []
+        if seq.dpages:
+            self._draft.pool.release(seq.dpages)
+            seq.dpages = []
 
     def _prefill_paged(self, seq: _Sequence) -> None:
         pool = self._target.pool
@@ -487,8 +576,42 @@ class GenerationScheduler:
         for j, hsh in enumerate(page_hash_chain(seq.prompt, self.page_tokens)):
             pool.register(seq.pages[j], hsh)
         seq.generated.extend(self._sample(logits, [0], [len(suffix) - 1]))
+        self._count_tokens(1)
+        if self._draft is not None and seq.dpages:
+            self._prefill_draft(seq)
 
-    def _decode_paged(self, active) -> int:
+    def _prefill_draft(self, seq: _Sequence) -> None:
+        """Prime the draft cache with the prompt at admission (no prefix
+        sharing: the draft is cheap).  The draft stays exactly one token
+        behind the confirmed sequence, so every later draft chunk is 1 or
+        2 tokens wide and mixed fresh and mid-flight batches mint no new
+        shapes."""
+        draft = self._draft
+        m = len(seq.prompt)
+        L = length_bucket(m, self.min_bucket, self.max_length)
+        tok = self._hb.get((1, L), np.int64, tag="dprefill")
+        tok[0, :m] = seq.prompt
+        zero1 = self._hb.get((1,), np.int64, tag="dprefill0")
+        _, k_new, v_new = draft.forward(tok, zero1, zero1, [[]], 0)
+        where = [draft.pool.locate(seq.dpages, p) for p in range(m)]
+        draft.pool.write(k_new[:, 0, :m], v_new[:, 0, :m],
+                         [p for p, _ in where], [o for _, o in where])
+        seq.dcached = m
+
+    def _table(self, seq: _Sequence, draft: bool = False) -> List[int]:
+        cached = seq.dcached if draft else seq.cached
+        pages = seq.dpages if draft else seq.pages
+        return pages[:pages_needed(cached, self.page_tokens)]
+
+    def _write_rows(self, lm: _PagedLM, k_new, v_new, rows, cols, where):
+        """K/V of chunk entries ``(rows[i], cols[i])`` into ``lm``'s pool at
+        ``where[i]`` (page id, offset)."""
+        if where:
+            r, c = _index(rows, k_new.device), _index(cols, k_new.device)
+            lm.pool.write(k_new[:, r, c], v_new[:, r, c],
+                          [p for p, _ in where], [o for _, o in where])
+
+    def _decode_paged(self, active) -> None:
         """One token for every active slot through the ``[slots, 1]``
         decode forward reading the page pool."""
         pool = self._target.pool
@@ -499,7 +622,7 @@ class GenerationScheduler:
         for i, s in active:
             tok[i, 0] = s.tokens[-1]
             pos[i] = lens[i] = s.cached
-            tables[i] = s.pages[:pages_needed(s.cached, self.page_tokens)]
+            tables[i] = self._table(s)
         pb = _page_bucket(max(len(t) for t in tables))
         # one batched step: the span goes to the oldest active request's
         # trace (one causal chain per request would need span links)
@@ -510,21 +633,113 @@ class GenerationScheduler:
                            parent=parent):
             logits, k_new, v_new = self._target.forward(tok, pos, lens,
                                                         tables, pb)
-        idx = torch.as_tensor([i for i, _ in active], device=k_new.device)
-        where = [pool.locate(s.pages, s.cached) for _, s in active]
-        pool.write(k_new[:, idx, 0], v_new[:, idx, 0],
-                   [p for p, _ in where], [o for _, o in where])
+        self._write_rows(self._target, k_new, v_new,
+                         [i for i, _ in active], [0] * len(active),
+                         [pool.locate(s.pages, s.cached) for _, s in active])
         toks = self._sample(logits, [i for i, _ in active], [0] * len(active))
         for (_, s), t in zip(active, toks):
             s.cached += 1
             s.generated.append(t)
-        return max(len(s.tokens) for _, s in active)
+        self._count_tokens(len(active))
+
+    def _spec_round(self, active) -> None:
+        """The draft proposes ``spec_tokens``, the target verifies them in
+        one batched forward, greedy accept/rollback: token-identical to
+        target-only greedy decode.  Rollback is free: rejected positions
+        were never written inside the valid cache length, and the draft's
+        overrun truncates by clamping its cached length."""
+        spec = self.spec_tokens
+        draft, pool = self._draft, self._target.pool
+        b = self.max_slots
+        slots = [i for i, _ in active]
+        proposals: List[List[int]] = [[] for _ in range(b)]
+        # --- draft proposal rounds (the first folds in any catch-up) ----
+        with _tracing.span("serving.generation.draft",
+                           attrs={"model": self.name, "spec": spec}):
+            for j in range(spec):
+                chunks: List[List[int]] = [[] for _ in range(b)]
+                for i, s in active:
+                    chunks[i] = ([proposals[i][-1]] if j else
+                                 s.tokens[s.dcached:])
+                cb = row_bucket(max(len(ch) for ch in chunks), 1)
+                tok = self._hb.get((b, cb), np.int64, tag="tok")
+                pos = self._hb.get((b,), np.int64, tag="pos")
+                lens = self._hb.get((b,), np.int64, tag="len")
+                tables: List[List[int]] = [[] for _ in range(b)]
+                for i, s in active:
+                    tok[i, :len(chunks[i])] = chunks[i]
+                    pos[i] = lens[i] = s.dcached
+                    tables[i] = self._table(s, draft=True)
+                pb = _page_bucket(max(len(t) for t in tables))
+                logits, k_new, v_new = draft.forward(tok, pos, lens,
+                                                     tables, pb)
+                rows, cols, where = [], [], []
+                for i, s in active:
+                    for r in range(len(chunks[i])):
+                        rows.append(i)
+                        cols.append(r)
+                        where.append(draft.pool.locate(s.dpages,
+                                                       s.dcached + r))
+                self._write_rows(draft, k_new, v_new, rows, cols, where)
+                picks = self._sample(logits, slots,
+                                     [len(chunks[i]) - 1 for i in slots])
+                for (i, s), t in zip(active, picks):
+                    s.dcached += len(chunks[i])
+                    proposals[i].append(t)
+        # --- target verify: [slots, spec+1] over the paged cache ---------
+        tok = self._hb.get((b, spec + 1), np.int64, tag="tok")
+        pos = self._hb.get((b,), np.int64, tag="pos")
+        lens = self._hb.get((b,), np.int64, tag="len")
+        tables = [[] for _ in range(b)]
+        for i, s in active:
+            tok[i, 0] = s.tokens[-1]
+            tok[i, 1:] = proposals[i]
+            pos[i] = lens[i] = s.cached
+            tables[i] = self._table(s)
+        pb = _page_bucket(max(len(t) for t in tables))
+        with _tracing.span("serving.generation.verify",
+                           attrs={"model": self.name, "slots": len(active),
+                                  "spec": spec}):
+            logits, k_new, v_new = self._target.forward(tok, pos, lens,
+                                                        tables, pb)
+        greedy = self._sample(logits, [i for i in slots
+                                       for _ in range(spec + 1)],
+                              list(range(spec + 1)) * len(slots))
+        # --- greedy accept / rollback per slot ---------------------------
+        rows, cols, where = [], [], []
+        accepted_total = 0
+        for n, (i, s) in enumerate(active):
+            g = greedy[n * (spec + 1):(n + 1) * (spec + 1)]
+            a = 0
+            while a < spec and proposals[i][a] == g[a]:
+                a += 1
+            accepted_total += a
+            new_tokens = proposals[i][:a] + [g[a]]
+            new_tokens = new_tokens[:s.max_new - len(s.generated)]
+            if s.eos_id is not None and s.eos_id in new_tokens:
+                new_tokens = new_tokens[:new_tokens.index(s.eos_id) + 1]
+            # rows 0..n_new-1 fed (last, d1..d_{n_new-1}), all confirmed
+            # tokens, so their K/V land at cached..cached+n_new-1
+            for r in range(len(new_tokens)):
+                rows.append(i)
+                cols.append(r)
+                where.append(pool.locate(s.pages, s.cached + r))
+            s.cached += len(new_tokens)
+            s.generated.extend(new_tokens)
+            self._count_tokens(len(new_tokens))
+            # draft rollback: clamp to the confirmed sequence (stale
+            # entries past the clamp are masked by dcached, never read)
+            s.dcached = min(s.dcached, len(s.tokens) - 1)
+        self._write_rows(self._target, k_new, v_new, rows, cols, where)
+        self._m_proposed.inc(spec * len(active))
+        self._m_accepted.inc(accepted_total)
 
     # ------------------------------------------------------------- stepping
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduler iteration: admit, decode one token for every
-        active sequence, retire.  Returns True while any work remains."""
+        """One scheduler iteration: admit, decode one token (or one
+        speculative round) for every active sequence, retire.  Returns
+        True while any work remains."""
         finished: List[_Sequence] = []
         failed: List = []  # (sequence, exception): fault isolation per step
         # serving-owned: the forwards belong to request-time attribution
@@ -542,8 +757,7 @@ class GenerationScheduler:
                         break  # no pages free: the FIFO head waits
                     self._pending.popleft()
                     if not seq.future.set_running_or_notify_cancel():
-                        if self.paged:
-                            self._free_pages(seq)
+                        self._free_pages(seq)
                         self._rids.pop(seq.rid, None)
                         continue
                     seq.t_admit = time.monotonic()  # the queue wait ends
@@ -553,8 +767,7 @@ class GenerationScheduler:
                         else:
                             self._prefill_dense(seq)
                     except Exception as e:  # noqa: BLE001 — fail THIS future
-                        if self.paged:
-                            self._free_pages(seq)
+                        self._free_pages(seq)
                         self._rids.pop(seq.rid, None)
                         failed.append((seq, e))
                         continue
@@ -569,8 +782,14 @@ class GenerationScheduler:
                       if s is not None]
             if active:
                 try:
-                    L = (self._decode_paged(active) if self.paged
-                         else self._decode_dense(active))
+                    if not self.paged:
+                        L = self._decode_dense(active)
+                    else:
+                        if self._draft is not None:
+                            self._spec_round(active)
+                        else:
+                            self._decode_paged(active)
+                        L = max(len(s.tokens) for _, s in active)
                     for i, s in active:
                         if s.done():
                             self._retire(i, s, finished)
@@ -581,8 +800,7 @@ class GenerationScheduler:
                     # every in-flight sequence instead of wedging its future
                     for i, s in active:
                         self._slots[i] = None
-                        if self.paged:
-                            self._free_pages(s)
+                        self._free_pages(s)
                         self._rids.pop(s.rid, None)
                         failed.append((s, e))
             more = bool(self._pending
@@ -631,8 +849,7 @@ class GenerationScheduler:
         seq.t_retire = time.monotonic()
         if occupied:
             self._slots[slot] = None
-        if self.paged:
-            self._free_pages(seq)
+        self._free_pages(seq)
         self._rids.pop(seq.rid, None)
         self.retired += 1
         finished.append(seq)
@@ -645,7 +862,98 @@ class GenerationScheduler:
             n += 1
         return n
 
+    # ------------------------------------------------------------- warmup
+    @torch.no_grad()
+    def warmup(self, max_prompt_len: Optional[int] = None,
+               max_new_tokens: int = 16, role: str = "mixed") -> int:
+        """Make every signature live traffic can reach before its first
+        token (on the card: run and capture each CUDA graph): the prefill
+        chunk ladder up to ``max_prompt_len``, against an empty page table
+        and the prefix-hit page ladder; the decode page ladder up to
+        ``max_prompt_len + max_new_tokens``; under speculation the verify
+        ladder and the draft's prefill and 1- and 2-token chunk ladders.
+        The dense engine makes ``(1, L)`` and ``(slots, L)`` over its length
+        ladder.  Within each family the largest signature comes first, so
+        the rest capture into its graph pool.  Returns the entries made.
+
+        ``role`` restricts the family to what a disaggregated replica can
+        reach: ``"prefill"`` the ``[1, L]`` chunk ladder only,
+        ``"decode"`` the ``[slots, 1]`` ladder plus the draft and verify
+        families (the draft's prompt prefill runs locally)."""
+        # serving-owned: the warm forwards stay out of the train ledger;
+        # the lock keeps the step loop off the graphs' static outputs
+        with _goodput.serving().owned(), self._lock:
+            return self._warmup(max_prompt_len, max_new_tokens, role)
+
+    def _entries(self) -> int:
+        n = self.cache_stats["entries"]
+        if self._draft is not None:
+            n += self._draft.cache_stats["entries"]
+        return n
+
+    def _warmup(self, max_prompt_len, max_new_tokens, role) -> int:
+        if role not in ("mixed", "prefill", "decode"):
+            raise MXNetError(f"unknown warmup role {role!r}; expected "
+                             "'mixed', 'prefill' or 'decode'")
+        if max_prompt_len is None:
+            max_prompt_len = self.max_length or 4 * self.min_bucket
+        total = max_prompt_len + int(max_new_tokens)
+        if self.max_length is not None:
+            total = min(total, self.max_length)
+        before = self._entries()
+        if not self.paged:
+            top = length_bucket(total, self.min_bucket, self.max_length)
+            for L in reversed(_ladder(self.min_bucket, top)):
+                for bsz in (self.max_slots, 1):
+                    self._forward(np.zeros((bsz, L), dtype=np.int64))
+            return self._entries() - before
+
+        zeros = lambda *s: np.zeros(s, dtype=np.int64)
+        slots = self.max_slots
+        prefill_top = length_bucket(max_prompt_len, self.min_bucket,
+                                    self.max_length)
+        chunk_ladder = _ladder(self.min_bucket, prefill_top)[::-1]
+        pb_ladder = _ladder(1, _page_bucket(pages_needed(
+            total, self.page_tokens)))[::-1]
+        # a prefix-hit suffix prefill runs [1, L] against a non-empty table
+        # (the shared prefix's page bucket): the prefill family is the chunk
+        # ladder times {empty} and the page ladder up to the largest
+        # shareable prefix
+        prefix_top = _page_bucket((max_prompt_len - 1) // self.page_tokens)
+        prefill_pbs = ((_ladder(1, prefix_top)[::-1]
+                        if self._target.pool.prefix_cache_enabled
+                        and prefix_top else []) + [0])
+        if role in ("mixed", "prefill"):
+            for L in chunk_ladder:
+                for pb in prefill_pbs:
+                    self._target.forward(zeros(1, L), zeros(1), zeros(1),
+                                         [[0] * pb], pb)
+        if role in ("mixed", "decode"):
+            for width in ([self.spec_tokens + 1] if self._draft else []) + [1]:
+                for pb in pb_ladder:
+                    self._target.forward(zeros(slots, width), zeros(slots),
+                                         zeros(slots), [[0] * pb] * slots, pb)
+        if self._draft is not None and role in ("mixed", "decode"):
+            # the draft shapes live traffic makes: the [1, L] prompt prefill
+            # at admission, then 1- and 2-token proposal chunks (_prefill_
+            # draft keeps the draft one token behind, so none is wider)
+            for L in chunk_ladder:
+                self._draft.forward(zeros(1, L), zeros(1), zeros(1), [[]], 0)
+            dpb_ladder = _ladder(1, _page_bucket(pages_needed(
+                total + self.spec_tokens, self.page_tokens)))[::-1]
+            for cb in (2, 1):
+                for pb in dpb_ladder:
+                    self._draft.forward(zeros(slots, cb), zeros(slots),
+                                        zeros(slots), [[0] * pb] * slots, pb)
+        return self._entries() - before
+
     # ------------------------------------------------------------- stats
+    @property
+    def cache_stats(self):
+        """The target's (or the dense engine's) CachedOp counters."""
+        return (self._target.cache_stats if self.paged
+                else self._op.cache_stats)
+
     def stats_snapshot(self):
         snap = {"steps": self.steps, "admitted": self.admitted,
                 "retired": self.retired, "cancelled": self.cancelled,
@@ -654,6 +962,14 @@ class GenerationScheduler:
                 "engine": "paged" if self.paged else "dense",
                 "logit_rows": self.logit_rows,
                 "nonfinite_rows": self.nonfinite_rows}
+        snap["compile_cache"] = {k: v for k, v in self.cache_stats.items()
+                                 if k != "signatures"}
         if self.paged:
             snap["page_pool"] = self._target.pool.stats()
+            if self._draft is not None:
+                snap["spec_tokens"] = self.spec_tokens
+                snap["draft_page_pool"] = self._draft.pool.stats()
+                proposed = self._m_proposed.value
+                snap["spec_acceptance"] = (
+                    self._m_accepted.value / proposed if proposed else 0.0)
         return snap

@@ -278,14 +278,22 @@ class ModelServer:
                             scheduler: Optional[GenerationScheduler] = None,
                             max_slots: int = 4, eos_id: Optional[int] = None,
                             max_length: Optional[int] = None,
-                            min_bucket: int = 16,
+                            min_bucket: int = 16, draft_model=None,
+                            warmup: Optional[bool] = None,
+                            warmup_prompt_len: Optional[int] = None,
                             **sched_kwargs) -> GenerationScheduler:
         """Serve a decoder LM under ``name``: continuous batching (paged KV
-        cache unless ``kv_cache=False``), or a prebuilt ``scheduler``,
-        driven by a daemon step loop.  ``POST /generate/<name>`` with
-        ``{"prompt": [ids], "max_new_tokens": n}`` answers
-        ``{"tokens": [...]}``.  Extra keyword arguments go to
+        cache unless ``kv_cache=False``, speculative with a
+        ``draft_model``), or a prebuilt ``scheduler``, driven by a daemon
+        step loop.  ``POST /generate/<name>`` with ``{"prompt": [ids],
+        "max_new_tokens": n}`` answers ``{"tokens": [...]}``.  ``warmup``
+        (default ``MXNET_SERVING_WARMUP``) makes the scheduler's prefill,
+        decode and draft/verify families first (on the card: captures
+        their CUDA graphs), for prompts up to ``warmup_prompt_len``, so no
+        first token waits for a capture.  Extra keyword arguments go to
         :class:`GenerationScheduler`."""
+        if warmup is None:
+            warmup = bool(_env.MXNET_SERVING_WARMUP)
         if self._stopped:
             raise MXNetError("server is stopped; create a new ModelServer")
         if name in self._generators or name in self._models:
@@ -296,8 +304,12 @@ class ModelServer:
                                  "prebuilt scheduler")
             scheduler = GenerationScheduler(
                 model, max_slots=max_slots, eos_id=eos_id,
-                max_length=max_length, min_bucket=min_bucket, name=name,
-                **sched_kwargs)
+                max_length=max_length, min_bucket=min_bucket,
+                draft_model=draft_model, name=name, **sched_kwargs)
+        if warmup:
+            # the role's family only: what its traffic can reach
+            scheduler.warmup(max_prompt_len=warmup_prompt_len,
+                             role=self.role)
         self._generators[name] = _GenServed(scheduler, name)
         from .. import profiler
         profiler.register_stats_provider(

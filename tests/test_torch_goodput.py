@@ -183,10 +183,8 @@ def test_generation_requests_attribute_queue_execute_stream(kv_cache):
     out = {}
     for k, (Server, gp, _, _, _) in PKG.items():
         server = Server()
-        kw = {"kv_cache": kv_cache}
-        if k == "jax":
-            kw["warmup"] = False
-        server.register_generation("gen-gp", nets[k], max_slots=2, **kw)
+        server.register_generation("gen-gp", nets[k], max_slots=2,
+                                   kv_cache=kv_cache, warmup=False)
         try:
             toks = server.generate("gen-gp", [1, 2, 3], max_new_tokens=4)
             rec = gp.serving().last_request

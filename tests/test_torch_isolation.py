@@ -89,7 +89,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.gluon.data.vision.datasets",
                  "mxnet_tpu_torch.gluon.data.vision.transforms",
                  "mxnet_tpu_torch.rnn", "mxnet_tpu_torch.rnn.io",
-                 "mxnet_tpu_torch.ops.embedding"):
+                 "mxnet_tpu_torch.ops.embedding",
+                 "mxnet_tpu_torch.serving.generation",
+                 "mxnet_tpu_torch.serving.paged_cache",
+                 "mxnet_tpu_torch.gluon.model_zoo.language.llama"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad

@@ -120,11 +120,10 @@ def servers(models):
             srv.register("bert", bert, max_batch=8, max_wait_us=2000,
                          input_spec=[((SEQ,), "int32")])
             srv.register("q", _mlps(5)[k], input_spec=SPEC, max_queue=0)
-            gkw = {"warmup": False} if k == "jax" else {}
             srv.register_generation("lm", lm, max_slots=2, page_tokens=4,
-                                    **gkw)
+                                    warmup=False)
             srv.register_generation("lm_dense", lm, max_slots=2,
-                                    kv_cache=False, **gkw)
+                                    kv_cache=False, warmup=False)
             port = srv.start_http(port=0)
             out[k] = (srv, f"http://127.0.0.1:{port}")
     finally:
