@@ -149,16 +149,37 @@ beside its bound, then drives the port's paths:
   acceptance and agreement with plain paged, warmed tokens bit for bit
   the unwarmed ones, and a ``torch.profiler`` trace of 16 warmed decode
   steps (busy share, device ms by GEMM, elementwise and other).
+- the fleet (slice 18, ``fleet``): (a) the ``serving`` phase's llama_7b
+  behind a ``fleet.Router`` over in-process ModelServers sharing its
+  weights: one mixed replica, then one prefill and two decode replicas
+  (each paged and warmed for its role), the 4 prompts twice; tokens/s,
+  first-token ms, each K/V handoff's bytes and the ms of its gather,
+  encode, wire (both JSON hops, the Router's included), decode and pool
+  write, the prefix-routed count, and no new CachedOp entry on any
+  replica; tokens held to the mixed replica's under the bf16 noise.
+  (b) llama_7b's width at 4 layers in fp32 through the Router:
+  disaggregation, prefix affinity, migration with a snapshot (the serving
+  replica stopped) and without (a ``relay`` fault), a hedged first token,
+  ``rolling_restart`` under load and a client's disconnect, every stream
+  token for token one scheduler's greedy decode.  (c)
+  ``tools/chaos_torch.py`` over two ``tools/serve_torch.py`` children of
+  (b)'s model, 2 seeded SIGKILLs with the supervisor armed.  (d)
+  ``serving_bert``'s BERT-base behind two replicas' ``/predict`` and
+  llama_7b's dense engine behind two replicas' ``/generate``, through
+  the Router: the flash kernels' launches on that path, each held against
+  its plain version.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, serving_bert,
-serving_http, speculative, serving_resnet_export, module_fit,
+serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
-a kernel is brought up; ``--only build,serving,speculative`` runs slice 17
+a kernel is brought up; ``--only build,serving,serving_bert,fleet`` runs
+slice 18 (``fleet`` builds the models it reuses when their phases did not
+run); ``--only build,serving,speculative`` runs slice 17
 (``speculative`` needs ``serving``, whose llama_7b it reuses); ``--only
 build,input_pipeline,module_fit`` runs slice 16; ``--only
 build,gluon_training`` runs just the Gluon loop,
@@ -2454,8 +2475,14 @@ def _spec_serve(torch, run, model, draft, prompts, warm):
                "warm": _gen_graphs(torch, sched)}
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        futs = [server.generate_async(name, p, max_new_tokens=NEW_TOKENS,
-                                      eos_id=None) for p in prompts]
+        # queue all four, then wake the step loop once: it admits them in
+        # one step, so every run batches them alike (in bf16 another batch
+        # composition rounds apart, and warmed and unwarmed are compared
+        # token for token)
+        gen = server._generators[name]
+        futs = [gen.scheduler.submit(p, max_new_tokens=NEW_TOKENS,
+                                     eos_id=None) for p in prompts]
+        gen.wake.set()
         tokens = [f.result(timeout=600) for f in futs]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -2560,6 +2587,746 @@ def phase_speculative(torch, seed, model, dense_per_forward):
     print(f"speculative decode trace [{card}]: "
           f"{json.dumps(runs['plain']['trace'])}", flush=True)
     check(out["ok"], f"speculative gates failed: {gates}")
+
+
+# The fleet (slice 18).  (a) the serving phase's llama_7b (bf16, 32 layers,
+# one weight copy) behind a Router: first one mixed replica, then one
+# prefill and two decode replicas, each paged (16-token pages, 4 slots) and
+# warmed for its role; the serving phase's 4 prompts, 16 new tokens each,
+# twice (the second round finds the prompts in the prefill replica's
+# prefix cache).  (b) llama_7b's width at 4 layers, fp32, TF32 off, 2 slots,
+# max_length 256: prompts of a 64-token system prefix and suffixes of
+# 16-130 tokens, 24 new tokens each, through disaggregation, prefix
+# affinity, migration (a snapshot and a stop; no snapshot and a ``relay``
+# fault), a hedge, a rolling restart and a client's disconnect; a slowed
+# replica sleeps ``step_delay_s`` (``hedge_delay_s`` for the hedge) before
+# each step.  (c) tools/chaos_torch.py: two tools/serve_torch.py children of
+# (b)'s model (max_length 128), 16 streams of 24 tokens 30 ms apart (so a
+# kill finds streams in flight), 2 seeded SIGKILLs.
+# (d) BERT-base behind two replicas' /predict and llama_7b's dense engine
+# behind two replicas' /generate, through the Router.
+FLEET = dict(slots=4, page_tokens=16, rounds=2,
+             exact_system=64, exact_suffixes=(16, 40, 90, 130),
+             exact_new=24, exact_slots=2, exact_max_length=256,
+             migrate_prompt=100, step_delay_s=0.05, hedge_delay_s=1.0,
+             snapshot_tokens=4, relay_fault_after=4,
+             chaos=dict(requests=16, max_new=24, kills=2, slots=2,
+                        max_length=128, interarrival_s=0.03,
+                        kill_wait_s=240, timeout_s=900),
+             bert_requests=8)
+
+
+class _Probe:
+    """Times the stages of each K/V handoff, keyed by the prompt's length:
+    the prefill replica's gather and encode, the wire between the end of
+    its /prefill and the start of the decode replica's /generate (the two
+    JSON hops, the Router's parse and re-serialisation included), and the
+    decode replica's decode and pool write.  Patches the port's functions
+    for the ``with`` block."""
+
+    def __init__(self, torch):
+        import threading
+        from mxnet_tpu_torch.serving import generation, paged_cache, server
+        self.torch = torch
+        self.lock = threading.Lock()
+        self.events = []
+        self.patches = [
+            (paged_cache.PagePool, "gather", self._timed(
+                paged_cache.PagePool.gather, "gather_ms",
+                lambda a: len(a[1]))),
+            (server, "encode_kv", self._timed(
+                server.encode_kv, "encode_ms", lambda a: a[0].shape[1])),
+            (server, "decode_kv", self._timed(
+                server.decode_kv, "decode_ms",
+                lambda a: len(a[0]["prompt"]) if a[0].get("kv") else None)),
+            (generation.GenerationScheduler, "_prefill_external",
+             self._timed(generation.GenerationScheduler._prefill_external,
+                         "write_ms", lambda a: len(a[1].prompt), sync=True)),
+            (server.ModelServer, "handle_prefill", self._stamp(
+                server.ModelServer.handle_prefill, "prefill_end", False)),
+            (server.ModelServer, "handle_generate_stream", self._stamp(
+                server.ModelServer.handle_generate_stream, "generate_start",
+                True))]
+        self.saved = []
+
+    def _record(self, tokens, key, value):
+        if tokens is not None:
+            with self.lock:
+                self.events.append((tokens, key, value))
+
+    def _timed(self, fn, key, tokens_of, sync=False):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                self.torch.cuda.synchronize()
+            self._record(tokens_of(a), key, 1e3 * (time.perf_counter() - t))
+            return out
+        return wrapper
+
+    def _stamp(self, fn, key, at_start):
+        def wrapper(srv, name, payload, *a, **kw):
+            tokens = len(payload.get("prompt") or [])
+            if at_start:
+                if payload.get("kv") is not None:
+                    self._record(tokens, key, time.perf_counter())
+                return fn(srv, name, payload, *a, **kw)
+            out = fn(srv, name, payload, *a, **kw)
+            self._record(tokens, key, time.perf_counter())
+            return out
+        return wrapper
+
+    def __enter__(self):
+        for owner, name, fn in self.patches:
+            self.saved.append((owner, name, owner.__dict__[name]))
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def take(self):
+        """Per prompt length: each stage's ms, and the wire's."""
+        with self.lock:
+            events, self.events = self.events, []
+        out = {}
+        for tokens, key, value in events:
+            out.setdefault(tokens, {})[key] = value
+        for row in out.values():
+            if "prefill_end" in row and "generate_start" in row:
+                row["wire_ms"] = 1e3 * (row.pop("generate_start")
+                                        - row.pop("prefill_end"))
+        return out
+
+
+def _fleet_streams(url, name, prompts, max_new):
+    """Every prompt streamed through ``url`` at once, a thread each:
+    (tokens, first-token ms, wall s)."""
+    import threading
+    from mxnet_tpu_torch.serving.server import Client
+    toks, first, errors = [None] * len(prompts), [0.0] * len(prompts), []
+
+    def one(i):
+        t = time.perf_counter()
+        try:
+            got = []
+            for tok in Client(url).generate_stream(
+                    name, prompts[i], max_new_tokens=max_new, eos_id=None):
+                if not got:
+                    first[i] = 1e3 * (time.perf_counter() - t)
+                got.append(tok)
+            toks[i] = got
+        except Exception as e:  # noqa: BLE001 - reported as a gate
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"fleet streams failed: {errors}")
+    return toks, first, time.perf_counter() - t0
+
+
+def _fleet_replica(model, tag, role, warm_len, **kw):
+    """A warmed paged scheduler of ``model`` behind a ModelServer of
+    ``role`` on a free port: (server, scheduler, url, warmup s)."""
+    from mxnet_tpu_torch.serving import GenerationScheduler, ModelServer
+    sched = GenerationScheduler(model, name=f"fleet_{tag}", **kw)
+    srv = ModelServer(role=role)
+    t = time.perf_counter()
+    srv.register_generation("llama", None, scheduler=sched, warmup=True,
+                            warmup_prompt_len=warm_len)
+    warm_s = time.perf_counter() - t
+    return srv, sched, f"http://127.0.0.1:{srv.start_http()}", warm_s
+
+
+def _fleet_cell(torch, model, prompts, roles):
+    """(a)'s traffic through a Router over fresh replicas of ``roles``:
+    per round tokens/s, first-token ms and the handoffs; per replica its
+    warmup, entries made by live traffic and peak memory."""
+    from mxnet_tpu_torch.fleet import Router
+    kw = dict(max_slots=FLEET["slots"], kv_cache=True,
+              page_tokens=FLEET["page_tokens"], prefix_cache=True)
+    reps = []
+    for i, role in enumerate(roles):
+        srv, sched, url, warm_s = _fleet_replica(
+            model, f"{role}{i}", role, max(PROMPTS), **kw)
+        reps.append({"srv": srv, "sched": sched, "url": url, "role": role,
+                     "warm_s": warm_s, "warm": _gen_graphs(torch, sched)})
+    router = Router([(r["url"], r["role"]) for r in reps], poll_s=999)
+    host, port = router.start_http("127.0.0.1", 0)
+    routed = _fleet_counter("mxnet_tpu_fleet_prefix_routed_total",
+                            model="llama")
+    rounds, tokens = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with _Probe(torch) as probe:
+        for _ in range(FLEET["rounds"]):
+            got, first, wall = _fleet_streams(f"http://{host}:{port}",
+                                              "llama", prompts, NEW_TOKENS)
+            tokens.append(got)
+            handoffs = probe.take()
+            rounds.append({
+                "wall_s": wall,
+                "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+                "first_token_ms": first,
+                "handoffs": {n: dict(h, bytes=2 * 4 * model.kv_cache_spec()[0]
+                                     * n * model.kv_cache_spec()[1])
+                             for n, h in sorted(handoffs.items())}})
+            router.refresh()   # the digests the round registered
+        solo = None
+        if "prefill" in roles:
+            # the longest prompt alone: each stage without the others'
+            # handoffs contending for the interpreter
+            _, first, wall = _fleet_streams(f"http://{host}:{port}",
+                                            "llama", prompts[-1:],
+                                            NEW_TOKENS)
+            solo = {"prompt_tokens": len(prompts[-1]), "wall_s": wall,
+                    "first_token_ms": first[0],
+                    **probe.take()[len(prompts[-1])]}
+    router.stop()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"rounds": rounds, "peak_mem_gb": peak, "solo_handoff": solo,
+           "prefix_routed": _fleet_counter(
+               "mxnet_tpu_fleet_prefix_routed_total", model="llama") - routed,
+           "replicas": []}
+    for r in reps:
+        r["srv"].stop(timeout=120)
+        after = _gen_graphs(torch, r["sched"])
+        out["replicas"].append({
+            "role": r["role"], "warmup_s": r["warm_s"], "warm": r["warm"],
+            "new_entries": after["entries"] - r["warm"]["entries"],
+            "new_captures": after["captures"] - r["warm"]["captures"],
+            "kv_pool_gb": (r["sched"]._target.pool.k.nbytes
+                           + r["sched"]._target.pool.v.nbytes) / 1e9,
+            "admitted": r["sched"].admitted})
+    del reps, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def _fleet_counter(name, **labels):
+    from mxnet_tpu_torch.observability import metrics
+    fam = metrics.registry().get(name)
+    return fam.labels(**labels).value if fam is not None else 0.0
+
+
+def _fleet_disagg(torch, model, prompts):
+    """(a): the mixed replica, then prefill:1,decode:2, the same traffic."""
+    mixed, mixed_tokens = _fleet_cell(torch, model, prompts, ("mixed",))
+    disagg, disagg_tokens = _fleet_cell(torch, model, prompts,
+                                        ("prefill", "decode", "decode"))
+    noise = _bf16_logit_noise(torch, model, prompts[0])
+    floor = max(noise["dense_vs_dense_padded"], noise["dense_vs_paged"])
+    div = [_divergences(torch, model, prompts, got, mixed_tokens[0])
+           for got in mixed_tokens[1:] + disagg_tokens]
+    out = {"mixed": mixed, "disaggregated": disagg,
+           "tokens_agree_with_mixed": [
+               f"{_agree(got, mixed_tokens[0])}/{len(prompts) * NEW_TOKENS}"
+               for got in disagg_tokens],
+           "divergences": div, "bf16_noise": floor}
+    handoffs = [h for r in disagg["rounds"] for h in r["handoffs"].values()]
+    gates = {
+        "a_all_complete": all(len(t) == NEW_TOKENS
+                              for ts in mixed_tokens + disagg_tokens
+                              for t in ts),
+        "a_no_new_entries": all(r["new_entries"] == 0 == r["new_captures"]
+                                for c in (mixed, disagg)
+                                for r in c["replicas"]),
+        "a_handoff_per_request": len(handoffs) == FLEET["rounds"]
+        * len(prompts) and all(set(h) == {"gather_ms", "encode_ms", "wire_ms", "decode_ms",
+                               "write_ms", "bytes"} for h in handoffs),
+        "a_identity_or_near_tie": all(
+            d is None or d["top2_margin"] < floor for ds in div for d in ds),
+        "a_prefix_routed": disagg["prefix_routed"] > 0,
+        "a_decode_replicas_served": sum(
+            r["admitted"] for r in disagg["replicas"]
+            if r["role"] == "decode") == FLEET["rounds"] * len(prompts) + 1}
+    return out, gates
+
+
+class _ExactReplica:
+    """A replica of (b): a warmed scheduler behind a ModelServer on a
+    fixed port.  ``delay`` seconds of sleep precede each step;
+    ``restart()`` stops the server and serves the same scheduler again on
+    the same port, its CUDA graphs kept, so nothing captures under
+    traffic."""
+
+    def __init__(self, model, tag, role):
+        from mxnet_tpu_torch.serving import GenerationScheduler
+        self.role, self.delay, self.port = role, 0.0, 0
+        self.sched = GenerationScheduler(
+            model, name=f"fleet_exact_{tag}", max_slots=FLEET["exact_slots"],
+            kv_cache=True, page_tokens=FLEET["page_tokens"],
+            prefix_cache=True, max_length=FLEET["exact_max_length"])
+        # the whole length ladder: a re-prefill of prompt + known tokens
+        # after a migration reaches past the prompts
+        self.sched.warmup(max_prompt_len=FLEET["exact_max_length"] - 1,
+                          max_new_tokens=1, role=role)
+        self.entries = len(self.sched._target._op._cache)
+        step = self.sched.step
+
+        def slowed():
+            if self.delay:
+                time.sleep(self.delay)
+            return step()
+        self.sched.step = slowed
+        self.start()
+
+    def start(self):
+        from mxnet_tpu_torch.serving import ModelServer
+        self.srv = ModelServer(role=self.role)
+        self.srv.register_generation("lm", None, scheduler=self.sched,
+                                     warmup=False)
+        self.port = self.srv.start_http("127.0.0.1", self.port)
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    def restart(self):
+        self.srv.stop(timeout=60)
+        self.start()
+
+    def active_pages(self):
+        return self.sched.stats_snapshot()["page_pool"]["active"]
+
+    def settle(self, delay):
+        """Set the step delay once nothing is pending or active (an
+        abandoned leg left by a migration included) and a step begun
+        under the old delay has had time to end."""
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                self.sched._pending
+                or any(s is not None for s in self.sched._slots)):
+            time.sleep(0.02)
+        time.sleep(2 * max(self.delay, FLEET["step_delay_s"]))
+        self.delay = delay
+
+
+def _stream_events(router, prompt, max_new, rid=None):
+    """(tokens, events) of one stream through ``router`` in process."""
+    payload = {"prompt": prompt, "max_new_tokens": max_new, "eos_id": None}
+    if rid:
+        payload["rid"] = rid
+    code, events = router.route_generate_stream("lm", payload)
+    check(code == 200, f"stream refused: {code} {events}")
+    events = list(events)
+    return [e["token"] for e in events if "token" in e], events
+
+
+def _clean(events):
+    """No error event, and the done event repeats the relayed tokens."""
+    toks = [e["token"] for e in events if "token" in e]
+    return (not any("error" in e for e in events)
+            and events[-1] == {"done": True, "tokens": toks})
+
+
+def _fleet_exact(torch, seed):
+    """(b): every stream token for token one scheduler's greedy decode."""
+    import threading
+    from collections import deque
+    from mxnet_tpu_torch.fleet import Router
+    from mxnet_tpu_torch.resilience import FaultPlan
+    from mxnet_tpu_torch.serving import GenerationScheduler
+    fp32 = _random_llama(torch, seed, torch.float32, 4)
+    system = _prompts(seed + 11, (FLEET["exact_system"],))[0]
+    prompts = [system + s for s in _prompts(seed + 12,
+                                            FLEET["exact_suffixes"])]
+    solo = _prompts(seed + 13, (FLEET["migrate_prompt"],) * 4)
+    new = FLEET["exact_new"]
+    oracle = GenerationScheduler(
+        fp32, name="fleet_exact_oracle", max_slots=FLEET["exact_slots"],
+        kv_cache=True, page_tokens=FLEET["page_tokens"], prefix_cache=True,
+        max_length=FLEET["exact_max_length"])
+    want = {}
+    for p in prompts + solo:
+        fut = oracle.submit(p, max_new_tokens=new, eos_id=None)
+        oracle.run()
+        want[tuple(p)] = fut.result(timeout=0)
+    del oracle
+    t0 = time.perf_counter()
+    a, b = (_ExactReplica(fp32, tag, "mixed") for tag in ("a", "b"))
+    pre, dec = (_ExactReplica(fp32, role, role)
+                for role in ("prefill", "decode"))
+    warm_s = time.perf_counter() - t0
+    out, gates, same, missed = {"warmup_s": warm_s}, {}, [], []
+
+    def hold(p, toks, events=None):
+        same.append(toks == want[tuple(p)]
+                    and (events is None or _clean(events)))
+        if toks != want[tuple(p)] and toks is not None:
+            missed.append((p, toks))
+        return same[-1]
+
+    # disaggregation, blocking and streamed
+    router = Router([(pre.url, "prefill"), (dec.url, "decode")], poll_s=999)
+    for p in prompts:
+        code, body = router.route_generate(
+            "lm", {"prompt": p, "max_new_tokens": new, "eos_id": None})
+        hold(p, body.get("tokens") if code == 200 else None)
+    toks, events = _stream_events(router, prompts[0], new)
+    gates["b_disaggregated"] = hold(prompts[0], toks, events) and all(same)
+    # prefix affinity: the second prompt of the system prefix follows
+    router = Router([a.url, b.url], poll_s=999)
+    admitted = [a.sched.admitted, b.sched.admitted]
+    routed = _fleet_counter("mxnet_tpu_fleet_prefix_routed_total",
+                            model="lm")
+    code, body = router.route_generate(
+        "lm", {"prompt": prompts[1], "max_new_tokens": new, "eos_id": None})
+    hold(prompts[1], body.get("tokens"))
+    first = a if a.sched.admitted > admitted[0] else b
+    hits = first.sched.stats_snapshot()["page_pool"]["prefix_hits"]
+    router.refresh()
+    code, body = router.route_generate(
+        "lm", {"prompt": prompts[2], "max_new_tokens": new, "eos_id": None})
+    hold(prompts[2], body.get("tokens"))
+    gates["b_prefix_affinity"] = (
+        first.sched.admitted == admitted[(first is b)] + 2
+        and first.sched.stats_snapshot()["page_pool"]["prefix_hits"]
+        >= hits + FLEET["exact_system"] // FLEET["page_tokens"]
+        and _fleet_counter("mxnet_tpu_fleet_prefix_routed_total",
+                           model="lm") > routed)
+    # migration with snapshots, by stopping the serving replica
+    router = Router([a.url, b.url], poll_s=999,
+                    snapshot_tokens=FLEET["snapshot_tokens"])
+    router.replicas[1].in_flight = 1          # a serves first
+    a.settle(FLEET["step_delay_s"])
+    code, events = router.route_generate_stream(
+        "lm", {"prompt": solo[0], "max_new_tokens": new, "eos_id": None})
+    it, head = iter(events), []
+    while sum("token" in e for e in head) < 2 * FLEET["snapshot_tokens"]:
+        head.append(next(it))
+    stopper = threading.Thread(target=a.srv.stop, kwargs={"timeout": 60})
+    stopper.start()
+    events = head + list(it)
+    stopper.join(120)
+    entries_b = len(b.sched._target._op._cache)
+    gates["b_migrate_snapshot_stop"] = hold(
+        solo[0], [e["token"] for e in events if "token" in e], events) \
+        and router.migrations == 1 and router.replicas[0].status == "DEAD"
+    out["migrate_snapshot"] = {"migrations": router.migrations,
+                               "snapshot_tokens": FLEET["snapshot_tokens"]}
+    a.start()
+    # migration without a snapshot, by a relay fault
+    router = Router([a.url, b.url], poll_s=999, snapshot_tokens=0)
+    router.replicas[1].in_flight = 1
+    with FaultPlan({"relay": [f"ok*{FLEET['relay_fault_after']}",
+                              "unavailable"]}) as plan:
+        toks, events = _stream_events(router, solo[1], new)
+    gates["b_migrate_relay_fault"] = hold(solo[1], toks, events) \
+        and router.migrations == 1 \
+        and plan.triggered[-1] == ("relay", "unavailable")
+    # a hedged first token
+    a.settle(FLEET["hedge_delay_s"])
+    b.settle(0.0)
+    router = Router([a.url, b.url], poll_s=999, hedge_pctl=99)
+    router._ft_samples["lm"] = deque([0.01] * 32, maxlen=512)
+    router.replicas[1].in_flight = 5          # the slow a is the primary
+    cancelled = a.sched.cancelled
+    toks, events = _stream_events(router, solo[2], new)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and not (
+            a.sched.cancelled > cancelled and a.active_pages() == 0):
+        time.sleep(0.05)
+    out["hedge"] = {"won": router.hedges_won, "lost": router.hedges_lost,
+                    "loser_cancelled": a.sched.cancelled - cancelled,
+                    "loser_active_pages": a.active_pages(),
+                    "identical": toks == want[tuple(solo[2])]}
+    gates["b_hedge"] = hold(solo[2], toks, events) \
+        and router.hedges_won == 1 and a.sched.cancelled > cancelled \
+        and a.active_pages() == 0
+    # a rolling restart under load
+    a.settle(FLEET["step_delay_s"])
+    b.settle(FLEET["step_delay_s"])
+    router = Router([a.url, b.url], poll_s=999)
+    results = [None] * 3
+
+    def run(k):
+        results[k] = _stream_events(router, prompts[k + 1], new)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and len(router._jobs) < 2:
+        time.sleep(0.02)
+    report = router.rolling_restart(
+        lambda i, rep: (a, b)[i].restart(), ready_timeout=120,
+        drain_timeout=60, evac_timeout=60)
+    for t in threads:
+        t.join(300)
+    gates["b_rolling_restart"] = all(
+        r is not None and hold(prompts[k + 1], *r)
+        for k, r in enumerate(results)) \
+        and sum(r["migrated_streams"] for r in report) >= 1 \
+        and all(_ping(rep.url) == "SERVING" for rep in (a, b))
+    out["rolling_restart"] = report
+    # a client walks away: the Router cancels upstream
+    a.settle(FLEET["step_delay_s"])
+    router = Router([a.url], poll_s=999)
+    host, port = router.start_http("127.0.0.1", 0)
+    cancelled = a.sched.cancelled
+    _drop_sse(f"http://{host}:{port}", "lm", solo[3], new)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and not (
+            a.sched.cancelled > cancelled and a.active_pages() == 0):
+        time.sleep(0.05)
+    router.stop()
+    gates["b_cancel"] = a.sched.cancelled > cancelled \
+        and a.active_pages() == 0 and router.cancelled == 1
+    a.delay = b.delay = 0.0
+    gates["b_all_streams_identical"] = all(same)
+    gates["b_no_new_entries"] = all(
+        len(r.sched._target._op._cache) == r.entries
+        for r in (a, b, pre, dec)) and entries_b == b.entries
+    out.update({"streams": len(same), "identical": sum(same),
+                "divergences": _divergences(
+                    torch, fp32, [p for p, _ in missed],
+                    [t for _, t in missed],
+                    [want[tuple(p)] for p, _ in missed])})
+    for r in (a, b, pre, dec):
+        r.srv.stop(timeout=60)
+    del a, b, pre, dec, fp32, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, gates
+
+
+def _ping(url):
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url + "/ping", timeout=10) as r:
+            return json.loads(r.read()).get("status")
+    except Exception:  # noqa: BLE001 - down
+        return None
+
+
+def _fleet_chaos(seed):
+    """(c): tools/chaos_torch.py in its own session (killed as a group at
+    its limit): its JSON report."""
+    import signal
+    c = FLEET["chaos"]
+    cmd = [sys.executable, str(Path(__file__).resolve().parent / "tools"
+                               / "chaos_torch.py"),
+           "--device", "cuda", "--llm", "lm=llama_7b", "--layers", "4",
+           "--dtype", "float32", "--seed", str(seed),
+           "--max-length", str(c["max_length"]),
+           "--slots", str(c["slots"]), "--requests", str(c["requests"]),
+           "--max-new", str(c["max_new"]), "--kills", str(c["kills"]),
+           "--interarrival-s", str(c["interarrival_s"]),
+           "--kill-wait-s", str(c["kill_wait_s"]), "--json"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=c["timeout_s"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"chaos_torch.py passed its {c['timeout_s']} s")
+    lines = stdout.strip().splitlines()
+    check(lines, f"chaos_torch.py printed nothing (rc {proc.returncode}): "
+          f"{stderr[-2000:]}")
+    report = json.loads(lines[-1])
+    report["rc"] = proc.returncode
+    return report
+
+
+def _fleet_kernels(torch, seed, llama, bert, prompts):
+    """(d): the flash kernels on the fleet path, each held against its
+    plain version at the path's shape, then BERT-base behind two
+    replicas' /predict and llama_7b's dense engine behind two replicas'
+    /generate, through the Router; launches counted over the traffic,
+    which replays the warmed graphs only."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.fleet import Router
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.serving import GenerationScheduler, ModelServer
+    from mxnet_tpu_torch.serving.server import Client
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    b, h, s, d = FLASH_DECODE
+    q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = A.flash_fwd_wgmma_launches
+    o, lse = A.flash_fwd(q, k, v, True, 1.0 / math.sqrt(d))
+    ran = A.flash_fwd_wgmma_launches - before == 1
+    ro, rl = A._flash_forward_plain(q.float(), k.float(), v.float(), True,
+                                    1.0 / math.sqrt(d))
+    ratio = ((o.float() - ro).abs() / (BF16_O_REL * ro.abs()
+                                       + BF16_O_ABS)).max().item()
+    wgmma_case = {"shape": list(FLASH_DECODE), "ran_wgmma": ran,
+                  "o_half_ulp_ratio": ratio,
+                  "lse_err": (lse - rl).abs().max().item()}
+    wgmma_case["ok"] = ran and ratio <= 1.0 \
+        and wgmma_case["lse_err"] <= TOL["bfloat16"]["lse"]
+    del q, k, v, o, lse, ro, rl
+    tf32_case = _flash_at(torch, seed, (SERVE["max_batch"],))[0]
+    out = {"wgmma_at_dense_shape": wgmma_case,
+           "tf32_at_bert_shape": tf32_case}
+
+    # BERT-base behind two replicas' /predict
+    servers, engines = [], []
+    for i in range(2):
+        srv = ModelServer()
+        engines.append(srv.register(
+            "bert", bert, max_batch=SERVE["max_batch"],
+            max_wait_us=SERVE["max_wait_us"],
+            input_spec=[((SERVE_BERT["seq"],), "int32")]))
+        servers.append((srv, f"http://127.0.0.1:{srv.start_http()}"))
+    router = Router([u for _, u in servers], poll_s=999)
+    host, port = router.start_http("127.0.0.1", 0)
+    vocab = bert.word_embed._input_dim
+    reqs = _serve_requests(seed + 5, (SERVE_BERT["seq"],),
+                           lambda rng, shape: rng.randint(
+                               0, vocab, shape).astype(np.int32))
+    reqs = reqs[:FLEET["bert_requests"]]
+    replays = [e._op._replays for e in engines]
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = 0
+    client = Client(f"http://{host}:{port}")
+    answers, lat, wall = _pooled(reqs, lambda x: client.predict(
+        "bert", [x.tolist()]), 4)
+    for srv, _ in servers:
+        srv.stop()
+    router.stop()
+    forwards = sum(e._op._replays - r for e, r in zip(engines, replays))
+    tf32 = {"flash_fwd": A.flash_fwd_launches,
+            "tf32": A.flash_fwd_tf32_launches,
+            "wgmma": A.flash_fwd_wgmma_launches, "replays": forwards}
+    worst, shapes = 0.0, True
+    for x, got in zip(reqs, answers):
+        ref = bert(mx.nd.array(x, ctx=mx.gpu(0), dtype="int32"))
+        for g, r in zip(got, ref):
+            g, r = np.asarray(g, np.float32), r.asnumpy()
+            shapes = shapes and g.shape == r.shape and r.shape[0] == len(x)
+            err = float(np.abs(g - r).max())
+            worst = max(worst, err / (SERVE["card_rel"] * float(
+                np.abs(r).max()) + SERVE["abs"]))
+    out["bert"] = {"requests": len(reqs), "launches": tf32,
+                   "worst_err_over_bound": worst,
+                   "balanced": [e._op._replays > r
+                                for e, r in zip(engines, replays)],
+                   **_latency_line(lat, sum(len(x) for x in reqs), wall)}
+    del servers, engines, answers
+
+    # llama_7b's dense engine behind two replicas' /generate
+    servers, scheds = [], []
+    for i in range(2):
+        srv = ModelServer()
+        scheds.append(srv.register_generation(
+            "llama_dense", None, warmup=True,
+            warmup_prompt_len=max(PROMPTS),
+            scheduler=GenerationScheduler(llama, kv_cache=False,
+                                          max_slots=FLEET["slots"],
+                                          name=f"fleet_dense{i}")))
+        servers.append((srv, f"http://127.0.0.1:{srv.start_http()}"))
+    router = Router([u for _, u in servers], poll_s=999)
+    host, port = router.start_http("127.0.0.1", 0)
+    replays = [s._op._replays for s in scheds]
+    warm_entries = [len(s._op._cache) for s in scheds]
+    torch.cuda.synchronize()
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_tf32_launches = 0
+    client = Client(f"http://{host}:{port}")
+    routed, lat, wall = _pooled(prompts, lambda p: client.generate(
+        "llama_dense", p, max_new_tokens=NEW_TOKENS, eos_id=None),
+        len(prompts))
+    torch.cuda.synchronize()
+    forwards = sum(s._op._replays - r for s, r in zip(scheds, replays))
+    wgmma = {"flash_fwd": A.flash_fwd_launches,
+             "wgmma": A.flash_fwd_wgmma_launches,
+             "tf32": A.flash_fwd_tf32_launches, "replays": forwards}
+    router.stop()
+    # the same prompts on one replica in process, against the routed ones
+    direct = [servers[0][0].generate("llama_dense", p, NEW_TOKENS,
+                                     eos_id=None) for p in prompts]
+    for srv, _ in servers:
+        srv.stop()
+    noise = _bf16_logit_noise(torch, llama, prompts[0])
+    floor = max(noise["dense_vs_dense_padded"], noise["dense_vs_paged"])
+    div = _divergences(torch, llama, prompts, routed, direct)
+    out["llama_dense"] = {
+        "launches": wgmma, "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+        "wall_s": wall, "tokens_agree_with_direct":
+        f"{_agree(routed, direct)}/{len(prompts) * NEW_TOKENS}",
+        "divergences": div, "bf16_noise": floor,
+        "new_entries": [len(s._op._cache) - e
+                        for s, e in zip(scheds, warm_entries)]}
+    gates = {
+        "d_kernels_match_plain": wgmma_case["ok"] and tf32_case["ok"],
+        "d_bert_answers": worst <= 1.0 and shapes,
+        "d_no_new_entries": out["llama_dense"]["new_entries"] == [0, 0],
+        "d_bert_tf32_launches": tf32["tf32"] == 12 * tf32["replays"] > 0
+        and tf32["flash_fwd"] == tf32["tf32"] and tf32["wgmma"] == 0,
+        "d_dense_wgmma_launches": wgmma["wgmma"] == 32 * wgmma["replays"] > 0
+        and wgmma["flash_fwd"] == wgmma["wgmma"] and wgmma["tf32"] == 0,
+        "d_dense_tokens": all(len(t) == NEW_TOKENS for t in routed) and all(
+            x is None or x["top2_margin"] < floor for x in div)}
+    del servers, scheds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, gates, tf32["tf32"], wgmma["wgmma"]
+
+
+def phase_fleet_models(torch, seed, llama=None, bert=None):
+    """The fleet phase's parts on the serving phases' models: (a) and (d).
+    Returns (partial line, gates, bf16 wgmma launches, fp32 tf32
+    launches) for phase_fleet."""
+    import mxnet_tpu_torch as mx
+    card = _card()
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if llama is None:
+        llama = _random_llama(torch, seed, torch.bfloat16, 32)
+    if bert is None:
+        from mxnet_tpu_torch.gluon.model_zoo.language import bert_12_768_12
+        mx.random.seed(seed)
+        bert = bert_12_768_12(ctx=mx.gpu(0))
+        bert.initialize(mx.init.Normal(0.02))
+    prompts = _prompts(seed + 3, PROMPTS)
+    disagg, gates = _fleet_disagg(torch, llama, prompts)
+    kernels, kgates, tf32, wgmma = _fleet_kernels(torch, seed, llama, bert,
+                                                  prompts)
+    gates.update(kgates)
+    line = {"phase": "fleet", "card": card, "a_disaggregated_llama_7b_bf16":
+            disagg, "d_kernels": kernels,
+            "models_seconds": time.perf_counter() - t0}
+    return line, gates, wgmma, tf32
+
+
+def phase_fleet(torch, seed, line, gates):
+    """The fleet (slice 18): (b) and (c) after phase_fleet_models's (a)
+    and (d) freed their models; emits the phase's one line."""
+    t0 = time.perf_counter()
+    exact, egates = _fleet_exact(torch, seed)
+    gates.update(egates)
+    chaos = _fleet_chaos(seed)
+    gates.update({
+        "c_chaos_ok": chaos.get("ok") is True and chaos["rc"] == 0,
+        "c_zero_failed": chaos.get("chaos_failed") == 0
+        and chaos.get("baseline_failed") == 0,
+        "c_parity": chaos.get("chaos_parity_diverged") == 0,
+        "c_respawned": chaos.get("supervisor_restarts", 0)
+        >= len(chaos.get("kills_done", [])) >= 1})
+    line.update({"b_exact_fp32_4_layers": exact, "c_chaos": chaos,
+                 "gates": gates,
+                 "seconds": line.pop("models_seconds")
+                 + time.perf_counter() - t0})
+    line["ok"] = all(gates.values())
+    emit(line)
+    a = line["a_disaggregated_llama_7b_bf16"]
+    for cell in ("mixed", "disaggregated"):
+        c = a[cell]
+        print(f"fleet {cell} [{line['card']}]: " + json.dumps(
+            {"tokens_per_s": [r["tokens_per_s"] for r in c["rounds"]],
+             "first_token_ms": [r["first_token_ms"] for r in c["rounds"]],
+             "peak_mem_gb": c["peak_mem_gb"]}), flush=True)
+    check(line["ok"], f"fleet gates failed: "
+          f"{[k for k, v in gates.items() if not v]}")
 
 
 def phase_serving_resnet_export(torch, seed):
@@ -5651,7 +6418,8 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
           "serving_bert",
-          "serving_http", "speculative", "serving_resnet_export", "module_fit",
+          "serving_http", "speculative", "fleet", "serving_resnet_export",
+          "module_fit",
           "dist_training",
           "rtc_kernels", "rtc_ffn", "bert_flash", "bert_parity",
           "bert_training", "embedding_bwd", "resilient_training")
@@ -5736,17 +6504,23 @@ def main(argv=None):
             phase_serving_http(torch, args.seed, llama, bert)
     if "speculative" in only:
         phase_speculative(torch, args.seed, llama, dense_per_forward)
+    if "fleet" in only:
+        fleet_line, fleet_gates, wgmma_paths["fleet"], bert_paths["fleet"] = \
+            phase_fleet_models(torch, args.seed, llama, bert)
     del llama, bert
     gc.collect()
     torch.cuda.empty_cache()
+    if "fleet" in only:
+        phase_fleet(torch, args.seed, fleet_line, fleet_gates)
     if wgmma_paths and "flash_timing" in only:
-        # launches: this slice's path (llama_7b behind POST /generate) when
-        # it ran, else slice 1's in-process serving
+        # launches: the latest slice's path that ran (llama_7b's dense
+        # replicas behind the fleet Router, then POST /generate on one
+        # server), else slice 1's in-process serving
         line = _kernel_line(
             "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
             "mxnet_tpu/ops/attention.py:51",
-            wgmma_paths.get("serving_http", wgmma_paths.get("serving")),
-            timing)
+            next(wgmma_paths[k] for k in ("fleet", "serving_http", "serving")
+                 if k in wgmma_paths), timing)
         line["launches_by_path"] = wgmma_paths
         lines.insert(0, line)
     if "serving_resnet_export" in only:
@@ -5776,7 +6550,8 @@ def main(argv=None):
     if bert_paths and "bert_flash" in only:
         # launches: this slice's path (BERT-base training with health
         # watchpoints) when it ran, else the latest earlier slice's
-        main_path = next((bert_paths[k] for k in ("module_fit_prefetch",
+        main_path = next((bert_paths[k] for k in ("fleet",
+                                                   "module_fit_prefetch",
                                                    "resilient_training",
                                                    "serving_http",
                                                    "bert_training",

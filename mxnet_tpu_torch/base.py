@@ -162,6 +162,57 @@ env.declare("MXNET_SERVING_WARMUP", True, bool,
             "live request latency.")
 
 
+# -- the fleet (mxnet_tpu/base.py:421-467; fleet/)
+env.declare("MXNET_FLEET_POLL_S", 2.0, float,
+            "Router control-plane poll cadence in seconds: how often the "
+            "fleet Router refreshes each replica's /fleet/state (health, "
+            "in-flight load, prefix-page digest).  A replica that fails its "
+            "poll is marked DEAD and excluded from routing until a later "
+            "poll succeeds.")
+env.declare("MXNET_FLEET_PREFIX_ROUTING", True, bool,
+            "Prefix-cache-aware routing at the fleet Router: hash the "
+            "request's prompt pages with the paged-KV chain hash and route "
+            "to the replica whose advertised prefix set has the longest "
+            "match, so a shared system prompt keeps landing on warm pages. "
+            "0 falls back to pure least-loaded balancing.")
+env.declare("MXNET_FLEET_PREFIX_DIGEST_CAP", 512, int,
+            "Maximum chain hashes a replica advertises in its /fleet/state "
+            "prefix digest (most recently registered win).  Bounds the "
+            "control-plane payload on replicas with very large prefix "
+            "caches.")
+env.declare("MXNET_FLEET_REROUTES", 2, int,
+            "Re-route attempts the Router makes for one request after its "
+            "chosen replica dies or reports DRAINING (each attempt picks a "
+            "different live replica); exhausted attempts surface 503.")
+env.declare("MXNET_FLEET_DEAD_AFTER", 2, int,
+            "Consecutive control-plane poll failures before the Router (or "
+            "the ReplicaManager supervisor) declares a replica DEAD.  Damps "
+            "flapping: one slow /fleet/state poll leaves the replica's "
+            "last-known state intact; data-plane connection failures still "
+            "mark it DEAD immediately (a refused request is definitive).")
+env.declare("MXNET_FLEET_MIGRATE_SNAPSHOT_TOKENS", 32, int,
+            "Cadence (in generated tokens) at which the Router snapshots a "
+            "live streaming request's KV pages via POST /export, so a "
+            "migration after replica death resumes from imported pages "
+            "instead of re-running prefill over prompt + generated tokens. "
+            "0 disables snapshots; migration then always re-prefills (still "
+            "token-identical: greedy decode is deterministic).")
+env.declare("MXNET_FLEET_HEDGE_PCTL", 99.0, float,
+            "Hedged-request trigger percentile: when a streaming request's "
+            "queue + first-token latency crosses this percentile of the "
+            "per-model first-token distribution (observed at the Router, "
+            "minimum sample count applies), a secondary request launches on "
+            "the next-best replica; first token wins and the loser is "
+            "cancelled (its pages free immediately).  0 disables hedging.")
+env.declare("MXNET_FLEET_SUPERVISE_S", 1.0, float,
+            "ReplicaManager supervisor poll cadence in seconds: how often "
+            "the supervisor checks each replica process for death (or a "
+            "DEGRADED /ping) and schedules crash-loop respawns with "
+            "exponential backoff.  A respawned replica warms its CUDA "
+            "graph family before it answers /ping and re-advertises its "
+            "prefix digests before the Router sends it traffic.")
+
+
 # -- the distributed job (mxnet_tpu/base.py:571-579; read by distributed.py)
 env.declare("MXNET_DIST_COORDINATOR", "", str,
             "host:port of rank 0 for the multi-process process group "

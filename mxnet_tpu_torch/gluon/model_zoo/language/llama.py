@@ -279,6 +279,9 @@ def llama_tiny(vocab_size=256, **kwargs):
 
 
 def llama_7b(**kwargs):
-    """Llama-7B geometry."""
-    return LlamaModel(vocab_size=32000, units=4096, hidden=11008,
-                      num_layers=32, num_heads=32, **kwargs)
+    """Llama-7B geometry; keyword arguments override it (``num_layers``
+    cuts the depth at the published widths)."""
+    kw = dict(vocab_size=32000, units=4096, hidden=11008, num_layers=32,
+              num_heads=32)
+    kw.update(kwargs)
+    return LlamaModel(**kw)

@@ -11,10 +11,13 @@ execute     replaying a graph (on the CPU: running the entry eagerly)
 allreduce   dist kvstore collectives (every `_collective` round)
 decode      the generation scheduler's forward
 http        the serving HTTP predict handler, before dispatch
-route       the fleet Router (not ported)
-relay       the Router's SSE relay (not ported)
-prefill_handoff  disaggregation K/V handoff (not ported)
-replica_exec     a replica's /generate handler, before dispatch
+route       the fleet Router, before it picks a replica
+relay       the Router's SSE relay, between forwarded events (transient:
+            the relay leg is lost and the stream migrates)
+prefill_handoff  the Router's disaggregation K/V handoff (any failure
+                 falls back to one mixed hop)
+replica_exec     a replica's /generate and /prefill handlers, before
+                 dispatch
 ==========  ==============================================================
 
 A :class:`FaultPlan` maps sites to an ordered list of fault *kinds*; each

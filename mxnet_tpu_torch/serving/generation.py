@@ -44,8 +44,13 @@ records each finished request in the serving goodput ledger as ``queue``
 (submit to admission), ``execute`` (admission to retirement) and
 ``stream`` (retirement to resolution).
 
-KV export and import between replicas (``export_request``,
-``prefill_only``, ``ext_kv``) wait for the fleet (ROADMAP A13).
+K/V moves between replicas as the JAX package's does: ``prefill_only``
+(the prefill role's export) runs the ``[1, L]`` prefill and gathers the
+prompt's K/V to the host as float32; ``export_request`` snapshots a live
+request the same way without stopping it; ``submit(ext_kv=...)`` admits a
+request whose prompt K/V was computed elsewhere, writing the slices into
+the pool in place (no forward) under the same chain hashes.  A bfloat16
+pool widens to float32 and narrows back exactly.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import queue
 import threading
 import time
 import uuid
+import warnings
 from collections import deque
 from concurrent.futures import Future
 from typing import List, Optional, Sequence, Union
@@ -64,7 +70,7 @@ from ..base import MXNetError, RequestCancelledError, env as _env, row_bucket
 from ..cached_op import CachedOp
 from ..observability import (goodput as _goodput, health as _health,
                              metrics as _metrics, tracing as _tracing)
-from ..resilience import maybe_fault
+from ..resilience import OverloadedError, maybe_fault
 from .hostbuf import HostBufferPool
 from .paged_cache import PagePool, page_hash_chain, pages_needed
 from .stats import ServingStats
@@ -203,9 +209,10 @@ class _Sequence:
     __slots__ = ("prompt", "max_new", "eos_id", "generated", "future",
                  "pages", "dpages", "cached", "dcached", "prefix_pages",
                  "t_submit", "t_admit", "t_retire", "ctx", "stream",
-                 "streamed", "rid")
+                 "streamed", "rid", "ext_kv")
 
-    def __init__(self, prompt, max_new, eos_id, stream=None, rid=None):
+    def __init__(self, prompt, max_new, eos_id, stream=None, rid=None,
+                 ext_kv=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new = int(max_new)
         self.eos_id = eos_id
@@ -224,6 +231,7 @@ class _Sequence:
         self.stream: Optional[TokenStream] = stream
         self.streamed = 0                # tokens already pushed to `stream`
         self.rid = rid
+        self.ext_kv = ext_kv             # imported prompt K/V (host float32)
 
     @property
     def tokens(self) -> List[int]:
@@ -399,6 +407,7 @@ class GenerationScheduler:
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                eos_id: Union[Optional[int], _DefaultEos] = DEFAULT_EOS,
                stream: Optional[TokenStream] = None,
+               ext_kv: Optional[dict] = None,
                rid: Optional[str] = None) -> Future:
         """Queue a prompt; the Future resolves to the generated token list.
 
@@ -406,9 +415,31 @@ class GenerationScheduler:
         eos for this request.  Rejects up front anything that could outgrow
         ``max_length`` (or either page pool) mid-decode.  ``stream``
         receives every token as it is produced; ``rid`` names the request
-        for :meth:`cancel` (assigned when omitted)."""
+        for :meth:`cancel` and :meth:`export_request` (assigned when
+        omitted).
+
+        ``ext_kv`` is the disaggregation import: ``{"k": [layers, m,
+        kv_units] float32, "v": ..., "first_token": int}`` from a prefill
+        replica's export (or a migration snapshot).  Admission then writes
+        the imported slices instead of running the prefill forward, and
+        decode continues from the shipped first token."""
         if not len(prompt):
             raise MXNetError("empty prompt")
+        if ext_kv is not None:
+            if not self.paged:
+                raise MXNetError("ext_kv import needs the paged engine")
+            pool = self._target.pool
+            want = (pool.num_layers, len(prompt), pool.kv_units)
+            for key in ("k", "v"):
+                arr = ext_kv.get(key)
+                if arr is None or tuple(getattr(arr, "shape", ())) != want:
+                    raise MXNetError(
+                        f"ext_kv[{key!r}] must be shaped {want} "
+                        f"(layers, prompt_tokens, kv_units), got "
+                        f"{getattr(arr, 'shape', None)}")
+            if "first_token" not in ext_kv:
+                raise MXNetError("ext_kv needs the prefill replica's "
+                                 "'first_token'")
         if (self.max_length is not None
                 and len(prompt) + int(max_new_tokens) > self.max_length):
             raise MXNetError(
@@ -434,7 +465,7 @@ class GenerationScheduler:
                         "admissible request would wedge the step loop")
         seq = _Sequence(prompt, max_new_tokens,
                         self.eos_id if eos_id is DEFAULT_EOS else eos_id,
-                        stream=stream,
+                        stream=stream, ext_kv=ext_kv,
                         rid=str(rid) if rid is not None else uuid.uuid4().hex)
         with self._lock:
             if seq.rid in self._rids:
@@ -471,6 +502,40 @@ class GenerationScheduler:
         if not seq.future.done():
             seq.future.set_exception(exc)
         return True
+
+    def export_request(self, rid: str) -> dict:
+        """Live-migration snapshot of the in-flight request ``rid``: its
+        prompt, the tokens generated so far, the sampling mode (greedy:
+        there is no random state to ship) and, on the paged engine once the
+        request holds pages, the host float32 K/V covering ``tokens[:-1]``
+        (every position but the last sampled token, which the importer
+        seeds as ``ext_kv["first_token"]``) with its chain hashes.  A
+        survivor resumes with ``submit(prompt + generated[:-1],
+        ext_kv={"k", "v", "first_token": generated[-1]})``.  A read under
+        the scheduler lock: the request goes on."""
+        with _goodput.serving().owned(), self._lock:
+            seq = self._rids.get(str(rid))
+            if seq is None:
+                raise MXNetError(f"{self.name}: unknown request id {rid!r}")
+            gen = list(seq.generated)
+            out = {"rid": seq.rid, "prompt": list(seq.prompt),
+                   "generated": gen, "max_new_tokens": seq.max_new,
+                   "eos_id": seq.eos_id, "sampling": "greedy"}
+            if self.paged and seq.pages and gen \
+                    and seq.cached >= len(seq.prompt):
+                # the K/V must cover exactly prompt + generated[:-1],
+                # whichever of the two views is older
+                n = min(seq.cached, len(seq.prompt) + len(gen) - 1)
+                gen = gen[:n - len(seq.prompt) + 1]
+                out["generated"] = gen
+                pool = self._target.pool
+                where = [pool.locate(seq.pages, p) for p in range(n)]
+                out["k"], out["v"] = pool.gather([p for p, _ in where],
+                                                 [o for _, o in where])
+                out["hashes"] = page_hash_chain(seq.tokens[:n],
+                                                self.page_tokens)
+                out["page_tokens"] = self.page_tokens
+            return out
 
     # ------------------------------------------------------------- sampling
     def _sample(self, logits: torch.Tensor, rows: Sequence[int],
@@ -579,6 +644,91 @@ class GenerationScheduler:
         self._count_tokens(1)
         if self._draft is not None and seq.dpages:
             self._prefill_draft(seq)
+
+    def _prefill_external(self, seq: _Sequence) -> None:
+        """Disaggregation import: admit a sequence whose prompt K/V was
+        computed on another replica.  Writes the shipped slices into this
+        pool in place (skipping pages already mapped from the local prefix
+        cache: identical content by chain-hash construction), registers
+        the same chain hashes, and seeds the stream with the shipped first
+        token.  No target forward runs, so a decode replica's family stays
+        the ``[slots, 1]`` decode ladder (the draft's prompt prefill runs
+        locally)."""
+        pool = self._target.pool
+        m = len(seq.prompt)
+        c = seq.prefix_pages * self.page_tokens   # locally shared tokens
+        with _tracing.span("serving.generation.import_kv",
+                           attrs={"model": self.name, "tokens": m - c,
+                                  "prefix_hit_tokens": c},
+                           parent=seq.ctx):
+            if m > c:
+                dev = pool.k.device
+                with warnings.catch_warnings():
+                    # a decoded handoff is a read-only buffer; it is only
+                    # read, copied to the pool's device
+                    warnings.simplefilter("ignore", UserWarning)
+                    k, v = (torch.from_numpy(np.ascontiguousarray(
+                        seq.ext_kv[key][:, c:m], dtype=np.float32)).to(dev)
+                        for key in ("k", "v"))
+                where = [pool.locate(seq.pages, p) for p in range(c, m)]
+                pool.write(k, v, [p for p, _ in where],
+                           [o for _, o in where])
+        seq.cached = m
+        for j, hsh in enumerate(page_hash_chain(seq.prompt, self.page_tokens)):
+            pool.register(seq.pages[j], hsh)
+        seq.generated.append(int(seq.ext_kv["first_token"]))
+        self._count_tokens(1)
+        seq.ext_kv = None  # drop the host copy once it has landed
+        if self._draft is not None and seq.dpages:
+            self._prefill_draft(seq)
+
+    @torch.no_grad()
+    def prefill_only(self, prompt: Sequence[int],
+                     max_new_tokens: int = 16) -> dict:
+        """Disaggregation export (the prefill role's surface): run the
+        prompt's ``[1, L]`` prefill, then return its first token, the host
+        float32 K/V of every prompt position and the chain hashes: what a
+        decode replica needs to admit the request with ``submit(...,
+        ext_kv=...)``.  The prompt's pages are released after the gather
+        (complete registered pages park in the prefix cache, so repeated
+        system prompts stay warm here too); no decode slot is held.
+        Raises :class:`OverloadedError` with ``retry_after_s`` when the
+        pool has no pages for the prompt."""
+        if not self.paged:
+            raise MXNetError("prefill_only needs the paged engine")
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise MXNetError("empty prompt")
+        if (self.max_length is not None
+                and len(prompt) + int(max_new_tokens) > self.max_length):
+            raise MXNetError(
+                f"prompt of {len(prompt)} tokens + max_new_tokens "
+                f"{max_new_tokens} exceeds max_length {self.max_length}")
+        m = len(prompt)
+        hashes = page_hash_chain(prompt, self.page_tokens)
+        with _goodput.serving().owned(), self._lock:
+            pool = self._target.pool
+            seq = _Sequence(prompt, max_new_tokens, None)
+            shareable = min(len(hashes), (m - 1) // self.page_tokens)
+            shared = pool.match_prefix(hashes[:shareable])
+            own = pages_needed(m, self.page_tokens) - len(shared)
+            if pool.available() < own:
+                pool.release(shared)
+                raise OverloadedError(
+                    f"{self.name}: no free KV pages for prefill "
+                    f"(need {own}, have {pool.available()})",
+                    retry_after_s=0.5)
+            seq.pages = shared + pool.allocate(own)
+            seq.prefix_pages = len(shared)
+            try:
+                self._prefill_paged(seq)
+                where = [pool.locate(seq.pages, p) for p in range(m)]
+                k, v = pool.gather([p for p, _ in where],
+                                   [o for _, o in where])
+            finally:
+                self._free_pages(seq)
+        return {"first_token": seq.generated[0], "k": k, "v": v,
+                "hashes": hashes, "page_tokens": self.page_tokens}
 
     def _prefill_draft(self, seq: _Sequence) -> None:
         """Prime the draft cache with the prompt at admission (no prefix
@@ -762,7 +912,9 @@ class GenerationScheduler:
                         continue
                     seq.t_admit = time.monotonic()  # the queue wait ends
                     try:
-                        if self.paged:
+                        if self.paged and seq.ext_kv is not None:
+                            self._prefill_external(seq)
+                        elif self.paged:
                             self._prefill_paged(seq)
                         else:
                             self._prefill_dense(seq)

@@ -261,3 +261,32 @@ class PagePool:
         under a sequence's page table."""
         return (int(table[position // self.page_tokens]),
                 int(position % self.page_tokens))
+
+    def gather(self, pids: Sequence[int],
+               offsets: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Host round trip of per-token K/V slices: entry i is the cache
+        line at ``(pids[i], offsets[i])``; returns ``(k, v)`` float32 numpy
+        arrays ``[layers, n, kv_units]`` (a bfloat16 pool widens exactly).
+        The export half of the disaggregation handoff and of a migration
+        snapshot; the importer writes them back with :meth:`write` under
+        the same chain hashes."""
+        dev = self.k.device
+        pid_t = torch.as_tensor(np.asarray(pids, dtype=np.int64), device=dev)
+        off_t = torch.as_tensor(np.asarray(offsets, dtype=np.int64),
+                                device=dev)
+        with self._lock:
+            k = self.k[:, pid_t, off_t].float().cpu()
+            v = self.v[:, pid_t, off_t].float().cpu()
+        return k.numpy(), v.numpy()
+
+    def prefix_digest(self, cap: Optional[int] = None) -> List[str]:
+        """Chain hashes of every page materialised in this pool (live or
+        parked in the cached LRU), newest registration last: what a replica
+        advertises on ``/fleet/state`` so the fleet Router can route by
+        longest prefix without shipping page contents.  ``cap`` keeps the
+        most recently registered hashes."""
+        with self._lock:
+            hashes = list(self._pid_of)
+        if cap is not None and len(hashes) > int(cap):
+            hashes = hashes[-int(cap):]
+        return hashes

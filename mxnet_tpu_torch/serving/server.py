@@ -11,8 +11,10 @@ a daemon step loop), and exposes
 * an **in-process client** (``Client(server)``): no sockets;
 * a **JSON/HTTP endpoint** (``start_http``, stdlib ``ThreadingHTTPServer``):
   ``POST /predict/<model>``, ``POST /generate/<model>`` (``"stream": true``
-  answers Server-Sent Events, one per token), ``POST /cancel/<model>``,
-  ``GET /ping``, ``GET /stats[/<model>]``, ``GET /metrics`` (Prometheus
+  answers Server-Sent Events, one per token; a ``"kv"`` handoff admits
+  prompt K/V computed elsewhere), ``POST /cancel/<model>``, the fleet's
+  ``POST /prefill/<model>``, ``POST /export/<model>`` and ``GET
+  /fleet/state``, ``GET /ping``, ``GET /stats[/<model>]``, ``GET /metrics`` (Prometheus
   0.0.4, or OpenMetrics with exemplars under ``Accept:
   application/openmetrics-text``) and ``GET /goodput`` (request-time
   attribution, memory ledger, retained tail traces); ``Client(url)`` is
@@ -35,16 +37,17 @@ breaker is not closed) or ``DRAINING`` (shutdown in progress; 503, with
 the requests still in flight).  ``stop()`` drains every model under one
 :class:`~mxnet_tpu_torch.resilience.Deadline` before the listener dies.
 
-Waiting for the fleet (ROADMAP A13): ``/fleet/state``, ``/prefill/<model>``
-and ``/export/<model>`` answer 501, ``"kv"`` handoffs in a generate
-payload answer 501, and ``encode_kv`` / ``decode_kv``,
-:meth:`ModelServer.fleet_state` and the ``prefill`` / ``decode`` roles
-raise :class:`MXNetError`.  A stream that drops before its done event
-raises ``ConnectionError`` (the JAX package's ``ReplicaDeadError`` is
-one).
+The fleet's replica surface (the ``prefill`` / ``decode`` roles, each
+warming only its own family): ``/prefill`` runs a prompt's prefill and
+exports its K/V, ``/export`` snapshots a live request, both in the JAX
+package's wire form (:func:`encode_kv`: base64 float32 ``[layers,
+tokens, kv_units]``), so a replica of either package admits the other's
+payload.  A stream that drops before its done event raises
+:class:`ReplicaDeadError`.
 """
 from __future__ import annotations
 
+import base64
 import json
 import threading
 import uuid
@@ -66,10 +69,7 @@ from .stats import ServingStats
 
 __all__ = ["ModelServer", "Client", "TRACE_HEADER", "PARENT_HEADER",
            "trace_headers", "parent_from_headers", "encode_kv", "decode_kv",
-           "sse_events", "next_sse_event"]
-
-_FLEET = ("waits for the fleet slice of the PyTorch port (ROADMAP A13: "
-          "disaggregated prefill/decode, live export, /fleet/state)")
+           "sse_events", "next_sse_event", "ReplicaDeadError"]
 
 # cross-process trace propagation: a caller stamps its span context into
 # these headers and the handler links its root span under it
@@ -99,16 +99,40 @@ def parent_from_headers(headers) -> Optional[_tracing.SpanContext]:
         return None
 
 
+class ReplicaDeadError(MXNetError, ConnectionError):
+    """A replica died mid-request after tokens were already delivered, so
+    the caller cannot transparently re-run it.  The fleet Router relays it
+    when no survivor can take a stream; :func:`sse_events` raises it on a
+    stream that drops (or tears its final chunk) before its done event.
+    A ``ConnectionError``, so ``except ConnectionError`` callers keep
+    working."""
+
+
 def encode_kv(k, v, first_token: int) -> Dict[str, Any]:
-    """The prefill export's wire form (not ported)."""
-    raise MXNetError(f"encode_kv {_FLEET}")
+    """JSON-safe wire form of a K/V export: base64 float32 K/V of shape
+    ``[layers, tokens, kv_units]`` plus the first sampled token, byte for
+    byte the JAX package's."""
+    k = _np.ascontiguousarray(k, dtype=_np.float32)
+    v = _np.ascontiguousarray(v, dtype=_np.float32)
+    return {"dtype": "float32", "shape": list(k.shape),
+            "k": base64.b64encode(k.tobytes()).decode("ascii"),
+            "v": base64.b64encode(v.tobytes()).decode("ascii"),
+            "first_token": int(first_token)}
 
 
 def decode_kv(payload: Dict[str, Any]) -> Optional[Dict[str, Any]]:
-    """A request's ``"kv"`` handoff (not ported); None without one."""
-    if payload.get("kv") is None:
+    """Inverse of :func:`encode_kv` on a request payload's ``"kv"`` key;
+    None when the request carries no handoff.  A malformed handoff raises
+    ``ValueError`` or ``KeyError`` (400 at the HTTP layer)."""
+    wire = payload.get("kv")
+    if wire is None:
         return None
-    raise MXNetError(f"a 'kv' handoff {_FLEET}")
+    shape = tuple(int(d) for d in wire["shape"])
+    k = _np.frombuffer(base64.b64decode(wire["k"]),
+                       dtype=_np.float32).reshape(shape)
+    v = _np.frombuffer(base64.b64decode(wire["v"]),
+                       dtype=_np.float32).reshape(shape)
+    return {"k": k, "v": v, "first_token": int(wire["first_token"])}
 
 
 class _Served:
@@ -145,11 +169,13 @@ class _GenServed:
             while not self.closed and self.scheduler.step():
                 pass
 
-    def submit(self, prompt, max_new_tokens, eos_id, stream=None, rid=None):
+    def submit(self, prompt, max_new_tokens, eos_id, stream=None,
+               ext_kv=None, rid=None):
         if self.closed:
             raise ServerClosedError("generation model is draining")
         fut = self.scheduler.submit(prompt, max_new_tokens=max_new_tokens,
-                                    eos_id=eos_id, stream=stream, rid=rid)
+                                    eos_id=eos_id, stream=stream,
+                                    ext_kv=ext_kv, rid=rid)
         self.wake.set()
         return fut
 
@@ -215,15 +241,14 @@ def _host_list(a: _np.ndarray):
 
 class ModelServer:
     """Serves models in-process and, after :meth:`start_http`, over HTTP.
-    ``role`` is the fleet's disaggregation role; only ``"mixed"`` is
-    ported."""
+    ``role`` is the fleet's disaggregation role (advertised on
+    ``/fleet/state``): ``"prefill"`` and ``"decode"`` replicas warm only
+    the family their disaggregated traffic reaches."""
 
     def __init__(self, role: str = "mixed"):
         if role not in ("mixed", "prefill", "decode"):
             raise MXNetError(f"unknown server role {role!r}; expected "
                              "'mixed', 'prefill' or 'decode'")
-        if role != "mixed":
-            raise MXNetError(f"server role {role!r} {_FLEET}")
         self.role = role
         self._models: Dict[str, _Served] = {}
         self._generators: Dict[str, _GenServed] = {}
@@ -363,13 +388,14 @@ class ModelServer:
                                    eos_id=eos_id).result()
 
     def generate_stream(self, name: str, prompt, max_new_tokens: int = 16,
-                        eos_id=DEFAULT_EOS) -> TokenStream:
+                        eos_id=DEFAULT_EOS, ext_kv=None) -> TokenStream:
         """A :class:`TokenStream` yielding tokens as the step loop produces
         them, ending with the request's error on failure (what the SSE
-        path writes out)."""
+        path writes out).  ``ext_kv`` admits imported prompt K/V."""
         gen = self._gen(name)
         stream = TokenStream()
-        gen.submit(prompt, max_new_tokens, eos_id, stream=stream)
+        gen.submit(prompt, max_new_tokens, eos_id, stream=stream,
+                   ext_kv=ext_kv)
         return stream
 
     # -------------------------------------------------------------- health
@@ -401,8 +427,34 @@ class ModelServer:
         return payload
 
     def fleet_state(self) -> Dict[str, Any]:
-        """The fleet Router's control view (not ported)."""
-        raise MXNetError(f"/fleet/state {_FLEET}")
+        """The control view a fleet Router polls (``GET /fleet/state``):
+        health, role, live load (in flight, and per model its queue), and
+        each paged model's prefix digest, the chain hashes materialised in
+        its pool, which the Router matches against request prompts."""
+        out: Dict[str, Any] = {"status": self.health(), "role": self.role,
+                               "in_flight": self.in_flight(), "models": {}}
+        cap = int(_env.MXNET_FLEET_PREFIX_DIGEST_CAP)
+        for name, g in self._generators.items():
+            sched = g.scheduler
+            d: Dict[str, Any] = {
+                "kind": "generation",
+                "engine": "paged" if sched.paged else "dense",
+                "pending": len(sched._pending),
+                "active": sum(s is not None for s in sched._slots),
+                "slots": sched.max_slots,
+            }
+            if sched.paged:
+                pool = sched._target.pool
+                d["page_tokens"] = sched.page_tokens
+                d["page_pool"] = pool.stats()
+                d["prefix_digest"] = pool.prefix_digest(cap)
+            out["models"][name] = d
+        for name, m in self._models.items():
+            out["models"][name] = {"kind": "predict",
+                                   "pending": m.batcher.pending,
+                                   "breaker": m.breaker.state
+                                   if m.breaker is not None else None}
+        return out
 
     # --------------------------------------------------- wire-level semantics
     def handle_predict(self, name: str, payload: Dict[str, Any],
@@ -465,14 +517,13 @@ class ModelServer:
         if name not in self._generators:
             return 404, {"error": f"unknown generation model {name!r}; "
                                   f"serving {sorted(self._generators)}"}
-        if payload.get("kv") is not None:
-            return 501, {"error": f"a 'kv' handoff {_FLEET}"}
         try:
             prompt = payload["prompt"]
             max_new = int(payload.get("max_new_tokens", 16))
             fut = self._generators[name].submit(
                 [int(t) for t in prompt], max_new,
                 payload.get("eos_id", DEFAULT_EOS), stream=stream,
+                ext_kv=decode_kv(payload),
                 rid=stream.rid if stream is not None else payload.get("rid"))
         except ServerClosedError as e:
             return 503, {"error": str(e), "retry_after_s": 1.0}
@@ -484,7 +535,10 @@ class ModelServer:
                         parent=None) -> Tuple[int, Dict[str, Any]]:
         """One ``/generate`` request -> ``(http_status, response_dict)``:
         404 unknown model, 400 bad payload, 503 draining, 409 cancelled,
-        500 model failure.  ``"rid"`` names the request for ``/cancel``."""
+        500 model failure.  A ``"kv"`` payload (a ``/prefill`` or
+        ``/export`` body's) admits the shipped prompt K/V instead of
+        prefilling.  ``"rid"`` names the request for ``/cancel`` and
+        ``/export``."""
         with _tracing.span("http.generate", attrs={"model": name},
                            parent=parent) as root:
             hurt = _injected("replica_exec")
@@ -549,13 +603,77 @@ class ModelServer:
 
     def handle_export(self, name: str, payload: Dict[str, Any]
                       ) -> Tuple[int, Dict[str, Any]]:
-        """``POST /export/<model>`` (not ported): 501."""
-        return 501, {"error": f"/export {_FLEET}"}
+        """``POST /export/<model>`` with ``{"rid": ...}``: the live-migration
+        snapshot of one in-flight request (prompt, tokens so far, remaining
+        budget and, once it holds pages, its K/V in the ``"kv"`` wire form
+        ``/prefill`` answers), ready for a survivor's ``/generate``."""
+        try:
+            rid = payload["rid"]
+        except KeyError:
+            return 400, {"error": "export payload needs a 'rid'"}
+        gen = self._generators.get(name)
+        if gen is None:
+            return 404, {"error": f"unknown generation model {name!r}; "
+                                  f"serving {sorted(self._generators)}"}
+        try:
+            snap = gen.scheduler.export_request(rid)
+        except MXNetError as e:
+            return 404, {"error": str(e)}
+        except Exception as e:  # noqa: BLE001 - the export raced a step
+            return 500, {"error": repr(e)}
+        out = {k: snap[k] for k in ("rid", "prompt", "generated",
+                                    "max_new_tokens", "eos_id", "sampling")}
+        if "k" in snap:
+            out["kv"] = encode_kv(snap["k"], snap["v"],
+                                  first_token=snap["generated"][-1]
+                                  if snap["generated"]
+                                  else snap["prompt"][-1])
+            out["hashes"] = snap["hashes"]
+            out["page_tokens"] = snap["page_tokens"]
+        return 200, out
 
     def handle_prefill(self, name: str, payload: Dict[str, Any],
                        parent=None) -> Tuple[int, Dict[str, Any]]:
-        """``POST /prefill/<model>`` (not ported): 501."""
-        return 501, {"error": f"/prefill {_FLEET}"}
+        """``POST /prefill/<model>``, the disaggregation export: run the
+        prompt's ``[1, L]`` prefill on this replica and answer the first
+        token, the chain hashes and the K/V in the ``"kv"`` wire form a
+        decode replica's ``/generate`` admits.  503 with
+        ``retry_after_s`` when the pool has no free pages."""
+        with _tracing.span("http.prefill", attrs={"model": name},
+                           parent=parent) as root:
+            hurt = _injected("replica_exec")
+            if hurt is not None:
+                code, resp = hurt
+            elif name not in self._generators:
+                code, resp = 404, {
+                    "error": f"unknown generation model {name!r}; serving "
+                             f"{sorted(self._generators)}"}
+            else:
+                try:
+                    prompt = payload["prompt"]
+                    max_new = int(payload.get("max_new_tokens", 16))
+                    if self._stopped:
+                        raise ServerClosedError("server is draining")
+                    out = self._generators[name].scheduler.prefill_only(
+                        prompt, max_new)
+                except OverloadedError as e:
+                    code, resp = 503, {"error": str(e),
+                                       "retry_after_s": e.retry_after_s}
+                except ServerClosedError as e:
+                    code, resp = 503, {"error": str(e), "retry_after_s": 1.0}
+                except (MXNetError, ValueError, TypeError, KeyError) as e:
+                    code, resp = 400, {"error": repr(e)}
+                except Exception as e:  # noqa: BLE001 - the model failed
+                    code, resp = 500, {"error": repr(e)}
+                else:
+                    code, resp = 200, {
+                        "first_token": out["first_token"],
+                        "hashes": out["hashes"],
+                        "page_tokens": out["page_tokens"],
+                        "kv": encode_kv(out["k"], out["v"],
+                                        out["first_token"])}
+            root.set_attr("status", code)
+        return code, resp
 
     # --------------------------------------------------------------- views
     def stats(self, name: Optional[str] = None) -> Dict[str, Any]:
@@ -579,10 +697,19 @@ class ModelServer:
     def goodput_snapshot(self) -> Dict[str, Any]:
         """What ``GET /goodput`` serves: per-bucket request-time totals,
         the last attributed request, the memory ledger and the retained
-        tail-trace summaries."""
+        tail-trace summaries; once this process has used the card, also
+        ``device_memory``, the caching allocator's bytes allocated now and
+        at their peak, and reserved (a fleet's chaos run samples each
+        replica process's peak here)."""
+        import torch
         from ..observability import goodput as _goodput, memory as _memory
         out = _goodput.snapshot()
         out["memory"] = _memory.ledger().snapshot()
+        if torch.cuda.is_initialized():
+            out["device_memory"] = {
+                "allocated_bytes": torch.cuda.memory_allocated(),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "reserved_bytes": torch.cuda.memory_reserved()}
         return out
 
     # ---------------------------------------------------------------- http
@@ -729,12 +856,17 @@ class Client:
         return fut.result() if block else fut
 
     def generate(self, name: str, prompt, max_new_tokens: int = 16,
-                 block: bool = True, eos_id=DEFAULT_EOS):
+                 block: bool = True, eos_id=DEFAULT_EOS,
+                 kv: Optional[Dict[str, Any]] = None):
+        """The generated tokens; ``kv`` (over HTTP) is a ``/prefill``
+        body's ``"kv"`` handoff."""
         if self._server is None:
             body = {"prompt": [int(t) for t in prompt],
                     "max_new_tokens": max_new_tokens}
             if eos_id is not DEFAULT_EOS:
                 body["eos_id"] = eos_id
+            if kv is not None:
+                body["kv"] = kv
             return self._http("POST", f"/generate/{name}", body)["tokens"]
         fut = self._server.generate_async(name, prompt, max_new_tokens,
                                           eos_id=eos_id)
@@ -771,8 +903,19 @@ class Client:
         resp = self._retry.call(open_stream, site=f"client:/generate/{name}")
         return sse_events(resp)
 
-    def prefill(self, name: str, prompt, max_new_tokens: int = 16):
-        raise MXNetError(f"Client.prefill {_FLEET}")
+    def prefill(self, name: str, prompt, max_new_tokens: int = 16
+                ) -> Dict[str, Any]:
+        """A prefill replica's export of ``prompt``: ``first_token``,
+        ``hashes``, ``page_tokens`` and the ``kv`` handoff."""
+        if self._server is None:
+            return self._http("POST", f"/prefill/{name}",
+                              {"prompt": [int(t) for t in prompt],
+                               "max_new_tokens": max_new_tokens})
+        code, resp = self._server.handle_prefill(
+            name, {"prompt": list(prompt), "max_new_tokens": max_new_tokens})
+        if code != 200:
+            raise _remote_error(code, resp)
+        return resp
 
     def cancel(self, name: str, rid: str) -> bool:
         """Cancel an in-flight generation by request id; True when it was
@@ -792,6 +935,7 @@ class Client:
 _SSE_ERRORS = {"ServerClosedError": ServerClosedError,
                "OverloadedError": OverloadedError,
                "DeadlineExceededError": DeadlineExceededError,
+               "ReplicaDeadError": ReplicaDeadError,
                "RequestCancelledError": RequestCancelledError}
 
 
@@ -823,8 +967,9 @@ def next_sse_event(resp) -> Optional[Dict[str, Any]]:
 def sse_events(resp):
     """Generator over one SSE response: yields ints (tokens), raises the
     mapped exception on an error event, returns on the done event.  A
-    connection that drops without a done event raises ``ConnectionError``
-    (tokens were already seen, so it is not retried here)."""
+    connection that drops without a done event raises
+    :class:`ReplicaDeadError` (tokens were already seen, so it is not
+    retried here: the fleet Router's migration is what resumes safely)."""
     done = False
     try:
         while True:
@@ -842,9 +987,8 @@ def sse_events(resp):
     finally:
         resp.close()
     if not done:
-        raise ConnectionError(
-            "stream closed by the server before completion (connection "
-            "reset)")
+        raise ReplicaDeadError(
+            "stream closed by replica before completion (connection reset)")
 
 
 # ---------------------------------------------------------------------------
@@ -921,7 +1065,7 @@ def _make_handler(server: ModelServer):
                 self._reply(503 if payload["status"] == "DRAINING" else 200,
                             payload)
             elif self.path == "/fleet/state":
-                self._reply(501, {"error": f"/fleet/state {_FLEET}"})
+                self._reply(200, server.fleet_state())
             elif self.path == "/metrics":
                 # exemplars are legal only in OpenMetrics: a classic 0.0.4
                 # scraper gets an exemplar-free body

@@ -1,6 +1,8 @@
 """The port stands alone: importing ``mxnet_tpu_torch`` (and the chip smoke
-script) loads no JAX module and nothing of the JAX package, and no source
-file of the port imports either.  Importing it loads no ``triton`` and no
+script, and the port's launchers ``tools/serve_torch.py`` and
+``tools/chaos_torch.py``) loads no JAX module and nothing of the JAX
+package, and no source file of the port or of those launchers imports
+either.  Importing it loads no ``triton`` and no
 CUDA library (NVRTC, the driver): those load at a kernel's first use."""
 import re
 import subprocess
@@ -35,6 +37,10 @@ import mxnet_tpu_torch.io.device_prefetch, mxnet_tpu_torch.io.native
 import mxnet_tpu_torch.recordio, mxnet_tpu_torch.gluon.data
 import mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.rnn
 import mxnet_tpu_torch.ops.embedding
+import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.router
+import mxnet_tpu_torch.fleet.manager
+sys.path.insert(0, "tools")
+import serve_torch, chaos_torch
 print("\\n".join(sorted(set(sys.modules) - before)))
 maps = open("/proc/self/maps").read()
 print("LIBS", len(mxnet_tpu_torch._cuda_driver._libs),
@@ -92,7 +98,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.ops.embedding",
                  "mxnet_tpu_torch.serving.generation",
                  "mxnet_tpu_torch.serving.paged_cache",
-                 "mxnet_tpu_torch.gluon.model_zoo.language.llama"):
+                 "mxnet_tpu_torch.gluon.model_zoo.language.llama",
+                 "mxnet_tpu_torch.fleet", "mxnet_tpu_torch.fleet.router",
+                 "mxnet_tpu_torch.fleet.manager", "serve_torch",
+                 "chaos_torch"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
@@ -101,7 +110,9 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 def test_sources_import_no_jax_and_no_jax_package():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_flash_variants.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_flash_variants.py",
+              ROOT / "tools" / "serve_torch.py",
+              ROOT / "tools" / "chaos_torch.py"]
     assert len(files) > 10
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in IMPORT.finditer(f.read_text())]

@@ -426,8 +426,9 @@ def test_metrics_negotiation_and_serving_families_match(servers):
 
 
 def test_post_routes_and_fleet_routes(servers):
-    """Malformed bodies and unknown routes answer alike; the fleet routes
-    (ROADMAP A13) answer 501 in the port, never 404."""
+    """Malformed bodies and unknown routes answer alike; so do the fleet
+    routes (``/fleet/state``, ``/prefill``, ``/export``, a ``"kv"``
+    handoff): the same statuses and JSON keys in both packages."""
     out = {}
     for k, (_, url) in servers.items():
         rows = []
@@ -443,24 +444,46 @@ def test_post_routes_and_fleet_routes(servers):
                 rows.append(e.code)
         out[k] = rows
     assert out["torch"] == out["jax"] == [400, 400, 404]
+    fleet = {}
+    for k, (srv, url) in servers.items():
+        rows = []
+        for path, data in (("/fleet/state", None),
+                           ("/prefill/lm", b"{}"),
+                           ("/prefill/lm", b'{"prompt": [1, 2, 3, 4, 5]}'),
+                           ("/prefill/lm_dense", b'{"prompt": [1, 2]}'),
+                           ("/prefill/nope", b'{"prompt": [1]}'),
+                           ("/export/lm", b'{"rid": "x"}'),
+                           ("/export/lm", b"{}")):
+            req = urllib.request.Request(url + path, data=data,
+                                         method="POST" if data else "GET")
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    rows.append((r.status, sorted(json.loads(r.read()))))
+            except urllib.error.HTTPError as e:
+                rows.append((e.code, sorted(json.loads(e.read()))))
+        for payload in ({"prompt": [1], "kv": {"k": 1}},
+                        {"prompt": [1, 2], "kv": {
+                            "shape": [2, 2, 64], "k": "", "v": "",
+                            "first_token": 1}}):
+            code, body = srv.handle_generate("lm", payload)
+            rows.append((code, sorted(body)))
+        fleet[k] = rows
+    assert fleet["torch"] == fleet["jax"]
+    assert [r[0] for r in fleet["torch"]] == [200, 400, 200, 400, 404, 404,
+                                              400, 400, 400]
     srv, url = servers["torch"]
-    for path, data in (("/fleet/state", None), ("/prefill/lm", b"{}"),
-                       ("/export/lm", b'{"rid": "x"}')):
-        req = urllib.request.Request(url + path, data=data,
-                                     method="POST" if data else "GET")
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(req, timeout=60)
-        assert ei.value.code == 501
-        assert "A13" in json.loads(ei.value.read())["error"]
-    code, body = srv.handle_generate("lm", {"prompt": [1], "kv": {"k": 1}})
-    assert code == 501 and "A13" in body["error"]
-    for call in (srv.fleet_state, lambda: tserver.encode_kv(None, None, 0),
-                 lambda: tserver.decode_kv({"kv": {}}),
-                 lambda: TServer(role="prefill"),
-                 lambda: TClient(url).prefill("lm", [1])):
-        with pytest.raises(MXNetError, match="A13"):
-            call()
+    assert srv.fleet_state()["models"]["lm"]["engine"] == "paged"
+    k = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    wire = tserver.encode_kv(k, -k, 5)
+    got = tserver.decode_kv({"kv": wire})
+    assert got["first_token"] == 5 and np.array_equal(got["v"], -k)
     assert tserver.decode_kv({}) is None
+    assert TServer(role="prefill").role == "prefill"
+    with pytest.raises(MXNetError):
+        TServer(role="both")
+    out = TClient(url).prefill("lm", [1, 2, 3, 4, 5], max_new_tokens=2)
+    assert sorted(out) == ["first_token", "hashes", "kv", "page_tokens"]
+    assert out["kv"]["shape"] == [2, 5, 64]
 
 
 def test_client_retries_503_and_connection_refused():
