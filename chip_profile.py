@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training steps goes, on one NVIDIA H100.
 
-    python3 chip_profile.py [--model resnet|bert|gluon] [--seed N] [--steps N]
+    python3 chip_profile.py [--model resnet|bert|gluon|zoo] [--seed N] [--steps N]
 
 Run from the root of a checkout on a machine with one CUDA card (after or
 instead of ``chip_smoke.py``; it builds the kernels it needs the same way).
@@ -18,7 +18,11 @@ runs (seq 128, batch 64, Adam; fp32, and bf16 through
 own.  With ``--model gluon`` it traces the fused fp32 resnet50_v1 trained
 through the Gluon loop of ``chip_smoke.py``'s ``gluon_training`` phase
 (``record()`` -> ``backward()`` -> ``Trainer.step`` with the metric
-update), then the same model through ``CompiledTrainStep``.  Since slice 13
+update), then the same model through ``CompiledTrainStep``.  With
+``--model zoo`` it traces the five zoo models that ``chip_smoke.py``'s
+``vision_zoo`` phase trains (resnet50_v2, mobilenet_v2_1_0, densenet121,
+inception_v3 and vgg16_bn at their published widths, batch 64, fp32,
+``CompiledTrainStep``), one after the other.  Since slice 13
 ``CompiledTrainStep`` is one CUDA graph per signature: its traced steps are
 replays.  The last line names the card.
 """
@@ -84,6 +88,15 @@ def gluon_runs(torch, smoke, seed):
            smoke.GLUON["warmup"])
 
 
+def zoo_run(torch, smoke, seed, name):
+    net = smoke._zoo_net(torch, name, seed)
+    batch = smoke.ZOO["train_batch"]
+    step = smoke._train_step(net, batch)
+    x, y = smoke._images(torch, seed + 7, batch, smoke._zoo_px(name),
+                         smoke.ZOO["classes"])
+    return step, x, y, smoke.ZOO["warmup"]
+
+
 def profile_run(torch, name, dtype, steps, step, x, y, warmup):
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -120,7 +133,8 @@ def profile_run(torch, name, dtype, steps, step, x, y, warmup):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("resnet", "bert", "gluon"),
+    parser.add_argument("--model", choices=("resnet", "bert", "gluon",
+                                            "zoo"),
                         default="resnet")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=2)
@@ -143,6 +157,10 @@ def main(argv=None):
         runs = [(f"bert_{dtype or 'float32'}", dtype,
                  lambda d=dtype: bert_run(torch, smoke, args.seed, d))
                 for dtype in (None, "bfloat16")]
+    elif args.model == "zoo":
+        runs = [(name, None, lambda n=name: zoo_run(torch, smoke, args.seed,
+                                                    n))
+                for name in smoke.ZOO_TRAIN]
     else:
         gluon = gluon_runs(torch, smoke, args.seed)
         runs = [(name, None, lambda: next(gluon))
@@ -154,6 +172,7 @@ def main(argv=None):
         out = profile_run(torch, name, dtype, args.steps, step, x, y, warmup)
         print(json.dumps(out), flush=True)
         del step, x, y
+        smoke._free(torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

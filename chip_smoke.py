@@ -152,7 +152,8 @@ beside its bound, then drives the port's paths:
 - the fleet (slice 18, ``fleet``): (a) the ``serving`` phase's llama_7b
   behind a ``fleet.Router`` over in-process ModelServers sharing its
   weights: one mixed replica, then one prefill and two decode replicas
-  (each paged and warmed for its role), the 4 prompts twice; tokens/s,
+  (each paged and warmed for its role), the 4 prompts, then the longest
+  alone; tokens/s,
   first-token ms, each K/V handoff's bytes and the ms of its gather,
   encode, wire (both JSON hops, the Router's included), decode and pool
   write, the prefix-routed count, and no new CachedOp entry on any
@@ -168,18 +169,30 @@ beside its bound, then drives the port's paths:
   llama_7b's dense engine behind two replicas' ``/generate``, through
   the Router: the flash kernels' launches on that path, each held against
   its plain version.
+- the vision zoo and the Estimator (slice 19): ``vision_zoo`` builds 8
+  zoo models through ``get_model`` at their published widths (1000
+  classes, 224 px, Inception 299 px), holds each hybridized forward at
+  batch 32 to the eager one and its export, imported, to the block, and
+  trains 5 at batch 64 through ``CompiledTrainStep``'s graph beside
+  their eager twins; ``estimator`` runs ``Estimator.fit`` on fused
+  resnet50_v1 (batch 256) over a ``DataLoader`` with prefetch, health,
+  handlers and two injected faults, at ``steps_per_call`` 1 and 2, each
+  bit for bit a bare ``CompiledTrainStep`` loop, with 36 fused launches
+  a step.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
-resnet_parity, training, gluon_training, input_pipeline, serving_bert,
+resnet_parity, training, gluon_training, input_pipeline, vision_zoo,
+estimator, serving_bert,
 serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
 a kernel is brought up; ``--only build,serving,serving_bert,fleet`` runs
 slice 18 (``fleet`` builds the models it reuses when their phases did not
-run); ``--only build,serving,speculative`` runs slice 17
+run); ``--only build,vision_zoo,estimator`` runs slice 19 (add
+``fused_timing`` for the kernel line); ``--only build,serving,speculative`` runs slice 17
 (``speculative`` needs ``serving``, whose llama_7b it reuses); ``--only
 build,input_pipeline,module_fit`` runs slice 16; ``--only
 build,gluon_training`` runs just the Gluon loop,
@@ -1099,11 +1112,11 @@ def _timed(torch, fn, warmup, steps):
             "last_loss": last}
 
 
-def _graph_and_eager(torch, build, warmup, steps, reset, read):
-    """``build()`` -> ``(net, step, xs, y)``.  Returns ``(graph, eager,
-    parity, launches)``: ``launches`` is ``read()`` after the graph's
-    ``warmup`` + ``steps`` steps, counted from ``reset()`` just before."""
-    parity = _parity_pair(torch, build)
+def _graph_run(torch, build, warmup, steps, reset, read, busy=True):
+    """``warmup`` + ``steps`` steps of a fresh ``build()`` through the
+    graph: ``(graph, launches)``, ``launches`` being ``read()`` after the
+    steps, counted from ``reset()`` just before; ``busy`` adds the traced
+    busy share."""
     net, step, xs, y = build()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1114,11 +1127,20 @@ def _graph_and_eager(torch, build, warmup, steps, reset, read):
                  pool_gb=_pool_bytes(torch, step._pool) / 1e9,
                  misses=step._misses, captures=step._captures,
                  replays=step._replays)
-    graph["busy"] = _busy_share(torch, lambda: step(xs, y),
-                                STEP_GRAPH["busy_steps"])
+    if busy:
+        graph["busy"] = _busy_share(torch, lambda: step(xs, y),
+                                    STEP_GRAPH["busy_steps"])
     del net, step, xs, y
     _free(torch)
+    return graph, launches
 
+
+def _graph_and_eager(torch, build, warmup, steps, reset, read):
+    """``build()`` -> ``(net, step, xs, y)``.  Returns ``(graph, eager,
+    parity, launches)``: the parity pair, ``_graph_run``, then the same
+    steps through the eager twin, timed and traced."""
+    parity = _parity_pair(torch, build)
+    graph, launches = _graph_run(torch, build, warmup, steps, reset, read)
     net, twin, xs, y = build()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2593,8 +2615,16 @@ def phase_speculative(torch, seed, model, dense_per_forward):
 # one weight copy) behind a Router: first one mixed replica, then one
 # prefill and two decode replicas, each paged (16-token pages, 4 slots) and
 # warmed for its role; the serving phase's 4 prompts, 16 new tokens each,
-# twice (the second round finds the prompts in the prefill replica's
-# prefix cache).  (b) llama_7b's width at 4 layers, fp32, TF32 off, 2 slots,
+# FLEET["rounds"] times on the mixed replica (its second round finds the
+# prompts in its prefix cache) and FLEET["disagg_rounds"] times on the
+# disaggregated fleet, then the longest prompt alone, which finds its
+# prompt in the prefill replica's prefix cache and is routed by it.  Every
+# round and the lone stream are held to the mixed replica's first round.
+# The disaggregated fleet runs one round: its K/V handoffs cross HTTP as
+# JSON (73-106 s a round of 1 GB handoffs on an H100 host), and at two
+# rounds the whole script took 1120.4 s there, against the 1200 s it must
+# end within.  (b) llama_7b's width at
+# 4 layers, fp32, TF32 off, 2 slots,
 # max_length 256: prompts of a 64-token system prefix and suffixes of
 # 16-130 tokens, 24 new tokens each, through disaggregation, prefix
 # affinity, migration (a snapshot and a stop; no snapshot and a ``relay``
@@ -2605,7 +2635,7 @@ def phase_speculative(torch, seed, model, dense_per_forward):
 # kill finds streams in flight), 2 seeded SIGKILLs.
 # (d) BERT-base behind two replicas' /predict and llama_7b's dense engine
 # behind two replicas' /generate, through the Router.
-FLEET = dict(slots=4, page_tokens=16, rounds=2,
+FLEET = dict(slots=4, page_tokens=16, rounds=2, disagg_rounds=1,
              exact_system=64, exact_suffixes=(16, 40, 90, 130),
              exact_new=24, exact_slots=2, exact_max_length=256,
              migrate_prompt=100, step_delay_s=0.05, hedge_delay_s=1.0,
@@ -2744,10 +2774,13 @@ def _fleet_replica(model, tag, role, warm_len, **kw):
     return srv, sched, f"http://127.0.0.1:{srv.start_http()}", warm_s
 
 
-def _fleet_cell(torch, model, prompts, roles):
-    """(a)'s traffic through a Router over fresh replicas of ``roles``:
-    per round tokens/s, first-token ms and the handoffs; per replica its
-    warmup, entries made by live traffic and peak memory."""
+def _fleet_cell(torch, model, prompts, roles, n_rounds):
+    """(a)'s traffic, ``n_rounds`` times, through a Router over fresh
+    replicas of ``roles``: per round tokens/s, first-token ms and the
+    handoffs; per replica its warmup, entries made by live traffic and
+    peak memory.  With a prefill replica, the longest prompt then runs
+    alone.  Returns the report, each round's tokens and the lone run's
+    (None without a prefill replica)."""
     from mxnet_tpu_torch.fleet import Router
     kw = dict(max_slots=FLEET["slots"], kv_cache=True,
               page_tokens=FLEET["page_tokens"], prefix_cache=True)
@@ -2764,7 +2797,7 @@ def _fleet_cell(torch, model, prompts, roles):
     rounds, tokens = [], []
     torch.cuda.reset_peak_memory_stats()
     with _Probe(torch) as probe:
-        for _ in range(FLEET["rounds"]):
+        for _ in range(n_rounds):
             got, first, wall = _fleet_streams(f"http://{host}:{port}",
                                               "llama", prompts, NEW_TOKENS)
             tokens.append(got)
@@ -2777,11 +2810,11 @@ def _fleet_cell(torch, model, prompts, roles):
                                      * n * model.kv_cache_spec()[1])
                              for n, h in sorted(handoffs.items())}})
             router.refresh()   # the digests the round registered
-        solo = None
+        solo = solo_tokens = None
         if "prefill" in roles:
             # the longest prompt alone: each stage without the others'
             # handoffs contending for the interpreter
-            _, first, wall = _fleet_streams(f"http://{host}:{port}",
+            solo_tokens, first, wall = _fleet_streams(f"http://{host}:{port}",
                                             "llama", prompts[-1:],
                                             NEW_TOKENS)
             solo = {"prompt_tokens": len(prompts[-1]), "wall_s": wall,
@@ -2806,7 +2839,7 @@ def _fleet_cell(torch, model, prompts, roles):
     del reps, router
     gc.collect()
     torch.cuda.empty_cache()
-    return out, tokens
+    return out, tokens, solo_tokens
 
 
 def _fleet_counter(name, **labels):
@@ -2816,36 +2849,43 @@ def _fleet_counter(name, **labels):
 
 
 def _fleet_disagg(torch, model, prompts):
-    """(a): the mixed replica, then prefill:1,decode:2, the same traffic."""
-    mixed, mixed_tokens = _fleet_cell(torch, model, prompts, ("mixed",))
-    disagg, disagg_tokens = _fleet_cell(torch, model, prompts,
-                                        ("prefill", "decode", "decode"))
+    """(a): the mixed replica, then prefill:1,decode:2, the same traffic;
+    every later round, and the lone run of the longest prompt, held to the
+    mixed replica's first round."""
+    n_disagg = FLEET["disagg_rounds"]
+    mixed, mixed_tokens, _ = _fleet_cell(torch, model, prompts, ("mixed",),
+                                         FLEET["rounds"])
+    disagg, disagg_tokens, solo = _fleet_cell(
+        torch, model, prompts, ("prefill", "decode", "decode"), n_disagg)
     noise = _bf16_logit_noise(torch, model, prompts[0])
     floor = max(noise["dense_vs_dense_padded"], noise["dense_vs_paged"])
     div = [_divergences(torch, model, prompts, got, mixed_tokens[0])
            for got in mixed_tokens[1:] + disagg_tokens]
+    div.append(_divergences(torch, model, prompts[-1:], solo,
+                            mixed_tokens[0][-1:]))
     out = {"mixed": mixed, "disaggregated": disagg,
            "tokens_agree_with_mixed": [
                f"{_agree(got, mixed_tokens[0])}/{len(prompts) * NEW_TOKENS}"
-               for got in disagg_tokens],
+               for got in mixed_tokens[1:] + disagg_tokens]
+           + [f"{_agree(solo, mixed_tokens[0][-1:])}/{NEW_TOKENS}"],
            "divergences": div, "bf16_noise": floor}
     handoffs = [h for r in disagg["rounds"] for h in r["handoffs"].values()]
     gates = {
         "a_all_complete": all(len(t) == NEW_TOKENS
-                              for ts in mixed_tokens + disagg_tokens
+                              for ts in mixed_tokens + disagg_tokens + [solo]
                               for t in ts),
         "a_no_new_entries": all(r["new_entries"] == 0 == r["new_captures"]
                                 for c in (mixed, disagg)
                                 for r in c["replicas"]),
-        "a_handoff_per_request": len(handoffs) == FLEET["rounds"]
-        * len(prompts) and all(set(h) == {"gather_ms", "encode_ms", "wire_ms", "decode_ms",
-                               "write_ms", "bytes"} for h in handoffs),
+        "a_handoff_per_request": len(handoffs) == n_disagg * len(prompts)
+        and all(set(h) == {"gather_ms", "encode_ms", "wire_ms", "decode_ms",
+                           "write_ms", "bytes"} for h in handoffs),
         "a_identity_or_near_tie": all(
             d is None or d["top2_margin"] < floor for ds in div for d in ds),
         "a_prefix_routed": disagg["prefix_routed"] > 0,
         "a_decode_replicas_served": sum(
             r["admitted"] for r in disagg["replicas"]
-            if r["role"] == "decode") == FLEET["rounds"] * len(prompts) + 1}
+            if r["role"] == "decode") == n_disagg * len(prompts) + 1}
     return out, gates
 
 
@@ -6390,6 +6430,388 @@ def phase_train_step_graphs(torch, seed):
     check(out["ok"], f"train_step_graphs failed: {gates}")
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the vision model zoo and the Estimator
+# ---------------------------------------------------------------------------
+# vision_zoo: each model built through get_model at its published widths
+# (1000 classes, 224 px, Inception 299 px), weights from the seed (the
+# port's initialize over the model's initializers), fp32, TF32 off.  The
+# forward models: the eager forward at batch 32 (eval mode), the
+# hybridized forward (its first call eager, the capture, then replays of
+# the CachedOp's CUDA graph) equal to it bit for bit, and export ->
+# SymbolBlock.imports against the block within ZOO["export_rel"] of the
+# largest |value|.  The training models: CompiledTrainStep (SGD, momentum
+# 0.9, wd 1e-4) at batch 64, as the training phase runs resnet50_v1 but
+# for the timed eager run and the traced busy shares (`chip_profile.py
+# --model zoo` traces these steps): the parity pair under deterministic
+# algorithms (the graph's first 2 steps against the eager twin's), then
+# 3 + 10 graph steps.  Dropout layers draw from one generator of seed +
+# 1.  Each model is freed before the next is built.
+ZOO = dict(classes=1000, px=224, inception_px=299, fwd_batch=32,
+           train_batch=64, warmup=3, steps=10, export_rel=1e-5, fwd_timed=5)
+ZOO_FORWARD = ("resnet50_v2", "mobilenet1_0", "mobilenet_v2_1_0",
+               "densenet121", "inception_v3", "vgg16_bn", "squeezenet1_1",
+               "alexnet")
+ZOO_TRAIN = ("resnet50_v2", "mobilenet_v2_1_0", "densenet121",
+             "inception_v3", "vgg16_bn")
+
+
+def _zoo_px(name):
+    return ZOO["inception_px"] if name.startswith("inception") else ZOO["px"]
+
+
+def _zoo_net(torch, name, seed):
+    """``name`` from get_model on the card: a first forward allocates the
+    widths that wait for the input, then every tensor is drawn from
+    ``seed``; its Dropout layers draw from a generator of ``seed + 1``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    px = _zoo_px(name)
+    net = get_model(name, classes=ZOO["classes"], ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 3, px, px), ctx=mx.gpu(0)))
+    initialize(net, generator(seed, "cuda"))
+    gen = generator(seed + 1, "cuda")
+    for m in net.modules():
+        if type(m).__name__ == "Dropout":
+            m.generator = gen
+    return net
+
+
+def _rel_max(torch, got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _zoo_forward(torch, name, seed, tmp):
+    """The eager forward at batch 32, the hybridized forward's replays
+    against it, and export -> imports against the block."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    t0 = time.perf_counter()
+    net = _zoo_net(torch, name, seed)
+    px = _zoo_px(name)
+    x, _ = _images(torch, seed + 3, ZOO["fwd_batch"], px, ZOO["classes"])
+    xn = NDArray(x, mx.gpu(0))
+    ref = net(xn)._data.clone()
+    eager_ms = cuda_ms(torch, lambda: net(xn), ZOO["fwd_timed"])
+    net.hybridize()
+    net(xn)
+    graph_out = net(xn)._data.clone()
+    graph_ms = cuda_ms(torch, lambda: net(xn), ZOO["fwd_timed"])
+    op = net._cached_op
+    stats = {"misses": op._misses, "captures": op._captures,
+             "replays": op._replays}
+    path = f"{tmp}/{name}"
+    net.export(path)
+    imported = SymbolBlock.imports(f"{path}-symbol.json", ["data"],
+                                   f"{path}-0000.params", ctx=mx.gpu(0))
+    imp = imported(xn)._data
+    out = {"model": name, "px": px, "batch": ZOO["fwd_batch"],
+           "params_m": sum(p.numel() for p in net.parameters()) / 1e6,
+           "eager_ms": eager_ms, "graph_ms": graph_ms,
+           "graph_rel": _rel_max(torch, graph_out, ref),
+           "graph_bitwise": torch.equal(graph_out, ref),
+           "export_rel": _rel_max(torch, imp, ref),
+           "seconds": time.perf_counter() - t0, **stats}
+    out["gates"] = {
+        "finite": bool(torch.isfinite(ref).all()),
+        "shape": tuple(ref.shape) == (ZOO["fwd_batch"], ZOO["classes"]),
+        "graph_equals_eager": out["graph_bitwise"],
+        "one_capture": stats["misses"] == stats["captures"] == 1
+        and stats["replays"] == 1 + ZOO["fwd_timed"] + 2,
+        "export_imports": out["export_rel"] <= ZOO["export_rel"]}
+    del net, imported, op, x, xn
+    _free(torch)
+    return out
+
+
+def _zoo_train(torch, name, seed):
+    """``name`` through CompiledTrainStep's graph, its first 2 steps held
+    to the eager twin's."""
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    batch = ZOO["train_batch"]
+
+    def build():
+        net = _zoo_net(torch, name, seed)
+        x, y = _images(torch, seed + 7, batch, _zoo_px(name),
+                       ZOO["classes"])
+        return net, _train_step(net, batch), (x,), y
+
+    def reset():
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+        A.flash_fwd_launches = 0
+
+    def read():
+        return {"fused_conv_bn_launches": FC.fused_conv_bn_launches,
+                "flash_fwd_launches": A.flash_fwd_launches}
+
+    t0 = time.perf_counter()
+    parity = _parity_pair(torch, build)
+    graph, launches = _graph_run(torch, build, ZOO["warmup"], ZOO["steps"],
+                                 reset, read, busy=False)
+    steps = ZOO["warmup"] + ZOO["steps"]
+    out = {"model": name, "batch": batch, "px": _zoo_px(name),
+           "steps": steps, "step_ms": graph["step_ms"],
+           "samples_per_sec": 1e3 * batch / graph["step_ms"],
+           "peak_mem_gb": graph["peak_mem_gb"], "pool_gb": graph["pool_gb"],
+           "first_loss": graph["first_loss"], "last_loss": graph["last_loss"],
+           "parity": parity, "seconds": time.perf_counter() - t0,
+           **launches}
+    out["gates"] = {"losses_finite": math.isfinite(graph["first_loss"])
+                    and math.isfinite(graph["last_loss"]),
+                    "no_hand_written_kernel": not any(launches.values()),
+                    **_graph_gates(graph, parity, steps)}
+    return out
+
+
+def phase_vision_zoo(torch, seed):
+    """The zoo at published widths on the card (see ZOO)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vision_zoo_")
+    try:
+        forward = [_zoo_forward(torch, name, seed, tmp)
+                   for name in ZOO_FORWARD]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    training = [_zoo_train(torch, name, seed) for name in ZOO_TRAIN]
+    failed = [(r["model"], k) for r in forward + training
+              for k, v in r["gates"].items() if not v]
+    out = {"phase": "vision_zoo", "ok": not failed, "card": _card(),
+           "tf32": _tf32(torch), "tolerance": {
+               "card_rel": SERVE["card_rel"],
+               "export_rel": ZOO["export_rel"]},
+           "forward": forward, "training": training, "failed": failed,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    check(out["ok"], f"vision_zoo failed: {failed}")
+
+
+# estimator: Estimator.fit on full-width resnet50_v1, fused fp32 (36
+# FusedConv1x1BN layers), batch 256 at 224 px, TF32 off, SGD as bench.py
+# through a gluon.Trainer: one epoch over a DataLoader of ESTIMATOR
+# ["batches"] seeded host batches, prefetch_to_device=True, health=True,
+# resume_on_fault=2 with two transient faults at the step's execute site
+# (the inner retry ladder, MXNET_TPU_RETRY_MAX=2, exhausted once, so
+# FaultTolerantStep replays one call), a ValidationHandler over
+# ESTIMATOR["val_batches"] batches, a CheckpointHandler whose files are
+# loaded back, an EarlyStoppingHandler and a LoggingHandler; once with
+# steps_per_call=1, once with 2 (MultiStepTrainStep for both).
+# Deterministic algorithms are on, so each run's parameters, moving
+# statistics and momenta must equal bit for bit those of a hand-written
+# CompiledTrainStep loop (health armed) over the same batches, staged on
+# the card beforehand, from the same weights.  The fused kernel launches
+# 36 times a training step (the validation forwards fold BN into a plain
+# product).  Step ms is the median, over
+# the steps past the first ESTIMATOR["warm"], of the host clock between
+# synchronised batch ends (per step of a group), against the bare loop's,
+# synchronised the same way.  The fit's goodput window leaves the event
+# handlers' time unattributed; the Clock handler below synchronises, so
+# most of a step's device time lands in its waits, which it times.  What
+# stays unattributed beyond those waits (the other handlers: the
+# checkpoint write, validation, logging) must be at most
+# ESTIMATOR["unattributed_max"] of the window's wall.
+ESTIMATOR = dict(batch=256, px=224, classes=1000, batches=16, val_batches=2,
+                 warm=4, fault_at=6, unattributed_max=0.35)
+
+
+def _estimator_host_data(torch, seed, n):
+    """``n`` batches of images uniform in [0, 1) and labels, on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    e = ESTIMATOR
+    x = torch.rand(n * e["batch"], 3, e["px"], e["px"], generator=gen)
+    y = torch.randint(0, e["classes"], (n * e["batch"],), generator=gen)
+    return x.numpy(), y.float().numpy()
+
+
+def _estimator_run(torch, seed, k, x, y, val, twin_snap, tmp):
+    """One Estimator.fit at steps_per_call ``k``; its report and gates."""
+    import statistics
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import resilience as rs
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    e = ESTIMATOR
+    net = _resnet50(torch, True, seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4})
+    est = E.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      trainer=trainer, context=mx.gpu(0))
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(x, y),
+                                   batch_size=e["batch"])
+    clock, waits = [], []
+
+    class Clock(E.BatchEnd):
+        def batch_end(self, estimator, *a, **kw):
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            waits.append(now - t)
+            clock.append((now, kw.get("num_batches", 1)))
+
+    prefix = f"r50_k{k}"
+    ckpt = E.CheckpointHandler(tmp, model_prefix=prefix, max_checkpoints=1)
+    early = E.EarlyStoppingHandler(est.train_loss_metric, patience=2)
+    handlers = [Clock(), ckpt, early, E.LoggingHandler(log_interval=4),
+                E.ValidationHandler(val, est.evaluate)]
+    os.environ["MXNET_TPU_RETRY_MAX"] = "2"
+    os.environ["MXNET_TPU_RETRY_BACKOFF"] = "0.001"
+    rs.reset_backend_state()
+    plan = rs.FaultPlan({"execute": ["ok"] * (e["fault_at"] - 1)
+                         + ["unavailable"] * 2})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+    t0 = time.perf_counter()
+    with plan:
+        est.fit(loader, epochs=1, event_handlers=handlers,
+                prefetch_to_device=True, health=True, resume_on_fault=2,
+                steps_per_call=k)
+    wall = time.perf_counter() - t0
+    launches = {"fused_conv_bn_launches": FC.fused_conv_bn_launches,
+                "fused_conv_bn_wgmma_launches":
+                    FC.fused_conv_bn_wgmma_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    replays, faults = rs.counters.replays, rs.counters.faults_injected
+    del os.environ["MXNET_TPU_RETRY_MAX"], os.environ["MXNET_TPU_RETRY_BACKOFF"]
+    rs.reset_backend_state()
+    step = est._fused_steps[(k, True)]
+    gap = _gap(torch, _snapshot(step), twin_snap)
+    # the checkpoint, loaded back into a net from another seed
+    path = f"{tmp}/{prefix}-epoch1.params"
+    other = _resnet50(torch, True, seed + 99)
+    other.load_parameters(path, ctx=mx.gpu(0))
+    loaded = all(torch.equal(a, b) for a, b in
+                 zip(other.state_dict().values(), net.state_dict().values()))
+    gluon.Trainer(other.collect_params(), "sgd",
+                  {"learning_rate": 0.1}).load_states(
+        path.replace(".params", ".states"))
+    # ms per step of each batch-end event past the warm steps; the median
+    # leaves out the call the fault replayed
+    first = e["warm"] // k
+    per_step = [1e3 * (t - clock[i - 1][0]) / n
+                for i, (t, n) in enumerate(clock) if i >= first]
+    est_ms = statistics.median(per_step)
+    window = est.last_goodput
+    out = {"steps_per_call": k, "steps": e["batches"],
+           "val_batches": e["val_batches"], "wall_s": wall,
+           "step_ms": est_ms, "step_ms_each": per_step,
+           "samples_per_sec": 1e3 * e["batch"] / est_ms,
+           "peak_mem_gb": peak, "captures": step._captures,
+           "misses": step._misses, "replays": step._replays,
+           "fault_replays": replays, "faults_injected": faults,
+           "goodput": {"wall_s": window["wall_seconds"],
+                       "buckets": window["buckets"],
+                       "unattributed_s": window["unattributed_seconds"],
+                       "clock_waits_s": sum(waits)},
+           "input_wait_s": window["buckets"].get("input_wait", 0.0),
+           "early_stopping": {"stopped_epoch": early.stopped_epoch,
+                              "best": early.best},
+           "checkpoint_files": sorted(os.listdir(tmp)),
+           "twin": gap, **launches}
+    # the validation forwards fold BN into the weight and run a plain
+    # product (with_stats=False), as the JAX op does: no launch
+    want = FUSED_LAUNCHES_PER_STEP * e["batches"]
+    out["gates"] = {
+        "launches": launches["fused_conv_bn_launches"] == want
+        and launches["fused_conv_bn_wgmma_launches"] == want,
+        "bitwise_with_bare_loop": gap["bitwise_equal"] == gap["tensors"],
+        "one_capture": step._misses == step._captures == 1,
+        "fault_replayed": replays == 1 and faults == 2,
+        "checkpoint_loads": loaded,
+        "goodput_attributes_steps": window["unattributed_seconds"]
+        - sum(waits) <= e["unattributed_max"] * window["wall_seconds"]}
+    del est, net, other, step, trainer, loader
+    _free(torch)
+    return out, launches["fused_conv_bn_launches"]
+
+
+def phase_estimator(torch, seed):
+    """Estimator.fit on fused resnet50_v1 at full width (see ESTIMATOR);
+    returns the fused kernel's launches over both runs."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.observability.health import HealthConfig
+    t_phase = time.perf_counter()
+    e = ESTIMATOR
+    _free(torch)
+    t0 = time.perf_counter()
+    x, y = _estimator_host_data(torch, seed + 11, e["batches"])
+    vx, vy = _estimator_host_data(torch, seed + 12, e["val_batches"])
+    data_s = time.perf_counter() - t0
+    b = e["batch"]
+    val = [(NDArray(torch.from_numpy(vx[i * b:(i + 1) * b]).cuda(),
+                    mx.gpu(0)),
+            NDArray(torch.from_numpy(vy[i * b:(i + 1) * b]).cuda(),
+                    mx.gpu(0))) for i in range(e["val_batches"])]
+    tmp = tempfile.mkdtemp(prefix="estimator_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # the bare loop: the same batches staged on the card first
+        net = _resnet50(torch, True, seed)
+        bare = CompiledTrainStep(net, SoftmaxCrossEntropyLoss(),
+                                 optimizer.create("sgd", learning_rate=0.1,
+                                                  momentum=0.9, wd=1e-4),
+                                 health=HealthConfig())
+        staged = [(torch.from_numpy(x[i * b:(i + 1) * b]).cuda(),
+                   torch.from_numpy(y[i * b:(i + 1) * b]).cuda())
+                  for i in range(e["batches"])]
+        torch.cuda.synchronize()
+        ticks = []
+        for sx, sy in staged:
+            bare(sx, sy)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+        bare_ms = statistics.median(
+            1e3 * (b1 - b0) for b0, b1 in zip(ticks[e["warm"] - 1:-1],
+                                              ticks[e["warm"]:]))
+        twin_snap = _snapshot(bare)
+        bare_peak = torch.cuda.max_memory_allocated() / 1e9
+        del net, bare, staged
+        _free(torch)
+        runs, launches = [], 0
+        for k in (1, 2):
+            run, n = _estimator_run(torch, seed, k, x, y, val, twin_snap,
+                                    tmp)
+            runs.append(run)
+            launches += n
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for run in runs:
+        run["step_ms_over_bare"] = run["step_ms"] / bare_ms
+    failed = [(r["steps_per_call"], g) for r in runs
+              for g, v in r["gates"].items() if not v]
+    out = {"phase": "estimator", "ok": not failed, "model": "resnet50_v1",
+           "fused": True, "dtype": "float32", "batch": b, "px": e["px"],
+           "card": _card(), "tf32": _tf32(torch),
+           "deterministic_algorithms": True, "host_data_s": data_s,
+           "bare_step_ms": bare_ms, "bare_peak_mem_gb": bare_peak,
+           "runs": runs, "failed": failed,
+           "launches_per_step": FUSED_LAUNCHES_PER_STEP,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    check(out["ok"], f"estimator failed: {failed}")
+    return launches
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -6417,7 +6839,7 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
-          "serving_bert",
+          "vision_zoo", "estimator", "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -6476,16 +6898,22 @@ def main(argv=None):
         by_path["gluon_training"] = phase_gluon_training(torch, args.seed)
     if "input_pipeline" in only:
         by_path["input_pipeline"] = phase_input_pipeline(torch, args.seed)
+    if "vision_zoo" in only:
+        phase_vision_zoo(torch, args.seed)
+    if "estimator" in only:
+        by_path = {"estimator": phase_estimator(torch, args.seed),
+                   **by_path}
     if by_path and "fused_timing" in only:
-        # launches: the latest slice's path that ran (the input pipeline,
-        # then CompiledTrainStep's graph on a resident batch, then the
-        # Gluon loop)
+        # launches: the latest slice's path that ran (Estimator.fit, the
+        # input pipeline, then CompiledTrainStep's graph on a resident
+        # batch, then the Gluon loop)
         line = _kernel_line(
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            next(by_path[k] for k in ("input_pipeline", "training",
-                                      "gluon_training") if k in by_path),
+            next(by_path[k] for k in ("estimator", "input_pipeline",
+                                      "training", "gluon_training")
+                 if k in by_path),
             fused)
         line["launches_by_path"] = by_path
         lines.append(line)

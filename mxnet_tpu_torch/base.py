@@ -344,6 +344,9 @@ env.declare("MXNET_IO_DEVICE_QUEUE", 2, int,
 env.declare("MXNET_TPU_NO_NATIVE", False, bool,
             "1 = do not build or load the native recordio reader "
             "(io/native.py); recordio reads through its Python reader.")
+env.declare("MXNET_HOME", "", str,
+            "Root of the local model store (gluon/model_zoo/model_store.py "
+            "keeps its files under <root>/models; default: ~/.mxnet).")
 
 
 def attr_truthy(v) -> bool:

@@ -510,15 +510,17 @@ class HybridBlock(Block):
                 return self._cached_op(*args)
         return super().__call__(*args, **kwargs)
 
-    def forward(self, x, *args):
+    def forward(self, x, *args, **kwargs):
         """Tensors in, tensors out: ``hybrid_forward`` on NDArrays over
         them, recording when torch's grad mode is on."""
         ctx = Context.of(x.device)
         with autograd._RecordingState(torch.is_grad_enabled(),
                                       self.training):
             params = {name: p.data() for name, p in self._reg_params.items()}
-            out = self.hybrid_forward(_ndmod, _to_arrays(x, ctx),
-                                      *_to_arrays(args, ctx), **params)
+            out = self.hybrid_forward(
+                _ndmod, _to_arrays(x, ctx), *_to_arrays(args, ctx),
+                **{k: _to_arrays(v, ctx) for k, v in kwargs.items()},
+                **params)
         return _to_tensors(out)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

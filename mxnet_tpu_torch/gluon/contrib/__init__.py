@@ -1,4 +1,4 @@
-"""Contrib layers of the port."""
-from . import nn
+"""Contrib layers and the Estimator of the port."""
+from . import estimator, nn
 
-__all__ = ["nn"]
+__all__ = ["estimator", "nn"]

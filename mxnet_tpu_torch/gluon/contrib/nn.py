@@ -1,7 +1,12 @@
-"""``FusedConv1x1BN``: a 1x1 convolution + BatchNorm (+ ReLU) through the
-CUDA matmul-with-statistics kernel.
+"""Contrib layers (counterparts of ``mxnet_tpu/gluon/contrib/nn.py``):
+``Concurrent`` and ``HybridConcurrent`` (one input to every child, the
+outputs concatenated along ``axis``), ``Identity``, ``SyncBatchNorm``
+(``gluon.nn.SyncBatchNorm``), ``PixelShuffle1D/2D/3D`` and
+``FusedConv1x1BN``.  ``SparseEmbedding`` waits for row-sparse data
+(ROADMAP A15) and ``MoEFFN`` for a device mesh (A11).
 
-Counterpart of ``mxnet_tpu/gluon/contrib/nn.py:FusedConv1x1BN``, a
+``FusedConv1x1BN`` is a 1x1 convolution + BatchNorm (+ ReLU) through the
+CUDA matmul-with-statistics kernel, a
 :class:`~mxnet_tpu_torch.gluon.block.HybridBlock` with the reference's
 parameters (``weight`` Xavier, ``gamma``, ``beta``, and the moving
 statistics with ``grad_req='null'``) and a deferred input width
@@ -24,15 +29,105 @@ outside training is the folded product with ``with_stats=False``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ... import autograd
 from ...base import env
 from ...ops.fused_conv_bn import conv1x1_bn_stats_op
 from ..block import HybridBlock
-from ..nn.basic_layers import _update_running, cast_keeping_norm_fp32
+from ..nn.basic_layers import (HybridSequential, Sequential, SyncBatchNorm,
+                               _update_running, cast_keeping_norm_fp32)
 
-__all__ = ["FusedConv1x1BN"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
+           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D",
+           "FusedConv1x1BN"]
+
+
+def _concat(outs, axis):
+    """Concatenate tensors, or compose ``concat`` over Symbols."""
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=axis)
+    from ... import symbol
+    return symbol.concat(*outs, dim=axis)
+
+
+class Concurrent(Sequential):
+    """Every child on the same input, the outputs concatenated along
+    ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x, *args):
+        return _concat([block(x) for block in self._modules.values()],
+                       self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """:class:`Concurrent` with a symbolic form (``concat`` over the
+    children's)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x, *args):
+        return _concat([block(x) for block in self._modules.values()],
+                       self.axis)
+
+
+class Identity(HybridBlock):
+    """Its input, unchanged (a branch of a ``Concurrent``)."""
+
+    def forward(self, x):
+        return x
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class _PixelShuffle(HybridBlock):
+    """Channel blocks of ``factor`` per spatial dim moved into the spatial
+    dims: ``[N, C·f₁…fₙ, s₁…sₙ]`` -> ``[N, C, s₁f₁…sₙfₙ]``."""
+
+    _ndim = 2
+
+    def __init__(self, factor, **kwargs):
+        super().__init__(**kwargs)
+        self._factor = ((factor,) * self._ndim if isinstance(factor, int)
+                        else tuple(factor))
+
+    def forward(self, x):
+        nd, f = self._ndim, self._factor
+        n, c = x.shape[:2]
+        spatial = tuple(x.shape[2:])
+        cc = c // math.prod(f)
+        out = x.reshape((n, cc) + f + spatial)
+        # [N, C, f1..fn, s1..sn] -> [N, C, s1, f1, ..., sn, fn]
+        order = [0, 1] + [i for d in range(nd) for i in (2 + nd + d, 2 + d)]
+        out = out.permute(order)
+        return out.reshape((n, cc) + tuple(s * k for s, k in zip(spatial, f)))
+
+
+class PixelShuffle1D(_PixelShuffle):
+    """``[N, C·f, W]`` -> ``[N, C, W·f]``."""
+
+    _ndim = 1
+
+
+class PixelShuffle2D(_PixelShuffle):
+    """``[N, C·fh·fw, H, W]`` -> ``[N, C, H·fh, W·fw]``."""
+
+    _ndim = 2
+
+
+class PixelShuffle3D(_PixelShuffle):
+    """``[N, C·fd·fh·fw, D, H, W]`` -> ``[N, C, D·fd, H·fh, W·fw]``."""
+
+    _ndim = 3
 
 
 class FusedConv1x1BN(HybridBlock):

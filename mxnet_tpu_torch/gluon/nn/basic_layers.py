@@ -1,6 +1,7 @@
 """Basic layers: ``Sequential``, ``HybridSequential``, ``Dense``,
-``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
-``Lambda`` and ``HybridLambda``.
+``Dropout``, ``BatchNorm``, ``SyncBatchNorm``, ``InstanceNorm``,
+``LayerNorm``, ``GroupNorm``, ``Embedding``, ``Flatten``, ``Lambda`` and
+``HybridLambda``.
 
 Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``, on
 :class:`~mxnet_tpu_torch.gluon.block.HybridBlock` with the reference's
@@ -28,7 +29,8 @@ from ...ops import nn as F
 from ..block import Block, HybridBlock, _boundary_ctx
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
+           "SyncBatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 _FP32_NORM = ("gamma", "beta", "running_mean", "running_var")
 
@@ -238,15 +240,56 @@ class BatchNorm(HybridBlock):
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             output_mean_var=True)
-        if autograd.is_training() and not self._use_global_stats:
-            m = self._momentum
-            running_mean._set_data(m * running_mean._data
-                                   + (1 - m) * mean._data)
-            running_var._set_data(m * running_var._data + (1 - m) * var._data)
+        _update_running_symbolic(self, running_mean, running_var, mean, var)
         return out
 
     def extra_repr(self):
         return f"axis={self._axis}, momentum={self._momentum}"
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (``gluon.contrib.nn.SyncBatchNorm`` is the
+    same class).  The port has no device mesh yet, so without
+    ``axis_name`` it is BatchNorm on the one device, as the JAX layer is
+    outside ``shard_map``, with the ``_contrib_SyncBatchNorm`` op's
+    unclamped one-pass variance; an ``axis_name`` raises
+    :class:`~mxnet_tpu_torch.MXNetError` (ROADMAP A11)."""
+
+    def __init__(self, in_channels=0, num_devices=None, axis_name=None,
+                 **kwargs):
+        F._no_mesh(axis_name)
+        super().__init__(in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
+        self._axis_name = axis_name
+
+    def forward(self, x):
+        training = self.training and not self._use_global_stats
+        out, mean, var = F.sync_batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, fix_gamma=not self._scale, training=training)
+        if training:
+            _update_running(self, mean, var)
+        return out
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,
+                       running_var=None):
+        out, mean, var = F._contrib_SyncBatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats,
+            ndev=self._num_devices or 1, axis_name=self._axis_name,
+            output_mean_var=True)
+        _update_running_symbolic(self, running_mean, running_var, mean, var)
+        return out
+
+
+def _update_running_symbolic(block, running_mean, running_var, mean, var):
+    """The moving statistics' update of a norm layer's ``hybrid_forward``
+    (NDArrays), in training unless ``use_global_stats``."""
+    if autograd.is_training() and not block._use_global_stats:
+        m = block._momentum
+        running_mean._set_data(m * running_mean._data + (1 - m) * mean._data)
+        running_var._set_data(m * running_var._data + (1 - m) * var._data)
 
 
 @torch.no_grad()
@@ -304,6 +347,68 @@ class LayerNorm(HybridBlock):
         out, _, _ = F.LayerNorm(x, gamma, beta, axis=self._axis,
                                 eps=self._epsilon, output_mean_var=True)
         return out
+
+
+class _AffineNorm(HybridBlock):
+    """A normalisation with per-channel ``gamma`` (one) and ``beta``
+    (zero) over axis 1; ``scale``/``center`` False take them out of the
+    gradient."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def _shape_hint(self, x, *args):
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (x.shape[1],)
+
+
+class InstanceNorm(_AffineNorm):
+    """Each sample's channel normalised over its spatial dims (fp32
+    moments); ``gamma`` is fixed by default (``scale=False``)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._axis = axis
+
+    def forward(self, x):
+        return F.instance_norm(x, self.gamma, self.beta, self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_AffineNorm):
+    """Each sample normalised over each of ``num_groups`` channel groups
+    and the spatial dims (fp32 moments)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        return F.group_norm(x, self.gamma, self.beta, self._num_groups,
+                            self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):

@@ -25,8 +25,8 @@ Counterpart of ``mxnet_tpu/observability/goodput.py``:
   (``compile``, ``device_compute``), the dist kvstore's collective guard
   (``collective``) and ``AsyncCheckpointer.save`` (``checkpoint``, the
   wait for the previous write) and ``DevicePrefetchIter`` (``input_wait``,
-  the consumer's wait for a staged batch).  The Estimator (A5) waits for
-  its module.  On the card a replay returns
+  the consumer's wait for a staged batch); ``Estimator.fit`` reconciles
+  its run in a ``window('fit')``.  On the card a replay returns
   once queued, so a step's device time lands in whatever waits for it
   first: the health fetch (``other``), the next call's staging, or the
   caller's own copy after the record closes.

@@ -66,6 +66,54 @@ def _reshape(data, shape=None, reverse=False):
     return torch.reshape(data, tgt)
 
 
+@register("reshape_like", nin=2)
+def _reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                  rhs_end=None):
+    """``lhs`` with its axes ``[lhs_begin, lhs_end)`` reshaped to ``rhs``'s
+    axes ``[rhs_begin, rhs_end)`` (by default all of both)."""
+    def norm(i, ndim, default):
+        if i in (None, "None"):
+            return default
+        return int(i) + ndim if int(i) < 0 else int(i)
+    lb, le = norm(lhs_begin, lhs.ndim, 0), norm(lhs_end, lhs.ndim, lhs.ndim)
+    rb, re_ = norm(rhs_begin, rhs.ndim, 0), norm(rhs_end, rhs.ndim, rhs.ndim)
+    return torch.reshape(lhs, tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re_])
+                         + tuple(lhs.shape[le:]))
+
+
+def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """Source positions of an axis of ``n`` padded by ``lo``/``hi``:
+    ``edge`` repeats the end elements, ``reflect`` mirrors about them
+    (numpy's modes)."""
+    idx = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return idx.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    idx = torch.remainder(idx, period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+@register("pad", nin=1, aliases=["Pad"])
+def _pad(data, mode="constant", pad_width=None, constant_value=0.0):
+    """Pad every axis by its ``(before, after)`` pair of ``pad_width`` (the
+    reference's flat ``2·ndim`` tuple): ``constant`` with
+    ``constant_value``, or ``edge`` / ``reflect`` as numpy's modes."""
+    pw = [int(v) for v in pad_width]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode == "constant":
+        edges = tuple(e for lo, hi in reversed(pairs) for e in (lo, hi))
+        return torch.nn.functional.pad(data, edges, value=float(
+            constant_value))
+    if mode not in ("edge", "reflect"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
+    out = data
+    for axis, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            out = torch.index_select(out, axis, _pad_index(
+                out.shape[axis], lo, hi, mode, data.device))
+    return out
+
+
 @register("flatten", nin=1, aliases=["Flatten"])
 def _flatten(data):
     return torch.reshape(data, (data.shape[0], -1))

@@ -1,11 +1,12 @@
-"""Neural-network operators of the training slices, as plain functions on
-tensors.
+"""Neural-network operators, as plain functions on tensors.
 
 Counterparts of the ops in ``mxnet_tpu/ops/nn.py`` and
-``mxnet_tpu/ops/matrix.py`` that the ResNet-50 v1 and BERT steps run:
-BatchNorm (with the one-pass or centred variance), LayerNorm,
-Convolution, Pooling, FullyConnected, Embedding, Dropout, the relu, tanh
-and gelu activations, ``log_softmax`` and ``pick``.  Layouts are the JAX
+``mxnet_tpu/ops/matrix.py`` that the training slices and the vision zoo
+run: BatchNorm (with the one-pass or centred variance), SyncBatchNorm on
+one device, LayerNorm, InstanceNorm, GroupNorm, 1-, 2- and 3-D
+Convolution and Deconvolution, max/avg/sum/Lp Pooling, FullyConnected,
+Embedding, Dropout, the ``Activation`` and ``LeakyReLU`` activations,
+CTC, ``log_softmax`` and ``pick``.  Layouts are the JAX
 package's: NCHW activations, ``[out, in, kh, kw]`` conv weights and
 ``[units, in_units]`` dense weights.  The JAX package leaves its
 convolutions and matrix products to XLA, so here they go to
@@ -15,7 +16,9 @@ activation against a bf16 weight under amp) these ops promote too.
 The second half registers them as registry ops under the JAX package's
 names and params (``FullyConnected``, ``Convolution``, ``Pooling``,
 ``Activation``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Dropout``,
-``softmax``, ``log_softmax``, ``SoftmaxOutput`` and their aliases), so
+``softmax``, ``log_softmax``, ``SoftmaxOutput``, ``Deconvolution``,
+``LeakyReLU``, ``InstanceNorm``, ``GroupNorm``, ``_contrib_SyncBatchNorm``,
+``CTCLoss`` and their aliases), so
 ``mx.nd`` and ``mx.sym`` reach them and an exported graph runs through
 them.  Each op parses the stringified attrs a loaded symbol JSON may carry
 (``"True"``, ``"(3, 3)"``) and calls the function above.
@@ -32,9 +35,10 @@ from .embedding import embedding_lookup
 from .registry import get as _get_op
 from .registry import register
 
-__all__ = ["batch_norm", "layer_norm", "convolution", "pooling",
-           "fully_connected", "embedding", "dropout", "activation", "relu",
-           "softmax", "log_softmax", "pick"]
+__all__ = ["batch_norm", "layer_norm", "convolution", "deconvolution",
+           "pooling", "fully_connected", "embedding", "dropout",
+           "activation", "relu", "leaky_relu", "instance_norm", "group_norm",
+           "sync_batch_norm", "ctc_loss", "softmax", "log_softmax", "pick"]
 
 
 def _moments_of(x32, red, keepdim=False):
@@ -97,51 +101,111 @@ def _layer_norm(data, gamma, beta, axis, eps):
     return out, mean.squeeze(ax), var.squeeze(ax)
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
 def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
                 dilate=(1, 1), num_group=1):
-    """2-D convolution, NCHW data and ``[out, in / num_group, kh, kw]``
-    weight."""
-    return F.conv2d(data, weight, bias, tuple(stride), tuple(pad),
-                    tuple(dilate), num_group)
+    """1-, 2- or 3-D convolution (by the weight's rank): ``NC[D]H[W]``
+    data and ``[out, in / num_group, *kernel]`` weight."""
+    return _CONV[weight.dim() - 2](data, weight, bias, tuple(stride),
+                                   tuple(pad), tuple(dilate), num_group)
+
+
+def deconvolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
+                  dilate=(1, 1), adj=(0, 0), num_group=1):
+    """The transposed convolution of :func:`convolution`, weight
+    ``[in, out / num_group, *kernel]``: output size ``(in − 1)·stride +
+    (kernel − 1)·dilate + 1 − 2·pad + adj``.  The JAX package writes it as
+    an input-dilated convolution with the flipped kernel, the high edge
+    padded by ``adj`` more; torch's ``output_padding`` is that ``adj``,
+    which torch takes below ``stride`` or ``dilate`` only."""
+    nd = weight.dim() - 2
+    if any(a >= max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        raise MXNetError(f"Deconvolution: adj {tuple(adj)} must stay below "
+                         f"stride {tuple(stride)} or dilate {tuple(dilate)}")
+    return _DECONV[nd](data, weight, bias, tuple(stride), tuple(pad),
+                       tuple(adj), num_group, tuple(dilate))
+
+
+def _edges(pads):
+    """``F.pad``'s edge list (last dim first) from ``(lo, hi)`` per
+    spatial dim."""
+    return tuple(e for lo, hi in reversed(pads) for e in (lo, hi))
+
+
+def _sum_pool(x, kernel, stride):
+    """The sum over each window (no padding): an average pool with
+    divisor 1 (a 1-D pool runs as 2-D, which takes ``divisor_override``)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
-            stride=None, pad=(0, 0), ceil_mode=False, count_include_pad=True):
-    """NCHW max or average pooling over ``kernel`` windows, ``stride``
-    defaulting to ``kernel``; the 'valid' convention, or with
-    ``ceil_mode`` the 'full' one, whose last window the JAX package pads
-    on the high edge (max pads with -inf, average with zeros that
-    ``count_include_pad`` counts).  ``global_pool`` reduces all of H, W."""
-    if pool_type not in ("max", "avg"):
-        raise MXNetError(f"pooling: {pool_type} pooling is not ported")
+            stride=None, pad=(0, 0), ceil_mode=False, count_include_pad=True,
+            p_value=2):
+    """Max, average, sum or Lp (``p_value``) pooling over 1-, 2- or 3-D
+    ``kernel`` windows of ``NC...`` data, ``stride`` defaulting to
+    ``kernel``; the 'valid' convention, or with ``ceil_mode`` the 'full'
+    one, whose last window the JAX package pads on the high edge (max pads
+    with -inf, the others with zeros; an average divides by the window's
+    size, or with ``count_include_pad`` False by its count of real
+    elements).  ``global_pool`` reduces every spatial dim.  Where torch's
+    own padding is the JAX package's (valid, pad at most half the window)
+    max and average pool with it; otherwise the input is padded first."""
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"pooling: unknown pool_type {pool_type!r}")
+    nd = data.dim() - 2
     if global_pool:
+        dims = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=dims, keepdim=True)
         if pool_type == "avg":
-            return data.mean(dim=(2, 3), keepdim=True)
-        return data.amax(dim=(2, 3), keepdim=True)
+            return data.mean(dim=dims, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=dims, keepdim=True)
+        return data.abs().pow(p_value).sum(dim=dims, keepdim=True).pow(
+            1.0 / p_value)
     kernel = tuple(kernel)
     stride = tuple(stride) if stride else kernel
     pad = tuple(pad)
-    if ceil_mode:
-        hi = []
-        for i in range(2):
+    if (not ceil_mode and pool_type in ("max", "avg")
+            and all(p <= k // 2 for p, k in zip(pad, kernel))):
+        if pool_type == "max":
+            return _MAX_POOL[nd](data, kernel, stride, pad)
+        return _AVG_POOL[nd](data, kernel, stride, pad,
+                             count_include_pad=count_include_pad)
+    pads = []
+    for i in range(nd):
+        hi = pad[i]
+        if ceil_mode:
             size = data.shape[2 + i] + 2 * pad[i]
             out = -(-(size - kernel[i]) // stride[i]) + 1
-            hi.append(pad[i] + max((out - 1) * stride[i] + kernel[i] - size,
-                                   0))
-        edges = (pad[1], hi[1], pad[0], hi[0])
-        fill = float("-inf") if pool_type == "max" else 0.0
-        padded = F.pad(data, edges, value=fill)
-        if pool_type == "max":
-            return F.max_pool2d(padded, kernel, stride)
-        total = F.avg_pool2d(padded, kernel, stride)
-        if count_include_pad:
-            return total
-        ones = F.pad(torch.ones_like(data[:1, :1]), edges)
-        return total / F.avg_pool2d(ones, kernel, stride)
+            hi += max((out - 1) * stride[i] + kernel[i] - size, 0)
+        pads.append((pad[i], hi))
+    edges = _edges(pads)
     if pool_type == "max":
-        return F.max_pool2d(data, kernel, stride, pad)
-    return F.avg_pool2d(data, kernel, stride, pad,
-                        count_include_pad=count_include_pad)
+        return _MAX_POOL[nd](F.pad(data, edges, value=float("-inf")),
+                             kernel, stride)
+    if pool_type == "lp":
+        return _sum_pool(F.pad(data.abs().pow(p_value), edges), kernel,
+                         stride).pow(1.0 / p_value)
+    total = _sum_pool(F.pad(data, edges), kernel, stride)
+    if pool_type == "sum":
+        return total
+    if count_include_pad:
+        return total / math.prod(kernel)
+    ones = F.pad(torch.ones_like(data[:1, :1]), edges)
+    return total / _sum_pool(ones, kernel, stride)
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -208,6 +272,117 @@ def activation(data, act_type="relu"):
     return _ACTIVATIONS[act_type](data)
 
 
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, training=False,
+               generator=None):
+    """The ``LeakyReLU`` op's activations: ``leaky`` (``slope·x`` below
+    0), ``prelu`` (the learned ``gamma``, one per channel of axis 1 when
+    it is 1-D), ``elu`` (``slope·(eˣ − 1)``), ``selu``, the exact ``gelu``
+    and ``rrelu``, whose slope in training is uniform in ``[lower_bound,
+    upper_bound)`` per element from ``generator`` (a ``torch.Generator``
+    on ``data``'s device) and otherwise their midpoint."""
+    neg = data >= 0
+    if act_type == "leaky":
+        return torch.where(neg, data, slope * data)
+    if act_type == "prelu":
+        g = (gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+             if gamma.dim() == 1 else gamma)
+        return torch.where(neg, data, g * data)
+    if act_type == "elu":
+        return torch.where(neg, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(neg, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "rrelu":
+        if training:
+            if generator is None:
+                raise MXNetError("rrelu draws its slopes from an explicit "
+                                 "torch.Generator; pass generator=")
+            s = torch.empty(data.shape, device=data.device).uniform_(
+                lower_bound, upper_bound, generator=generator)
+            return torch.where(neg, data, s.to(data.dtype) * data)
+        return torch.where(neg, data, (lower_bound + upper_bound) / 2.0
+                           * data)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
+
+
+def _channel_shape(data):
+    return (1, -1) + (1,) * (data.dim() - 2)
+
+
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalise each sample's channel over its spatial dims with fp32
+    moments, round to ``data``'s dtype, then ``gamma``/``beta`` per
+    channel."""
+    x32 = data.float()
+    mean, var = _moments_of(x32, tuple(range(2, data.dim())), keepdim=True)
+    out = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    return (out * gamma.reshape(_channel_shape(data))
+            + beta.reshape(_channel_shape(data)))
+
+
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalise each sample over the channels of each of ``num_groups``
+    groups and the spatial dims (fp32 moments), then ``gamma``/``beta``
+    per channel."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups)
+                     + tuple(data.shape[2:])).float()
+    mean, var = _moments_of(x, tuple(range(2, x.dim())), keepdim=True)
+    out = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape).to(
+        data.dtype)
+    return (out * gamma.reshape(_channel_shape(data))
+            + beta.reshape(_channel_shape(data)))
+
+
+def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                    fix_gamma=True, training=True):
+    """``(out, mean, var)`` of ``_contrib_SyncBatchNorm`` on one device:
+    BatchNorm over axis 1 whose batch variance is ``E[x²] − E[x]²``
+    unclamped, whatever ``MXNET_TPU_FAST_VARIANCE`` says, as the JAX op
+    computes it before its cross-device mean."""
+    if training:
+        red = tuple(i for i in range(data.dim()) if i != 1)
+        x32 = data.float()
+        mean = x32.mean(dim=red)
+        var = x32.square().mean(dim=red) - mean.square()
+    else:
+        mean, var = moving_mean, moving_var
+    # normalising with given statistics is batch_norm outside training
+    out, _, _ = batch_norm(data, gamma, beta, mean, var, eps, fix_gamma, 1,
+                           False)
+    return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             blank_label="first"):
+    """Per-sequence CTC negative log-likelihood of ``data`` (``[T, N,
+    C]`` activations, softmax over C) against ``label`` (``[N, L]``), the
+    blank class 0, as the JAX package's ``optax.ctc_loss`` takes it.
+    Without ``label_lengths`` a label ends at its first id ≤ 0 for
+    ``blank_label='first'`` and is all L ids otherwise; without
+    ``data_lengths`` every sequence is T steps."""
+    t, n, _ = data.shape
+    labels = label.long()
+    if label_lengths is not None:
+        lab_len = label_lengths.long()
+    elif blank_label == "first":
+        lab_len = (labels > 0).long().sum(dim=1)
+    else:
+        lab_len = torch.full((n,), labels.shape[1], dtype=torch.long,
+                             device=data.device)
+    in_len = (torch.full((n,), t, dtype=torch.long, device=data.device)
+              if data_lengths is None else data_lengths.long())
+    logp = torch.log_softmax(data.float(), dim=-1)
+    return F.ctc_loss(logp, labels.clamp_min(0), in_len, lab_len, blank=0,
+                      reduction="none").to(data.dtype)
+
+
 def log_softmax(data, axis=-1):
     return torch.log_softmax(data, dim=axis)
 
@@ -254,11 +429,25 @@ def _convolution_op(args, kernel=(), stride=(), dilate=(), pad=(),
                     num_filter=0, num_group=1, no_bias=False, workspace=1024,
                     cudnn_tune=None, cudnn_off=False, layout=None):
     data, weight, bias = (*args, None)[:3] if attr_truthy(no_bias) else args
-    if len(kernel) != 2:
-        raise MXNetError(f"Convolution: {len(kernel)}-D kernels are not "
-                         "ported; 2-D (NCHW) is")
-    return convolution(data, weight, bias, _ints(stride, 2, 1),
-                       _ints(pad, 2, 0), _ints(dilate, 2, 1), int(num_group))
+    nd = len(kernel)
+    if nd not in _CONV:
+        raise MXNetError(f"Convolution: {nd}-D kernels do not exist; 1-, "
+                         "2- and 3-D do")
+    return convolution(data, weight, bias, _ints(stride, nd, 1),
+                       _ints(pad, nd, 0), _ints(dilate, nd, 1),
+                       int(num_group))
+
+
+@register("Deconvolution", nin=None, aliases=["deconvolution"])
+def _deconvolution_op(args, kernel=(), stride=(), dilate=(), pad=(), adj=(),
+                      target_shape=(), num_filter=0, num_group=1,
+                      no_bias=True, workspace=1024, cudnn_tune=None,
+                      cudnn_off=False, layout=None):
+    data, weight, bias = (*args, None)[:3] if attr_truthy(no_bias) else args
+    nd = len(kernel)
+    return deconvolution(data, weight, bias, _ints(stride, nd, 1),
+                         _ints(pad, nd, 0), _ints(dilate, nd, 1),
+                         _ints(adj, nd, 0), int(num_group))
 
 
 @register("Pooling", nin=1, aliases=["pooling"])
@@ -271,7 +460,58 @@ def _pooling_op(data, kernel=(), pool_type="max", global_pool=False,
                    attr_truthy(global_pool), stride=_ints(stride, nd, 1),
                    pad=_ints(pad, nd, 0),
                    ceil_mode=pooling_convention == "full",
-                   count_include_pad=attr_truthy(count_include_pad))
+                   count_include_pad=attr_truthy(count_include_pad),
+                   p_value=float(p_value))
+
+
+@register("LeakyReLU", nin=None)
+def _leaky_relu_op(args, act_type="leaky", slope=0.25, lower_bound=0.125,
+                   upper_bound=0.334, generator=None, _training=False):
+    data, gamma = (args[0], args[1] if len(args) > 1 else None) if \
+        isinstance(args, (list, tuple)) else (args, None)
+    return leaky_relu(data, gamma, act_type, float(slope),
+                      float(lower_bound), float(upper_bound), _training,
+                      generator)
+
+
+@register("InstanceNorm", nin=3)
+def _instance_norm_op(data, gamma, beta, eps=1e-3):
+    return instance_norm(data, gamma, beta, float(eps))
+
+
+@register("GroupNorm", nin=3)
+def _group_norm_op(data, gamma, beta, num_groups=1, eps=1e-5):
+    return group_norm(data, gamma, beta, int(num_groups), float(eps))
+
+
+def _no_mesh(axis_name):
+    if axis_name not in (None, "", "None"):
+        raise MXNetError("SyncBatchNorm: axis_name needs a device mesh, "
+                         "which the port does not have yet (ROADMAP A11)")
+
+
+@register("_contrib_SyncBatchNorm", nin=5, nout=3, aliases=["SyncBatchNorm"])
+def _sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                        momentum=0.9, fix_gamma=True, use_global_stats=False,
+                        output_mean_var=False, ndev=1, key=None,
+                        axis_name=None, _training=True):
+    """``(out, mean, var)``: local BatchNorm on one device (see
+    :func:`sync_batch_norm`); an ``axis_name`` raises."""
+    _no_mesh(axis_name)
+    return sync_batch_norm(data, gamma, beta, moving_mean, moving_var,
+                           float(eps), attr_truthy(fix_gamma),
+                           _training and not attr_truthy(use_global_stats))
+
+
+@register("CTCLoss", nin=None, aliases=["ctc_loss"])
+def _ctc_loss_op(args, use_data_lengths=False, use_label_lengths=False,
+                 blank_label="first"):
+    use_data, use_label = (attr_truthy(use_data_lengths),
+                           attr_truthy(use_label_lengths))
+    data, label = args[0], args[1]
+    data_lengths = args[2] if use_data else None
+    label_lengths = (args[3] if use_data else args[2]) if use_label else None
+    return ctc_loss(data, label, data_lengths, label_lengths, blank_label)
 
 
 @register("Activation", nin=1, aliases=["activation"])
@@ -451,6 +691,20 @@ def _conv_infer(shapes, params):
     return out
 
 
+def _deconv_infer(shapes, params):
+    data = shapes[0]
+    if data is None:
+        return None
+    kernel = tuple(params.get("kernel", ()))
+    nf = int(params.get("num_filter", 0))
+    g = int(params.get("num_group", 1))
+    out = list(shapes)
+    out[1] = out[1] or (data[1], nf // g) + kernel
+    if len(out) > 2:
+        out[2] = out[2] or (nf,)
+    return out
+
+
 def _norm_infer_axis(default_axis):
     def infer(shapes, params):
         data = shapes[0]
@@ -483,8 +737,12 @@ def _softmax_output_infer(shapes, params):
 
 _get_op("FullyConnected").infer_shapes = _fc_infer
 _get_op("Convolution").infer_shapes = _conv_infer
+_get_op("Deconvolution").infer_shapes = _deconv_infer
 _get_op("BatchNorm").infer_shapes = _norm_infer_axis(1)
+_get_op("_contrib_SyncBatchNorm").infer_shapes = _norm_infer_axis(1)
 _get_op("LayerNorm").infer_shapes = _norm_infer_axis(-1)
+_get_op("InstanceNorm").infer_shapes = _norm_infer_axis(1)
+_get_op("GroupNorm").infer_shapes = _norm_infer_axis(1)
 _get_op("Embedding").infer_shapes = _embedding_infer
 _get_op("SoftmaxOutput").infer_shapes = _softmax_output_infer
 

@@ -461,11 +461,11 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
 
 # ops whose trailing outputs (statistics) stay hidden from composition
 # unless output_mean_var is set (the reference's FNumVisibleOutputs)
-_VISIBLE_NOUT = {"BatchNorm": 1, "LayerNorm": 1}
+_VISIBLE_NOUT = {"BatchNorm": 1, "_contrib_SyncBatchNorm": 1, "LayerNorm": 1}
 
 # BatchNorm's inputs 3 and 4 are auxiliary states by position; a training
 # evaluation updates them (see _eval_graph)
-_BN_STAT_OPS = {"BatchNorm"}
+_BN_STAT_OPS = {"BatchNorm", "_contrib_SyncBatchNorm"}
 _AUX_INPUT_POSITIONS = {name: (3, 4) for name in _BN_STAT_OPS}
 
 

@@ -39,6 +39,9 @@ import mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.rnn
 import mxnet_tpu_torch.ops.embedding
 import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.router
 import mxnet_tpu_torch.fleet.manager
+import mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.gluon.loss
+import mxnet_tpu_torch.gluon.model_zoo.model_store
+import mxnet_tpu_torch.gluon.contrib.estimator
 sys.path.insert(0, "tools")
 import serve_torch, chaos_torch
 print("\\n".join(sorted(set(sys.modules) - before)))
@@ -100,8 +103,18 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.serving.paged_cache",
                  "mxnet_tpu_torch.gluon.model_zoo.language.llama",
                  "mxnet_tpu_torch.fleet", "mxnet_tpu_torch.fleet.router",
-                 "mxnet_tpu_torch.fleet.manager", "serve_torch",
-                 "chaos_torch"):
+                 "mxnet_tpu_torch.fleet.manager",
+                 "mxnet_tpu_torch.gluon.loss",
+                 "mxnet_tpu_torch.gluon.model_zoo.model_store",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.densenet",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.inception",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.vgg",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.alexnet",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet",
+                 "mxnet_tpu_torch.gluon.contrib.estimator.estimator",
+                 "mxnet_tpu_torch.gluon.contrib.estimator.event_handler",
+                 "serve_torch", "chaos_torch"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
     assert not bad, bad
