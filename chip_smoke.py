@@ -179,19 +179,31 @@ beside its bound, then drives the port's paths:
   handlers and two injected faults, at ``steps_per_call`` 1 and 2, each
   bit for bit a bare ``CompiledTrainStep`` loop, with 36 fused launches
   a step.
+- every optimizer (slice 20, ``optimizers``): full-width BERT-base (fp32)
+  with LAMB and with AdamW, and fused resnet50_v1 (batch 256) with LARS,
+  through ``CompiledTrainStep``'s graph for 3 + 5 steps, each bit for bit
+  its eager twin after every step, with 12 fp32 tensor-core flash
+  launches a forward, 2 Embedding backward launches a BERT step and 36
+  conv-BN launches a ResNet step; step ms beside Adam on the same BERT
+  and SGD with momentum on the same ResNet; then all 17 registered
+  optimizers (and SGD and NAG under ``multi_precision`` on fp16) on a
+  small Dense/BatchNorm net, 4 graph steps bit for bit their eager twin,
+  SGLD's replays drawing fresh N(0, lr) noise.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, vision_zoo,
-estimator, serving_bert,
+estimator, optimizers, serving_bert,
 serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
 a kernel is brought up; ``--only build,serving,serving_bert,fleet`` runs
 slice 18 (``fleet`` builds the models it reuses when their phases did not
-run); ``--only build,vision_zoo,estimator`` runs slice 19 (add
+run); ``--only build,optimizers`` runs slice 20 (add ``bert_flash``,
+``fused_timing`` and ``embedding_bwd`` for the kernel lines whose
+launches it counts); ``--only build,vision_zoo,estimator`` runs slice 19 (add
 ``fused_timing`` for the kernel line); ``--only build,serving,speculative`` runs slice 17
 (``speculative`` needs ``serving``, whose llama_7b it reuses); ``--only
 build,input_pipeline,module_fit`` runs slice 16; ``--only
@@ -5315,12 +5327,13 @@ def _bert_loss(vocab):
     return mlm_loss
 
 
-def _bert_step(net, vocab, batch):
+def _bert_step(net, vocab, batch, opt=None):
+    """BERT's CompiledTrainStep under ``opt`` (default Adam, lr 1e-4)."""
     from mxnet_tpu_torch import optimizer
     from mxnet_tpu_torch.executor import CompiledTrainStep
-    return CompiledTrainStep(net, _bert_loss(vocab),
-                             optimizer.create("adam", learning_rate=BERT["lr"]),
-                             batch_size=batch)
+    if opt is None:
+        opt = optimizer.create("adam", learning_rate=BERT["lr"])
+    return CompiledTrainStep(net, _bert_loss(vocab), opt, batch_size=batch)
 
 
 def _bert_batch(torch, seed, vocab, batch, seq, device):
@@ -5400,11 +5413,11 @@ def phase_bert_parity(torch, seed):
           f"{out['gates']}")
 
 
-def _bert_base(torch, seed, dtype):
+def _bert_base(torch, seed, dtype, opt=None):
     """Full-width BERT-base on the card as bench.py builds it (weights from
     ``seed``, dropout 0.1 drawing from ``seed + 1``, converted to bf16
-    with amp.convert_block unless ``dtype`` is float32), its Adam step and
-    its batch: ``(net, step, x, y)``."""
+    with amp.convert_block unless ``dtype`` is float32), its step (Adam,
+    or ``opt``) and its batch: ``(net, step, x, y)``."""
     from mxnet_tpu_torch.contrib.amp import convert_block
     from mxnet_tpu_torch.gluon.model_zoo.language import BERTForPretraining
     from mxnet_tpu_torch.initializer import initialize
@@ -5416,7 +5429,7 @@ def _bert_base(torch, seed, dtype):
     initialize(net, generator(seed, "cuda"))
     if dtype != "float32":
         convert_block(net, dtype)
-    step = _bert_step(net, vocab, BERT["batch"])
+    step = _bert_step(net, vocab, BERT["batch"], opt)
     x, y = _bert_batch(torch, seed + 7, vocab, BERT["batch"], BERT["seq"],
                        "cuda")
     return net, step, x, y
@@ -6812,6 +6825,304 @@ def phase_estimator(torch, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 20: every optimizer through CompiledTrainStep's graph
+# ---------------------------------------------------------------------------
+# The large-batch recipes, and the host scalars a CUDA graph would freeze.
+# (a) BERT-base pretraining as bert_training builds it (fp32, TF32 off, seq
+# 128, batch 64, dropout 0.1 from the net's own generator) with LAMB (lr
+# 1e-4, wd 0.01, bias correction), then AdamW (lr 1e-4, wd 0.01); (b)
+# fused fp32 resnet50_v1 at batch 256 with LARS (momentum 0.9, eta 0.001,
+# wd 1e-4, lr 0.1).  Each through the graph for 3 + 5 steps, then an eager
+# twin built the same way (``_eager``) for the same steps, deterministic
+# algorithms on: after every step the twin's parameters, buffers and
+# optimizer states bit for bit the graph's.  Launches over the graph's
+# steps, counted from 0 just before them: 12 fp32 tensor-core flash
+# launches per BERT forward and no other variant, 2 Embedding backward
+# launches per BERT step, 36 tensor-core conv-BN launches per ResNet step.
+# Step ms are device time between CUDA events around each graph step
+# (the first, eager and captured, left out), beside Adam (lr 1e-4, wd
+# 0.01) on the same BERT and SGD with momentum (bench.py's) on the same
+# ResNet, run the same way in the same call.  (c) every registered
+# optimizer on a small Dense/BatchNorm net with a spare parameter the loss
+# never reaches (its gradient is 0, so an SGLD step moves it by the noise
+# alone), built from the registry with mx.optimizer.create: 4 graph steps
+# (an eager call and capture, then 3 replays) against 4 eager steps of a
+# twin, bit for bit after each; SGD and NAG also with multi_precision on
+# an fp16 Dense net; LBSGD under a FactorScheduler.  SGLD's two replays
+# must draw different noise, each with variance lr within
+# OPTIM["noise_var_rel"] (2**16 draws: the standard error is 0.55% of lr).
+OPTIM = dict(warmup=3, steps=5, bert_lr=1e-4, bert_wd=0.01,
+             lars=dict(learning_rate=0.1, momentum=0.9, eta=0.001, wd=1e-4),
+             small_steps=4, small_batch=64, small_in=64, small_units=256,
+             small_out=10, spare=1 << 16, noise_var_rel=0.05)
+SMALL_OPTS = {
+    "sgd": dict(momentum=0.9), "nag": dict(momentum=0.9),
+    "signum": dict(momentum=0.9, wd_lh=1e-4), "ftml": {},
+    "dcasgd": dict(momentum=0.9), "sgld": dict(wd=0.0), "adam": {},
+    "adamw": {}, "adagrad": {}, "adadelta": {},
+    "rmsprop": dict(centered=True, clip_weights=2.0), "ftrl": {},
+    "adamax": {}, "nadam": {}, "lars": dict(momentum=0.9, eta=0.01),
+    "lbsgd": dict(momentum=0.9, warmup_epochs=1, updates_per_epoch=4,
+                  batch_scale=4),
+    "lamb": {}}
+
+
+def _opt_trajectory(torch, build, steps, reset, read, twin=True):
+    """``build()`` -> ``(net, step, xs, y)``.  Deterministic algorithms on:
+    the graph's ``steps`` calls, a device copy of its world after each
+    (``_resil_tensors``), then (with ``twin``) a twin built the same way
+    run through ``_eager`` and held to each copy (``_resil_gap``).
+    Returns the gaps, the graph's losses, device ms per call (CUDA events
+    around it), its counts and ``read()`` after its steps, counted from
+    ``reset()``."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _free(torch)
+        net, step, xs, y = build()
+        snaps, losses, events = [], [], []
+        reset()
+        for _ in range(steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses.append(step(xs, y))
+            e1.record()
+            events.append((e0, e1))
+            if twin:
+                snaps.append(_resil_tensors(step))
+        torch.cuda.synchronize()
+        launches = read()
+        counts = {"misses": step._misses, "captures": step._captures,
+                  "replays": step._replays}
+        ms = [a.elapsed_time(b) for a, b in events]
+        losses = [float(v) for v in losses]
+        del net, step, xs, y
+        _free(torch)
+        gaps = []
+        if twin:
+            net, eager, xs, y = build()
+            for k in range(steps):
+                eager._eager(xs, y)
+                ok, rel, name = _resil_gap(_resil_tensors(eager), snaps[k])
+                gaps.append({"step": k + 1, "bitwise": ok, "worst_rel": rel,
+                             "worst": name})
+            del net, eager, xs, y, snaps
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _free(torch)
+    return {"gaps": gaps, "losses": losses, "ms": ms, "counts": counts,
+            "launches": launches}
+
+
+def _opt_run_line(name, run, steps, launches_ok):
+    """A run's JSON fields and gates: every step bit for bit, one miss
+    and one capture, a replay for every later step, finite losses, the
+    launch gate."""
+    timed = run["ms"][OPTIM["warmup"]:] or run["ms"][1:]
+    gates = {"one_capture": run["counts"]["misses"]
+             == run["counts"]["captures"] == 1
+             and run["counts"]["replays"] == steps - 1,
+             "losses_finite": all(math.isfinite(v) for v in run["losses"]),
+             "launches": launches_ok}
+    if run["gaps"]:
+        gates["bitwise_every_step"] = all(g["bitwise"] for g in run["gaps"])
+    return {"run": name, "steps": steps, "step_ms": sum(timed) / len(timed),
+            "first_loss": run["losses"][0], "last_loss": run["losses"][-1],
+            "worst_rel": max((g["worst_rel"] for g in run["gaps"]),
+                             default=None),
+            "gaps": run["gaps"], "launches": run["launches"],
+            **run["counts"], "gates": gates}
+
+
+def _opt_bert(torch, seed, opt_name, twin=True):
+    """Full-width BERT-base (fp32) with ``opt_name`` at lr 1e-4, wd 0.01,
+    through ``_opt_trajectory`` (without the twin's gaps when ``twin`` is
+    False: the Adam baseline is timed only)."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import embedding as EMB
+    steps = OPTIM["warmup"] + OPTIM["steps"]
+    cells = []
+
+    def build():
+        opt = optimizer.create(opt_name, learning_rate=OPTIM["bert_lr"],
+                               wd=OPTIM["bert_wd"])
+        net, step, x, y = _bert_base(torch, seed, "float32", opt)
+        cells[:] = [len(net.bert.encoder.cells)]
+        return net, step, x, y
+
+    def reset():
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_tf32_launches = EMB.embedding_bwd_launches = 0
+
+    def read():
+        return {"flash_fwd_launches": A.flash_fwd_launches,
+                "flash_fwd_tf32_launches": A.flash_fwd_tf32_launches,
+                "flash_fwd_wgmma_launches": A.flash_fwd_wgmma_launches,
+                "embedding_bwd_launches": EMB.embedding_bwd_launches}
+
+    run = _opt_trajectory(torch, build, steps, reset, read, twin)
+    n = run["launches"]
+    ok = (n["flash_fwd_launches"] == n["flash_fwd_tf32_launches"]
+          == cells[0] * steps == 12 * steps
+          and n["flash_fwd_wgmma_launches"] == 0
+          and n["embedding_bwd_launches"]
+          == EMBEDDINGS_PER_BERT_STEP * steps)
+    return _opt_run_line(f"bert_{opt_name}", run, steps, ok)
+
+
+def _opt_resnet(torch, seed, opt_name, twin=True):
+    """Full-width fused fp32 resnet50_v1 (batch 256) with LARS
+    (OPTIM["lars"]) or bench.py's SGD, through ``_opt_trajectory``."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    steps = OPTIM["warmup"] + OPTIM["steps"]
+
+    def build():
+        net = _resnet50(torch, True, seed)
+        x, y = _images(torch, seed + 7, TRAIN["batch"], TRAIN["px"],
+                       TRAIN["classes"])
+        if opt_name == "lars":
+            opt = optimizer.create("lars", **OPTIM["lars"])
+            step = CompiledTrainStep(net, SoftmaxCrossEntropyLoss(), opt,
+                                     batch_size=TRAIN["batch"])
+        else:
+            step = _train_step(net, TRAIN["batch"])
+        return net, step, (x,), y
+
+    def reset():
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+
+    def read():
+        return {"fused_conv_bn_launches": FC.fused_conv_bn_launches,
+                "fused_conv_bn_wgmma_launches":
+                    FC.fused_conv_bn_wgmma_launches}
+
+    run = _opt_trajectory(torch, build, steps, reset, read, twin)
+    n = run["launches"]
+    ok = (n["fused_conv_bn_launches"] == n["fused_conv_bn_wgmma_launches"]
+          == FUSED_LAUNCHES_PER_STEP * steps)
+    return _opt_run_line(f"resnet50_{opt_name}", run, steps, ok)
+
+
+def _opt_small(torch, seed, name, mp=False):
+    """(c): ``name`` from the registry on the small net (fp16 Dense layers
+    under ``multi_precision`` when ``mp``), 4 graph steps against its
+    eager twin; for SGLD the spare parameter's noise of two replays."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import lr_scheduler
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon import loss, nn
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    o = OPTIM
+    dtype = torch.float16 if mp else torch.float32
+
+    class Spare(torch.nn.Module):
+        def __init__(self, body):
+            super().__init__()
+            self.body = body
+            self.spare = torch.nn.Parameter(torch.zeros(
+                o["spare"], device="cuda", dtype=dtype))
+
+        def forward(self, x):
+            return self.body(x)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    x = torch.randn(o["small_batch"], o["small_in"], generator=gen,
+                    device="cuda").to(dtype)
+    y = torch.randn(o["small_batch"], o["small_out"], generator=gen,
+                    device="cuda").to(dtype)
+
+    def build():
+        mx.random.seed(seed)
+        body = nn.HybridSequential(prefix="opt_")
+        with body.name_scope():
+            layers = [nn.Dense(o["small_units"], in_units=o["small_in"],
+                               device="cuda")]
+            if not mp:
+                layers.append(nn.BatchNorm(in_channels=o["small_units"],
+                                           device="cuda"))
+            layers += [nn.Activation("relu"),
+                       nn.Dense(o["small_out"], in_units=o["small_units"],
+                                device="cuda")]
+            body.add(*layers)
+        initialize(body, generator(seed, "cuda"))
+        if mp:
+            body.cast("float16")
+        kw = {"learning_rate": 0.01, "wd": 1e-4, **SMALL_OPTS[name]}
+        if name == "lbsgd":
+            kw["lr_scheduler"] = lr_scheduler.FactorScheduler(1, 0.7)
+        opt = mx.optimizer.create(name, multi_precision=mp, **kw)
+        net = Spare(body)
+        return net, CompiledTrainStep(net, loss.L2Loss(), opt), (x,), y
+
+    steps = o["small_steps"]
+    run = _opt_trajectory(torch, build, steps, lambda: None, lambda: {})
+    line = _opt_run_line(f"{name}{'_mp_fp16' if mp else ''}", run, steps,
+                         True)
+    del line["gaps"], line["launches"]
+    if name == "sgld":
+        # the spare parameter after each of the graph's steps: steps 2 and
+        # 3 are replays, so their differences are two replays' noise
+        net, step, xs, yy = build()
+        spares = []
+        for _ in range(3):
+            step(xs, yy)
+            spares.append(net.spare.detach().double().clone())
+        noise = [spares[1] - spares[0], spares[2] - spares[1]]
+        var = [float(n.var()) for n in noise]
+        line["noise_var"] = var
+        line["gates"]["fresh_noise"] = (
+            step._replays == 2 and not torch.equal(noise[0], noise[1])
+            and all(abs(v - 0.01) <= o["noise_var_rel"] * 0.01
+                    for v in var))
+        del net, step
+        _free(torch)
+    line["ok"] = all(line["gates"].values())
+    return line
+
+
+def phase_optimizers(torch, seed):
+    """Every optimizer through CompiledTrainStep's CUDA graph (see OPTIM);
+    returns the launches over the main path's graph steps: BERT-base under
+    LAMB and AdamW (flash, Embedding backward), resnet50_v1 under LARS
+    (conv-BN)."""
+    t0 = time.perf_counter()
+    bert = [_opt_bert(torch, seed, "lamb"), _opt_bert(torch, seed, "adamw"),
+            _opt_bert(torch, seed, "adam", twin=False)]
+    resnet = [_opt_resnet(torch, seed, "lars"),
+              _opt_resnet(torch, seed, "sgd", twin=False)]
+    for line in bert + resnet:
+        line["ok"] = all(line["gates"].values())
+        emit({"phase": "optimizers", **line})
+    small = [_opt_small(torch, seed, name) for name in SMALL_OPTS]
+    small += [_opt_small(torch, seed, name, mp=True) for name in
+              ("sgd", "nag")]
+    adam_ms, sgd_ms = bert[2]["step_ms"], resnet[1]["step_ms"]
+    out = {"phase": "optimizers", "card": _card(),
+           "deterministic_algorithms": True, "tf32": _tf32(torch),
+           "bert_step_ms": {r["run"]: r["step_ms"] for r in bert},
+           "lamb_over_adam": bert[0]["step_ms"] / adam_ms,
+           "adamw_over_adam": bert[1]["step_ms"] / adam_ms,
+           "resnet_step_ms": {r["run"]: r["step_ms"] for r in resnet},
+           "lars_over_sgd": resnet[0]["step_ms"] / sgd_ms,
+           "small": small,
+           "seconds": time.perf_counter() - t0}
+    out["gates"] = {r["run"]: r["ok"] for r in bert + resnet + small}
+    out["gates"]["within_120_s"] = out["seconds"] <= 120.0
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"optimizers failed: "
+          f"{[k for k, v in out['gates'].items() if not v]}")
+    flash = sum(r["launches"]["flash_fwd_tf32_launches"] for r in bert[:2])
+    emb = sum(r["launches"]["embedding_bwd_launches"] for r in bert[:2])
+    return resnet[0]["launches"]["fused_conv_bn_launches"], flash, emb
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -6839,7 +7150,7 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
-          "vision_zoo", "estimator", "serving_bert",
+          "vision_zoo", "estimator", "optimizers", "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -6903,16 +7214,21 @@ def main(argv=None):
     if "estimator" in only:
         by_path = {"estimator": phase_estimator(torch, args.seed),
                    **by_path}
+    opt_bert = None
+    if "optimizers" in only:
+        opt_fused, *opt_bert = phase_optimizers(torch, args.seed)
+        by_path = {"optimizers": opt_fused, **by_path}
     if by_path and "fused_timing" in only:
-        # launches: the latest slice's path that ran (Estimator.fit, the
-        # input pipeline, then CompiledTrainStep's graph on a resident
-        # batch, then the Gluon loop)
+        # launches: the latest slice's path that ran (LARS through
+        # CompiledTrainStep's graph, Estimator.fit, the input pipeline,
+        # then the graph on a resident batch, then the Gluon loop)
         line = _kernel_line(
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            next(by_path[k] for k in ("estimator", "input_pipeline",
-                                      "training", "gluon_training")
+            next(by_path[k] for k in ("optimizers", "estimator",
+                                      "input_pipeline", "training",
+                                      "gluon_training")
                  if k in by_path),
             fused)
         line["launches_by_path"] = by_path
@@ -6921,6 +7237,8 @@ def main(argv=None):
     # HTTP phase, which serves them again
     wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
     emb_paths = {}
+    if opt_bert is not None:
+        bert_paths["optimizers"], emb_paths["optimizers"] = opt_bert
     if "serving" in only:
         wgmma_paths["serving"], llama, dense_per_forward = phase_serving(
             torch, args.seed)
@@ -6976,9 +7294,9 @@ def main(argv=None):
         bert_paths["resilient_training"], emb_paths["resilient_training"] = \
             phase_resilient_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: this slice's path (BERT-base training with health
-        # watchpoints) when it ran, else the latest earlier slice's
-        main_path = next((bert_paths[k] for k in ("fleet",
+        # launches: the latest slice's path that ran (BERT-base under
+        # LAMB and AdamW through the graph, then the fleet, ...)
+        main_path = next((bert_paths[k] for k in ("optimizers", "fleet",
                                                    "module_fit_prefetch",
                                                    "resilient_training",
                                                    "serving_http",
@@ -7002,7 +7320,8 @@ def main(argv=None):
                             "mxnet_tpu_torch/csrc/embedding_bwd.cu",
                             "mxnet_tpu/ops/nn.py:486",
                             next(emb_paths[k] for k in (
-                                "resilient_training", "module_fit_prefetch")
+                                "optimizers", "resilient_training",
+                                "module_fit_prefetch")
                                 if k in emb_paths), emb_timing)
         line["launches_by_path"] = emb_paths
         lines.append(line)

@@ -9,12 +9,14 @@ optimizer update per learnable parameter in ``parameters()`` order (the
 JAX package's ``collect_params`` order).  For the updates the optimizer's
 ``lr`` and ``_step`` are two 0-dim fp32 tensors on the parameters' device,
 its ``lr_scheduler`` is ``None``, its ``rescale_grad`` 1.0 (the mean
-already averages) and Adam computes its step size once per lr multiplier
+already averages) and each per-step scalar is made once per lr multiplier
 (``_step_sizes``); all are restored after.  The host writes the
-tensors before each step: ``lr_scheduler(count + 1)`` (or ``lr``), indexed
-by the step's own 1-based count as the JAX ``_lr_at`` is, and that count
-for Adam's bias correction.  BN moving statistics are written in place by
-the forward.
+tensors before each step: the optimizer's ``_lr_at_step(count + 1)`` (its
+scheduler's rate, times LBSGD's warmup), indexed by the step's own 1-based
+count as the JAX ``_lr_at`` is, and that count for the bias corrections.
+Tensors an optimizer keeps across steps besides its states (Nadam's
+running schedule, ``_step_state``) are made at the first step and read in
+place.  BN moving statistics are written in place by the forward.
 
 The JAX package jits the step into one XLA program.  On the card the port
 records it as one CUDA graph per signature (each input's shape and dtype,
@@ -68,7 +70,10 @@ for it next: the health fetch, the next call's staging, or the caller.
 
 Deliberate differences from the JAX package: the optimizer's per-index
 counts and ``num_update`` advance once per step (MXNet's count; the JAX
-step counts once per trace), so the skip rewinds them too; ``donate``
+step counts once per trace), so the skip rewinds them too; every
+optimizer's step computes what its eager updates compute (the JAX step
+cannot trace LARS's host norms or SGLD's ``math.sqrt(lr)``, and freezes
+Nadam's count and schedule and LBSGD's warmup at the trace); ``donate``
 has no effect (the graph updates in place already); a signature's first
 call is eager; the returned loss is a clone.  ``mesh``,
 ``param_spec_fn`` and ``shard_optimizer_state`` raise
@@ -243,6 +248,9 @@ class CompiledTrainStep:
         # lr and the 1-based step count, 0-dim fp32 on the parameters'
         # device: what the optimizer reads inside a step
         self._scalars: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # the optimizer's tensors that live across steps besides its
+        # states (Nadam's running schedule)
+        self._opt_tensors: List[torch.Tensor] = []
         self._graphs = {}
         self._pool = None
         self._misses = self._captures = self._replays = 0
@@ -269,19 +277,18 @@ class CompiledTrainStep:
     def _lr_at(self, i: int) -> float:
         # the schedule is indexed by the step being taken, 1-based: eager
         # _update_count advances num_update before _get_lr reads it
-        opt = self._opt
-        if getattr(opt, "lr_scheduler", None) is not None:
-            return float(opt.lr_scheduler(self._num_update + 1 + i))
-        return float(opt.lr)
+        return self._opt._lr_at_step(self._num_update + 1 + i)
 
     def _write_scalars(self) -> None:
         """This step's lr and count into the scalars (made on the
-        parameters' device at the first step)."""
+        parameters' device at the first step, with the optimizer's own
+        step tensors)."""
         if self._scalars is None:
             device = self._learnable[0].device
             self._scalars = (
                 torch.zeros((), dtype=torch.float32, device=device),
                 torch.zeros((), dtype=torch.float32, device=device))
+            self._opt_tensors = self._opt._step_state(device)
         lr, t = self._scalars
         lr.fill_(self._lr_at(0))
         t.fill_(self._num_update + 1)
@@ -345,7 +352,7 @@ class CompiledTrainStep:
         """The tensors a graph reads or writes in place."""
         return (list(self._net.parameters()) + list(self._net.buffers())
                 + [t for s in self._states for t in _leaves(s)]
-                + list(self._scalars))
+                + list(self._scalars) + self._opt_tensors)
 
     def _signature(self, xs: tuple, y):
         """``(signature, flat inputs)``: each input's shape, dtype and
@@ -458,9 +465,10 @@ class CompiledTrainStep:
 
     def _world(self) -> List[torch.Tensor]:
         """Every tensor a step changes in place: the learnable parameters,
-        the net's other tensors, the optimizer states."""
+        the net's other tensors, the optimizer states and step tensors."""
         return (list(self._learnable) + list(self._aux)
-                + [t for s in self._states for t in _leaves(s)])
+                + [t for s in self._states for t in _leaves(s)]
+                + self._opt_tensors)
 
     @torch.no_grad()
     def _world_copy(self) -> dict:

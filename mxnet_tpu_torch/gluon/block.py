@@ -46,6 +46,7 @@ import threading
 from collections import OrderedDict
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -290,6 +291,56 @@ class Block(nn.Module):
                 args, out = _to_arrays(args, ctx), _to_arrays(out, ctx)
             hook(module, args, out)
         return _HookHandle(super().register_forward_hook(wrapped))
+
+    def register_op_hook(self, callback, monitor_all=False):
+        """Install ``callback(name, array)`` on this block and every child
+        (reference ``Block.register_op_hook``; the JAX package calls it at
+        block boundaries too): after each forward, with the block's output
+        (``<name>_output<i>`` when there are several, else the block's
+        name), and first each input (``<name>_input<i>``) when
+        ``monitor_all``.  Under the Gluon boundary the arrays are
+        NDArrays.  A CUDA graph's capture and replays run no Python, so
+        on the card a hybridized block's callback sees its eager calls
+        only.  A second call replaces the hook."""
+        for child in self._child_blocks():
+            child.register_op_hook(callback, monitor_all)
+        old = self.__dict__.get("_op_hook_handle")
+        if old is not None:
+            old.detach()
+
+        def hook(block, args, out):
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                return
+            if monitor_all:
+                for i, a in enumerate(args):
+                    callback(f"{block.name}_input{i}", a)
+            outs = out if isinstance(out, (list, tuple)) else (out,)
+            for i, o in enumerate(outs):
+                callback(f"{block.name}_output{i}" if len(outs) > 1
+                         else block.name, o)
+        self.__dict__["_op_hook_handle"] = self.register_forward_hook(hook)
+
+    def summary(self, *inputs):
+        """Print and return one line per block of the tree (its name,
+        class and the elements of its own parameters whose shape is
+        known), then the total (the JAX package's form; ``inputs`` are
+        accepted and not run)."""
+        rows = []
+
+        def walk(block, depth):
+            n = sum(int(np.prod(p.shape)) for p in block._reg_params.values()
+                    if _shape_known(p.shape))
+            rows.append((depth, block.name, type(block).__name__, n))
+            for child in block._child_blocks():
+                walk(child, depth + 1)
+
+        walk(self, 0)
+        out = "\n".join(f"{'  ' * d}{name} ({cls}): {n} params"
+                        for d, name, cls, n in rows)
+        out += f"\nTotal params: {sum(r[3] for r in rows)}"
+        print(out)
+        return out
 
     # ------------------------------------------------------------------ params
     def collect_params(self, select: Optional[str] = None) -> ParameterDict:

@@ -372,6 +372,26 @@ class Parameter:
         if self._grad is not None:
             self._grad[:] = 0.0
 
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (the first of a list): the
+        module's tensor moves in place (the module keeps its
+        ``nn.Parameter`` or buffer, this handle stays) and its gradient
+        moves with it; a deferred parameter allocates there."""
+        ctx = _as_ctx(ctx)
+        self._ctx_list = ctx
+        if self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
+        if not self._allocated():
+            return
+        dev = ctx[0].torch_device()
+        with torch.no_grad():
+            self._t.data = self._t.data.to(dev)
+        if self._grad is not None:
+            self._grad = NDArray(self._grad._data.to(dev), ctx[0])
+        self._nd = None
+        self._refresh()
+
     def cast(self, dtype):
         """Cast the tensor to ``dtype`` in place (the module sees it)."""
         self._dtype = dtype
@@ -501,6 +521,11 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """:meth:`Parameter.reset_ctx` for every parameter."""
+        for p in self.values():
+            p.reset_ctx(ctx)
 
     def setattr(self, name, value):
         for p in self.values():

@@ -40,7 +40,8 @@ from torch import nn
 from . import random as _random
 
 __all__ = ["Initializer", "register", "create", "InitDesc", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "MSRAPrelu", "Mixed",
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "Mixed", "Load", "LSTMBias", "FusedRNN",
            "initialize"]
 
 _REGISTRY: Dict[str, type] = {}
@@ -211,6 +212,31 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """An orthogonal matrix (Saxe et al.) times ``scale``: the SVD of a
+    ``[shape[0], prod(shape[1:])]`` draw, U(-1, 1) (``rand_type
+    'uniform'``) or N(0, 1) (``'normal'``), from the generator given;
+    rows or columns orthonormal, whichever the shape allows."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, t, gen):
+        nout = t.shape[0]
+        nin = int(np.prod(t.shape[1:]))
+        tmp = torch.empty((nout, nin), dtype=torch.float32, device=t.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        t.copy_(self.scale * q.reshape(t.shape))
+
+
+@register
 class Xavier(Initializer):
     """Glorot: ``scale = sqrt(magnitude / factor)`` with the fans
     ``shape[1]·prod(shape[2:])`` (in) and ``shape[0]·prod(shape[2:])``
@@ -250,6 +276,21 @@ class MSRAPrelu(Xavier):
 
 
 @register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of an ``[..., h, w]`` deconvolution
+    weight, the same for every channel pair."""
+
+    def _init_weight(self, _, t, gen):
+        shape = t.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        w = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        t.copy_(torch.from_numpy(w.astype(np.float32).reshape(shape)))
+
+
+@register
 class Mixed(Initializer):
     """The initializer of the first pattern that matches the name."""
 
@@ -266,10 +307,98 @@ class Mixed(Initializer):
         raise ValueError(f"parameter {desc} did not match any pattern")
 
 
+@register
+class Load(Initializer):
+    """Each parameter from ``param`` by its name (``arg:``/``aux:``
+    prefixes dropped; NDArrays, tensors or arrays), else from
+    ``default_init``; a name in neither raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        self.param = {k.replace("arg:", "").replace("aux:", ""): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+
+    def _fill(self, desc, t, gen):
+        name = str(desc)
+        if name in self.param:
+            v = self.param[name]
+            v = v._data if hasattr(v, "_data") else torch.as_tensor(
+                np.asarray(v))
+            t.copy_(v)
+        elif self.default_init is not None:
+            create(self.default_init)._fill(desc, t, gen)
+        else:
+            raise ValueError(f"no initialization for {name}")
+
+
 # the reference's registry aliases
 _REGISTRY["zeros"] = Zero
 _REGISTRY["ones"] = One
 _REGISTRY["gaussian"] = Normal
+
+
+@register
+class LSTMBias(Initializer):
+    """A packed ``[i, f, c, o]`` LSTM bias: zeros but the forget gate's
+    quarter, ``forget_bias`` (the variable's ``__forget_bias__``
+    attribute when it has one)."""
+
+    def __init__(self, forget_bias=1.0, **kwargs):
+        super().__init__(forget_bias=forget_bias, **kwargs)
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, t, gen):
+        fb = self._forget_bias
+        if isinstance(desc, InitDesc):
+            fb = float(desc.attrs.get("__forget_bias__", fb))
+        n = t.shape[0]
+        if n % 4:
+            raise ValueError("LSTMBias expects a packed 4*num_hidden bias")
+        v = torch.zeros(n)
+        v[n // 4:n // 2] = fb
+        t.copy_(v)
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The fused RNN cell's initializer: an LSTM's biases get
+    :class:`LSTMBias` with ``forget_bias``, every other tensor ``init``
+    (or the global initializer of its ``InitDesc``).  As in the JAX
+    package the cell keeps its gates' tensors apart, so nothing is
+    unpacked."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            import json
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._mode = mode
+        self._forget_bias = forget_bias
+
+    def _fill(self, desc, t, gen):
+        if not isinstance(desc, InitDesc):
+            desc = InitDesc(str(desc))
+        if self._mode == "lstm" and str(desc).lower().endswith("bias"):
+            # a fresh desc: the cell's own __forget_bias__ attribute must
+            # not override this initializer's
+            LSTMBias(forget_bias=self._forget_bias)._init_weight(
+                InitDesc(str(desc)), t, gen)
+        elif self._init is not None:
+            self._init._fill(desc, t, gen)
+        elif desc.global_init is not None:
+            create(desc.global_init)._fill(desc, t, gen)
+        else:
+            super()._fill(desc, t, gen)
 
 
 def _uninitialized(t) -> bool:

@@ -1,7 +1,8 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``, reference
 ``python/mxnet/metric.py``): ``EvalMetric``, ``CompositeEvalMetric``,
 ``Accuracy``, ``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``,
-``RMSE``, ``CrossEntropy``, ``NegativeLogLikelihood``, ``Loss``,
+``RMSE``, ``CrossEntropy``, ``NegativeLogLikelihood``, ``MCC``,
+``PearsonCorrelation``, ``PCC``, ``Loss``, ``Torch``, ``Caffe``,
 ``CustomMetric`` and ``create``.  They compute in numpy on the host, over
 ``asnumpy()`` of NDArrays (or tensors, or arrays), as in the reference, so
 each update waits for the card."""
@@ -17,7 +18,8 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
-           "NegativeLogLikelihood", "Loss", "CustomMetric", "create",
+           "NegativeLogLikelihood", "MCC", "PearsonCorrelation", "PCC",
+           "Loss", "Torch", "Caffe", "CustomMetric", "create",
            "check_label_shapes", "np"]
 
 _REGISTRY: Dict[str, type] = {}
@@ -275,6 +277,42 @@ class F1(EvalMetric):
                 self.global_num_inst = 1
 
 
+def _set_whole(metric, value):
+    """A metric over every update so far (a confusion matrix): local and
+    global both hold it, as one instance."""
+    metric.sum_metric = metric.global_sum_metric = value
+    metric.num_inst = metric.global_num_inst = 1
+
+
+@register
+class MCC(EvalMetric):
+    """Matthews correlation of a binary classifier over every update so
+    far: a [n, 2] prediction is positive where its column 1 is above 0.5,
+    a flat one where it is."""
+
+    def __init__(self, name="mcc", **kwargs):
+        super().__init__(name, **kwargs)
+        self._cm = _np.zeros((2, 2))
+
+    def reset(self):
+        super().reset()
+        self._cm = _np.zeros((2, 2))
+
+    def update(self, labels, preds):
+        for label, pred in zip(labels, preds):
+            p = _to_np(pred)
+            lab = _to_np(label).reshape(-1).astype("int64")
+            ph = ((p[:, 1] > 0.5) if p.ndim == 2 else (p > 0.5)).astype(
+                "int64")
+            for t, q in zip(lab, ph):
+                self._cm[t, q] += 1
+            tn, fp = self._cm[0]
+            fn, tp = self._cm[1]
+            denom = math.sqrt((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
+            _set_whole(self, ((tp * tn) - (fp * fn)) / denom if denom
+                       else 0.0)
+
+
 @register
 class Perplexity(EvalMetric):
     def __init__(self, ignore_label=None, axis=-1, name="perplexity", **kwargs):
@@ -359,6 +397,57 @@ class NegativeLogLikelihood(CrossEntropy):
 
 
 @register
+@alias("pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of each (label, prediction) pair, flattened, averaged
+    over the pairs."""
+
+    def __init__(self, name="pearsonr", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, labels, preds):
+        for label, pred in zip(labels, preds):
+            lab, p = _to_np(label).ravel(), _to_np(pred).ravel()
+            self._add(float(_np.corrcoef(lab, p)[0, 1]), 1)
+
+
+@register
+class PCC(EvalMetric):
+    """Multiclass Pearson correlation from the confusion matrix of every
+    update so far (argmax of a [n, k] prediction, a flat one as the
+    class); the matrix grows with the largest class seen."""
+
+    def __init__(self, name="pcc", **kwargs):
+        self._k = 2
+        self._cm = _np.zeros((2, 2))
+        super().__init__(name, **kwargs)
+
+    def reset(self):
+        super().reset()
+        self._cm = _np.zeros((self._k, self._k))
+
+    def update(self, labels, preds):
+        for label, pred in zip(labels, preds):
+            lab = _to_np(label).reshape(-1).astype("int64")
+            p = _to_np(pred)
+            ph = (p.argmax(axis=-1).reshape(-1) if p.ndim > 1
+                  else p.astype("int64"))
+            k = int(max(lab.max(), ph.max())) + 1
+            if k > self._k:
+                cm = _np.zeros((k, k))
+                cm[:self._k, :self._k] = self._cm
+                self._cm, self._k = cm, k
+            for t, q in zip(lab, ph):
+                self._cm[t, q] += 1
+        c = self._cm
+        n = c.sum()
+        x, y = c.sum(axis=1), c.sum(axis=0)
+        cov_xy = c.trace() * n - x @ y
+        denom = math.sqrt((n * n - x @ x) * (n * n - y @ y))
+        _set_whole(self, cov_xy / denom if denom else 0.0)
+
+
+@register
 class Loss(EvalMetric):
     def __init__(self, name="loss", **kwargs):
         super().__init__(name, **kwargs)
@@ -369,6 +458,23 @@ class Loss(EvalMetric):
         for pred in preds:
             loss = float(_to_np(pred).sum())
             self._add(loss, _to_np(pred).size)
+
+
+@register
+class Torch(Loss):
+    """``Loss`` under the reference's name for a Torch criterion's output."""
+
+    def __init__(self, name="torch", **kwargs):
+        super().__init__(name=name, **kwargs)
+
+
+@register
+class Caffe(Loss):
+    """``Loss`` under the reference's name for a Caffe loss layer's
+    output."""
+
+    def __init__(self, name="caffe", **kwargs):
+        super().__init__(name=name, **kwargs)
 
 
 @register

@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
-import mxnet_tpu.parallel.collectives as jcoll
 from mxnet_tpu import kvstore as jkv
 from mxnet_tpu.kvstore import gradient_compression as jgc
 from mxnet_tpu.kvstore.bucketing import GradientBucketer as JBucketer
@@ -56,18 +55,6 @@ def _on_cpu():
     tmx.set_default_context(prev)
 
 
-def _count_jax_allreduce(monkeypatch):
-    calls = {"n": 0}
-    orig = jcoll.allreduce_arrays
-
-    def counting(*a, **kw):
-        calls["n"] += 1
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(jcoll, "allreduce_arrays", counting)
-    return calls
-
-
 def _push_synthetic_model(mx, kv, dtype, elems):
     """Init + push a 50-key model, 8 replicas a key, integer values (bf16
     stays exact); the pulled arrays."""
@@ -81,27 +68,93 @@ def _push_synthetic_model(mx, kv, dtype, elems):
     return [np.asarray(o.asnumpy()) for o in outs]
 
 
+# The JAX half of test_collective_count_collapses_to_ceil runs in a child
+# process.  Its per-key leg makes about 450 8-device programs a dtype (a
+# psum, then a sharded gather per replica), and XLA's CPU runtime aborts
+# the whole process (LOG(FATAL) in its collective rendezvous, after
+# xla_cpu_collective_call_terminate_timeout_seconds) when the 8 device
+# threads do not all reach a collective in time.  Under six loaded pytest
+# workers that once killed the worker mid-test; pytest's capture of fd 2
+# swallowed XLA's message, leaving only faulthandler's trace inside the
+# gather.  The child takes the same mesh path with a 600 s limit, away
+# from the worker's other threads.
+_JAX_PULLS = r"""
+import json, os, sys
+import numpy as np
+import mxnet_tpu as jmx
+import mxnet_tpu.parallel.collectives as jcoll
+from mxnet_tpu import kvstore as jkv
+from mxnet_tpu.parallel import make_mesh
+n_params, elems, dtype, caps, out = json.loads(sys.argv[1])
+orig = jcoll.allreduce_arrays
+calls = {"n": 0}
+def counting(*a, **kw):
+    calls["n"] += 1
+    return orig(*a, **kw)
+jcoll.allreduce_arrays = counting
+got = {}
+for cap in caps:
+    os.environ["MXNET_KVSTORE_BUCKET_KB"] = str(cap)
+    calls["n"] = 0
+    with make_mesh({"dp": 8}):
+        kv = jkv.create("dist_tpu_sync")
+        keys = list(range(n_params))
+        kv.init(keys, [jmx.nd.zeros((elems,), dtype=dtype) for _ in keys])
+        vals = [[jmx.nd.ones((elems,), dtype=dtype) * ((k + r) % 5 + 1)
+                 for r in range(8)] for k in keys]
+        kv.push(keys, vals, priority=[-k for k in keys])
+        outs = [jmx.nd.zeros((elems,), dtype=dtype) for _ in keys]
+        kv.pull(keys, out=outs)
+    got[f"calls_{cap}"] = np.array(calls["n"])
+    got[f"dtype_{cap}"] = np.array(str(outs[0].dtype))
+    got[f"pulls_{cap}"] = np.stack([np.asarray(o.asnumpy(), np.float32)
+                                    for o in outs])
+np.savez(out, **got)
+"""
+
+
+def _jax_pulls_in_child(tmp_path, dtype, elems, caps):
+    """The JAX package's pulls (fp32 copies, integers), their dtype and its
+    ``allreduce_arrays`` count for each cap, from a child process on the
+    8-device CPU mesh."""
+    import json
+    import os
+    import subprocess
+    import sys
+    out = str(tmp_path / f"jax_pulls_{dtype}.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_collective_call_terminate_timeout_seconds=600")
+    env.pop("MXNET_KVSTORE_BUCKET_KB", None)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", _JAX_PULLS,
+                    json.dumps([N_PARAMS, elems, dtype, caps, out])], cwd=root,
+                   env=env, check=True, timeout=900)
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
 @pytest.mark.parametrize("dtype,itemsize", [("float32", 4), ("bfloat16", 2)])
-def test_collective_count_collapses_to_ceil(monkeypatch, dtype, itemsize):
+def test_collective_count_collapses_to_ceil(monkeypatch, tmp_path, dtype,
+                                            itemsize):
     elems = 1024
     bucket_bytes = 10 * elems * itemsize          # 10 keys a bucket
     expected = math.ceil(N_PARAMS * elems * itemsize / bucket_bytes)
     assert expected == 5
+    caps = [bucket_bytes // 1024, 0]
+    jax_side = _jax_pulls_in_child(tmp_path, dtype, elems, caps)
     pulls = {}
-    for cap in (bucket_bytes // 1024, 0):
+    for cap in caps:
         monkeypatch.setenv("MXNET_KVSTORE_BUCKET_KB", str(cap))
-        with make_mesh({"dp": 8}):
-            calls = _count_jax_allreduce(monkeypatch)
-            jax_pull = _push_synthetic_model(
-                jmx, jkv.create("dist_tpu_sync"), dtype, elems)
         kv = tkv.create("dist_tpu_sync")
         pulls[cap] = _push_synthetic_model(tmx, kv, dtype, elems)
         rounds = kv._rounds_completed["allreduce"]
-        assert rounds == calls["n"] == (expected if cap else N_PARAMS)
+        assert rounds == int(jax_side[f"calls_{cap}"]) == \
+            (expected if cap else N_PARAMS)
         assert kv.buckets_issued == (expected if cap else 0)
-        for p, j in zip(pulls[cap], jax_pull):
-            assert str(p.dtype) == str(j.dtype)
-            assert np.array_equal(p.astype(np.float32), j.astype(np.float32))
+        for p, j in zip(pulls[cap], jax_side[f"pulls_{cap}"]):
+            assert str(p.dtype) == str(jax_side[f"dtype_{cap}"])
+            assert np.array_equal(p.astype(np.float32), j)
     for b, p in zip(*pulls.values()):
         assert np.array_equal(b, p)                # bit for bit
 
