@@ -189,17 +189,35 @@ beside its bound, then drives the port's paths:
   optimizers (and SGD and NAG under ``multi_precision`` on fp16) on a
   small Dense/BatchNorm net, 4 graph steps bit for bit their eager twin,
   SGLD's replays drawing fresh N(0, lr) noise.
+- the rest of the ops and the fused RNN layers (slice 21, ``ops_rnn``):
+  every op the slice registered but the samplers on the card against the
+  same op on the CPU, forward and gradient (the ordering ops over
+  llama_7b's logits in fp32 and bf16, ``masked_softmax`` at BERT-base's
+  scores, ``rope`` at llama_7b's width, ``_backward_gather_nd`` with
+  duplicates twice for the same bits), the fused LSTM's cuDNN calls fed
+  from the packed parameters without a copy, the samplers' moments over
+  10^6 draws, fresh draws on every graph replay, ``boolean_mask``
+  refused under capture; then Zaremba et al.'s large LSTM language model
+  (2 x 1500, vocabulary 10000, [35, 20] windows, dropout 0.65) through
+  the Gluon loop eagerly and hybridized, bit for bit at dropout 0, the
+  loss falling at 0.65, with the Embedding backward kernel's launches
+  counted (``embedding_bwd`` holds the kernel to its plain version at
+  the encoder's [35, 20] ids into [10000, 1500] too); and unfused
+  resnet50_v1 (batch 64) forward and a graph step under
+  ``MXNET_TPU_CONV_LAYOUT`` NCHW and NHWC, TF32 off and on.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
 fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, vision_zoo,
-estimator, optimizers, serving_bert,
+estimator, optimizers, ops_rnn, serving_bert,
 serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
-a kernel is brought up; ``--only build,serving,serving_bert,fleet`` runs
+a kernel is brought up; ``--only build,ops_rnn`` runs slice 21 (add
+``embedding_bwd`` for the kernel line whose launches it counts);
+``--only build,serving,serving_bert,fleet`` runs
 slice 18 (``fleet`` builds the models it reuses when their phases did not
 run); ``--only build,optimizers`` runs slice 20 (add ``bert_flash``,
 ``fused_timing`` and ``embedding_bwd`` for the kernel lines whose
@@ -5159,8 +5177,9 @@ BERT_BWD_REL = 1e-4
 # The Embedding backward (csrc/embedding_bwd.cu, C12): BERT-base's two
 # tables at its step's ids ([64, 128]: random token ids into word_embed
 # [30522, 768], all-zero token types into token_type_embed [2, 768], one
-# segment of 8192 rows), and a bf16 case with 1000 ids, some out of range,
-# into [1000, 96].  The kernel against the plain version (zeros().index_add_
+# segment of 8192 rows), a bf16 case with 1000 ids, some out of range,
+# into [1000, 96], and the LSTM language model's encoder (ops_rnn): a
+# [35, 20] window of Zipf-distributed ids into [10000, 1500].  The kernel against the plain version (zeros().index_add_
 # in fp32, on the card): fp32 within 1e-5 of the plain table's largest
 # |value| (the two add up to 8192 rows in other orders); bf16 per element
 # within half a bf16 ulp of the plain fp32 sum plus that order term (the
@@ -5169,23 +5188,29 @@ BERT_BWD_REL = 1e-4
 # backward (aten::embedding_dense_backward, the library call).
 EMB_CASES = (("word_embed", 30522, 768, (64, 128), "random", "float32"),
              ("token_type_embed", 2, 768, (64, 128), "zeros", "float32"),
-             ("ragged_bf16", 1000, 96, (1000,), "out_of_range", "bfloat16"))
+             ("ragged_bf16", 1000, 96, (1000,), "out_of_range", "bfloat16"),
+             ("lm_encoder", 10000, 1500, (35, 20), "zipf", "float32"))
 EMB_TOL = dict(fp32_rel=1e-5, bf16_rel=2.0 ** -8)
 EMBEDDINGS_PER_BERT_STEP = 2
 
 
 def phase_embedding_bwd(torch, seed):
-    """C12's kernel at BERT-base's shapes (see EMB_CASES); returns the
-    word_embed case's timing for the kernel line."""
+    """C12's kernel at its paths' shapes (see EMB_CASES); returns each
+    case's timing for the kernel line."""
     from mxnet_tpu_torch.ops import embedding as EMB
     gen = torch.Generator(device="cuda").manual_seed(seed + 16)
-    cases, timed = {}, None
+    cases = {}
     for name, vocab, d, shape, kind, dtype in EMB_CASES:
         dt = getattr(torch, dtype)
         if kind == "random":
             ids = torch.randint(0, vocab, shape, generator=gen, device="cuda")
         elif kind == "zeros":
             ids = torch.zeros(shape, dtype=torch.int64, device="cuda")
+        elif kind == "zipf":
+            p = torch.arange(1, vocab + 1, dtype=torch.float64,
+                             device="cuda") ** -LSTM_LM["zipf"]
+            ids = torch.multinomial(p, math.prod(shape), replacement=True,
+                                    generator=gen).reshape(shape)
         else:
             ids = torch.randint(-vocab - 200, vocab + 200, shape,
                                 generator=gen, device="cuda")
@@ -5228,8 +5253,6 @@ def phase_embedding_bwd(torch, seed):
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         cases[name] = row
-        if name == "word_embed":
-            timed = row
         del ids, dy, got, again, ref32, err, lib_a, lib_b, lib_ids, lib_dy
     gates = {f"{k}_close": v["close"] for k, v in cases.items()}
     gates.update((f"{k}_bitwise", v["bitwise_rerun"]) for k, v in
@@ -5239,7 +5262,7 @@ def phase_embedding_bwd(torch, seed):
     emit(out)
     check(out["ok"], f"embedding_bwd failed: "
           f"{[k for k, v in gates.items() if not v]}")
-    return timed
+    return cases
 
 
 def phase_bert_flash(torch, seed):
@@ -7123,6 +7146,740 @@ def phase_optimizers(torch, seed):
     return resnet[0]["launches"]["fused_conv_bn_launches"], flash, emb
 
 
+# ---------------------------------------------------------------------------
+# Slice 21: the rest of the ops and the Gluon fused RNN layers (ops_rnn).
+#
+# (a) Every op the slice registered but the samplers, on CUDA NDArrays
+# against the same op on CPU copies of the inputs (the port's plain form),
+# forward and, for a differentiable op, the gradients of a seeded weighted
+# sum of its float outputs: floats within OPS_TOL[dtype] (the RNN's
+# RNN_TOL) of each tensor's largest |value| (cuDNN's TF32 off for the
+# comparison), -inf where the CPU has -inf, indices and integers exactly
+# (ties included: both devices sort stably).  The ordering ops run over llama_7b's logits [4, 32000] in
+# fp32 and bf16, masked_softmax at BERT-base's scores [64, 12, 128, 128],
+# rope at llama_7b's [4, 2048, 4096] with 32 heads, _backward_gather_nd
+# over 65536 rows with duplicate indices (launched twice on the card: the
+# same bits).  The fused RNN layer's cuDNN calls are recorded: each takes
+# its weight space inside the packed parameter vector (no copy).  The
+# samplers: mean and variance of OPS_DRAWS draws against the
+# distribution's; two replays of a hybridized block that draws normals
+# differ; a hybridized boolean_mask raises MXNetError at its capture.
+# (b) The large word-level LSTM language model of Zaremba, Sutskever and
+# Vinyals 2014, "Recurrent Neural Network Regularization", §4.1, as
+# MXNet's example/gluon/word_language_model builds and trains it
+# (untied): Xavier weights from the seed and Zipf-distributed token ids
+# from the seed, [35, 20] TNC windows, the state carried and detached
+# between them, SoftmaxCrossEntropyLoss, the summed loss's gradient
+# clipped at clip·bptt·batch (clip_global_norm) and SGD at lr 1 stepping
+# by bptt·batch.  At dropout 0, 3 windows of a hybridized twin (CUDA
+# graphs) against the eager net from the same weights, bit for bit,
+# under deterministic algorithms; then the main path at dropout 0.65,
+# with the launch counters zeroed just before: LSTM_LM["windows"] eager
+# windows from the initial weights, then the same net, its initial
+# weights written back, hybridized over the same windows; the loss falls
+# over each run.  (c) unfused resnet50_v1 (fp32, batch 64) forward and a
+# graph training step under MXNET_TPU_CONV_LAYOUT=NCHW and NHWC, each
+# timed with TF32 off and on: the forward outputs (TF32 off) within
+# LAYOUT["rel"] of the largest |logit|.
+OPS_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -9}
+# The fused RNN's outputs and gradients pass through every step of the
+# sequence, both directions and both layers, and cuDNN adds the gates'
+# products in another order than the CPU's kernels: its fp32 tolerance is
+# 1e-4 (an rnn_tanh gradient differed by 1.26e-5 of its largest |value|
+# on an H100 80GB HBM3, 700 W, TF32 off).
+RNN_TOL = 1e-4
+OPS_DRAWS = 1_000_000
+LSTM_LM = dict(vocab=10000, emb=1500, hidden=1500, layers=2, bptt=35,
+               batch=20, dropout=0.65, lr=1.0, clip=10.0, windows=8,
+               parity_windows=3, zipf=1.1)
+# rel: the NHWC-against-NCHW tolerance of tests/test_torch_ops_nn_rest.py
+LAYOUT = dict(batch=64, px=224, rel=1e-5, timed=3)
+
+
+def _sweep_cases(torch, seed):
+    """``(names, inputs, params, grad)``: every name of the case runs on
+    the same CPU tensors (a canonical op and its other names)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*s, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dtype)
+
+    def ri(hi, *s):
+        return torch.randint(0, hi, s, generator=g).to(torch.float32)
+
+    logits = rn(4, 32000)
+    cases = []
+    for lg in (logits, logits.to(torch.bfloat16)):
+        cases += [(("topk",), [lg], dict(k=10, ret_typ="both"), False),
+                  (("topk",), [lg], dict(k=5, is_ascend=True), False),
+                  (("topk",), [lg], dict(k=3, ret_typ="mask"), False),
+                  (("sort",), [lg], dict(is_ascend=False), False),
+                  (("argsort",), [lg], dict(is_ascend=False), False),
+                  (("argmax",), [lg], dict(axis=1), False),
+                  (("argmin",), [lg], dict(axis=1), False),
+                  (("argmax_channel",), [lg], {}, False)]
+    ties = ri(4, 3, 9)
+    idx = torch.tensor([[0, 2, 0, 1], [1, 0, 1, 2]], dtype=torch.float32)
+    rows = torch.randint(0, 512, (2, 65536), generator=g)
+    rows[0] %= 64
+    lens = torch.tensor([2.0, 5.0, 1.0])
+    mask = (torch.rand(64, 12, 128, 128, generator=g) > 0.3).float()
+    ang = torch.outer(torch.arange(2048.0), 1.0 / 10000 ** (
+        torch.arange(64.0) / 128))
+    k = 5                    # the bilinear kernel of scale 3: 2·3 − 3 % 2
+    f = math.ceil(k / 2)
+    w1 = 1 - (torch.arange(float(k)) / f - (2 * f - 1 - f % 2) / (2 * f)
+              ).abs()
+    bilinear = torch.outer(w1, w1).expand(2, 1, k, k).contiguous()
+    rnn = []
+    for mode, (t, n, i, h) in (("lstm", (7, 3, 5, 8)), ("gru", (6, 2, 7, 5)),
+                               ("rnn_tanh", (5, 4, 3, 6)),
+                               ("rnn_relu", (5, 3, 4, 3))):
+        from mxnet_tpu_torch.ops.nn import rnn_param_shapes
+        n_par = sum(math.prod(q) for q in rnn_param_shapes(mode, i, h, 2, 2))
+        ins = [rn(t, n, i), rn(n_par, scale=0.3), rn(4, n, h, scale=0.5)]
+        ins += [rn(4, n, h, scale=0.5)] * (mode == "lstm")
+        rnn.append((("RNN",), ins, dict(state_size=h, num_layers=2,
+                                        mode=mode, bidirectional=True),
+                    True))
+    cases += [
+        (("flip", "reverse"), [rn(2, 3, 4)], dict(axis=1), True),
+        (("tile",), [rn(2, 3)], dict(reps=(2, 1, 3)), True),
+        (("repeat",), [rn(2, 3)], dict(repeats=2, axis=1), True),
+        (("broadcast_axis", "broadcast_axes"), [rn(2, 1, 3)],
+         dict(axis=1, size=4), True),
+        (("slice_like",), [rn(4, 5), rn(2, 3)], {}, True),
+        (("split_v2", "_split_v2"), [rn(6, 4)],
+         dict(indices_or_sections=(1, 3)), True),
+        (("depth_to_space",), [rn(2, 8, 3, 3)], dict(block_size=2), True),
+        (("space_to_depth",), [rn(2, 2, 4, 6)], dict(block_size=2), True),
+        (("diag",), [rn(4, 5)], dict(k=1), True),
+        (("khatri_rao",), [rn(2, 3), rn(4, 3)], {}, True),
+        (("shape_array",), [rn(2, 3, 4)], {}, False),
+        (("size_array",), [rn(2, 3, 4)], {}, False),
+        (("sort",), [ties], {}, False),
+        (("argsort",), [ties], dict(is_ascend=False), False),
+        (("topk",), [ties], dict(k=4), False),
+        (("batch_take",), [rn(4, 5), torch.tensor([0.0, 4, 2, 1])], {},
+         True),
+        (("gather_nd",), [rn(3, 3, 2), idx], {}, True),
+        (("scatter_nd",), [rn(4, 2), idx], dict(shape=(3, 3, 2)), True),
+        (("_scatter_set_nd",), [rn(3, 3), rn(4), idx], dict(shape=(3, 3)),
+         True),
+        (("_backward_gather_nd",), [rn(65536, 128), rows.float()],
+         dict(shape=(64, 512, 128)), False),
+        (("boolean_mask", "_contrib_boolean_mask"),
+         [rn(5, 3), torch.tensor([1.0, 0, 1, 1, 0])], {}, True),
+        (("SequenceMask", "sequence_mask"), [rn(5, 3, 2), lens],
+         dict(use_sequence_length=True), True),
+        (("SequenceLast", "sequence_last"), [rn(5, 3, 2), lens],
+         dict(use_sequence_length=True), True),
+        (("SequenceReverse", "sequence_reverse"), [rn(5, 3, 2), lens],
+         dict(use_sequence_length=True), True),
+        (("_eye", "_npi_eye"), [], dict(N=3, M=5, k=1), False),
+        (("_linspace", "_npi_linspace"), [], dict(start=-1, stop=2, num=7),
+         False),
+        (("_zeros_without_dtype", "_npi_zeros"), [], dict(shape=(2, 3)),
+         False),
+        (("_npi_ones",), [], dict(shape=(2, 3)), False),
+        (("_npi_full",), [], dict(shape=(2, 3), value=2.5), False),
+        (("_npi_arange",), [], dict(start=1, stop=7, step=2), False),
+        (("softmin",), [rn(3, 5)], dict(axis=1), True),
+        (("SoftmaxActivation",), [rn(2, 3, 2, 2)], dict(mode="channel"),
+         True),
+        (("LRN",), [rn(2, 6, 3, 3)], dict(nsize=3), True),
+        (("softmax_cross_entropy",), [rn(4, 5), ri(5, 4)], {}, True),
+        (("masked_softmax",), [rn(64, 12, 128, 128), mask], {}, True),
+        (("masked_log_softmax",), [rn(3, 7), ri(2, 3, 7)], {}, True),
+        (("ROIPooling",), [rn(2, 3, 8, 8), torch.tensor(
+            [[0.0, 0, 0, 7, 7], [1, 2, 1, 5, 6]])],
+         dict(pooled_size=(2, 3), spatial_scale=1.0), False),
+        (("im2col",), [rn(2, 3, 6, 5)],
+         dict(kernel=(3, 3), stride=(2, 1), dilate=(1, 2), pad=(1, 1)),
+         True),
+        (("CuDNNBatchNorm",), [rn(4, 3, 2, 2), rn(3), rn(3),
+                               torch.zeros(3), torch.ones(3)],
+         dict(fix_gamma=False), True),
+        (("rope",), [rn(4, 2048, 4096), torch.cos(ang), torch.sin(ang)],
+         dict(num_heads=32), True),
+        *rnn,
+        (("equal", "_equal", "not_equal", "_not_equal", "greater",
+          "_greater", "greater_equal", "_greater_equal", "less", "lesser",
+          "_lesser", "less_equal", "lesser_equal", "_lesser_equal",
+          "logical_and", "_logical_and", "logical_or", "_logical_or",
+          "logical_xor", "_logical_xor"), [ri(3, 3, 4), ri(3, 1, 4)], {},
+         False),
+        (("mod", "_mod"), [rn(3, 4), ri(3, 1, 4) + 1], {}, True),
+        (("_hypot", "_grad_add"), [rn(3, 4), rn(1, 4)], {}, True),
+        (("_scatter_plus_scalar", "_scatter_minus_scalar"), [rn(3, 4)],
+         dict(scalar=2.5), True),
+        (("_np_copy", "_npx_relu", "_npx_sigmoid", "cast_storage"),
+         [rn(3, 4)], {}, True),
+        (("UpSampling", "upsampling"), [rn(1, 2, 4, 4), rn(1, 3, 2, 2)],
+         dict(scale=2, num_args=2), True),
+        (("UpSampling",), [rn(1, 2, 3, 3), bilinear],
+         dict(scale=3, sample_type="bilinear", num_filter=2), True),
+        (("col2im",), [rn(2, 27, 9)], dict(output_size=(5, 6),
+                                           kernel=(3, 3), stride=(2, 2),
+                                           pad=(1, 1)), True),
+        (("_histogram", "histogram"), [rn(50)], dict(bin_cnt=7), False),
+        (("arange_like", "_contrib_arange_like", "_npx_arange_like"),
+         [rn(4, 3)], dict(axis=0, repeat=2), False),
+        (("amp_cast",), [rn(2, 3)], dict(dtype="float16"), True),
+        (("amp_multicast",), [rn(2, 3, dtype=torch.float16), rn(2, 3)],
+         dict(num_outputs=2), True),
+        (("_square_sum", "square_sum"), [rn(3, 4)], dict(axis=1), True),
+        (("_sparse_retain",), [rn(5, 2), torch.tensor([0.0, 3, 3])], {},
+         False),
+        (("_contrib_getnnz",), [ri(3, 4, 5)], dict(axis=1), False),
+        (("_identity_with_attr_like_rhs",), [rn(2, 3), rn(2, 3)], {}, True),
+        (("IdentityAttachKLSparseReg",), [torch.rand(6, 4, generator=g)],
+         dict(sparseness_target=0.2, penalty=0.01), True),
+        (("_rnn_param_concat",), [rn(6), rn(4)], dict(num_args=2), True),
+        (("_npi_identity",), [], dict(shape=(4, 4)), False),
+        (("_npi_indices",), [], dict(dimensions=(2, 3)), False),
+        (("_npx_reshape",), [rn(2, 3, 4)], dict(newshape=(-2, -1)), True),
+        (("_npx_constraint_check",), [ri(2, 5) + 1], {}, False),
+        (("_npi_share_memory",), [rn(2), rn(2)], {}, False),
+    ]
+    return cases
+
+
+def _on_device(torch, mx, name, inputs, params, grad, ctx):
+    """``mx.nd.<name>`` on ``ctx``: the outputs and, with ``grad``, the
+    float inputs' gradients of a seeded weighted sum of the float
+    outputs, as CPU tensors."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ops.registry import get
+    dev = ctx.torch_device()
+    nds = [NDArray(t.to(dev, copy=True), ctx) for t in inputs]
+    if get(name).nin == 0:
+        params = dict(params, ctx=ctx)
+    wrt = [x for x in nds if grad and x._data.is_floating_point()]
+    for x in wrt:
+        x.attach_grad()
+    with mx.autograd.record():
+        outs = getattr(mx.nd, name)(*nds, **params)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        head = None
+        for i, o in enumerate(outs):
+            if not wrt or not o._data.is_floating_point():
+                continue
+            w = torch.rand(o.shape, generator=torch.Generator().manual_seed(
+                i)).to(dev)
+            term = (o.astype("float32") * NDArray(w, ctx)).sum()
+            head = term if head is None else head + term
+    if head is not None:
+        head.backward()
+    grads = [x.grad._data for x in wrt] if head is not None else []
+    return [t.detach().cpu() for t in [o._data for o in outs] + grads]
+
+
+def _tensor_gap(torch, got, ref, tol=None):
+    """``None`` when ``got`` (the card) holds to ``ref`` (the CPU), else
+    why not; floats within ``tol`` (by default OPS_TOL of the dtype) of
+    ``ref``'s largest finite |value|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return f"{tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} " \
+               f"{ref.dtype}"
+    if not ref.is_floating_point():
+        return None if torch.equal(got, ref) else "values differ"
+    g, r = got.double(), ref.double()
+    if not torch.equal(torch.isinf(g) & (g < 0), torch.isinf(r) & (r < 0)) \
+            or not torch.equal(torch.isnan(g), torch.isnan(r)):
+        return "inf/nan pattern differs"
+    fin = torch.isfinite(r)
+    if not fin.any():
+        return None
+    scale = max(r[fin].abs().max().item(), 1e-30)
+    err = (g[fin] - r[fin]).abs().max().item() / scale
+    tol = tol or OPS_TOL[str(ref.dtype).split(".")[-1]]
+    return None if err <= tol else f"rel err {err:.3g} > {tol}"
+
+
+def _ops_sweep(torch, mx, seed):
+    """Part (a)'s CPU/card sweep."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    bad, names, worst = {}, [], 0.0
+    try:
+        for names_, inputs, params, grad in _sweep_cases(torch, seed):
+            for name in names_:
+                ref = _on_device(torch, mx, name, inputs, params, grad,
+                                 mx.cpu())
+                got = _on_device(torch, mx, name, inputs, params, grad,
+                                 mx.gpu(0))
+                names.append(name)
+                why = None if len(got) == len(ref) else "output count"
+                tol = RNN_TOL if name == "RNN" else None
+                for k, (a, b) in enumerate(zip(got, ref)):
+                    gap = _tensor_gap(torch, a, b, tol)
+                    why = why or (gap and f"tensor {k}: {gap}")
+                    if why is None and b.is_floating_point():
+                        fin = torch.isfinite(b)
+                        if fin.any():
+                            worst = max(worst, ((a.double() - b.double())[
+                                fin].abs().max() / b.double()[fin].abs()
+                                .max().clamp_min(1e-30)).item())
+                if why:
+                    bad[f"{name}{tuple(params.items())[:3]}"] = why
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return {"cases": len(names), "names": len(set(names)),
+            "worst_rel_err": worst, "failed": bad}
+
+
+def _repeat_bits(torch, mx, seed):
+    """_backward_gather_nd with duplicates and gather_nd's gradient (both
+    csrc/embedding_bwd.cu on the card), each launched twice: the same
+    bits."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gpu = mx.gpu(0)
+    data = NDArray(torch.randn(65536, 128, generator=g, device="cuda"), gpu)
+    rows = torch.randint(0, 512, (2, 65536), generator=g, device="cuda")
+    rows[0] %= 64
+    idx = NDArray(rows.float(), gpu)
+    a = mx.nd._backward_gather_nd(data, idx, shape=(64, 512, 128))
+    b = mx.nd._backward_gather_nd(data, idx, shape=(64, 512, 128))
+    table = NDArray(torch.randn(64, 512, 128, generator=g, device="cuda"),
+                    gpu)
+    grads = []
+    for _ in range(2):
+        table.attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.gather_nd(table, idx)
+        out.backward(data)
+        grads.append(table.grad._data.clone())
+    return {"backward_gather_nd": torch.equal(a._data, b._data),
+            "gather_nd_grad": torch.equal(grads[0], grads[1]),
+            "duplicates": int(65536 - torch.unique(
+                rows[0] * 512 + rows[1]).numel())}
+
+
+def _rnn_no_copy(torch, mx):
+    """The fused layer's cuDNN calls on the card: each call's weight space
+    is a slice of one packed vector, and cuDNN returns that buffer itself
+    (no weight copy); one call per layer and direction.  Also reports
+    whether cuDNN's layout of a whole multi-layer network is the packed
+    order (why the op calls it per layer and direction)."""
+    from mxnet_tpu_torch import gluon
+    layer = gluon.rnn.LSTM(64, num_layers=2, bidirectional=True,
+                           input_size=32)
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    calls, real = [], torch._cudnn_rnn
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args[3].untyped_storage().data_ptr(),
+                      args[3].data_ptr(), out[4].data_ptr()))
+        return out
+    torch._cudnn_rnn = recording
+    try:
+        with mx.autograd.record():
+            out = layer(mx.nd.ones((7, 3, 32), ctx=mx.gpu(0)))
+        out.backward()
+    finally:
+        torch._cudnn_rnn = real
+    # cuDNN's layout of a whole 2-layer network: is it the packed order
+    # (per layer and direction wx, wh, bx, bh)?  If not, the whole vector
+    # could not be its weight space without a copy
+    whole = torch.nn.LSTM(32, 64, 2, bidirectional=True).to("cuda")
+    whole.flatten_parameters()
+    ws = whole._flat_weights
+    offsets = [(w.data_ptr() - ws[0].data_ptr()) // 4 for w in ws]
+    packed = [sum(v.numel() for v in ws[:i]) for i in range(len(ws))]
+    return {"cudnn_calls": len(calls),
+            "one_vector": len({c[0] for c in calls}) == 1,
+            "buffer_returned": all(c[1] == c[2] for c in calls),
+            "cudnn_multilayer_layout_is_packed": offsets == packed}
+
+
+def _var_rel(name):
+    """The variance tolerance: 3%, 5% for the heavy-tailed gamma and
+    negative binomials (over 5 standard errors of the sample variance at
+    OPS_DRAWS / 2 draws)."""
+    return 0.05 if "binomial" in name or "gamma" in name else 0.03
+
+
+def _moments(torch, x, mean, var, var_rel):
+    x = x.double().reshape(-1)
+    se = math.sqrt(var / x.numel())
+    m, v = x.mean().item(), x.var(unbiased=False).item()
+    return {"mean": m, "var": v, "want": [mean, var],
+            "ok": abs(m - mean) <= 6 * se and abs(v - var) <= var_rel * var}
+
+
+def _random_checks(torch, mx, seed):
+    """The samplers on the card: moments of OPS_DRAWS draws; the
+    categorical draws' frequencies; shuffle is a permutation; a
+    hybridized block's graph draws fresh normals on every replay; a
+    hybridized boolean_mask raises MXNetError at its capture."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.base import MXNetError
+    mx.random.seed(seed)
+    gpu, n = mx.gpu(0), OPS_DRAWS
+    out = {}
+    for name, kw, mean, var in (
+            ("uniform", dict(low=-1.0, high=3.0), 1.0, 16 / 12),
+            ("normal", dict(loc=2.0, scale=0.5), 2.0, 0.25),
+            ("gamma", dict(alpha=2.0, beta=1.5), 3.0, 4.5),
+            ("exponential", dict(scale=2.0), 2.0, 4.0),
+            ("poisson", dict(lam=3.0), 3.0, 3.0),
+            ("negative_binomial", dict(k=3, p=0.4), 4.5, 11.25),
+            ("generalized_negative_binomial", dict(mu=2.0, alpha=0.5), 2.0,
+             4.0),
+            ("randint", dict(low=-2, high=5), 1.0, 4.0)):
+        a = getattr(mx.nd.random, name)(shape=(n,), ctx=gpu, **kw)
+        out[name] = _moments(torch, a._data, mean, var, _var_rel(name))
+    p2 = mx.nd.array([1.0, 4.0], ctx=gpu)
+    for name, params, mean, var in (
+            ("sample_uniform", [mx.nd.array([0.0, -2.0], ctx=gpu), p2],
+             [0.5, 1.0], [1 / 12, 3.0]),
+            ("sample_normal", [mx.nd.array([1.0, -3.0], ctx=gpu), p2],
+             [1.0, -3.0], [1.0, 16.0]),
+            ("sample_gamma", [mx.nd.array([2.0, 0.5], ctx=gpu), p2],
+             [2.0, 2.0], [2.0, 8.0]),
+            ("sample_exponential", [p2], [1.0, 0.25], [1.0, 1 / 16]),
+            ("sample_poisson", [p2], [1.0, 4.0], [1.0, 4.0]),
+            ("sample_negative_binomial",
+             [mx.nd.array([2.0, 5.0], ctx=gpu),
+              mx.nd.array([0.5, 0.8], ctx=gpu)], [2.0, 1.25], [4.0, 1.5625]),
+            ("sample_generalized_negative_binomial",
+             [mx.nd.array([2.0, 1.0], ctx=gpu),
+              mx.nd.array([0.5, 0.25], ctx=gpu)], [2.0, 1.0], [4.0, 1.25])):
+        a = getattr(mx.nd, name)(*params, shape=(n // 2,))
+        rows = [_moments(torch, a._data[i], mean[i], var[i], _var_rel(name))
+                for i in range(2)]
+        out[name] = {"rows": rows, "ok": all(r["ok"] for r in rows)}
+    probs = torch.tensor([0.1, 0.2, 0.7])
+    d = mx.nd.random.multinomial(mx.nd.array(probs.numpy(), ctx=gpu),
+                                 shape=(n,))
+    freq = torch.bincount(d._data.long(), minlength=3).double().cpu() / n
+    se = (probs.double() * (1 - probs.double()) / n).sqrt()
+    out["multinomial"] = {"freq": freq.tolist(),
+                          "ok": bool(((freq - probs).abs() <= 6 * se).all())}
+    z = mx.nd._sample_unique_zipfian(range_max=1000, shape=(n,), ctx=gpu)
+    k = torch.arange(1000, dtype=torch.float64)
+    pz = torch.log((k + 2) / (k + 1)) / math.log(1001)
+    pz[-1] += 1 - pz.sum()
+    mean = (k * pz).sum().item()
+    out["_sample_unique_zipfian"] = _moments(
+        torch, z._data, mean, ((k - mean) ** 2 * pz).sum().item(), 0.03)
+    perm = mx.nd.random.shuffle(mx.nd.array(torch.arange(1000.0).numpy(),
+                                            ctx=gpu))._data
+    out["shuffle"] = {"ok": torch.equal(perm.sort().values,
+                                        torch.arange(1000.0,
+                                                     device="cuda"))}
+
+    class _Draw(gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return x + F.random.normal(shape=x.shape, ctx=x.context)
+
+    class _Mask(gluon.HybridBlock):
+        def hybrid_forward(self, F, x, m):
+            return F.boolean_mask(x, m)
+
+    draw = _Draw()
+    draw.hybridize()
+    x = mx.nd.zeros((4096,), ctx=gpu)
+    first, r1, r2 = (draw(x)._data.clone() for _ in range(3))
+    op = draw._cached_op
+    out["replays_fresh"] = {
+        "ok": op._captures == 1 and op._replays == 2
+        and not torch.equal(r1, r2) and not torch.equal(first, r1),
+        "captures": op._captures, "replays": op._replays,
+        "replay_std": r2.std().item()}
+    masked = _Mask()
+    masked.hybridize()
+    try:
+        masked(x, mx.nd.ones((4096,), ctx=gpu))
+        out["boolean_mask_capture"] = {"ok": False, "raised": None}
+    except MXNetError as e:
+        out["boolean_mask_capture"] = {"ok": "boolean_mask" in str(e),
+                                       "raised": str(e)[:200]}
+    return out
+
+
+def _word_lm(mx, dropout):
+    """Zaremba et al.'s large LSTM language model (LSTM_LM) on the card,
+    as a Gluon HybridBlock: Embedding, Dropout, the fused LSTM, Dropout,
+    Dense over the vocabulary (untied)."""
+    from mxnet_tpu_torch import gluon
+    c = LSTM_LM
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="lm_")
+            with self.name_scope():
+                self.encoder = gluon.nn.Embedding(c["vocab"], c["emb"])
+                self.drop = gluon.nn.Dropout(dropout)
+                self.rnn = gluon.rnn.LSTM(c["hidden"],
+                                          num_layers=c["layers"],
+                                          dropout=dropout,
+                                          input_size=c["emb"])
+                self.decoder = gluon.nn.Dense(c["vocab"], flatten=False,
+                                              in_units=c["hidden"])
+
+        def hybrid_forward(self, F, x, h, cell):
+            out, (h, cell) = self.rnn(self.drop(self.encoder(x)), [h, cell])
+            return self.decoder(self.drop(out)), h, cell
+
+    net = WordLM()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def _lm_windows(mx, seed, count):
+    """``count`` (input, target) windows [bptt, batch] of Zipf-distributed
+    token ids from ``seed``, batchified as the example does (one stream cut
+    into ``batch`` columns), int32 on the card."""
+    import numpy as np
+    c = LSTM_LM
+    rng = np.random.RandomState(seed)
+    p = np.arange(1, c["vocab"] + 1, dtype=np.float64) ** -c["zipf"]
+    stream = rng.choice(c["vocab"], size=c["batch"] * (count * c["bptt"] + 1),
+                        p=p / p.sum())
+    cols = stream.reshape(c["batch"], -1).T
+    return [(mx.nd.array(cols[i * c["bptt"]:(i + 1) * c["bptt"]],
+                         ctx=mx.gpu(0), dtype="int32"),
+             mx.nd.array(cols[i * c["bptt"] + 1:(i + 1) * c["bptt"] + 1],
+                         ctx=mx.gpu(0), dtype="int32"))
+            for i in range(count)]
+
+
+class _LMLoop:
+    """The example's training loop over one net: its Trainer, its loss and
+    the carried state."""
+
+    def __init__(self, mx, net):
+        from mxnet_tpu_torch import gluon
+        c = LSTM_LM
+        self.mx, self.net = mx, net
+        self.params = list(net.collect_params().values())
+        self.trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                     {"learning_rate": c["lr"]})
+        self.loss = gluon.loss.SoftmaxCrossEntropyLoss()
+        self.state = net.rnn.begin_state(c["batch"], ctx=mx.gpu(0))
+
+    def window(self, x, y):
+        """One window; the mean loss per token."""
+        mx, c = self.mx, LSTM_LM
+        with mx.autograd.record():
+            out, h, cell = self.net(x, *self.state)
+            loss = self.loss(out.reshape((-1, c["vocab"])), y.reshape((-1,)))
+        loss.backward()
+        # as the example: the summed loss's gradient clipped at
+        # clip·tokens, each step by the window's tokens (the mean loss's
+        # gradient, clipped at clip)
+        tokens = c["bptt"] * c["batch"]
+        mx.gluon.utils.clip_global_norm([p.grad() for p in self.params],
+                                        c["clip"] * tokens)
+        self.trainer.step(tokens)
+        self.state = [h.detach(), cell.detach()]
+        return float(loss.mean().asscalar())
+
+
+def _lm_parity(torch, mx, seed):
+    """At dropout 0: LSTM_LM["parity_windows"] windows of a hybridized
+    twin (its CachedOp's CUDA graphs) against the eager net from the same
+    weights, deterministic algorithms on: the losses and every parameter
+    bit for bit after each window."""
+    import warnings
+    n = LSTM_LM["parity_windows"]
+    windows = _lm_windows(mx, seed + 1, n)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mx.random.seed(seed)
+            eager = _LMLoop(mx, _word_lm(mx, 0.0))
+            graph_net = _word_lm(mx, 0.0)
+            for p, q in zip(graph_net.collect_params().values(),
+                            eager.params):
+                p.set_data(q.data())
+            graph_net.hybridize()
+            graph = _LMLoop(mx, graph_net)
+            rows = []
+            for x, y in windows:
+                le = eager.window(x, y)
+                lg = graph.window(x, y)
+                same = sum(torch.equal(p._tensor(), q._tensor())
+                           for p, q in zip(graph.params, eager.params))
+                rows.append({"loss_eager": le, "loss_graph": lg,
+                             "params_equal": same,
+                             "params": len(eager.params)})
+            op = graph_net._cached_op
+            out = {"windows": rows, "captures": op._captures,
+                   "replays": op._replays,
+                   "warnings": sorted({str(w.message)[:100]
+                                       for w in caught})}
+        out["ok"] = (op._captures == 1 and op._replays == n - 1 and all(
+            r["loss_eager"] == r["loss_graph"]
+            and r["params_equal"] == r["params"] for r in rows))
+        del eager, graph, graph_net
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _free(torch)
+    return out
+
+
+def _lm_run(torch, mx, loop, windows):
+    """The windows through ``loop``: losses, ms per window after the
+    first, tokens/s, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [loop.window(*windows[0])]
+    t0 = time.perf_counter()
+    for x, y in windows[1:]:
+        losses.append(loop.window(x, y))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (len(windows) - 1)
+    tokens = LSTM_LM["bptt"] * LSTM_LM["batch"]
+    return {"losses": losses, "loss_falls": losses[-1] < losses[0]
+            and all(math.isfinite(v) for v in losses),
+            "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _lm_main(torch, mx, seed):
+    """The main path at dropout 0.65: the eager Gluon loop from the
+    initial weights, then the same net hybridized from them again over the
+    same windows; the Embedding backward's launches over both, counted
+    from zero just before."""
+    from mxnet_tpu_torch.ops import embedding as EMB
+    windows = _lm_windows(mx, seed + 2, LSTM_LM["windows"])
+    mx.random.seed(seed)
+    net = _word_lm(mx, LSTM_LM["dropout"])
+    start = [p.data().copy() for p in net.collect_params().values()]
+    EMB.embedding_bwd_launches = 0
+    eager = _lm_run(torch, mx, _LMLoop(mx, net), windows)
+    eager_launches = EMB.embedding_bwd_launches
+    for p, v in zip(net.collect_params().values(), start):
+        p.set_data(v)
+    net.hybridize()
+    graph = _lm_run(torch, mx, _LMLoop(mx, net), windows)
+    launches = EMB.embedding_bwd_launches
+    graph.update(captures=net._cached_op._captures,
+                 replays=net._cached_op._replays)
+    del net, start
+    _free(torch)
+    return {"eager": eager, "graph": graph,
+            "embedding_bwd_launches": {"eager": eager_launches,
+                                       "total": launches}}, launches
+
+
+def _conv_layout(torch, seed):
+    """Part (c): unfused resnet50_v1 under both conv layouts: the logits
+    with TF32 off, then forward and graph-step ms with TF32 off (the
+    script's setting) and on (cuDNN's tensor cores, where NHWC is
+    cuDNN's native layout)."""
+    c = LAYOUT
+    before = os.environ.get("MXNET_TPU_CONV_LAYOUT")
+    net = _resnet50(torch, False, seed)
+    state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    x, y = _images(torch, seed + 21, c["batch"], c["px"], TRAIN["classes"])
+    first_conv = next(m for m in net.modules()
+                      if type(m).__name__ == "Conv2D")
+    seen = []
+    hook = first_conv.register_forward_hook(
+        lambda mod, args, out: seen.append(out.is_contiguous(
+            memory_format=torch.channels_last)))
+    runs, tf32 = {}, _tf32(torch)
+    try:
+        for layout in ("NCHW", "NHWC"):
+            os.environ["MXNET_TPU_CONV_LAYOUT"] = layout
+            run = runs[layout] = {}
+            for on in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = on
+                torch.backends.cudnn.allow_tf32 = on
+                net.load_state_dict(state)
+                net.eval()
+                with torch.no_grad():
+                    if not on:
+                        run["logits"] = net(x).float()
+                        run["channels_last"] = seen[-1]
+                    fwd_ms = cuda_ms(torch, lambda: net(x), c["timed"])
+                net.train()
+                step = _train_step(net, c["batch"])
+                loss = step(x, y).item()
+                step_ms = cuda_ms(torch, lambda: step(x, y), c["timed"],
+                                  warmup=1)
+                run["tf32_on" if on else "tf32_off"] = {
+                    "forward_ms": fwd_ms, "graph_step_ms": step_ms,
+                    "first_loss": loss, "captures": step._captures}
+                del step
+                _free(torch)
+    finally:
+        hook.detach()
+        torch.backends.cuda.matmul.allow_tf32 = tf32["matmul"]
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn"]
+        if before is None:
+            os.environ.pop("MXNET_TPU_CONV_LAYOUT", None)
+        else:
+            os.environ["MXNET_TPU_CONV_LAYOUT"] = before
+    ref, got = runs["NCHW"].pop("logits"), runs["NHWC"].pop("logits")
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    del net
+    _free(torch)
+    steps = [r[k] for r in runs.values() for k in ("tf32_off", "tf32_on")]
+    return {"batch": c["batch"], "px": c["px"], "runs": runs,
+            "logits_rel_err": rel, "tolerance": c["rel"],
+            "ok": rel <= c["rel"] and runs["NHWC"]["channels_last"]
+            and not runs["NCHW"]["channels_last"]
+            and all(r["captures"] == 1 and math.isfinite(r["first_loss"])
+                    for r in steps)}
+
+
+def phase_ops_rnn(torch, seed):
+    """Slice 21 (see above); returns the Embedding backward's launches on
+    the main path (the language model, eager and through the graph)."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    sweep = _ops_sweep(torch, mx, seed)
+    bits = _repeat_bits(torch, mx, seed)
+    no_copy = _rnn_no_copy(torch, mx)
+    rand = _random_checks(torch, mx, seed)
+    t_ops = time.perf_counter() - t0
+    parity = _lm_parity(torch, mx, seed)
+    lm, launches = _lm_main(torch, mx, seed)
+    t_lm = time.perf_counter() - t0 - t_ops
+    layout = _conv_layout(torch, seed)
+    n = LSTM_LM["windows"]
+    out = {"phase": "ops_rnn", "card": _card(), "tf32": _tf32(torch),
+           "sweep": sweep, "same_bits": bits, "rnn_weights": no_copy,
+           "random": rand, "lm_config": LSTM_LM, "lm_parity": parity,
+           "lm": lm, "conv_layout": layout,
+           "seconds": {"ops": t_ops, "lm": t_lm,
+                       "total": time.perf_counter() - t0}}
+    out["gates"] = {
+        # the slice's 106 registry names that are not samplers
+        "sweep_agrees": not sweep["failed"] and sweep["names"] == 106,
+        "same_bits_twice": bits["backward_gather_nd"]
+        and bits["gather_nd_grad"] and bits["duplicates"] > 0,
+        "rnn_weights_not_copied": no_copy["cudnn_calls"] == 4
+        and no_copy["one_vector"] and no_copy["buffer_returned"],
+        "sampler_moments": all(v["ok"] for k, v in rand.items()
+                               if k not in ("replays_fresh",
+                                            "boolean_mask_capture")),
+        "replays_draw_fresh": rand["replays_fresh"]["ok"],
+        "boolean_mask_raises_under_capture":
+            rand["boolean_mask_capture"]["ok"],
+        "lm_graph_bitwise_eager": parity["ok"],
+        "lm_loss_falls": lm["eager"]["loss_falls"]
+        and lm["graph"]["loss_falls"],
+        "lm_one_capture": lm["graph"]["captures"] == 1
+        and lm["graph"]["replays"] == n - 1,
+        "embedding_bwd_launched": launches >= 2 * n,
+        "conv_layouts_agree": layout["ok"],
+        "within_90_s": out["seconds"]["total"] <= 90.0}
+    out["ok"] = all(out["gates"].values())
+    emit(out)
+    check(out["ok"], f"ops_rnn failed: "
+          f"{[k for k, v in out['gates'].items() if not v]}")
+    return launches
+
+
 def _rtc_kernel_line(name, timing):
     """A row of the kernels line for an rtc kernel: CUDA C compiled at run
     time by NVRTC through mx.rtc.CudaModule; its source is SWIGLU_SOURCE in
@@ -7150,7 +7907,8 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
-          "vision_zoo", "estimator", "optimizers", "serving_bert",
+          "vision_zoo", "estimator", "optimizers", "ops_rnn",
+          "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -7218,6 +7976,9 @@ def main(argv=None):
     if "optimizers" in only:
         opt_fused, *opt_bert = phase_optimizers(torch, args.seed)
         by_path = {"optimizers": opt_fused, **by_path}
+    ops_rnn_emb = None
+    if "ops_rnn" in only:
+        ops_rnn_emb = phase_ops_rnn(torch, args.seed)
     if by_path and "fused_timing" in only:
         # launches: the latest slice's path that ran (LARS through
         # CompiledTrainStep's graph, Estimator.fit, the input pipeline,
@@ -7237,6 +7998,8 @@ def main(argv=None):
     # HTTP phase, which serves them again
     wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
     emb_paths = {}
+    if ops_rnn_emb is not None:
+        emb_paths["ops_rnn"] = ops_rnn_emb
     if opt_bert is not None:
         bert_paths["optimizers"], emb_paths["optimizers"] = opt_bert
     if "serving" in only:
@@ -7315,15 +8078,18 @@ def main(argv=None):
         lines.append(line)
     if emb_paths and "embedding_bwd" in only:
         # the port's own kernel (C12); it replaces no TPU kernel, so
-        # "replaces" names the JAX package's op whose gradient it computes
+        # "replaces" names the JAX package's op whose gradient it computes.
+        # Timed at the shape of the latest slice's path that ran: the
+        # language model's encoder, else BERT-base's word embedding
+        case = "lm_encoder" if "ops_rnn" in emb_paths else "word_embed"
         line = _kernel_line("embedding_bwd",
                             "mxnet_tpu_torch/csrc/embedding_bwd.cu",
                             "mxnet_tpu/ops/nn.py:486",
                             next(emb_paths[k] for k in (
-                                "optimizers", "resilient_training",
-                                "module_fit_prefetch")
-                                if k in emb_paths), emb_timing)
-        line["launches_by_path"] = emb_paths
+                                "ops_rnn", "optimizers",
+                                "resilient_training", "module_fit_prefetch")
+                                if k in emb_paths), emb_timing[case])
+        line["launches_by_path"], line["case"] = emb_paths, case
         lines.append(line)
     emit({"script_seconds": time.perf_counter() - t_script,
           "phases": sorted(only)})

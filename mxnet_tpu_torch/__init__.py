@@ -25,10 +25,11 @@ reader, ``gluon.data`` and ``rnn.BucketSentenceIter``.
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 (``device="cpu"``, ``mx.cpu()``)."""
-from . import (autograd, base, callback, context, contrib, convert,
-               distributed, error, executor, gluon, initializer, io, kvstore,
-               lr_scheduler, metric, model, module, name, ndarray, ops,
-               optimizer, parallel, random, recordio, rnn, rtc, serving,
+from . import (autograd, base, callback, checkpoint, context, contrib,
+               convert, distributed, error, executor, fleet, gluon,
+               initializer, io, kvstore, lr_scheduler, metric, model, module,
+               name, ndarray, observability, ops, optimizer, parallel,
+               profiler, random, recordio, resilience, rnn, rtc, serving,
                symbol)
 from .base import MXNetError, env
 from .context import (Context, cpu, current_context, gpu, num_gpus,
@@ -41,11 +42,12 @@ init = initializer
 sym = symbol
 kv = kvstore
 
-__all__ = ["autograd", "base", "callback", "context", "contrib", "convert",
-           "distributed", "error", "executor", "gluon", "init", "initializer",
-           "io", "kv", "kvstore", "lr_scheduler", "metric", "model", "module",
-           "name", "nd", "ndarray", "ops", "optimizer", "parallel", "random",
-           "recordio", "rnn", "rtc", "serving",
+__all__ = ["autograd", "base", "callback", "checkpoint", "context", "contrib",
+           "convert", "distributed", "error", "executor", "fleet", "gluon",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "metric", "model", "module", "name", "nd", "ndarray",
+           "observability", "ops", "optimizer", "parallel", "profiler",
+           "random", "recordio", "resilience", "rnn", "rtc", "serving",
            "sym", "symbol", "save_checkpoint", "load_checkpoint",
            "MXNetError", "env",
            "Context", "cpu", "gpu", "tpu", "current_context",

@@ -102,6 +102,13 @@ env.declare("MXNET_TPU_FUSE_CONV_BN", 0, int,
             "pairs as FusedConv1x1BN (the CUDA matmul with a BN-statistics "
             "epilogue, ops/fused_conv_bn.py) instead of Conv2D+BatchNorm.  "
             "Read when the block is constructed.")
+env.declare("MXNET_TPU_CONV_LAYOUT", "auto", str,
+            "Internal layout of 2-D convolutions: 'NHWC' runs them on "
+            "channels_last tensors (cuDNN's NHWC kernels, no transposes "
+            "between adjacent convolutions); 'NCHW' and 'auto' keep the "
+            "contiguous layout.  The API layout stays NCHW either way.  "
+            "Read at each call, so a CUDA graph keeps the layout of its "
+            "capture.")
 env.declare("MXNET_TPU_RECOMPILE_WARN", 16, int,
             "CachedOp cache misses after which (misses > 2x hits) a "
             "recompile-storm warning fires once per op: the signature-churn "

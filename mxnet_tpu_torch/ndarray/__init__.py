@@ -2,8 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py`` (the reference's
 import-time codegen, ``_init_op_module``, ``python/mxnet/base.py:730``).
-The ``sparse``, ``random``, ``linalg``, ``contrib`` and ``image``
-submodules are not ported yet.
+``mx.nd.random`` is the sampler namespace; the ``sparse``, ``linalg``,
+``contrib`` and ``image`` submodules are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,12 +31,14 @@ def _make_op_func(op: "_registry.Operator", name: str):
     return fn
 
 
-_mod = _sys.modules[__name__]
+# (``_this``, not ``_mod``: the loop must not hide the op ``_mod``)
+_this = _sys.modules[__name__]
 for _name, _op in list(_registry.REGISTRY.items()):
-    if not hasattr(_mod, _name):
-        setattr(_mod, _name, _make_op_func(_op, _name))
-del _mod, _name, _op
+    if not hasattr(_this, _name):
+        setattr(_this, _name, _make_op_func(_op, _name))
+del _this, _name, _op
 
+from . import random  # noqa: E402,F401  (mx.nd.random)
 from .._fluent import attach_fluent as _attach_fluent  # noqa: E402
 
 _attach_fluent(NDArray, _sys.modules[__name__])

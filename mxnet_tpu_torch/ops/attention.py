@@ -285,15 +285,17 @@ def _masked_dense_attention(q, k, v, key_valid_len, causal: bool,
     return torch.matmul(p.to(q.dtype), v)
 
 
+@register("rope", nin=3)
 def rope(x, cos, sin, num_heads: Optional[int] = None):
     """Rotary position embedding: ``x`` is ``[B, S, H*D]`` (with
     ``num_heads``) or ``[B, H, S, D]``; cos/sin are ``[S, D/2]`` tables.
-    Rotates each head's feature halves (x1, x2) by the position angle."""
+    Rotates each head's feature halves (x1, x2) by the position angle.
+    The registry op ``rope`` (``mx.nd.rope``, ``mx.sym.rope``)."""
     if x.dim() == 3:
         if not num_heads:
             raise MXNetError("num_heads required for packed [B, S, H*D] input")
         b, s, hd = x.shape
-        xr = x.reshape(b, s, num_heads, hd // num_heads)
+        xr = x.reshape(b, s, int(num_heads), hd // int(num_heads))
         c, sn = cos[None, :, None, :], sin[None, :, None, :]
     else:
         xr = x

@@ -6,9 +6,12 @@ run: BatchNorm (with the one-pass or centred variance), SyncBatchNorm on
 one device, LayerNorm, InstanceNorm, GroupNorm, 1-, 2- and 3-D
 Convolution and Deconvolution, max/avg/sum/Lp Pooling, FullyConnected,
 Embedding, Dropout, the ``Activation`` and ``LeakyReLU`` activations,
-CTC, ``log_softmax`` and ``pick``.  Layouts are the JAX
-package's: NCHW activations, ``[out, in, kh, kw]`` conv weights and
-``[units, in_units]`` dense weights.  The JAX package leaves its
+CTC, ``log_softmax``, ``pick``, ``im2col`` and the fused RNN (:func:`rnn`:
+LSTM, GRU, tanh and relu, multi-layer, bidirectional, one cuDNN call per
+layer and direction on the card).  Layouts are the JAX
+package's: NCHW activations (a 2-D convolution runs channels_last inside
+under ``MXNET_TPU_CONV_LAYOUT=NHWC``), ``[out, in, kh, kw]`` conv weights
+and ``[units, in_units]`` dense weights.  The JAX package leaves its
 convolutions and matrix products to XLA, so here they go to
 ``torch.nn.functional``.  Where jnp promotes mixed dtypes (an fp32
 activation against a bf16 weight under amp) these ops promote too.
@@ -18,7 +21,9 @@ names and params (``FullyConnected``, ``Convolution``, ``Pooling``,
 ``Activation``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Dropout``,
 ``softmax``, ``log_softmax``, ``SoftmaxOutput``, ``Deconvolution``,
 ``LeakyReLU``, ``InstanceNorm``, ``GroupNorm``, ``_contrib_SyncBatchNorm``,
-``CTCLoss`` and their aliases), so
+``CTCLoss``, ``softmin``, ``SoftmaxActivation``, ``LRN``,
+``softmax_cross_entropy``, ``masked_softmax``, ``masked_log_softmax``,
+``ROIPooling``, ``im2col``, ``RNN`` and their aliases), so
 ``mx.nd`` and ``mx.sym`` reach them and an exported graph runs through
 them.  Each op parses the stringified attrs a loaded symbol JSON may carry
 (``"True"``, ``"(3, 3)"``) and calls the function above.
@@ -38,7 +43,8 @@ from .registry import register
 __all__ = ["batch_norm", "layer_norm", "convolution", "deconvolution",
            "pooling", "fully_connected", "embedding", "dropout",
            "activation", "relu", "leaky_relu", "instance_norm", "group_norm",
-           "sync_batch_norm", "ctc_loss", "softmax", "log_softmax", "pick"]
+           "sync_batch_norm", "ctc_loss", "softmax", "log_softmax", "pick",
+           "im2col", "rnn", "rnn_param_shapes", "conv_nhwc"]
 
 
 def _moments_of(x32, red, keepdim=False):
@@ -109,9 +115,21 @@ _DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
 def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
                 dilate=(1, 1), num_group=1):
     """1-, 2- or 3-D convolution (by the weight's rank): ``NC[D]H[W]``
-    data and ``[out, in / num_group, *kernel]`` weight."""
+    data and ``[out, in / num_group, *kernel]`` weight.  Under
+    ``MXNET_TPU_CONV_LAYOUT=NHWC`` a 2-D convolution takes its data
+    channels_last (a copy, unless it is already), which makes torch run
+    the channels_last kernels and return a channels_last tensor of the
+    same NCHW shape, so a chain of convolutions stays channels_last."""
+    if weight.dim() == 4 and conv_nhwc():
+        data = data.contiguous(memory_format=torch.channels_last)
     return _CONV[weight.dim() - 2](data, weight, bias, tuple(stride),
                                    tuple(pad), tuple(dilate), num_group)
+
+
+def conv_nhwc() -> bool:
+    """True when 2-D convolutions run channels-last
+    (``MXNET_TPU_CONV_LAYOUT=NHWC``)."""
+    return env.MXNET_TPU_CONV_LAYOUT.strip().upper() == "NHWC"
 
 
 def deconvolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
@@ -759,3 +777,226 @@ def _regression_infer(shapes, params):
 for _name in ("LinearRegressionOutput", "LogisticRegressionOutput",
               "MAERegressionOutput"):
     _get_op(_name).infer_shapes = _regression_infer
+
+
+# ---------------------------------------------------------------------------
+# the rest of mxnet_tpu/ops/nn.py: softmin, SoftmaxActivation, LRN,
+# softmax_cross_entropy, masked_softmax, masked_log_softmax, ROIPooling,
+# im2col
+# ---------------------------------------------------------------------------
+@register("softmin", nin=1)
+def _softmin_op(data, axis=-1, temperature=None, dtype=None):
+    data, cast_out = _softmax_cast_in(data, dtype)
+    x = -data / float(temperature) if temperature else -data
+    out = softmax(x, int(axis))
+    return out.to(cast_out) if cast_out is not None else out
+
+
+@register("SoftmaxActivation", nin=1)
+def _softmax_activation_op(data, mode="instance"):
+    """Softmax over the channels (``mode='channel'``, axis 1) or over all
+    of each instance's values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+@register("LRN", nin=1)
+def _lrn_op(data, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalisation across ``nsize`` neighbouring channels
+    of NCHW data: ``x / (knorm + alpha / nsize · Σ x²)^beta``."""
+    nsize = int(nsize)
+    half = nsize // 2
+    sq = F.pad(data.square(), (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(float(knorm) + float(alpha) / nsize * acc,
+                            float(beta))
+
+
+@register("softmax_cross_entropy", nin=2)
+def _softmax_cross_entropy_op(data, label):
+    """The summed cross entropy of ``softmax(data)`` against class-index
+    ``label``s (a scalar)."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -logp.gather(-1, label.long().unsqueeze(-1)).sum()
+
+
+@register("masked_softmax", nin=2)
+def _masked_softmax_op(data, mask, axis=-1, temperature=1.0,
+                       normalize=True):
+    """Softmax over the positions where ``mask`` is true, in fp32; masked
+    positions are exactly 0 (a row with none true is all 0)."""
+    ax = int(axis)
+    m = mask.to(torch.bool)
+    x = torch.where(m, data.float() / float(temperature), -1e30)
+    p = torch.where(m, torch.exp(x - x.amax(dim=ax, keepdim=True)), 0.0)
+    return (p / p.sum(dim=ax, keepdim=True).clamp_min(1e-30)).to(data.dtype)
+
+
+@register("masked_log_softmax", nin=2)
+def _masked_log_softmax_op(data, mask, axis=-1, temperature=1.0):
+    """The log of :func:`_masked_softmax_op`; masked positions are -inf."""
+    ax = int(axis)
+    m = mask.to(torch.bool)
+    x = torch.where(m, data.float() / float(temperature), -1e30)
+    top = x.amax(dim=ax, keepdim=True)
+    lse = torch.log(torch.exp(x - top).sum(dim=ax, keepdim=True)) + top
+    return torch.where(m, (x - lse).to(data.dtype), float("-inf"))
+
+
+@register("ROIPooling", nin=2, differentiable=False)
+def _roi_pooling_op(data, rois, pooled_size=(1, 1), spatial_scale=1.0):
+    """Max over each of ``pooled_size`` bins of each region ``[batch, x1,
+    y1, x2, y2]`` (scaled by ``spatial_scale``, truncated to ints) of NCHW
+    ``data``; an empty bin is -inf (the JAX package's form)."""
+    ph, pw = (int(v) for v in pooled_size)
+    b = rois[:, 0].to(torch.int64)
+    x1, y1, x2, y2 = (rois[:, 1:] * float(spatial_scale)).to(
+        torch.int32).to(torch.int64).unbind(1)
+    img = data[b]                                     # [R, C, H, W]
+    H, W = img.shape[2], img.shape[3]
+
+    def bins(lo, hi, n, size):
+        extent = torch.clamp(hi - lo + 1, min=1)[:, None]
+        i = torch.arange(n, device=data.device)[None, :]
+        start = lo[:, None] + (i * extent) // n
+        end = torch.maximum(lo[:, None] + ((i + 1) * extent + n - 1) // n,
+                            start + 1)
+        pos = torch.arange(size, device=data.device)
+        return (pos >= start[..., None]) & (pos < end[..., None])
+
+    ymask, xmask = bins(y1, y2, ph, H), bins(x1, x2, pw, W)
+    out = img.new_empty(img.shape[:2] + (ph, pw))
+    for i in range(ph):
+        for j in range(pw):
+            m = ymask[:, i, :, None] & xmask[:, j, None, :]   # [R, H, W]
+            out[:, :, i, j] = torch.where(m[:, None], img,
+                                          float("-inf")).amax(dim=(2, 3))
+    return out
+
+
+def im2col(data, kernel, stride, dilate, pad):
+    """Patches of ``[N, C, *spatial]`` data as ``[N, C·prod(kernel), L]``
+    columns, channel-major then kernel position (the order of
+    ``lax.conv_general_dilated_patches``), over the ``L`` output
+    positions."""
+    nd = len(kernel)
+    x = F.pad(data, [p for p in reversed(pad) for _ in range(2)])
+    for d in range(nd):
+        span = dilate[d] * (kernel[d] - 1) + 1
+        x = x.unfold(2 + d, span, stride[d])[..., ::dilate[d]]
+    n, c = x.shape[:2]
+    outs = x.shape[2:2 + nd]
+    x = x.permute(0, 1, *range(2 + nd, 2 + 2 * nd), *range(2, 2 + nd))
+    return x.reshape(n, c * math.prod(kernel), math.prod(outs))
+
+
+@register("im2col", nin=1)
+def _im2col_op(data, kernel=(), stride=(), dilate=(), pad=()):
+    nd = len(kernel)
+    return im2col(data, _ints(kernel, nd, 1), _ints(stride, nd, 1),
+                  _ints(dilate, nd, 1), _ints(pad, nd, 0))
+
+
+# ---------------------------------------------------------------------------
+# the fused RNN op (mxnet_tpu/ops/nn.py:596-702): LSTM, GRU, rnn_tanh and
+# rnn_relu, multi-layer, bidirectional, over one flat parameter vector
+# ---------------------------------------------------------------------------
+_RNN_GATES = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}
+_CUDNN_RNN_MODE = {"rnn_relu": 0, "rnn_tanh": 1, "lstm": 2, "gru": 3}
+
+
+def rnn_param_shapes(mode, input_size, state_size, num_layers, dirs):
+    """The shapes in the flat vector, in its order: per layer, per
+    direction, ``wx [g·H, in]``, ``wh [g·H, H]``, ``bx [g·H]``, ``bh
+    [g·H]`` (g gates: 4 LSTM i f g o, 3 GRU r z n, 1 vanilla)."""
+    gh = _RNN_GATES[mode] * state_size
+    shapes = []
+    for layer in range(num_layers):
+        ins = input_size if layer == 0 else state_size * dirs
+        shapes += [(gh, ins), (gh, state_size), (gh,), (gh,)] * dirs
+    return shapes
+
+
+def _rnn_one_way(mode, x, h, c, buf, weights, keep_graph):
+    """One layer in one direction over ``x`` ([T, N, I]) from ``h`` (and
+    ``c``) [1, N, H]: ``(y, h_T, c_T)``.  On the card one cuDNN call
+    takes ``buf``, the direction's ``[wx, wh, bx, bh]`` slice of the flat
+    vector, as its weight space (that order is cuDNN's for one layer and
+    one direction), so no weight is copied; ``weights``, views of the
+    same slice, carry the gradient.  On the CPU torch's RNN kernels run."""
+    if x.is_cuda:
+        y, hy, cy, _, _ = torch._cudnn_rnn(
+            x, weights, 4, buf.detach(), h, c, _CUDNN_RNN_MODE[mode],
+            h.shape[-1], 0, 1, False, 0.0, keep_graph, False, [], None)
+        return y, hy, cy
+    if mode == "lstm":
+        return torch._VF.lstm(x, (h, c), weights, True, 1, 0.0, keep_graph,
+                              False, False)
+    y, hy = getattr(torch._VF, mode)(x, h, weights, True, 1, 0.0,
+                                     keep_graph, False, False)
+    return y, hy, None
+
+
+def rnn(data, params, h0, c0=None, state_size=0, num_layers=1, mode="lstm",
+        bidirectional=False, p=0.0, training=True, generator=None):
+    """The fused RNN: ``(out [T, N, D·H], h [L·D, N, H])``, and ``c`` for
+    LSTM, from time-major ``data`` ([T, N, I]), the flat ``params``
+    (:func:`rnn_param_shapes`) and the initial states ``h0`` (``c0``)
+    ``[L·D, N, H]``.  Each layer and direction is one call; the reverse
+    direction runs on the time-reversed sequence.  In training, ``p``
+    drops each layer's output but the last's, with masks from
+    ``generator`` (the device's ``mx.random`` stream for the registry
+    op), so a CUDA graph that registers the stream draws fresh masks on
+    every replay."""
+    dirs = 2 if bidirectional else 1
+    steps, batch, width = data.shape
+    H, L = int(state_size), int(num_layers)
+    if data.device.type == "meta":
+        outs = [data.new_empty((steps, batch, dirs * H)),
+                data.new_empty((L * dirs, batch, H))]
+        return tuple(outs + [outs[1].clone()] * (mode == "lstm"))
+    shapes = rnn_param_shapes(mode, width, H, L, dirs)
+    sizes = [math.prod(s) for s in shapes]
+    rest = params.numel() - sum(sizes)
+    if rest < 0:
+        raise MXNetError(f"RNN: {params.numel()} parameters for a "
+                         f"{mode} of {sum(sizes)}")
+    pieces = params.split(sizes + [rest] * (rest > 0))
+    weights = [w.view(s) for w, s in zip(pieces, shapes)]
+    keep_graph = torch.is_grad_enabled()
+    xs, hs, cs, off = data, [], [], 0
+    for layer in range(L):
+        ys = []
+        for d in range(dirs):
+            k = layer * dirs + d
+            n = sum(sizes[4 * k:4 * k + 4])
+            x = torch.flip(xs, (0,)) if d else xs
+            y, hT, cT = _rnn_one_way(
+                mode, x, h0[k:k + 1], None if c0 is None else c0[k:k + 1],
+                params[off:off + n], weights[4 * k:4 * k + 4], keep_graph)
+            off += n
+            ys.append(torch.flip(y, (0,)) if d else y)
+            hs.append(hT)
+            cs.append(cT)
+        xs = ys[0] if dirs == 1 else torch.cat(ys, dim=-1)
+        if p > 0.0 and training and layer < L - 1:
+            xs = dropout(xs, p, True, generator)
+    outs = (xs, torch.cat(hs))
+    return outs + (torch.cat(cs),) if mode == "lstm" else outs
+
+
+@register("RNN", nin=None, nout=-1)
+def _rnn_op(args, state_size=0, num_layers=1, mode="lstm",
+            bidirectional=False, p=0.0, state_outputs=True,
+            projection_size=None, use_sequence_length=False,
+            lstm_state_clip_min=None, lstm_state_clip_max=None,
+            lstm_state_clip_nan=False, generator=None, _training=True):
+    """``args = [data, params, state, (state_cell)]``; see :func:`rnn`.
+    ``projection_size`` and the ``lstm_state_clip_*`` params are accepted
+    and ignored, as in the JAX package."""
+    data, params, h0 = args[:3]
+    c0 = args[3] if mode == "lstm" and len(args) > 3 else None
+    return rnn(data, params, h0, c0, int(state_size), int(num_layers), mode,
+               attr_truthy(bidirectional), float(p), _training, generator)

@@ -67,12 +67,14 @@ def _make_sym_func(op: "_registry.Operator", op_name: str):
     return fn
 
 
-_mod = _sys.modules[__name__]
+# (``_this``, not ``_mod``: the loop must not hide the op ``_mod``)
+_this = _sys.modules[__name__]
 for _name, _op in list(_registry.REGISTRY.items()):
-    if not hasattr(_mod, _name):
-        setattr(_mod, _name, _make_sym_func(_op, _name))
-del _mod, _name, _op
+    if not hasattr(_this, _name):
+        setattr(_this, _name, _make_sym_func(_op, _name))
+del _this, _name, _op
 
+from . import random  # noqa: E402,F401  (mx.sym.random)
 from .._fluent import attach_fluent as _attach_fluent  # noqa: E402
 
 _attach_fluent(Symbol, _sys.modules[__name__])

@@ -504,6 +504,15 @@ def _resolve_nout(op, attrs: Dict[str, Any]) -> int:
     as the reference's FNumOutputs reads its params."""
     if op.nout != -1:
         return op.nout
+    if op.name == "split_v2":
+        ios = attrs.get("indices_or_sections", 1)
+        return ios if isinstance(ios, int) else len(tuple(ios)) + 1
+    if op.name == "topk":
+        return 2 if attrs.get("ret_typ", "indices") == "both" else 1
+    if op.name == "RNN":
+        if not attr_truthy(attrs.get("state_outputs", True)):
+            return 1
+        return 3 if attrs.get("mode", "lstm") == "lstm" else 2
     for key in ("num_outputs", "__num_args__", "num_sections"):
         if key in attrs:
             return int(attrs[key])

@@ -26,8 +26,14 @@
   with the forward's rules for ids out of range; and the Gluon
   ``Embedding``'s gradient against the JAX package's, within 1e-6 of the
   largest |value|.
+- C13: after a bare ``import mxnet_tpu_torch as mx`` in a fresh process,
+  every submodule of the JAX package's ``_SUBMODULES`` list that the port
+  has resolves as ``mx.<name>``, as it does in the JAX package.
 """
 import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -419,3 +425,31 @@ def test_gluon_embedding_gradient_matches_jax():
         loss.backward()
         grads[side] = weight.grad().asnumpy()
     _close(grads["port"], grads["jax"], rel=1e-6, what="Embedding grad")
+
+
+# ---------------------------------------------------------------------------
+# C13: the package imports its submodules
+# ---------------------------------------------------------------------------
+_ROOT = Path(__file__).resolve().parents[1]
+
+
+def _attrs_resolve(package, names):
+    probe = (f"import {package} as mx\n"
+             f"for n in {names!r}:\n"
+             "    assert getattr(mx, n).__name__ == f'{mx.__name__}.{n}', n\n"
+             "print('ok', len(%r))" % (names,))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.startswith("ok"), \
+        proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("package", ["mxnet_tpu_torch", "mxnet_tpu"])
+def test_submodules_resolve_after_import(package):
+    port = _ROOT / "mxnet_tpu_torch"
+    names = [n for n, _ in jmx._SUBMODULES
+             if (port / n).is_dir() or (port / f"{n}.py").is_file()]
+    for n in ("checkpoint", "fleet", "profiler", "observability",
+              "resilience"):
+        assert n in names
+    _attrs_resolve(package, names)
