@@ -20,17 +20,21 @@ distributed kvstore: ``mx.distributed`` over ``torch.distributed``, the
 ``dist_*`` stores, bucketed pushes and 2-bit compression.  Slice 16 is the
 input pipeline: ``mx.io`` (``DevicePrefetchIter`` on pinned memory and a
 side CUDA stream, the file iterators), ``mx.recordio`` with its native
-reader, ``gluon.data`` and ``rnn.BucketSentenceIter``.
+reader, ``gluon.data`` and ``rnn.BucketSentenceIter``.  Slice 22 is the
+rest of NDArray and autograd: ``mx.operator`` (``CustomOp``,
+``mx.nd.Custom``), higher-order gradients and ``autograd.get_symbol``,
+``mx.nd.contrib``/``linalg``/``image`` with their ``mx.sym`` forms, and
+``mx.image`` (the augmenters and ``ImageIter``).
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 (``device="cpu"``, ``mx.cpu()``)."""
 from . import (autograd, base, callback, checkpoint, context, contrib,
-               convert, distributed, error, executor, fleet, gluon,
+               convert, distributed, error, executor, fleet, gluon, image,
                initializer, io, kvstore, lr_scheduler, metric, model, module,
-               name, ndarray, observability, ops, optimizer, parallel,
-               profiler, random, recordio, resilience, rnn, rtc, serving,
-               symbol)
+               name, ndarray, observability, operator, ops, optimizer,
+               parallel, profiler, random, recordio, resilience, rnn, rtc,
+               serving, symbol)
 from .base import MXNetError, env
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       resolve_device, set_default_context, tpu)
@@ -44,9 +48,9 @@ kv = kvstore
 
 __all__ = ["autograd", "base", "callback", "checkpoint", "context", "contrib",
            "convert", "distributed", "error", "executor", "fleet", "gluon",
-           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "image", "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
            "metric", "model", "module", "name", "nd", "ndarray",
-           "observability", "ops", "optimizer", "parallel", "profiler",
+           "observability", "operator", "ops", "optimizer", "parallel", "profiler",
            "random", "recordio", "resilience", "rnn", "rtc", "serving",
            "sym", "symbol", "save_checkpoint", "load_checkpoint",
            "MXNetError", "env",

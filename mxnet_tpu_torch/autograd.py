@@ -15,6 +15,16 @@ gradients are taken with ``torch.autograd.grad`` and written (or, for
 backward through a freed graph raises :class:`MXNetError`, as the JAX
 package's tape does.  :class:`Function` is one ``torch.autograd.Function``
 node whose backward calls the user's ``backward`` on NDArrays.
+
+``grad(create_graph=True)`` differentiates through torch's graph with
+``create_graph``, so the gradients it returns are on the tape and can be
+differentiated again, to any order; through a user :class:`Function` it
+raises ``NotImplementedError``, as the JAX package's does.  A ``grad_fn``
+carries no registry op name, so for :func:`get_symbol` the op dispatch
+(``ndarray.invoke``) notes each op it records (:func:`note_op`) in the
+``metadata`` of its outputs' ``grad_fn`` nodes: the note lives exactly as
+long as the graph, costs nothing outside ``record()``, and is not taken
+inside a CUDA graph capture.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from .base import MXNetError
 __all__ = [
     "record", "pause", "train_mode", "predict_mode", "is_recording",
     "is_training", "set_recording", "set_training", "mark_variables",
-    "backward", "grad", "Function",
+    "backward", "grad", "get_symbol", "Function",
 ]
 
 _tls = threading.local()
@@ -202,10 +212,11 @@ def _add_variable(t, found, seen) -> None:
         found.append((arr, t))
 
 
-def _grads(outs, ogs, tensors, retain_graph):
+def _grads(outs, ogs, tensors, retain_graph, create_graph=False):
     try:
         return torch.autograd.grad(outs, tensors, ogs,
                                    retain_graph=retain_graph,
+                                   create_graph=create_graph,
                                    allow_unused=True)
     except RuntimeError as e:
         if "second time" in str(e):
@@ -216,9 +227,11 @@ def _grads(outs, ogs, tensors, retain_graph):
         raise
 
 
-def _run_backward(heads, head_grads, variables=None, retain_graph=False):
+def _run_backward(heads, head_grads, variables=None, retain_graph=False,
+                  create_graph=False):
     """Gradients of ``heads``: written into the variables' gradient arrays,
-    or, given ``variables``, returned for them (a tensor or None each)."""
+    or, given ``variables``, returned for them (a tensor or None each;
+    with ``create_graph``, on the tape)."""
     if all(h._data.grad_fn is None and not _is_variable(h)
            and not _untracked(h._data) for h in heads):
         raise MXNetError(
@@ -239,7 +252,8 @@ def _run_backward(heads, head_grads, variables=None, retain_graph=False):
                                  if _untracked(h._data)])
     else:
         targets = [(v, v._data) for v in variables if v._data.requires_grad]
-    got = (_grads(outs, ogs, [t for _, t in targets], retain_graph)
+    got = (_grads(outs, ogs, [t for _, t in targets], retain_graph,
+                  create_graph)
            if outs and targets else [None] * len(targets))
     total: Dict[int, torch.Tensor] = {}
     arrays = {}
@@ -291,20 +305,167 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode: bool = True):
     """Gradients of ``heads`` with respect to ``variables``, returned as
-    NDArrays (the variables' gradient arrays are untouched)."""
-    if create_graph:
-        raise NotImplementedError(
-            "autograd.grad(create_graph=True) is not ported yet")
+    NDArrays (the variables' gradient arrays are untouched).  With
+    ``create_graph`` they are on the tape: a later ``backward`` or
+    ``grad`` differentiates them again (the graph is kept)."""
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if not isinstance(variables, (list, tuple)):
         variables = [variables]
+    if create_graph:
+        _refuse_functions(heads)
     from .ndarray.ndarray import NDArray
     raw = _run_backward(heads, _head_grads(heads, head_grads), variables,
-                        bool(retain_graph))
+                        bool(retain_graph) or bool(create_graph),
+                        bool(create_graph))
     return [NDArray(torch.zeros_like(v._data.detach()) if g is None
-                    else g.detach(), v.context)
+                    else g if create_graph else g.detach(), v.context)
             for v, g in zip(variables, raw)]
+
+
+def _refuse_functions(heads) -> None:
+    """``NotImplementedError`` where a head's graph holds a user
+    :class:`Function` (its backward is user code over NDArrays, with no
+    derivative of its own), as the JAX package's replay refuses it."""
+    seen, stack = set(), [h._data.grad_fn for h in heads]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__ == "_FunctionNodeBackward":
+            raise NotImplementedError(
+                "create_graph through a custom autograd.Function is not "
+                "supported")
+        stack.extend(f for f, _ in fn.next_functions)
+
+
+# ---------------------------------------------------------------------------
+# the ops of the tape, for get_symbol
+# ---------------------------------------------------------------------------
+class _OpNote:
+    """One recorded registry op: its name, its params as the dispatch
+    passed them (filtered only by ``get_symbol``), its
+    inputs (``("node", grad_fn, output_nr)`` for a tensor on torch's
+    graph, ``("leaf", weakref, id)`` for any other) and its output
+    count."""
+
+    __slots__ = ("name", "params", "inputs", "variadic", "nout",
+                 "__weakref__")
+
+    def __init__(self, name, params, inputs, variadic, nout):
+        self.name, self.params, self.inputs = name, params, inputs
+        self.variadic, self.nout = variadic, nout
+
+
+def _symbolic_params(params):
+    """The params a Symbol can carry: those the dispatch adds (device,
+    generator, training flag) and tensor values left out, as the JAX
+    package leaves out array-valued params."""
+    return {k: v for k, v in params.items()
+            if k not in ("device", "generator", "_training")
+            and not isinstance(v, (torch.Tensor, torch.Generator,
+                                   torch.device))
+            and not hasattr(v, "_data")}
+
+
+def _ref(t):
+    fn = t.grad_fn
+    if fn is not None:
+        return ("node", fn, t.output_nr)
+    return ("leaf", weakref.ref(t), id(t))
+
+
+def note_op(name, params, raw_inputs, outputs) -> None:
+    """Keep what ``get_symbol`` needs of a recorded op on its outputs'
+    ``grad_fn`` nodes (or, for an output torch does not track, on the
+    tensor), where it dies with the graph: the name, the params dict as
+    the dispatch passed it and a reference per input.  Nothing is kept
+    inside a CUDA graph capture.  It runs for every recorded registry op,
+    so it does no more than that."""
+    if outputs and outputs[0].is_cuda and \
+            torch.cuda.is_current_stream_capturing():
+        return
+    variadic = len(raw_inputs) == 1 and isinstance(raw_inputs[0], list)
+    flat = raw_inputs[0] if variadic else raw_inputs
+    refs = []
+    for t in flat:
+        if not isinstance(t, torch.Tensor):
+            return
+        refs.append(_ref(t))
+    note = _OpNote(name, params, refs, variadic, len(outputs))
+    for i, o in enumerate(outputs):
+        fn = o.grad_fn
+        for t in flat:
+            if o is t:
+                break
+        else:
+            if fn is not None:
+                fn.metadata.setdefault("mx_op", {})[o.output_nr] = (note, i)
+            else:
+                o._mx_op = (note, i)
+
+
+def _note_of(ref):
+    """``(note, output index)`` of an input reference, or None for a leaf
+    array; NotImplementedError for a tensor made by something other than
+    a registry op."""
+    if ref[0] == "node":
+        entry = ref[1].metadata.get("mx_op", {}).get(ref[2])
+        if entry is None:
+            raise NotImplementedError(
+                f"autograd.get_symbol: the tape holds {type(ref[1]).__name__}"
+                ", which is not a registered operator (a custom "
+                "autograd.Function, a graph replay or a gradient has no "
+                "symbolic form)")
+        return entry
+    t = ref[1]()
+    return getattr(t, "_mx_op", None) if t is not None else None
+
+
+def get_symbol(x):
+    """The ``Symbol`` of the recorded graph that computed ``x`` (reference
+    ``MXAutogradGetSymbol``): every recorded op composed again, the leaf
+    arrays as variables ``var0..varN`` in first-use order (the JAX
+    package's order), tensor-valued params left out."""
+    from .symbol.symbol import invoke_symbol, var
+    head = _note_of(_ref(x._data))
+    if head is None:
+        return var("var0")
+    # parents before children, as the JAX package's _topo_from_heads
+    order, seen = [], set()
+    stack = [(head[0], False)]
+    while stack:
+        note, done = stack.pop()
+        if done:
+            order.append(note)
+            continue
+        if id(note) in seen:
+            continue
+        seen.add(id(note))
+        stack.append((note, True))
+        for ref in note.inputs:
+            parent = _note_of(ref)
+            if parent is not None and id(parent[0]) not in seen:
+                stack.append((parent[0], False))
+    built, leaves = {}, {}
+    for note in order:
+        ins = []
+        for ref in note.inputs:
+            parent = _note_of(ref)
+            if parent is not None:
+                s = built[id(parent[0])]
+                ins.append(s[parent[1]] if parent[0].nout > 1 else s)
+                continue
+            key = ref[2] if ref[0] == "leaf" else id(ref[1])
+            if key not in leaves:
+                leaves[key] = var(f"var{len(leaves)}")
+            ins.append(leaves[key])
+        built[id(note)] = invoke_symbol(
+            note.name, [ins] if note.variadic else ins,
+            _symbolic_params(note.params))
+    s = built[id(head[0])]
+    return s[head[1]] if head[0].nout > 1 else s
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,7 @@ import weakref
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _graphs, autograd
 from . import random as _random
@@ -211,7 +212,10 @@ class _Replay(torch.autograd.Function):
         return tuple(outs)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, *grads):
+        # a graph replay has no derivative: torch refuses to differentiate
+        # it again (autograd.grad(create_graph=True) through a replay)
         return (None,) + ctx.slot.backward(ctx.generation, grads)
 
 

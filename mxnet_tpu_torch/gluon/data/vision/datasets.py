@@ -180,7 +180,7 @@ class ImageRecordDataset(Dataset):
 
 class ImageFolderDataset(Dataset):
     """One class per subfolder of ``root``; ``.npy`` files load with numpy,
-    other images decode with PIL."""
+    other images decode with ``mx.image.imread``."""
 
     def __init__(self, root, flag=1, transform=None):
         self._root = os.path.expanduser(root)
@@ -208,12 +208,9 @@ class ImageFolderDataset(Dataset):
         if path.endswith(".npy"):
             img = _np.load(path)
         else:
-            # PIL decodes every other file (mx.image is not ported, A4)
-            from PIL import Image
-            img = _np.asarray(Image.open(path).convert(
-                "RGB" if self._flag else "L"))
-            if not self._flag:
-                img = img[:, :, None]
+            from ....image import imread
+            with cpu():
+                img = imread(path, self._flag)
         img = _nd.array(img, ctx=cpu(), dtype="uint8")
         if self._transform is not None:
             return self._transform(img, label)

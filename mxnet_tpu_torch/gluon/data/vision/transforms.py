@@ -2,13 +2,10 @@
 ``mxnet_tpu/gluon/data/vision/transforms.py``, reference
 ``python/mxnet/gluon/data/vision/transforms.py``).
 
-Each transform is a ``Block``: called with an NDArray it returns one, on
-the same context; its ``forward`` computes on the tensor.  Images are HWC
-(or NHWC), as the JAX package's image ops take them, until ``ToTensor``
-makes them CHW float32 in [0, 1].  The image ops the JAX package keeps in
-``ops/image.py`` (resize, crop, the colour jitters, PCA lighting) are
-written here on torch tensors; ``mx.nd.image`` itself is not ported yet
-(ROADMAP A4).
+Each transform is a ``Block`` over NDArrays (called with tensors, it
+takes and gives tensors), computing with the ``mx.nd.image`` ops where
+the image is.  Images are HWC (or NHWC), as the image ops take them,
+until ``ToTensor`` makes them CHW float32 in [0, 1].
 
 Random draws: the crops, flips, ``RandomApply`` and the jitter order use
 numpy's global generator, as the JAX package's do; the colour factors
@@ -20,11 +17,9 @@ from __future__ import annotations
 import math
 
 import numpy as _np
-import torch
-import torch.nn.functional as F
 
-from .... import random as _random
-from ....base import dtype_torch
+from ....ndarray import image as _img
+from ....ndarray.ndarray import invoke as _invoke
 from ...block import Block
 from ...nn import Sequential
 
@@ -33,39 +28,6 @@ __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize", "CenterCrop",
            "RandomCrop", "CropResize", "RandomBrightness", "RandomContrast",
            "RandomSaturation", "RandomHue", "RandomColorJitter",
            "RandomLighting", "RandomApply"]
-
-_GRAY = (0.299, 0.587, 0.114)
-
-
-def _resize(x, w: int, h: int, interpolation: int = 1):
-    """HWC or NHWC ``x`` resized to ``h`` x ``w`` in fp32, bilinear (with
-    antialiasing when it shrinks, as ``jax.image.resize``) for
-    ``interpolation`` 1, else nearest; back in ``x``'s dtype."""
-    batch = x.dim() == 4
-    nchw = (x if batch else x[None]).permute(0, 3, 1, 2).float()
-    if interpolation == 1:
-        out = F.interpolate(nchw, size=(h, w), mode="bilinear",
-                            align_corners=False, antialias=True)
-    else:
-        out = F.interpolate(nchw, size=(h, w), mode="nearest")
-    out = out.permute(0, 2, 3, 1)
-    return (out if batch else out[0]).to(x.dtype)
-
-
-def _crop(x, x0: int, y0: int, w: int, h: int):
-    if x.dim() == 4:
-        return x[:, y0:y0 + h, x0:x0 + w, :]
-    return x[y0:y0 + h, x0:x0 + w, :]
-
-
-def _uniform(x, lo: float, hi: float):
-    gen = _random.device_generator(x.device)
-    return torch.empty((), device=x.device).uniform_(lo, hi, generator=gen)
-
-
-def _gray(x):
-    coef = torch.tensor(_GRAY, dtype=x.dtype, device=x.device)
-    return (x * coef).sum(dim=-1, keepdim=True)
 
 
 class Compose(Sequential):
@@ -76,40 +38,44 @@ class Compose(Sequential):
 
 
 class Cast(Block):
+    _nd_forward = True
+
     def __init__(self, dtype="float32"):
         super().__init__()
-        self._dtype = dtype_torch(dtype)
+        self._dtype = dtype
 
     def forward(self, x):
-        return x.to(self._dtype)
+        return x.astype(self._dtype)
 
 
 class ToTensor(Block):
     """HWC uint8 in [0, 255] -> CHW float32 in [0, 1] (NHWC -> NCHW)."""
 
+    _nd_forward = True
+
     def forward(self, x):
-        out = x.float() / 255.0
-        return out.permute(2, 0, 1) if out.dim() == 3 else out.permute(
-            0, 3, 1, 2)
+        return _img.to_tensor(x)
 
 
 class Normalize(Block):
     """``(x - mean) / std`` per channel of a CHW (or NCHW) image."""
 
+    _nd_forward = True
+
     def __init__(self, mean=0.0, std=1.0):
         super().__init__()
-        self._mean = _np.asarray(mean, "float32").reshape(-1, 1, 1)
-        self._std = _np.asarray(std, "float32").reshape(-1, 1, 1)
+        self._mean = tuple(_np.asarray(mean, "float32").ravel().tolist())
+        self._std = tuple(_np.asarray(std, "float32").ravel().tolist())
 
     def forward(self, x):
-        mean = torch.from_numpy(self._mean).to(x.device)
-        std = torch.from_numpy(self._std).to(x.device)
-        return (x - mean) / std
+        return _img.normalize(x, self._mean, self._std)
 
 
 class Resize(Block):
     """Resize an HWC image to ``size`` (an int: square; else (w, h)), or
     with ``keep_ratio`` its short side to ``size``."""
+
+    _nd_forward = True
 
     def __init__(self, size, keep_ratio=False, interpolation=1):
         super().__init__()
@@ -127,11 +93,13 @@ class Resize(Block):
                 h, w = max(1, round(ih * short / iw)), short
         else:
             w, h = self._size
-        return _resize(x, w, h, self._interp)
+        return _img.resize(x, (w, h), interp=self._interp)
 
 
 class CenterCrop(Block):
     """The centred ``size`` (w, h) window (no resize)."""
+
+    _nd_forward = True
 
     def __init__(self, size, interpolation=1):
         super().__init__()
@@ -140,12 +108,14 @@ class CenterCrop(Block):
     def forward(self, x):
         w, h = self._size
         H, W = x.shape[0], x.shape[1]
-        return _crop(x, max((W - w) // 2, 0), max((H - h) // 2, 0), w, h)
+        return _img.crop(x, max((W - w) // 2, 0), max((H - h) // 2, 0), w, h)
 
 
 class RandomCrop(Block):
     """A ``size`` (w, h) window at a random place, after zero-padding by
     ``pad`` pixels on each side."""
+
+    _nd_forward = True
 
     def __init__(self, size, pad=None):
         super().__init__()
@@ -156,16 +126,19 @@ class RandomCrop(Block):
         w, h = self._size
         if self._pad:
             p = self._pad
-            x = F.pad(x, (0, 0, p, p, p, p))
+            x = _invoke("pad", [x], {"mode": "constant",
+                                     "pad_width": (p, p, p, p, 0, 0)})
         H, W = x.shape[0], x.shape[1]
         y0 = _np.random.randint(0, H - h + 1)
         x0 = _np.random.randint(0, W - w + 1)
-        return _crop(x, x0, y0, w, h)
+        return _img.crop(x, x0, y0, w, h)
 
 
 class RandomResizedCrop(Block):
     """A random window of ``scale`` of the area and ``ratio`` aspect,
     resized to ``size``; after 10 misses, the centred square."""
+
+    _nd_forward = True
 
     def __init__(self, size, scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
                  interpolation=1):
@@ -186,30 +159,37 @@ class RandomResizedCrop(Block):
             if w <= W and h <= H:
                 x0 = _np.random.randint(0, W - w + 1)
                 y0 = _np.random.randint(0, H - h + 1)
-                return _resize(_crop(x, x0, y0, w, h), *self._size,
-                               self._interp)
+                return _img.resize(_img.crop(x, x0, y0, w, h), self._size,
+                                   interp=self._interp)
         side = min(H, W)
-        return _resize(_crop(x, (W - side) // 2, (H - side) // 2, side,
-                             side), *self._size, self._interp)
+        return _img.resize(_img.crop(x, (W - side) // 2, (H - side) // 2,
+                                     side, side), self._size,
+                           interp=self._interp)
 
 
 class RandomFlipLeftRight(Block):
+    _nd_forward = True
+
     def forward(self, x):
         if _np.random.rand() < 0.5:
-            return torch.flip(x, dims=(1,))
+            return _img.flip_left_right(x)
         return x
 
 
 class RandomFlipTopBottom(Block):
+    _nd_forward = True
+
     def forward(self, x):
         if _np.random.rand() < 0.5:
-            return torch.flip(x, dims=(0,))
+            return _img.flip_top_bottom(x)
         return x
 
 
 class CropResize(Block):
     """The fixed window at (x, y) of ``width`` x ``height``, resized to
     ``size`` when given."""
+
+    _nd_forward = True
 
     def __init__(self, x, y, width, height, size=None, interpolation=1):
         super().__init__()
@@ -219,74 +199,53 @@ class CropResize(Block):
         self._interp = interpolation
 
     def forward(self, data):
-        out = _crop(data, self._x, self._y, self._w, self._h)
+        out = _img.crop(data, self._x, self._y, self._w, self._h)
         if self._size is not None:
-            out = _resize(out, *self._size, self._interp)
+            out = _img.resize(out, self._size, interp=self._interp)
         return out
 
 
 class _RandomColor(Block):
-    """A factor alpha drawn uniform in [max(0, 1 - jitter), 1 + jitter]."""
+    """``mx.nd.image.<_fn>`` with its factor drawn uniform in
+    [max(0, 1 - jitter), 1 + jitter]."""
+
+    _nd_forward = True
+    _fn = None
 
     def __init__(self, max_jitter):
         super().__init__()
         self._jitter = max_jitter
 
     def forward(self, x):
-        return self._apply(x, _uniform(x, max(0.0, 1.0 - self._jitter),
-                                       1.0 + self._jitter))
+        return getattr(_img, self._fn)(x, max(0.0, 1.0 - self._jitter),
+                                       1.0 + self._jitter)
 
 
 class RandomBrightness(_RandomColor):
     """``x * alpha``."""
-
-    @staticmethod
-    def _apply(x, alpha):
-        return x * alpha
+    _fn = "random_brightness"
 
 
 class RandomContrast(_RandomColor):
     """``x * alpha + mean(gray(x)) * (1 - alpha)``."""
-
-    @staticmethod
-    def _apply(x, alpha):
-        mean = _gray(x).mean(dim=(-3, -2, -1), keepdim=True)
-        return x * alpha + mean * (1.0 - alpha)
+    _fn = "random_contrast"
 
 
 class RandomSaturation(_RandomColor):
     """``x * alpha + gray(x) * (1 - alpha)``."""
-
-    @staticmethod
-    def _apply(x, alpha):
-        return x * alpha + _gray(x) * (1.0 - alpha)
+    _fn = "random_saturation"
 
 
 class RandomHue(_RandomColor):
-    """A hue rotation by alpha·pi in YIQ space, clipped at 0 (the JAX
-    package's linear form)."""
-
-    @staticmethod
-    def _apply(x, alpha):
-        dev = x.device
-        u, w = torch.cos(alpha * math.pi), torch.sin(alpha * math.pi)
-        t_yiq = torch.tensor([[0.299, 0.587, 0.114],
-                              [0.596, -0.274, -0.321],
-                              [0.211, -0.523, 0.311]], device=dev)
-        t_rgb = torch.tensor([[1.0, 0.956, 0.621],
-                              [1.0, -0.272, -0.647],
-                              [1.0, -1.107, 1.705]], device=dev)
-        e1 = torch.tensor([0.0, 1.0, 0.0], device=dev)
-        e2 = torch.tensor([0.0, 0.0, 1.0], device=dev)
-        rot = torch.stack([torch.tensor([1.0, 0.0, 0.0], device=dev),
-                           e1 * u + e2 * w, e2 * u - e1 * w])
-        m = t_rgb @ rot @ t_yiq
-        return torch.clamp(x @ m.t().to(x.dtype), min=0)
+    """A hue rotation by alpha·pi in YIQ space, clipped at 0."""
+    _fn = "random_hue"
 
 
 class RandomColorJitter(Block):
     """Brightness, contrast, saturation and hue jitter (each given as its
     ``max_jitter``; 0 leaves it out) in a random order."""
+
+    _nd_forward = True
 
     def __init__(self, brightness=0, contrast=0, saturation=0, hue=0):
         super().__init__()
@@ -308,30 +267,20 @@ class RandomLighting(Block):
     """AlexNet's PCA lighting noise: ``x + eigvec @ (alpha * eigval)`` per
     pixel, alpha ~ N(0, alpha_std^2) per channel."""
 
-    _EIGVAL = (55.46, 4.794, 1.148)
-    _EIGVEC = ((-0.5675, 0.7192, 0.4009),
-               (-0.5808, -0.0045, -0.8140),
-               (-0.5836, -0.6948, 0.4203))
+    _nd_forward = True
 
     def __init__(self, alpha=0.05):
         super().__init__()
         self._alpha = alpha
 
     def forward(self, x):
-        gen = _random.device_generator(x.device)
-        alpha = torch.randn(3, generator=gen, device=x.device) * self._alpha
-        return self._apply(x, alpha)
-
-    @classmethod
-    def _apply(cls, x, alpha):
-        eigval = torch.tensor(cls._EIGVAL, device=x.device)
-        eigvec = torch.tensor(cls._EIGVEC, device=x.device)
-        delta = (eigvec * alpha * eigval).sum(dim=1)
-        return x + delta.to(x.dtype)
+        return _img.random_lighting(x, self._alpha)
 
 
 class RandomApply(Sequential):
     """``transforms`` with probability ``p``, else the identity."""
+
+    _nd_forward = True
 
     def __init__(self, transforms, p=0.5):
         super().__init__()

@@ -484,6 +484,8 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
         hook(op.name, t0, _time.perf_counter())
     multi = isinstance(result, (tuple, list))
     outs_raw = _own(list(result) if multi else [result], raw)
+    if recording:
+        autograd.note_op(op.name, params, raw, outs_raw)
     if autograd.is_recording() and op.differentiable:
         # a non-differentiable op (isnan, isinf, isfinite, logical_not)
         # puts no node on the tape, as in the JAX package: a head it made
@@ -513,7 +515,9 @@ def _from_numpy(a: _np.ndarray) -> torch.Tensor:
     if str(a.dtype) == "bfloat16":
         return torch.from_numpy(_np.ascontiguousarray(a).view(_np.int16)
                                 .copy()).view(torch.bfloat16)
-    return torch.tensor(a)
+    # (a negatively strided view, x[..., ::-1], needs a contiguous copy;
+    # np.ascontiguousarray would make a 0-d array 1-d)
+    return torch.tensor(a if a.flags.c_contiguous else a.copy())
 
 
 def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
@@ -624,8 +628,13 @@ def save(fname: str, data) -> None:
         os.replace(fname + ".npz", fname)
 
 
-def load(fname: str):
-    path = fname if os.path.exists(fname) else fname + ".npz"
+def load(fname):
+    """The arrays ``save`` wrote to ``fname`` (a path or a binary file
+    object): a list, or a dict when they were saved with names."""
+    if not isinstance(fname, (str, os.PathLike)):
+        path = fname
+    else:
+        path = fname if os.path.exists(fname) else fname + ".npz"
     with _np.load(path, allow_pickle=False) as zf:
         manifest = [s.split("\x00") for s in zf["__manifest__"]]
         out = []

@@ -206,8 +206,12 @@ _BWD_BLOCK_K = 128
 
 class _FlashFunction(torch.autograd.Function):
     """``(out, lse)`` of :func:`flash_fwd` on ``[B, H, S, D]`` inputs, with
-    the gradient of ``out`` computed blockwise from the saved lse (lse
-    itself takes none)."""
+    their gradient computed blockwise from the saved lse.  The backward is
+    torch code on the saved inputs and outputs, so that
+    ``autograd.grad(create_graph=True)`` differentiates it: the saved
+    ``out`` and ``lse`` lead back into this node, the kernel stays on the
+    path, and lse's own cotangent (``∂lse/∂s = P``) carries their
+    dependence on q and k."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
@@ -220,25 +224,29 @@ class _FlashFunction(torch.autograd.Function):
         out, lse = out.view(b, h, sq, d), lse.view(b, h, sq)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_backward(q, k, v, out, lse, dout, ctx.causal,
-                                     ctx.sm_scale)
+                                     ctx.sm_scale, dlse)
         return dq, dk, dv, None, None
 
 
-def _flash_backward(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
+def _flash_backward(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
+                    dlse=None):
     """The JAX package's ``_flash_bwd`` in fp32: ``delta = Σ dO·O``, then
     per block of 128 keys P is recomputed from the lse (masked scores at
     -1e30 give exactly 0), dq accumulates and the block's dk, dv are
     written; the full score matrix never exists.  A ragged last block is
-    sliced short where the JAX package pads and masks it."""
+    sliced short where the JAX package pads and masks it.  An lse
+    cotangent ``dlse`` adds ``dlse·P`` to the scores' gradient, which is
+    ``delta - dlse`` in place of ``delta``."""
     qf, do = q.float(), dout.float()
     delta = (do * out.float()).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.float().unsqueeze(-1)
     lse = lse.unsqueeze(-1)
     sk = k.shape[2]
     bk = min(_BWD_BLOCK_K, sk)

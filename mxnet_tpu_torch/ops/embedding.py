@@ -150,7 +150,26 @@ class _EmbeddingLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         ids, = ctx.saved_tensors
-        return None, None, embedding_backward(ids, dy, ctx.vocab)
+        return None, None, _EmbeddingGrad.apply(ids, dy, ctx.vocab)
+
+
+class _EmbeddingGrad(torch.autograd.Function):
+    """:func:`embedding_backward` as a node of its own, so that
+    ``autograd.grad(create_graph=True)`` differentiates it with the kernel
+    still on the path: the table's gradient is linear in ``dy``, and its
+    derivative is the lookup of the cotangent at the valid ids (zero at
+    the invalid ones), whose own gradient is the kernel again."""
+
+    @staticmethod
+    def forward(ctx, ids, dy, vocab: int):
+        ctx.save_for_backward(ids)
+        return embedding_backward(ids, dy, vocab)
+
+    @staticmethod
+    def backward(ctx, ddw):
+        ids, = ctx.saved_tensors
+        rows, ok = embedding_lookup(ids, ddw)
+        return None, torch.where(ok.unsqueeze(-1), rows, 0), None
 
 
 def embedding_lookup(ids, weight):

@@ -114,3 +114,35 @@ def get(name: str) -> Operator:
 
 def list_ops() -> List[str]:
     return sorted(REGISTRY.keys())
+
+
+def expose_contrib_namespace(contrib_mod, parent_mod) -> None:
+    """Surface every ``_contrib_<x>`` registration as ``<x>`` on
+    ``contrib_mod``, forwarding to the generated function on
+    ``parent_mod`` (the reference's ``_init_op_module`` contrib split,
+    ``python/mxnet/base.py:730``).  Shared by ``mx.nd.contrib`` and
+    ``mx.sym.contrib``; a name ``contrib_mod`` defines itself wins.  The
+    names are looked up in the module's ``__dict__``: ``hasattr`` would
+    run its ``__getattr__``, which makes a second function."""
+    defined = vars(contrib_mod)
+    for full_name in list(REGISTRY):
+        if not full_name.startswith("_contrib_"):
+            continue
+        short = full_name[len("_contrib_"):]
+        if short in defined:
+            continue
+        fn = getattr(parent_mod, full_name, None)
+        if fn is not None:
+            setattr(contrib_mod, short, fn)
+
+
+def resolve_contrib_late(contrib_mod, name: str, maker):
+    """The body of a contrib namespace's ``__getattr__``: a function for
+    an op registered after import (``maker(op, full_name)``), kept on the
+    module, or AttributeError."""
+    full = "_contrib_" + name
+    if full in REGISTRY:
+        fn = maker(get(full), full)
+        setattr(contrib_mod, name, fn)
+        return fn
+    raise AttributeError(f"{contrib_mod.__name__} has no op {name!r}")

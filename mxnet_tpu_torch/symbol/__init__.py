@@ -6,6 +6,8 @@ registry ``mx.nd`` is generated from becomes a function taking Symbols
 and ``name=``.  A learnable input left out of ``FullyConnected``,
 ``Convolution``, ``BatchNorm``, ``LayerNorm`` or ``Embedding`` becomes a
 variable named ``{node}_{suffix}``, as in the reference.
+``mx.sym.random``, ``mx.sym.linalg`` and ``mx.sym.contrib`` are the op
+namespaces, as in ``mx.nd``.
 """
 from __future__ import annotations
 
@@ -75,6 +77,9 @@ for _name, _op in list(_registry.REGISTRY.items()):
 del _this, _name, _op
 
 from . import random  # noqa: E402,F401  (mx.sym.random)
+from . import contrib, linalg  # noqa: E402,F401
+
+contrib._codegen_contrib_namespace()
 from .._fluent import attach_fluent as _attach_fluent  # noqa: E402
 
 _attach_fluent(Symbol, _sys.modules[__name__])

@@ -42,6 +42,13 @@ import mxnet_tpu_torch.fleet.manager
 import mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.gluon.loss
 import mxnet_tpu_torch.gluon.model_zoo.model_store
 import mxnet_tpu_torch.gluon.contrib.estimator
+import mxnet_tpu_torch.image, mxnet_tpu_torch.operator
+import mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.ndarray.linalg
+import mxnet_tpu_torch.ndarray.image, mxnet_tpu_torch.ndarray.utils
+import mxnet_tpu_torch.ndarray._internal, mxnet_tpu_torch.symbol.contrib
+import mxnet_tpu_torch.symbol.linalg, mxnet_tpu_torch.ops.linalg
+import mxnet_tpu_torch.ops.control_flow, mxnet_tpu_torch.ops.image
+import mxnet_tpu_torch.ops.contrib_ops
 sys.path.insert(0, "tools")
 import serve_torch, chaos_torch
 print("\\n".join(sorted(set(sys.modules) - before)))
@@ -114,6 +121,18 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet",
                  "mxnet_tpu_torch.gluon.contrib.estimator.estimator",
                  "mxnet_tpu_torch.gluon.contrib.estimator.event_handler",
+                 "mxnet_tpu_torch.image", "mxnet_tpu_torch.operator",
+                 "mxnet_tpu_torch.ndarray.contrib",
+                 "mxnet_tpu_torch.ndarray.linalg",
+                 "mxnet_tpu_torch.ndarray.image",
+                 "mxnet_tpu_torch.ndarray.utils",
+                 "mxnet_tpu_torch.ndarray._internal",
+                 "mxnet_tpu_torch.symbol.contrib",
+                 "mxnet_tpu_torch.symbol.linalg",
+                 "mxnet_tpu_torch.ops.linalg",
+                 "mxnet_tpu_torch.ops.control_flow",
+                 "mxnet_tpu_torch.ops.image",
+                 "mxnet_tpu_torch.ops.contrib_ops",
                  "serve_torch", "chaos_torch"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]
