@@ -149,9 +149,9 @@ beside its bound, then drives the port's paths:
   acceptance and agreement with plain paged, warmed tokens bit for bit
   the unwarmed ones, and a ``torch.profiler`` trace of 16 warmed decode
   steps (busy share, device ms by GEMM, elementwise and other).
-- the fleet (slice 18, ``fleet``): (a) the ``serving`` phase's llama_7b
-  behind a ``fleet.Router`` over in-process ModelServers sharing its
-  weights: one mixed replica, then one prefill and two decode replicas
+- the fleet (slice 18, ``fleet``): (a) llama_7b at its full width and 8
+  of its 32 layers (the depth cut since slice 23) behind a
+  ``fleet.Router`` over in-process ModelServers sharing its weights: one mixed replica, then one prefill and two decode replicas
   (each paged and warmed for its role), the 4 prompts, then the longest
   alone; tokens/s,
   first-token ms, each K/V handoff's bytes and the ms of its gather,
@@ -166,9 +166,9 @@ beside its bound, then drives the port's paths:
   ``tools/chaos_torch.py`` over two ``tools/serve_torch.py`` children of
   (b)'s model, 2 seeded SIGKILLs with the supervisor armed.  (d)
   ``serving_bert``'s BERT-base behind two replicas' ``/predict`` and
-  llama_7b's dense engine behind two replicas' ``/generate``, through
-  the Router: the flash kernels' launches on that path, each held against
-  its plain version.
+  (a)'s llama_7b's dense engine behind two replicas' ``/generate``,
+  through the Router: the flash kernels' launches on that path, each held
+  against its plain version.
 - the vision zoo and the Estimator (slice 19): ``vision_zoo`` builds 8
   zoo models through ``get_model`` at their published widths (1000
   classes, 224 px, Inception 299 px), holds each hybridized forward at
@@ -216,22 +216,43 @@ beside its bound, then drives the port's paths:
   the control flow also captured in a hybridized block; a DLPack write
   alias; and the host cost of ``get_symbol``'s op notes on the LSTM LM's
   eager window.
+- AMP and the kernel registry (slice 23, ``amp``): full-width BERT-base
+  (batch 64, seq 128, Adam) through MXNet's AMP loop under
+  ``amp.init("float16")`` (``init_trainer``, ``scale_loss``,
+  ``Trainer.step``) on the flash kernel's fp16 route, 12 launches a
+  forward, held to a twin of the same size on the card that runs the
+  plain versions (registered through the kernel registry at priority
+  99): the loss-scale and skip sequence, the losses, and the first
+  update's gradients, whose limit two perturbed twins bracket; the same
+  model under ``amp.init("bfloat16")`` through ``CompiledTrainStep``'s
+  graph, bit for bit its eager twin, on the bf16 wgmma route; full-width
+  fused resnet50_v1 (224 px, batch 256) through the AMP loop under fp16,
+  36 conv-BN launches a step on fp32 inputs, the convolutions in fp16,
+  held the same way to a full-size twin on the card, with the 4 steps'
+  update gap beside a perturbed twin's and an fp32 pair's; then the
+  kernel registry on the card (a user kernel claiming only the fp16
+  calls, ``MXNET_KERNEL_BACKEND=torch`` refused on a CUDA tensor) and the
+  config layer's card values.  Each step ms beside the same model's fp32
+  step.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
-device, graph_semantics, train_step_graphs, flash, flash_timing, fused,
-fused_timing, model_parity, serving,
+device, graph_semantics, train_step_graphs, flash (or kernels),
+flash_timing, fused, fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, vision_zoo,
-estimator, optimizers, ops_rnn, ndarray_rest, serving_bert,
+estimator, optimizers, ops_rnn, ndarray_rest, amp, serving_bert,
 serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
-a kernel is brought up; ``--only build,ndarray_rest,fused_timing``
+a kernel is brought up; ``--only build,amp,kernels,flash_timing`` runs
+slice 23 (the fp16 flash cases, the amp phase and the fp16 route's
+kernel line; add ``fused_timing`` for B1's line);
+``--only build,ndarray_rest,fused_timing``
 runs slice 22 with its kernel line; ``--only build,ops_rnn`` runs slice 21 (add
 ``embedding_bwd`` for the kernel line whose launches it counts);
-``--only build,serving,serving_bert,fleet`` runs
-slice 18 (``fleet`` builds the models it reuses when their phases did not
-run); ``--only build,optimizers`` runs slice 20 (add ``bert_flash``,
+``--only build,serving_bert,fleet`` runs
+slice 18 (``fleet`` builds its 8-layer llama_7b, and BERT-base when
+``serving_bert`` did not run); ``--only build,optimizers`` runs slice 20 (add ``bert_flash``,
 ``fused_timing`` and ``embedding_bwd`` for the kernel lines whose
 launches it counts); ``--only build,vision_zoo,estimator`` runs slice 19 (add
 ``fused_timing`` for the kernel line); ``--only build,serving,speculative`` runs slice 17
@@ -257,6 +278,7 @@ the fused 1x1-conv + BN-statistics kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -286,7 +308,7 @@ PEAK_BYTES = 3.35e12
 FLASH_SHAPES = [(1, 32, 16, 128), (4, 32, 512, 128), (4, 32, 1024, 128),
                 (4, 32, 2048, 128), (1, 4, 64, 16), (2, 4, 300, 16),
                 (2, 8, 384, 64), (1, 4, 130, 128), (1, 4, 100, 40),
-                (1, 4, 64, 36), (1, 4, 64, 30)]
+                (1, 4, 64, 36), (1, 4, 64, 30), (64, 12, 128, 64)]
 FLASH_TIMED = (4, 32, 2048, 128)
 FLASH_DECODE = (4, 32, 1024, 128)
 # Tolerances on max |kernel - plain|.  fp32: the starting 1e-4 on O and lse
@@ -299,9 +321,17 @@ FLASH_DECODE = (4, 32, 1024, 128)
 # the fp32 summation order).  lse is fp32 on both sides, so its bound is
 # tightened from 1e-2 to 1e-4.
 TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
-       "bfloat16": {"o": 2e-2, "lse": 1e-4}}
+       "bfloat16": {"o": 2e-2, "lse": 1e-4},
+       "float16": {"o": 2e-2, "lse": 1e-4}}
 BF16_O_REL = 2.0 ** -8
 BF16_O_ABS = 1e-5
+# fp16 (amp.init("float16"), the wgmma kernel's fp16 route and the CUDA
+# cores for D % 8 != 0) is held the same way, to half an fp16 ulp:
+# |o - ref| <= 2^-11 |ref| + 1e-5.  Every FLASH_SHAPES case runs in fp16 too:
+# [64, 12, 128, 64] non-causal is BERT-base's attention under amp,
+# [4, 32, 2048, 128] causal the timed shape, D = 36 and 30 the CUDA cores.
+HALF_O_REL = {"bfloat16": BF16_O_REL, "float16": 2.0 ** -11}
+FP16_BERT = (64, 12, 128, 64)
 
 # Fused 1x1-conv + BN-statistics kernel: the (K, N) of every bottleneck 1x1
 # conv of resnet50_v1, by stage, with its output side at 224 px (the
@@ -455,22 +485,30 @@ def flash_bound_ms(b, h, s, d, causal, dtype_bytes, ops_factor=1.0,
 
 
 def phase_kernels(torch, seed):
-    """Every FLASH_SHAPES case, fp32 and bf16, causal and not, once on the
-    kernel _flash_variant picks, against the plain version in fp32."""
+    """Every FLASH_SHAPES case, fp32, bf16 and fp16, causal and not, once
+    on the kernel _flash_variant picks, against the plain version in
+    fp32."""
     from mxnet_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = []
     for (b, h, s, d) in FLASH_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             for causal in (False, True):
                 q, k, v = (torch.randn(b * h, s, d, generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(3))
                 scale = 1.0 / math.sqrt(d)
                 before = (A.flash_fwd_wgmma_launches,
-                          A.flash_fwd_tf32_launches)
+                          A.flash_fwd_tf32_launches,
+                          A.flash_fwd_wgmma_fp16_launches)
                 o, lse = A.flash_fwd(q, k, v, causal, scale)
-                ran_wgmma = A.flash_fwd_wgmma_launches - before[0] == 1
+                # the wgmma kernel counts bf16 and fp16 apart
+                ran_wgmma = (A.flash_fwd_wgmma_launches - before[0]
+                             + A.flash_fwd_wgmma_fp16_launches - before[2]
+                             == 1)
+                ran_own_count = (
+                    (A.flash_fwd_wgmma_fp16_launches - before[2] == 1)
+                    == (dtype == torch.float16 and ran_wgmma))
                 ran_tf32 = A.flash_fwd_tf32_launches - before[1] == 1
                 ro, rl = A._flash_forward_plain(q.float(), k.float(),
                                                 v.float(), causal, scale)
@@ -481,10 +519,12 @@ def phase_kernels(torch, seed):
                         "causal": causal, "variant": variant,
                         "o_err": (o.float() - ro).abs().max().item(),
                         "lse_err": (lse - rl).abs().max().item()}
-                if dtype == torch.bfloat16:
+                if dtype != torch.float32:
                     # 1 at the half-ulp bound; above 1 fails the case
                     case["o_half_ulp_ratio"] = ((o.float() - ro).abs() / (
-                        BF16_O_REL * ro.abs() + BF16_O_ABS)).max().item()
+                        HALF_O_REL[name] * ro.abs() + BF16_O_ABS)
+                        ).max().item()
+                if dtype == torch.bfloat16:
                     # the plain version in bf16 rounds scores and P to bf16
                     # (the JAX lowering does the same): reported, not gated
                     po, pl = A._flash_forward_plain(q, k, v, causal, scale)
@@ -502,6 +542,7 @@ def phase_kernels(torch, seed):
                               and case.get("o_half_ulp_ratio", 0.0) <= 1.0
                               and variant == want
                               and ran_wgmma == (variant == "wgmma")
+                              and ran_own_count
                               and ran_tf32 == (variant == "tf32"))
                 cases.append(case)
                 del q, k, v, o, lse, ro, rl
@@ -524,7 +565,10 @@ def _in_turns(torch, fns, iters=10):
 def phase_flash_timing(torch, seed):
     """The tensor-core kernel, its plain version and SDPA in turns at the
     timed shape and at the dense engine's decode shape (causal bf16), with
-    the CUDA-core kernel at the timed shape as the earlier figure."""
+    the CUDA-core kernel at the timed shape as the earlier figure; then
+    the kernel's fp16 route the same way at BERT-base's shape under amp
+    (non-causal) and at the timed shape.  Returns the bf16 timed figures
+    and the fp16 ones at BERT-base's shape."""
     from mxnet_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -561,8 +605,38 @@ def phase_flash_timing(torch, seed):
         if key == "timed":
             out[key]["simt_ms"] = best["simt_kernel"]
         del q, k, v, q4, k4, v4
+    fp16 = {}
+    for key, (b, h, s, d), causal in (("bert", FP16_BERT, False),
+                                      ("timed", FLASH_TIMED, True)):
+        q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda",
+                               dtype=torch.float16) for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        o, _ = A.flash_fwd(q, k, v, causal, scale)
+        ro, _ = A._flash_forward_plain(q.float(), k.float(), v.float(),
+                                       causal, scale)
+        err = (o.float() - ro).abs().max().item()
+        del o, ro
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        fns = {"kernel": lambda: A.flash_fwd(q, k, v, causal, scale),
+               "plain": lambda: A._flash_forward_plain(q, k, v, causal,
+                                                       scale),
+               "library": lambda: sdpa(q4, k4, v4, is_causal=causal,
+                                       scale=scale)}
+        best, runs = _in_turns(torch, fns)
+        bound, bound_by = flash_bound_ms(b, h, s, d, causal, 2)
+        fp16[key] = {"shape": [b, h, s, d], "causal": causal,
+                     "variant": A._flash_variant(torch.float16, d),
+                     "max_abs_err": err, "ms": best["kernel"],
+                     "plain_ms": best["plain"],
+                     "library_ms": best["library"], "bound_ms": bound,
+                     "bound_by": bound_by,
+                     "split_p_bound_ms": flash_bound_ms(
+                         b, h, s, d, causal, 2, 1.5)[0],
+                     "runs_ms": runs}
+        del q, k, v, q4, k4, v4
+    out["float16"] = fp16
     emit({"phase": "kernel_timing", "ok": True, "flash_fwd": out})
-    return out["timed"]
+    return out["timed"], fp16["bert"]
 
 
 def _random_llama(torch, seed, dtype, num_layers):
@@ -2653,8 +2727,9 @@ def phase_speculative(torch, seed, model, dense_per_forward):
     check(out["ok"], f"speculative gates failed: {gates}")
 
 
-# The fleet (slice 18).  (a) the serving phase's llama_7b (bf16, 32 layers,
-# one weight copy) behind a Router: first one mixed replica, then one
+# The fleet (slice 18).  (a) llama_7b at its full width and FLEET["layers"]
+# of its 32 layers (bf16, one weight copy; the depth was cut from 32 to 8
+# so the whole script keeps inside its limit) behind a Router: first one mixed replica, then one
 # prefill and two decode replicas, each paged (16-token pages, 4 slots) and
 # warmed for its role; the serving phase's 4 prompts, 16 new tokens each,
 # FLEET["rounds"] times on the mixed replica (its second round finds the
@@ -2675,9 +2750,10 @@ def phase_speculative(torch, seed, model, dense_per_forward):
 # each step.  (c) tools/chaos_torch.py: two tools/serve_torch.py children of
 # (b)'s model (max_length 128), 16 streams of 24 tokens 30 ms apart (so a
 # kill finds streams in flight), 2 seeded SIGKILLs.
-# (d) BERT-base behind two replicas' /predict and llama_7b's dense engine
-# behind two replicas' /generate, through the Router.
-FLEET = dict(slots=4, page_tokens=16, rounds=2, disagg_rounds=1,
+# (d) BERT-base behind two replicas' /predict and (a)'s llama_7b's dense
+# engine behind two replicas' /generate, through the Router: one bf16
+# wgmma flash launch per layer per forward.
+FLEET = dict(layers=8, slots=4, page_tokens=16, rounds=2, disagg_rounds=1,
              exact_system=64, exact_suffixes=(16, 40, 90, 130),
              exact_new=24, exact_slots=2, exact_max_length=256,
              migrate_prompt=100, step_delay_s=0.05, hedge_delay_s=1.0,
@@ -3343,7 +3419,8 @@ def _fleet_kernels(torch, seed, llama, bert, prompts):
         "d_no_new_entries": out["llama_dense"]["new_entries"] == [0, 0],
         "d_bert_tf32_launches": tf32["tf32"] == 12 * tf32["replays"] > 0
         and tf32["flash_fwd"] == tf32["tf32"] and tf32["wgmma"] == 0,
-        "d_dense_wgmma_launches": wgmma["wgmma"] == 32 * wgmma["replays"] > 0
+        "d_dense_wgmma_launches": wgmma["wgmma"]
+        == FLEET["layers"] * wgmma["replays"] > 0
         and wgmma["flash_fwd"] == wgmma["wgmma"] and wgmma["tf32"] == 0,
         "d_dense_tokens": all(len(t) == NEW_TOKENS for t in routed) and all(
             x is None or x["top2_margin"] < floor for x in div)}
@@ -3353,17 +3430,16 @@ def _fleet_kernels(torch, seed, llama, bert, prompts):
     return out, gates, tf32["tf32"], wgmma["wgmma"]
 
 
-def phase_fleet_models(torch, seed, llama=None, bert=None):
-    """The fleet phase's parts on the serving phases' models: (a) and (d).
-    Returns (partial line, gates, bf16 wgmma launches, fp32 tf32
-    launches) for phase_fleet."""
+def phase_fleet_models(torch, seed, bert=None):
+    """The fleet phase's parts on llama_7b at FLEET["layers"] layers and
+    the serving phase's BERT-base: (a) and (d).  Returns (partial line,
+    gates, bf16 wgmma launches, fp32 tf32 launches) for phase_fleet."""
     import mxnet_tpu_torch as mx
     card = _card()
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    if llama is None:
-        llama = _random_llama(torch, seed, torch.bfloat16, 32)
+    llama = _random_llama(torch, seed, torch.bfloat16, FLEET["layers"])
     if bert is None:
         from mxnet_tpu_torch.gluon.model_zoo.language import bert_12_768_12
         mx.random.seed(seed)
@@ -3374,8 +3450,8 @@ def phase_fleet_models(torch, seed, llama=None, bert=None):
     kernels, kgates, tf32, wgmma = _fleet_kernels(torch, seed, llama, bert,
                                                   prompts)
     gates.update(kgates)
-    line = {"phase": "fleet", "card": card, "a_disaggregated_llama_7b_bf16":
-            disagg, "d_kernels": kernels,
+    line = {"phase": "fleet", "card": card, "llama_layers": FLEET["layers"],
+            "a_disaggregated_llama_7b_bf16": disagg, "d_kernels": kernels,
             "models_seconds": time.perf_counter() - t0}
     return line, gates, wgmma, tf32
 
@@ -5535,6 +5611,717 @@ def phase_bert_training(torch, seed):
           "graph_over_eager_step_ms": {
               r["run"]: r["step_ms"] / r["eager_step_ms"] for r in runs}})
     return sum(r["flash_fwd_tf32_launches"] for r in runs)
+
+
+# ---------------------------------------------------------------------------
+# slice 23: AMP (op-level autocast, dynamic loss scaling) and the kernel
+# registry on the card
+# ---------------------------------------------------------------------------
+# (a) Full-width BERT-base (bert_training's batch 64 and seq 128, Adam lr
+# 1e-4, dropout 0.1) through MXNet's AMP loop under amp.init("float16"):
+# amp.init_trainer, record, scale_loss on the mean loss, backward,
+# Trainer.step(1), 4 steps, then the same loop in fp32 for the step-time
+# comparison.  (On the sum over the batch, the loss of MXNet's image
+# loop, every step overflowed at the scales 2^15 down to 2^11 in both
+# models, so no update ran.)  Its twin: the same loop from the same
+# weights, dropout stream and batches with the plain versions in place of
+# the kernels, registered through the kernel registry at priority 99 (the
+# twin's launches must be 0), on the card: the chip host's CPU did not
+# finish an fp16 twin of 8 rows within 800 s.  Gates: the loss-scale and
+# skip sequences equal, each step's loss within loss_rel of the twin's,
+# and the gradients of the first step that updates (unscaled, all
+# parameters as one vector) within bert_grad_rel of the twin's in norm.
+# That limit is held by witnesses in the same run: the twin with the
+# plain version's output perturbed by fixed noise at witness_factors
+# times the kernel's tolerance (TWIN_TOL: O by half an fp16 ulp, lse by
+# 1e-4), each gap printed; at the tolerance it must pass the limit, and
+# at fault_factor times it fail it.  On an H100: 1.59e-3 apart, 1.70e-3
+# at 1x the tolerance, 5.96e-3 at 10x, 5.82e-2 at 100x, 0.609 at 1000x.  The parameters
+# after 4 steps are printed, not gated: Adam moves a weight by about ±lr
+# whatever its gradient's size, so any rounding apart can cost 2·lr.
+# (b) The same model under amp.init("bfloat16") through
+# CompiledTrainStep's graph for bf16_steps steps, bit for bit its eager
+# twin (deterministic algorithms), on the bf16 wgmma route.  (c)
+# Full-width fused resnet50_v1 (224 px, batch 256, SGD as bench.py,
+# hybridized) through the AMP loop on the mean loss under
+# amp.init("float16") for 4 steps (the stem convolution's fp16 weight
+# gradient overflows at 2^15 and 2^14: two skips, then updates), then
+# fp32; its twin with the plain conv-BN version the same way.  Gates: the
+# scale and skip sequences equal, each step's loss within resnet_loss_rel
+# of the twin's, the first update's gradients within resnet_grad_rel of
+# the twin's, a limit held by witnesses as in (a) (B1's y perturbed by
+# 1e-4 and its statistics by 1e-5 relative, times witness_factors), the
+# same limit on a kernel/twin pair with the centred variance
+# (MXNET_TPU_FAST_VARIANCE=0), and the whole model's change over the 4
+# steps (every parameter and running statistic, as one vector) no
+# further from the twin's, in norm, than update_factor times the
+# tolerance witness's.  The main run is repeated (on an H100 bit for
+# bit), and the fp32 timing run has a twin too.  On an H100 the first
+# update's gradients are 0.365 apart, 0.486 at 1x the tolerance and 1.38
+# at 100x; the fp32 pair 0.026 apart at its first step; every tensor's
+# gradient the same fraction apart (its share of the gap is its share of
+# the norm), so the gap enters above every layer, not beside one kernel;
+# the centred variance changes none of it (0.351).  Single tensors' updates are ill-conditioned (see
+# PARITY: a BatchNorm gamma's two-update change 0.88 of its norm apart, a
+# zero-initialised beta 1.0 of its largest |value|), so the worst is
+# printed, not gated.  (d) The kernel registry and the config layer on
+# the card.
+AMP = dict(steps=4, timed=3, bf16_steps=3, loss_rel=1e-3,
+           resnet_loss_rel=1e-2, bert_grad_rel=1e-2, resnet_grad_rel=0.75,
+           fault_factor=100.0, witness_factors=(1.0, 100.0),
+           update_factor=2.0)
+# each kernel's tolerance against its plain version, as its checks hold
+# it: the fp16 flash route's O within half an fp16 ulp, its lse within
+# 1e-4; B1's fp32 y within 1e-4 and its statistics within 1e-5
+TWIN_TOL = dict(flash_o_rel=HALF_O_REL["float16"],
+                flash_lse=TOL["float16"]["lse"],
+                b1_y_rel=FUSED_TOL["y_fp32_rel"],
+                b1_stats_rel=FUSED_TOL["stats_rel"])
+
+
+def _progress(msg):
+    print(f"amp: {msg}", flush=True)
+
+
+def _pseudo_noise(torch, t):
+    """Fixed noise in (-1, 1) of ``t``'s shape, from its element index
+    alone (no generator, so a CUDA graph may capture it)."""
+    i = torch.arange(t.numel(), device=t.device, dtype=torch.float32)
+    return torch.frac(torch.sin(i * 12.9898) * 43758.5453).view(t.shape)
+
+
+@contextlib.contextmanager
+def _plain_twin(torch, scale=0.0):
+    """The plain versions registered as priority-99 kernels of
+    ``flash_attention`` and ``conv1x1_bn_stats`` on the card, for a
+    twin's run; removed after.  ``scale`` > 0 perturbs their outputs at
+    ``scale`` times each kernel's tolerance (TWIN_TOL), by fixed noise:
+    a witness of what a kernel error of that size does to the run."""
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    from mxnet_tpu_torch.ops import kernels
+
+    def shake(t, rel=0.0, absolute=0.0):
+        n = _pseudo_noise(torch, t)
+        return (t.float() * (1 + scale * rel * n)
+                + scale * absolute * n).to(t.dtype)
+
+    def flash(q, k, v, causal, sm_scale, **_):
+        o, lse = A._flash_forward_plain(q, k, v, causal, sm_scale)
+        if scale:
+            o, lse = (shake(o, rel=TWIN_TOL["flash_o_rel"]),
+                      shake(lse, absolute=TWIN_TOL["flash_lse"]))
+        return o, lse
+
+    def conv(x, w, in_scale, in_shift, relu_in, **_):
+        out = FC._reference_conv1x1(x, w, in_scale, in_shift, relu_in)
+        if scale:
+            y, s1, s2 = out
+            out = (shake(y, rel=TWIN_TOL["b1_y_rel"]),
+                   shake(s1, rel=TWIN_TOL["b1_stats_rel"]),
+                   shake(s2, rel=TWIN_TOL["b1_stats_rel"]))
+        return out
+
+    for op, fn in (("flash_attention", flash), ("conv1x1_bn_stats", conv)):
+        kernels.register_kernel(op, platform="cuda", priority=99,
+                                name="plain_twin")(fn)
+    try:
+        yield
+    finally:
+        for op in ("flash_attention", "conv1x1_bn_stats"):
+            kernels._KERNELS[op] = [e for e in kernels._KERNELS[op]
+                                    if e.name != "plain_twin"]
+
+
+def _amp_loop(torch, net, batches, target, opt, opt_params, loss_of,
+              count, grads=None):
+    """MXNet's AMP training loop on ``net`` (NDArrays): under
+    ``amp.init(target)`` with ``amp.init_trainer`` and ``scale_loss``, or
+    plain fp32 when ``target`` is None.  Per step: the mean loss, the loss
+    scale after it, whether it skipped, and host ms (synchronised).  A
+    list ``grads`` receives the gradients of the first step that updated,
+    unscaled, as one fp32 vector."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+    if target:
+        amp.init(target)
+    try:
+        trainer = gluon.Trainer(net.collect_params(), opt, dict(opt_params))
+        if target:
+            amp.init_trainer(trainer)
+        live = [p for p in net.collect_params().values()
+                if p.grad_req != "null"]
+        steps = []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scale = 1.0
+            with autograd.record():
+                loss = loss_of(net, x, y)
+            if target:
+                scale = trainer._amp_loss_scaler.loss_scale
+                with amp.scale_loss(loss, trainer) as scaled:
+                    autograd.backward(scaled)
+            else:
+                loss.backward()
+            seen = (torch.cat([p.grad()._data.float().reshape(-1)
+                               for p in live]) / scale
+                    if grads is not None and not grads else None)
+            trainer.step(count)
+            mean = float(loss.mean().asscalar())
+            ms = 1e3 * (time.perf_counter() - t0)
+            row = {"loss": mean, "ms": ms}
+            if target:
+                row["loss_scale"] = trainer._amp_loss_scaler.loss_scale
+                row["skipped"] = row["loss_scale"] < scale
+            if seen is not None and not row.get("skipped"):
+                grads.append(seen)
+            steps.append(row)
+        return steps
+    finally:
+        if target:
+            amp.deinit()
+
+
+def _first_update(steps):
+    """How many steps run up to and including the first that updated."""
+    return next(i for i, s in enumerate(steps) if not s["skipped"]) + 1
+
+
+def _vector_gap(got, ref):
+    """||got - ref|| / ||ref|| over one run's gradient vector."""
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def _gap_by_tensor(got, ref, segments, top=4):
+    """The tensors of a gradient vector that carry most of ||got - ref||:
+    per tensor, its share of ||got - ref||², its share of ||ref||² and
+    its own relative gap.  ``segments`` is [(name, size)] in order."""
+    rows, off = [], 0
+    gap2, ref2 = (got - ref).norm().item() ** 2, ref.norm().item() ** 2
+    for name, size in segments:
+        d = (got[off:off + size] - ref[off:off + size]).norm().item()
+        r = ref[off:off + size].norm().item()
+        rows.append({"tensor": name, "gap_share": d * d / gap2 if gap2 else 0,
+                     "norm_share": r * r / ref2 if ref2 else 0,
+                     "rel": d / r if r else math.inf})
+        off += size
+    return sorted(rows, key=lambda row: -row["gap_share"])[:top]
+
+
+def _amp_bert(seed, dropout):
+    """Full-width BERT-base on the card, weights from ``seed``, its
+    dropout stream from ``seed + 1``."""
+    from mxnet_tpu_torch.gluon.model_zoo.language import BERTForPretraining
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    net = BERTForPretraining(vocab_size=BERT["vocab_size"],
+                             max_length=BERT["max_length"], dropout=dropout,
+                             generator=generator(seed + 1, "cuda"),
+                             device="cuda")
+    initialize(net, generator(seed, "cuda"))
+    return net
+
+
+def _amp_bert_batches(torch, seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    out = []
+    for i in range(AMP["steps"]):
+        (tok, typ), y = _bert_batch(torch, seed + 40 + i, BERT["vocab_size"],
+                                    BERT["batch"], BERT["seq"], "cuda")
+        out.append(((NDArray(tok.int(), mx.gpu(0)),
+                     NDArray(typ.int(), mx.gpu(0))), NDArray(y, mx.gpu(0))))
+    return out
+
+
+def _amp_bert_loss(net, x, y):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    mlm, _nsp = net(*x)
+    return SoftmaxCrossEntropyLoss()(mlm.reshape((-1, BERT["vocab_size"])),
+                                     y.reshape((-1,))).mean()
+
+
+def _seq_gates(main, twin):
+    return ([s["loss_scale"] for s in main] == [s["loss_scale"] for s in twin]
+            and [s["skipped"] for s in main] == [s["skipped"] for s in twin])
+
+
+def _flash_counts():
+    from mxnet_tpu_torch.ops import attention as A
+    return {"flash_fwd": A.flash_fwd_launches,
+            "fp16_wgmma": A.flash_fwd_wgmma_fp16_launches,
+            "bf16_wgmma": A.flash_fwd_wgmma_launches,
+            "tf32": A.flash_fwd_tf32_launches}
+
+
+def _zero_flash_counts():
+    from mxnet_tpu_torch.ops import attention as A
+    A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+    A.flash_fwd_wgmma_fp16_launches = A.flash_fwd_tf32_launches = 0
+
+
+def _amp_bert_fp16(torch, seed):
+    """(a): the main run with its launches, its twin, the two perturbed
+    twins (their first update only), the fp32 timing."""
+    opt = {"learning_rate": BERT["lr"]}
+    batches = _amp_bert_batches(torch, seed)
+    net = _amp_bert(seed, 0.1)
+    layers = len(net.bert.encoder.cells)
+    grads = {"main": []}
+    torch.cuda.synchronize()
+    _zero_flash_counts()
+    fp16 = _amp_loop(torch, net, batches, "float16", "adam", opt,
+                     _amp_bert_loss, 1, grads["main"])
+    torch.cuda.synchronize()
+    launches = _flash_counts()
+    _progress(f"(a) fp16 main run {[round(r['ms'], 1) for r in fp16]} ms")
+    main_state = {k: v.detach().float().clone()
+                  for k, v in net.state_dict().items()}
+    del net
+    _free(torch)
+    twin_net = _amp_bert(seed, 0.1)
+    grads["twin"] = []
+    _zero_flash_counts()
+    with _plain_twin(torch):
+        twin = _amp_loop(torch, twin_net, batches, "float16", "adam", opt,
+                         _amp_bert_loss, 1, grads["twin"])
+    torch.cuda.synchronize()
+    twin_launches = _flash_counts()
+    worst = max((main_state[k] - v.detach().float()).abs().max().item()
+                for k, v in twin_net.state_dict().items())
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(fp16, twin))
+    del twin_net, main_state
+    _free(torch)
+    first = _first_update(twin)
+    witness = {}
+    for factor in AMP["witness_factors"]:
+        wnet = _amp_bert(seed, 0.1)
+        grads[factor] = []
+        with _plain_twin(torch, factor):
+            witness[factor] = _amp_loop(torch, wnet, batches[:first],
+                                        "float16", "adam", opt,
+                                        _amp_bert_loss, 1, grads[factor])
+        del wnet
+        _free(torch)
+    gaps = {k: _vector_gap(g[0], grads["twin"][0]) if g else math.nan
+            for k, g in grads.items() if k != "twin"}
+    del grads
+    _free(torch)
+    _progress(f"(a) twins done, step-{first} gradient gaps {gaps}")
+    net = _amp_bert(seed, 0.1)
+    fp32 = _amp_loop(torch, net, batches[:AMP["timed"] + 1], None, "adam",
+                     opt, _amp_bert_loss, 1)
+    del net, batches
+    _free(torch)
+    _progress(f"(a) fp32 run {[round(r['ms'], 1) for r in fp32]} ms")
+    limit = AMP["bert_grad_rel"]
+    out = {"main": fp16, "fp32": fp32, "launches": launches, "twin": twin,
+           "twin_launches": twin_launches, "twin_loss_rel": loss_rel,
+           "twin_worst_param_abs": worst, "grad_step": first,
+           "twin_grad_rel": gaps["main"],
+           "witness_grad_rel": {str(f): gaps[f]
+                                for f in AMP["witness_factors"]},
+           "ms_fp16": _median([s["ms"] for s in fp16[1:]]),
+           "ms_fp32": _median([s["ms"] for s in fp32[1:]])}
+    gates = {
+        "a_fp16_launches": launches["fp16_wgmma"] == layers * AMP["steps"]
+        == launches["flash_fwd"] and launches["bf16_wgmma"] == 0
+        and launches["tf32"] == 0,
+        "a_twin_ran_plain": twin_launches["flash_fwd"] == 0,
+        "a_losses_finite": all(math.isfinite(s["loss"]) for s in fp16),
+        "a_twin_scale_and_skips": _seq_gates(fp16, twin),
+        "a_twin_losses": loss_rel <= AMP["loss_rel"],
+        "a_twin_grads": gaps["main"] <= limit,
+        "a_grad_witnesses": _witnesses_bracket(gaps, witness, twin[:first],
+                                               limit)}
+    return out, gates
+
+
+def _witnesses_bracket(gaps, witness, twin, limit):
+    """The gradient limit lets an error at the kernel's tolerance through
+    and stops one at fault_factor times it: the twin perturbed at the
+    tolerance takes the twin's scale and skip steps with its gap within
+    the limit, and the one at fault_factor times it leaves those steps or
+    its gap exceeds the limit."""
+    fault = AMP["fault_factor"]
+    return (_seq_gates(witness[1.0], twin) and gaps[1.0] <= limit
+            and (not _seq_gates(witness[fault], twin)
+                 or gaps[fault] > limit))
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _amp_bert_bf16_graph(torch, seed):
+    """(b): CompiledTrainStep's graph under amp.init("bfloat16") against
+    its eager twin, bit for bit, with the launches of each."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import attention as A
+    n = AMP["bf16_steps"]
+    counts = {}
+
+    def reset():
+        A.flash_fwd_launches = A.flash_fwd_wgmma_launches = 0
+        A.flash_fwd_wgmma_fp16_launches = A.flash_fwd_tf32_launches = 0
+
+    def read():
+        return {"flash_fwd": A.flash_fwd_launches,
+                "bf16_wgmma": A.flash_fwd_wgmma_launches,
+                "fp16_wgmma": A.flash_fwd_wgmma_fp16_launches,
+                "tf32": A.flash_fwd_tf32_launches}
+
+    amp.init("bfloat16")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _free(torch)
+        net, step, xs, y = _bert_base(torch, seed, "float32")
+        snaps, losses, ms = [], [], []
+        reset()
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(xs, y).item())
+            ms.append(1e3 * (time.perf_counter() - t0))
+            snaps.append(_snapshot(step))
+        counts["graph"] = read()
+        captures = step._captures
+        del net, step
+        _free(torch)
+        net, twin, xs, y = _bert_base(torch, seed, "float32")
+        parity = []
+        reset()
+        for k in range(n):
+            if k:
+                _restore(torch, twin, snaps[k - 1], k)
+            eager_loss = twin._eager(xs, y).item()
+            parity.append({"step": k + 1, "loss_graph": losses[k],
+                           "loss_eager": eager_loss,
+                           **_gap(torch, _snapshot(twin), snaps[k])})
+        counts["eager"] = read()
+        del net, twin, xs, y
+    finally:
+        torch.use_deterministic_algorithms(False)
+        amp.deinit()
+        _free(torch)
+    out = {"steps": n, "losses": losses, "ms": ms, "captures": captures,
+           "parity": parity, "launches": counts}
+    gates = {
+        "b_bit_for_bit": all(p["bitwise_equal"] == p["tensors"]
+                             and p["loss_graph"] == p["loss_eager"]
+                             for p in parity),
+        "b_one_capture": captures == 1,
+        "b_bf16_launches": all(
+            c["bf16_wgmma"] == c["flash_fwd"] == 12 * n and c["tf32"] == 0
+            and c["fp16_wgmma"] == 0 for c in counts.values()),
+        "b_losses_finite": all(math.isfinite(v) for v in losses)}
+    return out, gates
+
+
+def _amp_resnet_loss(net, x, y):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    return SoftmaxCrossEntropyLoss()(net(x), y).mean()
+
+
+def _amp_resnet_batches(torch, seed):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    out = []
+    for i in range(AMP["steps"]):
+        x, y = _images(torch, seed + 60 + i, TRAIN["batch"], TRAIN["px"],
+                       TRAIN["classes"])
+        out.append((NDArray(x, mx.gpu(0)), NDArray(y, mx.gpu(0))))
+    return out
+
+
+def _amp_resnet_fp16(torch, seed):
+    """(c): fused resnet50_v1 through the AMP loop: launches and their
+    input dtypes (a registry probe that never claims), the convolutions'
+    dtypes, the twin, the repeat, the perturbed twins and the fp32 pair
+    (the timing run and its twin)."""
+    import mxnet_tpu_torch.contrib.amp.amp as amp_mod
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    from mxnet_tpu_torch.ops import kernels
+    sgd = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    batches = _amp_resnet_batches(torch, seed)
+    net = _resnet50(torch, True, seed)
+    start = {k: v.detach().float().clone()
+             for k, v in net.state_dict().items() if v.is_floating_point()}
+    net.hybridize()
+    b1_dtypes, conv_dtypes = set(), set()
+
+    def probe(dtype, **_):
+        b1_dtypes.add(dtype)
+        return False
+
+    kernels.register_kernel("conv1x1_bn_stats", platform="cuda",
+                            priority=99, predicate=probe,
+                            name="dtype_probe")(lambda *a, **k: None)
+    orig = amp_mod.autocast_arrays
+
+    def record(op, raws, snap=None):
+        out = orig(op, raws) if snap is None else orig(op, raws, snap)
+        if op == "Convolution":
+            conv_dtypes.update(str(t.dtype) for t in out[:2])
+        return out
+    amp_mod.autocast_arrays = record
+    grads = {"main": []}
+    torch.cuda.synchronize()
+    FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+    try:
+        fp16 = _amp_loop(torch, net, batches, "float16", "sgd", sgd,
+                         _amp_resnet_loss, 1, grads["main"])
+        torch.cuda.synchronize()
+        captures = net._cached_op._captures
+    finally:
+        amp_mod.autocast_arrays = orig
+        kernels._KERNELS["conv1x1_bn_stats"] = [
+            e for e in kernels._KERNELS["conv1x1_bn_stats"]
+            if e.name != "dtype_probe"]
+    launches = {"fused_conv_bn": FC.fused_conv_bn_launches,
+                "wgmma": FC.fused_conv_bn_wgmma_launches}
+    _progress(f"(c) fp16 main run {[round(r['ms'], 1) for r in fp16]} ms")
+    deltas = {"main": {k: v.detach().float() - start[k]
+                       for k, v in net.state_dict().items() if k in start}}
+    segments = [(k, p.data()._data.numel())
+                for k, p in net.collect_params().items()
+                if p.grad_req != "null"]
+    del net
+    _free(torch)
+    first = _first_update(fp16)
+    # name: (amp target, kernels' stand-in (None: the kernels), steps,
+    # variance); the twin, the main run repeated (the card's own
+    # run-to-run spread), the twin perturbed at witness_factors times the
+    # kernel's tolerance, fp32 without AMP with the kernels and with the
+    # twin, and the kernels and the twin with the centred variance
+    runs = {"main": fp16}
+    plan = {"twin": ("float16", 0.0, AMP["steps"], "1"),
+            "repeat": ("float16", None, AMP["steps"], "1"),
+            **{f: ("float16", f, AMP["steps"] if f == 1.0 else first, "1")
+               for f in AMP["witness_factors"]},
+            "fp32": (None, None, AMP["timed"] + 1, "1"),
+            "fp32_twin": (None, 0.0, AMP["timed"] + 1, "1"),
+            "centred": ("float16", None, AMP["steps"], "0"),
+            "centred_twin": ("float16", 0.0, AMP["steps"], "0")}
+    twin_launches = None
+    for name, (target, scale, steps, one_pass) in plan.items():
+        rnet = _resnet50(torch, True, seed)
+        rnet.hybridize()
+        FC.fused_conv_bn_launches = 0
+        grads[name] = []
+        prev = os.environ.get("MXNET_TPU_FAST_VARIANCE")
+        os.environ["MXNET_TPU_FAST_VARIANCE"] = one_pass
+        try:
+            with (_plain_twin(torch, scale) if scale is not None
+                  else contextlib.nullcontext()):
+                runs[name] = _amp_loop(torch, rnet, batches[:steps], target,
+                                       "sgd", sgd, _amp_resnet_loss, 1,
+                                       grads[name])
+        finally:
+            if prev is None:
+                os.environ.pop("MXNET_TPU_FAST_VARIANCE")
+            else:
+                os.environ["MXNET_TPU_FAST_VARIANCE"] = prev
+        torch.cuda.synchronize()
+        if name == "twin":
+            twin_launches = FC.fused_conv_bn_launches
+        deltas[name] = {k: v.detach().float() - start[k]
+                        for k, v in rnet.state_dict().items() if k in start}
+        del rnet
+        _free(torch)
+        _progress(f"(c) {name} run "
+                  f"{[round(r['ms'], 1) for r in runs[name]]} ms")
+    twin, fp32 = runs["twin"], runs["fp32"]
+
+    def update_gap(name, ref="twin"):
+        worst, gap2, ref2 = (0.0, ""), 0.0, 0.0
+        for k, want in deltas[ref].items():
+            got, r = deltas[name][k].norm().item(), want.norm().item()
+            gap = (deltas[name][k] - want).norm().item()
+            gap2, ref2 = gap2 + gap * gap, ref2 + r * r
+            worst = max(worst, (gap / r if r else (0.0 if got == 0
+                                                    else math.inf), k))
+        return (math.sqrt(gap2 / ref2) if ref2 else math.sqrt(gap2)), worst
+
+    update_rel, worst = update_gap("main")
+    spread_rel, _ = update_gap("repeat", "main")
+    perturbed_rel, _ = update_gap(1.0)
+    fp32_rel, _ = update_gap("fp32", "fp32_twin")
+    centred_rel, _ = update_gap("centred", "centred_twin")
+    gaps = {k: _vector_gap(grads[k][0], grads[ref][0])
+            if grads[k] and grads[ref] else math.nan
+            for k, ref in (("main", "twin"), ("repeat", "main"),
+                           ("fp32", "fp32_twin"), ("centred", "centred_twin"),
+                           *((f, "twin") for f in AMP["witness_factors"]))}
+    by_tensor = {f"{k}_vs_{ref}": _gap_by_tensor(grads[k][0], grads[ref][0],
+                                                 segments)
+                 for k, ref in (("main", "twin"), ("fp32", "fp32_twin"),
+                                (1.0, "twin"))
+                 if grads[k] and grads[ref]}
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(fp16, twin))
+    del deltas, start, grads
+    _free(torch)
+    _progress(f"(c) twins done, step-{first} gradient gaps {gaps}")
+    limit = AMP["resnet_grad_rel"]
+    out = {"main": fp16, "fp32": fp32, "launches": launches,
+           "captures": captures, "b1_input_dtypes": sorted(b1_dtypes),
+           "conv_input_dtypes": sorted(conv_dtypes), "twin": twin,
+           "twin_launches": twin_launches, "twin_loss_rel": loss_rel,
+           "grad_step": first,
+           "grad_rel": {str(k): v for k, v in gaps.items()},
+           "grad_gap_by_tensor": by_tensor,
+           "twin_update_rel": update_rel, "repeat_update_rel": spread_rel,
+           "perturbed_update_rel": perturbed_rel,
+           "fp32_twin_update_rel": fp32_rel,
+           "centred_twin_update_rel": centred_rel,
+           "repeat": runs["repeat"], "perturbed": runs[1.0],
+           "twin_worst_tensor_update_rel": worst,
+           "ms_fp16": _median([s["ms"] for s in fp16[1:]]),
+           "ms_fp32": _median([s["ms"] for s in fp32[1:]])}
+    gates = {
+        # every forward, a skipped step's too, and the one capture of the
+        # hybridized net's record entry
+        "c_b1_launches": launches["fused_conv_bn"] == launches["wgmma"]
+        == FUSED_LAUNCHES_PER_STEP * (AMP["steps"] + captures)
+        and captures == 1,
+        "c_b1_fp32_inputs": b1_dtypes == {"float32"},
+        "c_convs_fp16": conv_dtypes == {"torch.float16"},
+        "c_losses_finite": all(math.isfinite(s["loss"]) for s in fp16),
+        "c_twin_ran_plain": twin_launches == 0,
+        "c_twin_scale_and_skips": _seq_gates(fp16, twin),
+        "c_twin_losses": loss_rel <= AMP["resnet_loss_rel"],
+        "c_repeat_scale_and_skips": _seq_gates(fp16, runs["repeat"]),
+        "c_twin_grads": gaps["main"] <= limit,
+        "c_centred_twin": _seq_gates(runs["centred"], runs["centred_twin"])
+        and gaps["centred"] <= limit,
+        "c_grad_witnesses": _witnesses_bracket(
+            gaps, {f: runs[f][:first] for f in AMP["witness_factors"]},
+            twin[:first], limit),
+        # four steps drift apart no further than twice what an error at
+        # the kernel's tolerance drives them apart
+        "c_twin_updates": update_rel
+        <= AMP["update_factor"] * perturbed_rel}
+    return out, gates
+
+
+def _amp_registry(torch):
+    """(d): the registry and the config layer on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import util
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.ops import kernels
+    names = kernels.list_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, s, d = BERT_FLASH
+    claimed = []
+
+    def user_kernel(q, k, v, causal, sm_scale, **_):
+        claimed.append(str(q.dtype))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sm_scale), None
+
+    calls = {}
+    kernels.register_kernel(
+        "flash_attention", platform="cuda", priority=99, name="user_fp16",
+        predicate=lambda dtype, **_: dtype == "float16")(user_kernel)
+    try:
+        for dtype in (torch.float16, torch.bfloat16):
+            q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                                   dtype=dtype) for _ in range(3))
+            before = (A.flash_fwd_wgmma_fp16_launches,
+                      A.flash_fwd_wgmma_launches)
+            with torch.no_grad():
+                o = A.flash_attention(q, k, v)
+            ref, _ = A._flash_forward_plain(q.float(), k.float(), v.float(),
+                                            False, 1.0 / math.sqrt(d))
+            calls[str(dtype)] = {
+                "fp16_wgmma": A.flash_fwd_wgmma_fp16_launches - before[0],
+                "bf16_wgmma": A.flash_fwd_wgmma_launches - before[1],
+                "max_abs_err": (o.float() - ref).abs().max().item()}
+    finally:
+        kernels._KERNELS["flash_attention"] = [
+            e for e in kernels._KERNELS["flash_attention"]
+            if e.name != "user_fp16"]
+    removed = "user_fp16" not in kernels.list_kernels()["flash_attention"]
+    os.environ["MXNET_KERNEL_BACKEND"] = "torch"
+    try:
+        q = torch.zeros(1, 1, 8, 8, device="cuda")
+        A.flash_attention(q, q, q)
+        refused = False
+    except MXNetError:
+        refused = True
+    finally:
+        os.environ.pop("MXNET_KERNEL_BACKEND")
+    free, total = mx.gpu_memory_info(0)
+    pinned = mx.nd.ones((4, 4), ctx=mx.cpu_pinned())
+    cc = util.get_cuda_compute_capability(mx.gpu(0))
+    major, minor = torch.cuda.get_device_capability(0)
+    out = {"kernels": names, "user_kernel_claimed": claimed, "calls": calls,
+           "plain_on_card_refused": refused, "gpu_memory_info": [free, total],
+           "pinned": pinned._data.is_pinned(), "compute_capability": cc,
+           "gpu_count": util.get_gpu_count()}
+    gates = {
+        "d_list_kernels": "cuda_flash_fwd" in names.get("flash_attention", [])
+        and "cuda_mm_bn_stats" in names.get("conv1x1_bn_stats", []),
+        "d_user_kernel_claims_fp16_only": claimed == ["torch.float16"]
+        and calls["torch.float16"]["fp16_wgmma"] == 0
+        and calls["torch.bfloat16"]["bf16_wgmma"] == 1 and removed
+        and all(c["max_abs_err"] <= 2e-2 for c in calls.values()),
+        "d_torch_backend_refused_on_card": refused,
+        "d_card_values": 0 < free <= total
+        == torch.cuda.mem_get_info(0)[1]
+        and out["pinned"] and cc == 10 * major + minor
+        and out["gpu_count"] == torch.cuda.device_count()}
+    return out, gates
+
+
+def phase_amp(torch, seed):
+    """Slice 23 (see AMP): returns the fp16 route's launches in (a), the
+    bf16 wgmma route's in (b)'s graph run and B1's in (c)."""
+    t0 = time.perf_counter()
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    secs = {}
+    bert, gates = _amp_bert_fp16(torch, seed)
+    secs["a"] = time.perf_counter() - t0
+    _progress(f"(a) {secs['a']:.1f} s")
+    bf16, g = _amp_bert_bf16_graph(torch, seed)
+    gates.update(g)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    _progress(f"(b) {secs['b']:.1f} s")
+    resnet, g = _amp_resnet_fp16(torch, seed)
+    gates.update(g)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    registry, g = _amp_registry(torch)
+    gates.update(g)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    out = {"phase": "amp", "card": card, "config": AMP, "tf32": _tf32(torch),
+           "a_bert_fp16": bert, "b_bert_bf16_graph": bf16,
+           "c_resnet_fp16": resnet, "d_registry": registry,
+           "gates": gates, "part_seconds": secs,
+           "seconds": time.perf_counter() - t0}
+    out["ok"] = all(gates.values())
+    emit(out)
+    print(f"amp timing [{card}]: " + json.dumps({
+        "bert_base_ms_per_step": {"fp16_amp": bert["ms_fp16"],
+                                  "fp32": bert["ms_fp32"]},
+        "bert_base_bf16_graph_ms": bf16["ms"],
+        "resnet50_v1_fused_ms_per_step": {"fp16_amp": resnet["ms_fp16"],
+                                          "fp32": resnet["ms_fp32"]},
+        "loss_scales": {"bert": [s["loss_scale"] for s in bert["main"]],
+                        "resnet": [s["loss_scale"]
+                                   for s in resnet["main"]]}}), flush=True)
+    check(out["ok"], f"amp gates failed: "
+          f"{[k for k, v in gates.items() if not v]}")
+    return (bert["launches"]["fp16_wgmma"],
+            bf16["launches"]["graph"]["bf16_wgmma"],
+            resnet["launches"]["fused_conv_bn"])
 
 
 # ---------------------------------------------------------------------------
@@ -8752,12 +9539,12 @@ def _kernel_line(name, source, replaces, launches, timing):
 
 
 PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
-          "flash", "flash_timing",
+          "flash", "kernels", "flash_timing",
           "fused",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
           "vision_zoo", "estimator", "optimizers", "ops_rnn",
-          "ndarray_rest", "serving_bert",
+          "ndarray_rest", "amp", "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -8797,10 +9584,10 @@ def main(argv=None):
         phase_graph_semantics(torch, args.seed)
     if "train_step_graphs" in only:
         phase_train_step_graphs(torch, args.seed)
-    if "flash" in only:
+    if "flash" in only or "kernels" in only:
         phase_kernels(torch, args.seed)
     if "flash_timing" in only:
-        timing = phase_flash_timing(torch, args.seed)
+        timing, timing_fp16 = phase_flash_timing(torch, args.seed)
     if "fused" in only:
         phase_fused_kernel(torch, args.seed)
     if "fused_timing" in only:
@@ -8831,8 +9618,14 @@ def main(argv=None):
     if "ndarray_rest" in only:
         by_path = {"ndarray_rest": phase_ndarray_rest(torch, args.seed),
                    **by_path}
+    wgmma_paths, fp16_paths = {}, {}
+    if "amp" in only:
+        fp16_paths["amp"], wgmma_paths["amp"], amp_b1 = phase_amp(
+            torch, args.seed)
+        by_path = {"amp": amp_b1, **by_path}
     if by_path and "fused_timing" in only:
-        # launches: the latest slice's path that ran (the ImageIter
+        # launches: the latest slice's path that ran (fused resnet50_v1
+        # under amp.init("float16"), the ImageIter
         # fine-tune loop under a CustomOp head, LARS through
         # CompiledTrainStep's graph, Estimator.fit, the input pipeline,
         # then the graph on a resident batch, then the Gluon loop)
@@ -8840,7 +9633,7 @@ def main(argv=None):
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            next(by_path[k] for k in ("ndarray_rest", "optimizers",
+            next(by_path[k] for k in ("amp", "ndarray_rest", "optimizers",
                                       "estimator",
                                       "input_pipeline", "training",
                                       "gluon_training")
@@ -8850,7 +9643,7 @@ def main(argv=None):
         lines.append(line)
     # llama_7b and BERT-base stay alive from their serving phases to the
     # HTTP phase, which serves them again
-    wgmma_paths, bert_paths, llama, bert = {}, {}, None, None
+    bert_paths, llama, bert = {}, None, None
     emb_paths = {}
     if ops_rnn_emb is not None:
         emb_paths["ops_rnn"] = ops_rnn_emb
@@ -8869,23 +9662,34 @@ def main(argv=None):
         phase_speculative(torch, args.seed, llama, dense_per_forward)
     if "fleet" in only:
         fleet_line, fleet_gates, wgmma_paths["fleet"], bert_paths["fleet"] = \
-            phase_fleet_models(torch, args.seed, llama, bert)
+            phase_fleet_models(torch, args.seed, bert)
     del llama, bert
     gc.collect()
     torch.cuda.empty_cache()
     if "fleet" in only:
         phase_fleet(torch, args.seed, fleet_line, fleet_gates)
     if wgmma_paths and "flash_timing" in only:
-        # launches: the latest slice's path that ran (llama_7b's dense
-        # replicas behind the fleet Router, then POST /generate on one
-        # server), else slice 1's in-process serving
+        # launches: the latest slice's path that ran (BERT-base under
+        # amp.init("bfloat16") through CompiledTrainStep's graph, llama_7b's
+        # dense replicas behind the fleet Router, then POST /generate on
+        # one server), else slice 1's in-process serving
         line = _kernel_line(
             "flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
             "mxnet_tpu/ops/attention.py:51",
-            next(wgmma_paths[k] for k in ("fleet", "serving_http", "serving")
+            next(wgmma_paths[k] for k in ("amp", "fleet", "serving_http",
+                                          "serving")
                  if k in wgmma_paths), timing)
         line["launches_by_path"] = wgmma_paths
         lines.insert(0, line)
+    if fp16_paths and "flash_timing" in only:
+        # the fp16 route (slice 23): BERT-base under amp.init("float16"),
+        # timed at its attention shape
+        line = _kernel_line(
+            "flash_fwd_fp16", "mxnet_tpu_torch/csrc/flash_fwd_wgmma.cu",
+            "mxnet_tpu/ops/attention.py:51", fp16_paths["amp"], timing_fp16)
+        line["launches_by_path"] = fp16_paths
+        line["shape"], line["dtype"] = list(FP16_BERT), "float16"
+        lines.insert(1, line)
     if "serving_resnet_export" in only:
         phase_serving_resnet_export(torch, args.seed)
     if "module_fit" in only:

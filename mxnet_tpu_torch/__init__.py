@@ -24,20 +24,26 @@ reader, ``gluon.data`` and ``rnn.BucketSentenceIter``.  Slice 22 is the
 rest of NDArray and autograd: ``mx.operator`` (``CustomOp``,
 ``mx.nd.Custom``), higher-order gradients and ``autograd.get_symbol``,
 ``mx.nd.contrib``/``linalg``/``image`` with their ``mx.sym`` forms, and
-``mx.image`` (the augmenters and ``ImageIter``).
+``mx.image`` (the augmenters and ``ImageIter``).  Slice 23 is the kernel
+registry (``ops.kernels``) and the device and config layer: ``mx.amp`` /
+``mx.contrib.amp`` (op-level autocast and dynamic loss scaling),
+``mx.AttrScope``, ``cpu_pinned``, ``gpu_memory_info``, ``mx.util``,
+``mx.registry`` and ``mx.log``.
 
 The package imports ``torch`` and numpy, never JAX and never ``mxnet_tpu``.
 Entry points run on the card (``cuda``, ``mx.gpu(0)``) unless given the CPU
 (``device="cpu"``, ``mx.cpu()``)."""
-from . import (autograd, base, callback, checkpoint, context, contrib,
-               convert, distributed, error, executor, fleet, gluon, image,
-               initializer, io, kvstore, lr_scheduler, metric, model, module,
-               name, ndarray, observability, operator, ops, optimizer,
-               parallel, profiler, random, recordio, resilience, rnn, rtc,
-               serving, symbol)
+from . import (amp, attribute, autograd, base, callback, checkpoint, context,
+               contrib, convert, distributed, error, executor, fleet, gluon,
+               image, initializer, io, kvstore, log, lr_scheduler, metric,
+               model, module, name, ndarray, observability, operator, ops,
+               optimizer, parallel, profiler, random, recordio, registry,
+               resilience, rnn, rtc, serving, symbol, util)
+from .attribute import AttrScope
 from .base import MXNetError, env
-from .context import (Context, cpu, current_context, gpu, num_gpus,
-                      resolve_device, set_default_context, tpu)
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      gpu_memory_info, num_gpus, resolve_device,
+                      set_default_context, tpu)
 from .model import load_checkpoint, save_checkpoint
 from .ndarray import NDArray, waitall
 
@@ -46,7 +52,8 @@ init = initializer
 sym = symbol
 kv = kvstore
 
-__all__ = ["autograd", "base", "callback", "checkpoint", "context", "contrib",
+__all__ = ["amp", "attribute", "AttrScope", "log", "registry", "util",
+           "autograd", "base", "callback", "checkpoint", "context", "contrib",
            "convert", "distributed", "error", "executor", "fleet", "gluon",
            "image", "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
            "metric", "model", "module", "name", "nd", "ndarray",
@@ -54,6 +61,7 @@ __all__ = ["autograd", "base", "callback", "checkpoint", "context", "contrib",
            "random", "recordio", "resilience", "rnn", "rtc", "serving",
            "sym", "symbol", "save_checkpoint", "load_checkpoint",
            "MXNetError", "env",
-           "Context", "cpu", "gpu", "tpu", "current_context",
+           "Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
+           "gpu_memory_info",
            "set_default_context", "num_gpus", "resolve_device", "NDArray",
            "waitall"]

@@ -16,7 +16,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "ServerClosedError", "RequestCancelledError",
-           "EnvRegistry", "env", "row_bucket", "attr_truthy", "dtype_torch",
+           "TShape", "EnvRegistry", "env", "row_bucket", "attr_truthy", "dtype_torch",
            "dtype_name", "numpy_dtype", "BFLOAT16", "narrow_source"]
 
 
@@ -32,6 +32,52 @@ class ServerClosedError(MXNetError):
 class RequestCancelledError(MXNetError):
     """The request was cancelled on purpose; its KV pages were freed
     immediately.  Not transient: retrying would be wrong."""
+
+
+class TShape(tuple):
+    """Shape tuple where -1 (or None) marks an unknown dimension
+    (``mxnet_tpu/base.py:76``; the reference's ``include/mxnet/tuple.h``
+    encodes unknown dims as -1, and partial shape inference relies on
+    it)."""
+
+    def __new__(cls, dims=None):
+        if dims is None:
+            return super().__new__(cls, ())
+        return super().__new__(cls, (int(d) if d is not None else -1
+                                     for d in dims))
+
+    @property
+    def ndim_known(self) -> bool:
+        return True  # a constructed shape always knows its ndim
+
+    @property
+    def is_known(self) -> bool:
+        return all(d >= 0 for d in self)
+
+    @property
+    def size(self) -> int:
+        if not self.is_known:
+            raise MXNetError(f"shape {tuple(self)} has unknown dims")
+        n = 1
+        for d in self:
+            n *= d
+        return n
+
+    def merge(self, other: "TShape") -> "TShape":
+        """Unify two partially known shapes; raise on a conflict."""
+        if len(self) != len(other):
+            raise MXNetError(f"shape mismatch {tuple(self)} vs "
+                             f"{tuple(other)}")
+        out = []
+        for a, b in zip(self, other):
+            if a < 0:
+                out.append(b)
+            elif b < 0 or a == b:
+                out.append(a)
+            else:
+                raise MXNetError(f"shape mismatch {tuple(self)} vs "
+                                 f"{tuple(other)}")
+        return TShape(out)
 
 
 class EnvFlag:
@@ -69,6 +115,11 @@ class EnvRegistry:
     def names(self):
         """Every declared flag name, sorted."""
         return sorted(self._flags)
+
+    def doc(self) -> str:
+        """One line per flag: its name, default and doc."""
+        return "\n".join(f"{f.name} (default {f.default!r}): {f.doc}"
+                         for f in self._flags.values())
 
 
 env = EnvRegistry()
@@ -373,6 +424,78 @@ def row_bucket(n: int, minimum: int = 16) -> int:
 
 env.declare("MXNET_SAFE_ACCUMULATION", True, bool,
             "Accumulate reductions in fp32.")
+
+
+# -- engine, profiler, kernels and start-up (mxnet_tpu/base.py:178-254,
+# :554-566).  The names, defaults and the reference's meaning are the JAX
+# package's; where the port has no such mechanism the doc says so.
+env.declare("MXNET_ENGINE_TYPE", "ThreadedEnginePerDevice", str,
+            "Engine flavor: NaiveEngine forces synchronous execution at "
+            "every op.  (compat) The port runs PyTorch's eager dispatch on "
+            "CUDA streams; the flag is read by nothing.")
+env.declare("MXNET_EXEC_BULK_EXEC_TRAIN", True, bool,
+            "Bulk-execute trace segments in training.  (compat) A step on "
+            "the card is one CUDA graph (CompiledTrainStep) whatever it "
+            "says.")
+env.declare("MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN", 15, int,
+            "Max ops per bulked segment.  (compat) Read by nothing.")
+env.declare("MXNET_ENFORCE_DETERMINISM", False, bool,
+            "Force deterministic kernels.  (compat) As in the JAX package "
+            "it switches nothing: call "
+            "torch.use_deterministic_algorithms(True) for that.")
+env.declare("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000, int,
+            "Shard arrays larger than this.  (compat) The port's stores "
+            "bucket by MXNET_KVSTORE_BUCKET_KB instead.")
+env.declare("MXNET_KVSTORE_USETREE", False, bool,
+            "(compat) tree reduce; torch.distributed picks the topology.")
+env.declare("MXNET_PROFILER_AUTOSTART", False, bool,
+            "Start profiler at import.  (compat) Read by nothing, as in "
+            "the JAX package.")
+env.declare("MXNET_PROFILER_MODE", 0, int,
+            "Profiler mode bitmask.  (compat) Read by nothing.")
+env.declare("MXNET_CPU_WORKER_NTHREADS", 1, int,
+            "(compat) host worker threads for data pipeline.")
+env.declare("MXNET_GPU_MEM_POOL_TYPE", "Round", str,
+            "(compat) device allocator policy; PyTorch's caching allocator "
+            "(PYTORCH_CUDA_ALLOC_CONF) decides on the card.")
+env.declare("MXNET_FLASH_BLOCK_Q", 128, int,
+            "Flash-attention Q block rows of the JAX package's Pallas "
+            "kernel.  Not read by the port's CUDA kernels, whose tiles are "
+            "fixed (128 query rows on the tensor cores, 64 on the CUDA "
+            "cores).")
+env.declare("MXNET_FLASH_BLOCK_K", 128, int,
+            "Flash-attention K/V block rows of the JAX package's Pallas "
+            "kernel.  Not read by the port's CUDA kernels, whose tiles are "
+            "fixed (128 keys on the tensor cores, 64 on the CUDA cores).")
+env.declare("MXNET_SERVING_HOST_PACK", True, bool,
+            "DynamicBatcher host-side staging: pack a batch's request rows "
+            "into one preallocated reusable host buffer per input (one "
+            "device transfer per packed batch), and split results from one "
+            "bulk device fetch per output.  The port's batcher always "
+            "packs (its rung graphs read one static input buffer); the "
+            "JAX package's per-request plane (0) is not ported.")
+env.declare("MXNET_KERNEL_BACKEND", "auto", str,
+            "Kernel dispatch of the ops with hand-written kernels "
+            "(flash_attention, conv1x1_bn_stats; ops/kernels.py): 'auto' "
+            "picks by the call's tensor device (CUDA kernels on the card, "
+            "the plain PyTorch version on the CPU); 'cuda' forces the "
+            "hand-written CUDA route (a CPU tensor raises); 'xla', 'torch' "
+            "and 'interpret' mean the plain version on CPU tensors and "
+            "raise MXNetError on a CUDA tensor: nothing puts the plain "
+            "version on the card.")
+env.declare("MXNET_TPU_PROBE_TIMEOUT", 180.0, float,
+            "Seconds the JAX package's subprocess device probe may take.  "
+            "No effect on the card: the port finds its device through "
+            "torch.cuda and never falls back to the CPU.")
+env.declare("MXNET_TPU_PROBE_RETRIES", 2, int,
+            "Attempts for the JAX package's subprocess device probe.  No "
+            "effect on the card.")
+env.declare("MXNET_TPU_INIT_RETRIES", 3, int,
+            "Attempts for the JAX package's first-touch backend init.  No "
+            "effect on the card: a missing card raises at once.")
+env.declare("MXNET_TPU_INIT_BACKOFF", 5.0, float,
+            "Base backoff seconds between the JAX package's backend init "
+            "retries.  No effect on the card.")
 env.declare("MXNET_DEFAULT_DTYPE", "float32", str,
             "Default dtype for created arrays.")
 

@@ -68,6 +68,7 @@ from torch.autograd.function import once_differentiable
 from . import _graphs, autograd
 from . import random as _random
 from .base import MXNetError, env
+from .contrib.amp import amp as _amp
 from .ndarray.ndarray import NDArray
 from .observability import (goodput as _goodput, metrics as _metrics,
                             tracing as _tracing)
@@ -291,9 +292,11 @@ class CachedOp:
 
     def _key(self, shapes_dtypes, training: bool):
         # grad_req is part of the key: a fine-tune unfreeze (null -> write)
-        # changes what the forward records
+        # changes what the forward records; so is the AMP policy, whose
+        # casts a capture records
         return (shapes_dtypes, training,
-                tuple((p.name, p.grad_req) for p in self._params))
+                tuple((p.name, p.grad_req) for p in self._params),
+                _amp.snapshot())
 
     def _maybe_warn_recompile_storm(self):
         """Warn once per op when misses dwarf hits: every request a new

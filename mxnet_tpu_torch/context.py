@@ -2,7 +2,9 @@
 
 Counterpart of ``mxnet_tpu/context.py``.  A :class:`Context` names a torch
 device: ``cpu(i)`` the host, ``gpu(i)`` the CUDA card ``i``; ``tpu(i)`` is
-kept as an alias of the accelerator, as the JAX package keeps ``gpu(i)``.
+kept as an alias of the accelerator, as the JAX package keeps ``gpu(i)``;
+``cpu_pinned(i)`` is the host in page-locked memory, which the card copies
+from asynchronously.
 
 Entry points run on the card unless the caller asks for the CPU: the
 default context is ``gpu(0)``, and placing data on a card where there is
@@ -19,15 +21,16 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context",
-           "set_default_context", "num_gpus", "resolve_device"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
+           "set_default_context", "num_gpus", "gpu_memory_info",
+           "resolve_device"]
 
 _tls = threading.local()
 
 
 class Context:
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2, "tpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "tpu": 2, "cpu_pinned": 3}
 
     def __init__(self, device_type: Union[str, "Context"], device_id: int = 0):
         if isinstance(device_type, Context):
@@ -44,7 +47,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The torch device this context names; raises for a card that
         this process cannot see."""
-        if self.device_typeid == 1:
+        if self.device_typeid != 2:
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -89,6 +92,13 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """The host in page-locked memory: an NDArray made on it holds a
+    pinned CPU tensor where a card exists to pin for (CPU-only torch has
+    nothing to pin, and there it is a plain CPU tensor)."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
@@ -101,6 +111,14 @@ def tpu(device_id: int = 0) -> Context:
 
 def num_gpus() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id: int = 0):
+    """``(free, total)`` bytes of card ``device_id`` (reference
+    ``context.py gpu_memory_info`` → ``cudaMemGetInfo``): one
+    implementation, ``util.get_gpu_memory``."""
+    from .util import get_gpu_memory
+    return get_gpu_memory(device_id)
 
 
 # process-wide default (set_default_context); `with ctx:` scopes layered on

@@ -1,11 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 or bf16 in, fp32 math,
-// on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a), fp32, bf16 or fp16 in, fp32
+// math, on the CUDA cores.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_fwd_kernel (called
 // through _flash_forward_pallas) for the inputs the tensor-core kernels do
 // not take: fp32 whose head dim D is not a multiple of 4 (flash_fwd_tf32.cu
-// takes the rest of fp32) and bf16 whose D is not a multiple of 8
-// (flash_fwd_wgmma.cu takes the rest of bf16), both because TMA needs
+// takes the rest of fp32) and bf16 or fp16 whose D is not a multiple of 8
+// (flash_fwd_wgmma.cu takes the rest of bf16 and fp16), all because TMA needs
 // 16-byte row strides.  ops/attention.py's variant="simt" still forces it
 // for any input, to time it beside them.  Same function: for every
 // (batch*head, query row) an online softmax over the keys, running max and
@@ -37,6 +37,7 @@
 #include <atomic>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,6 +52,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -61,6 +63,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Stage rows [row0, row0 + kRows) of a [S, d] slice into shared memory as
@@ -251,6 +257,9 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
     case 1:
       return launch<__nv_bfloat16, DMAX>(q, k, v, o, lse, bh, s_q, s_k, d,
                                          causal, sm_scale, stream);
+    case 2:
+      return launch<__half, DMAX>(q, k, v, o, lse, bh, s_q, s_k, d, causal,
+                                  sm_scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -258,7 +267,7 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int bh, int s_q, int s_k, int d,
                          int causal, float sm_scale, int dtype, void* stream) {

@@ -1,9 +1,13 @@
-// Flash-attention forward for Hopper (sm_90a) on the tensor cores: bf16 in,
-// fp32 softmax and accumulation, bf16 O and fp32 lse out.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores: bf16 or
+// fp16 in, fp32 softmax and accumulation, O in the input type and fp32 lse
+// out.  One source for both types: the kernel is a template over the
+// element type T, and only the wgmma instruction's type, the tensor maps'
+// type, the rounding of P's two parts and of O, and P's scale (below)
+// differ.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/attention.py:_flash_fwd_kernel (called
-// through _flash_forward_pallas) for bf16 inputs whose head dim D is a
-// multiple of 8 (TMA needs 16-byte row strides) and at most 128; every other
+// through _flash_forward_pallas) for bf16 and fp16 inputs whose head dim D
+// is a multiple of 8 (TMA needs 16-byte row strides) and at most 128; every other
 // input stays on the CUDA-core kernel in flash_fwd.cu.  Same function: for
 // every (batch*head, query row) O = softmax(q k^T * sm_scale) v and
 // lse = m + log(l), masked scores at -1e30, and in causal mode the key tiles
@@ -24,7 +28,12 @@
 // P_hi = bf16(P) plus P_lo = bf16(P - P_hi) (about 16 significant bits) and
 // O accumulates P_hi.V + P_lo.V in fp32: a third product per tile instead
 // of the second.  q.k^T on bf16 inputs is exact per product with an fp32
-// accumulator, as the TPU kernel's fp32 dot is.
+// accumulator, as the TPU kernel's fp32 dot is.  fp16 (amp.init("float16"))
+// takes the same split with 11-bit halves, so P keeps about 22 bits; fp16's
+// narrow exponent would make P_hi subnormal below P = 2^-14 and P_lo zero
+// well above it, so P enters scaled by 2^15 (exact, a power of two) and O
+// is divided by it with l in the epilogue.  fp16 q.k^T products are exact
+// in fp32 too.
 //
 // Design:
 //   * one block per (128-row query tile, b*h); causal grids launch the
@@ -50,7 +59,7 @@
 //     softmax;
 //   * a K stage goes back to the producer once S_t is done and a V stage
 //     once wgmma.wait_group shows P_{t-1} V_{t-1} done;
-//   * O / l is rounded once to bf16 and stored with rows >= S_q and columns
+//   * O / l is rounded once to T and stored with rows >= S_q and columns
 //     >= D masked; lse is stored in fp32.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py):
@@ -63,8 +72,8 @@
 // turns.
 //
 // Interface: plain C, bound from Python with ctypes (mxnet_tpu_torch/ops/
-// attention.py).  q [BH, S_q, D], k/v [BH, S_k, D], o [BH, S_q, D] bf16,
-// contiguous, 16-byte aligned; lse [BH, S_q] fp32.  The tensor maps are
+// attention.py).  q [BH, S_q, D], k/v [BH, S_k, D], o [BH, S_q, D], all bf16
+// or all fp16 (a dtype code), contiguous, 16-byte aligned; lse [BH, S_q] fp32.  The tensor maps are
 // encoded at each call with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library links only the CUDA runtime.
 // Launches on the given stream and returns a cudaError_t, or
@@ -72,9 +81,11 @@
 #include <atomic>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -93,110 +104,120 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------- PTX
+// The 64 fp32 accumulator registers of an m64n128 product, and the 32 of
+// an m64n64 one, as asm operands %0 ...
+#define ACC_OUT_32(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define ACC_OUT_64(d)                                                       \
+  ACC_OUT_32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define ACC_REGS_32                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
+#define ACC_REGS_64                                                        \
+  ACC_REGS_32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+              "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+              "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// The three products for one input type TY ("bf16" or "f16"); T is the
+// matching C++ type.
+#define FLASH_WGMMA(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+               " {" ACC_REGS_64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"         \
+               : ACC_OUT_64(d)                                             \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define FLASH_WGMMA_RS128(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+               " {" ACC_REGS_64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;" \
+               "\n}\n"                                                     \
+               : ACC_OUT_64(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(1))
+#define FLASH_WGMMA_RS64(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " {" ACC_REGS_32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;" \
+               "\n}\n"                                                     \
+               : ACC_OUT_32(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(1))
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory
 // (both K-major), fp32 accumulator; scale_d = 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
                                                  int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsHalf<T>) FLASH_WGMMA("f16");
+  else FLASH_WGMMA("bf16");
 }
 
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (bf16 pairs in
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (pairs of T in
 // the accumulator's row layout), B from shared memory N-major (trans-b).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsHalf<T>) FLASH_WGMMA_RS128("f16");
+  else FLASH_WGMMA_RS128("bf16");
 }
 
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs in
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (pairs of T in
 // the accumulator's row layout), B from shared memory N-major (trans-b).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsHalf<T>) FLASH_WGMMA_RS64("f16");
+  else FLASH_WGMMA_RS64("bf16");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats rounded to nearest T, packed low then high.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
+
+// The two floats of a packed pair of T.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (kIsHalf<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// P enters the fp16 products scaled by 2^15, undone in the epilogue: P is
+// at most 1, so P * 2^15 stays below fp16's largest finite 65504, and
+// P_hi and P_lo stay normal down to P = 2^-17 where unscaled fp16 goes
+// subnormal below 2^-14 (and P_lo below 2^-3).  bf16 has fp32's exponent
+// range and takes P as it is.
+template <typename T>
+constexpr float kPScale = kIsHalf<T> ? 32768.f : 1.f;
 
 // Named barriers 1 and 2 order when the two consumers start their products
 // (bar.sync by the warpgroup whose turn it is, bar.arrive by the other).
@@ -224,13 +245,13 @@ struct Smem {
 // S = Q K^T for one 64-row slice of Q: K-major operands, 8-row groups
 // 1024 bytes apart; each k16 step is 32 bytes further along the 128-byte
 // swizzled row, and the next 64 columns are the next box.
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void start_s(float (&s)[64], uint32_t q_rows,
                                         uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk / 4) * kSubTileBytes + (kk % 4) * 32;
-    wgmma_ss_m64n128(s, sw128_desc(q_rows + off, 1, 64),
+    wgmma_ss_m64n128<T>(s, sw128_desc(q_rows + off, 1, 64),
                      sw128_desc(k_tile + off, 1, 64), kk > 0);
   }
   wgmma_commit();
@@ -239,7 +260,7 @@ __device__ __forceinline__ void start_s(float (&s)[64], uint32_t q_rows,
 // O += P_hi V + P_lo V: V read N-major, 8-key groups 1024 bytes apart
 // (stride), 64-column boxes kSubTileBytes apart (leading); each k16 step is
 // 16 keys (2048 bytes) further.
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void start_pv(float (&acc)[DP / 2],
                                          const uint32_t (&hi)[8][4],
                                          const uint32_t (&lo)[8][4],
@@ -248,19 +269,21 @@ __device__ __forceinline__ void start_pv(float (&acc)[DP / 2],
   for (int kk = 0; kk < 8; ++kk) {
     const uint64_t dv = sw128_desc(v_tile + kk * 2048, kSubTileBytes / 16, 64);
     if constexpr (DP == 128) {
-      wgmma_rs_m64n128(acc, hi[kk], dv);
-      wgmma_rs_m64n128(acc, lo[kk], dv);
+      wgmma_rs_m64n128<T>(acc, hi[kk], dv);
+      wgmma_rs_m64n128<T>(acc, lo[kk], dv);
     } else {
-      wgmma_rs_m64n64(acc, hi[kk], dv);
-      wgmma_rs_m64n64(acc, lo[kk], dv);
+      wgmma_rs_m64n64<T>(acc, hi[kk], dv);
+      wgmma_rs_m64n64<T>(acc, lo[kk], dv);
     }
   }
   wgmma_commit();
 }
 
-// P = P_hi + P_lo in the A-fragment layout of k16 step kk: registers
-// (row, keys 16kk + col_lane + {0,1}), (row + 8, same), (row, +8),
-// (row + 8, +8) are accumulator entries 8kk + {0,1}, {2,3}, {4,5}, {6,7}.
+// P * kPScale = P_hi + P_lo in the A-fragment layout of k16 step kk:
+// registers (row, keys 16kk + col_lane + {0,1}), (row + 8, same),
+// (row, +8), (row + 8, +8) are accumulator entries 8kk + {0,1}, {2,3},
+// {4,5}, {6,7}.
+template <typename T>
 __device__ __forceinline__ void split_p(const float (&p)[64],
                                         uint32_t (&hi)[8][4],
                                         uint32_t (&lo)[8][4]) {
@@ -268,21 +291,21 @@ __device__ __forceinline__ void split_p(const float (&p)[64],
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float a = p[8 * kk + 2 * r];
-      const float b = p[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-      const float2 hf = __bfloat1622float2(h2);
-      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[kk][r] = pack_bf16(a - hf.x, b - hf.y);
+      const float a = p[8 * kk + 2 * r] * kPScale<T>;
+      const float b = p[8 * kk + 2 * r + 1] * kPScale<T>;
+      const uint32_t h2 = pack2<T>(a, b);
+      const float2 hf = unpack2<T>(h2);
+      hi[kk][r] = h2;
+      lo[kk][r] = pack2<T>(a - hf.x, b - hf.y);
     }
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ o,
+                           T* __restrict__ o,
                            float* __restrict__ lse, int s_q, int s_k, int d,
                            int causal, float scale_log2) {
   using L = Smem<DP>;
@@ -374,14 +397,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     named_sync(my_turn);
     wgmma_fence();
-    start_s<DP>(s, q_rows, base + L::kK);
+    start_s<T, DP>(s, q_rows, base + L::kK);
     named_arrive(other_turn);
     wgmma_wait<0>();
     fence_regs(s);
     mbar_arrive(empty_k);
     softmax_tile(s, m2, alpha, l, scale_log2, edge(0), 0, row0, col_lane, s_k,
                  causal);
-    split_p(s, hi, lo);
+    split_p<T>(s, hi, lo);
 
     for (int t = 1; t < n_tiles; ++t) {
       const int stage = t % kStages;
@@ -395,8 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(hi);
       fence_regs(lo);
       wgmma_fence();
-      start_s<DP>(s, q_rows, base + L::kK + stage * L::kTile);
-      start_pv<DP>(acc, hi, lo, base + L::kV + prev * L::kTile);
+      start_s<T, DP>(s, q_rows, base + L::kK + stage * L::kTile);
+      start_pv<T, DP>(acc, hi, lo, base + L::kV + prev * L::kTile);
       named_arrive(other_turn);
       wgmma_wait<1>();
       fence_regs(s);
@@ -413,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      split_p(s, hi, lo);
+      split_p<T>(s, hi, lo);
     }
 
     const int last = n_tiles - 1;
@@ -424,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(hi);
     fence_regs(lo);
     wgmma_fence();
-    start_pv<DP>(acc, hi, lo, base + L::kV + (last % kStages) * L::kTile);
+    start_pv<T, DP>(acc, hi, lo, base + L::kV + (last % kStages) * L::kTile);
     named_arrive(other_turn);
     wgmma_wait<0>();
     fence_regs(acc);
@@ -432,7 +455,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(lo);
     if (g == 0) named_sync(my_turn);  // the other consumer's last turn
 
-    // epilogue: O / l rounded once to bf16; lse = (m2 + log2 l) ln 2
+    // epilogue: O / l rounded once to T (P's scale undone in the same
+    // product); lse = (m2 + log2 l) ln 2
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -443,14 +467,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= s_q) continue;
-      const float inv = 1.f / l[h];
-      __nv_bfloat16* orow = o + (bh_row + row) * d;
+      const float inv = 1.f / (l[h] * kPScale<T>);
+      T* orow = o + (bh_row + row) * d;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + col_lane;
         if (col < d)
           *reinterpret_cast<uint32_t*>(orow + col) =
-              pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+              pack2<T>(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
       if (lane % 4 == 0) lse[bh_row + row] = m2[h] * kLn2 + logf(l[h]);
     }
@@ -458,16 +482,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------- host
-// A [BH, S, D] bf16 tensor as a 3-D map read in [1, 128, 64] boxes with the
-// 128-byte swizzle; out-of-bounds elements read as zero.
-int encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
+// A [BH, S, D] bf16 or fp16 tensor as a 3-D map read in [1, 128, 64] boxes
+// with the 128-byte swizzle; out-of-bounds elements read as zero.
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               int bh, int s, int d) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {kBoxCols, 128, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = fn(map, type, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -476,7 +501,7 @@ int encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <int DP>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int s_q, int s_k, int d, int causal, float sm_scale,
            cudaStream_t stream) {
@@ -487,42 +512,59 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!attr_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
     attr_set[dev].store(true, std::memory_order_release);
   }
+  const CUtensorMapDataType type = kIsHalf<T>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  int rc = encode_map(&tq, q, bh, s_q, d);
-  if (!rc) rc = encode_map(&tk, k, bh, s_k, d);
-  if (!rc) rc = encode_map(&tv, v, bh, s_k, d);
+  int rc = encode_map(&tq, type, q, bh, s_q, d);
+  if (!rc) rc = encode_map(&tk, type, k, bh, s_k, d);
+  if (!rc) rc = encode_map(&tv, type, v, bh, s_k, d);
   if (rc) return rc;
   const dim3 grid((s_q + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_wgmma_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, s_q, s_k, d, causal,
+  flash_fwd_wgmma_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), lse, s_q, s_k, d, causal,
       sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int bh, int s_q, int s_k, int d, int causal, float sm_scale,
+             cudaStream_t st) {
+  if (d <= 64)
+    return launch<T, 64>(q, k, v, o, lse, bh, s_q, s_k, d, causal, sm_scale,
+                         st);
+  return launch<T, 128>(q, k, v, o, lse, bh, s_q, s_k, d, causal, sm_scale,
+                        st);
+}
+
 }  // namespace
 
-// bf16 only; d a multiple of 8 in 8..128; pointers 16-byte aligned.
-// Returns a cudaError_t (0 on success) or kEncodeError + a CUresult.
+// dtype: 1 = bfloat16, 2 = float16; d a multiple of 8 in 8..128; pointers
+// 16-byte aligned.  Returns a cudaError_t (0 on success) or kEncodeError +
+// a CUresult.
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                void* o, float* lse, int bh, int s_q, int s_k,
-                               int d, int causal, float sm_scale,
+                               int d, int causal, float sm_scale, int dtype,
                                void* stream) {
   if (bh <= 0 || bh > 65535 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 128 ||
-      d % 8)
+      d % 8 || (dtype != 1 && dtype != 2))
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16)
       return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64)
-    return launch<64>(q, k, v, o, lse, bh, s_q, s_k, d, causal, sm_scale, st);
-  return launch<128>(q, k, v, o, lse, bh, s_q, s_k, d, causal, sm_scale, st);
+  if (dtype == 2)
+    return launch_d<__half>(q, k, v, o, lse, bh, s_q, s_k, d, causal,
+                            sm_scale, st);
+  return launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, s_q, s_k, d, causal,
+                                 sm_scale, st);
 }
 
 extern "C" const char* flash_fwd_wgmma_error_string(int err) {

@@ -90,6 +90,7 @@ import torch
 from . import _graphs
 from .base import MXNetError, env
 from .cached_op import generators_of
+from .contrib.amp import amp as _amp
 from .observability import (goodput as _goodput, health as _health,
                             memory as _memory, metrics as _metrics,
                             tracing as _tracing)
@@ -359,8 +360,10 @@ class CompiledTrainStep:
         device; with health armed, the net's hooks and patched forwards
         too (a fault plan entered after a capture takes a new graph)."""
         flat = list(xs) + (list(y) if isinstance(y, tuple) else [y])
+        # the AMP policy's casts are part of what a capture records
         sig = (len(xs), isinstance(y, tuple),
-               tuple((tuple(t.shape), t.dtype, t.device) for t in flat))
+               tuple((tuple(t.shape), t.dtype, t.device) for t in flat),
+               _amp.snapshot())
         if self._health:
             sig += (_health.hook_fingerprint(self._net),)
         return sig, flat

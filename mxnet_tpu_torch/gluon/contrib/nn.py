@@ -35,7 +35,7 @@ import torch
 
 from ... import autograd
 from ...base import env
-from ...ops.fused_conv_bn import conv1x1_bn_stats_op
+from ...ops import F as _ops
 from ..block import HybridBlock
 from ..nn.basic_layers import (HybridSequential, Sequential, SyncBatchNorm,
                                _update_running, cast_keeping_norm_fp32)
@@ -166,8 +166,8 @@ class FusedConv1x1BN(HybridBlock):
     def forward(self, x):
         nhwc = x.permute(0, 2, 3, 1)
         if self.training:
-            y, s1, s2 = conv1x1_bn_stats_op(nhwc, self.weight,
-                                            stride=self._strides)
+            y, s1, s2 = _ops.conv1x1_bn_stats_op(nhwc, self.weight,
+                                                 stride=self._strides)
             n, h, w, _ = y.shape
             m_rows = n * h * w
             mean = s1 / m_rows
@@ -191,8 +191,8 @@ class FusedConv1x1BN(HybridBlock):
             inv = (self.running_var + self._epsilon) ** -0.5
             scale = self.gamma * inv
             wf = self.weight * scale.reshape(-1, 1, 1, 1)
-            y, _, _ = conv1x1_bn_stats_op(nhwc, wf, stride=self._strides,
-                                          with_stats=False)
+            y, _, _ = _ops.conv1x1_bn_stats_op(
+                nhwc, wf, stride=self._strides, with_stats=False)
             out = y + (self.beta - self.running_mean * scale).reshape(
                 1, 1, 1, -1)
         if self._relu:

@@ -17,7 +17,7 @@ import math
 import numpy as np
 
 from ..ndarray import ndarray as _nd
-from ..ops import nn as F
+from ..ops import F
 from .block import HybridBlock
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "L2Loss",
@@ -43,9 +43,11 @@ class Loss(HybridBlock):
         w = self._weight if weight is None else weight
         if w is not None and w != 1.0:
             loss = loss * w
-        axes = [i for i in range(loss.dim())
-                if i != self._batch_axis % loss.dim()]
-        return loss.mean(dim=axes) if axes else loss
+        axes = tuple(i for i in range(loss.dim())
+                     if i != self._batch_axis % loss.dim())
+        if not axes:  # the batch axis alone: a trailing axis of one
+            loss, axes = loss.unsqueeze(-1), (-1,)
+        return F.mean(loss, axis=axes)
 
     def _finish_f(self, F, loss, sample_weight, weight=None):
         """:meth:`_finish` in ``F``'s ops (the symbolic-form losses)."""
@@ -80,8 +82,8 @@ class L2Loss(Loss):
         super().__init__(weight, batch_axis, **kwargs)
 
     def forward(self, pred, label, sample_weight=None):
-        err = pred - _match(label, pred)
-        return self._finish(err.square(), sample_weight, self._weight / 2)
+        return self._finish(F.square(pred - _match(label, pred)),
+                            sample_weight, self._weight / 2)
 
 
 class L1Loss(Loss):

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from ....base import MXNetError
 from ....context import resolve_device
-from ....ops import nn as F
+from ....ops import F
 from ...block import HybridBlock
 from ...nn import Dense, Dropout, Embedding, LayerNorm
 from .transformer import TransformerEncoder
@@ -117,8 +117,8 @@ class BERTForPretraining(_NoSymbol, HybridBlock):
         seq, pooled = self.bert(inputs, token_types, valid_length)
         h = self.mlm_ln(self.mlm_transform(seq))
         # the decoder reads the embedding table itself: [B, S, D] x [V, D]^T
-        mlm = F.fully_connected(h, self.bert.word_embed.weight,
-                                flatten=False) + self.mlm_bias
+        mlm = F.dot(h, self.bert.word_embed.weight,
+                    transpose_b=True) + self.mlm_bias
         return mlm, self.nsp(pooled)
 
 

@@ -24,7 +24,7 @@ from torch import nn
 
 from ....context import resolve_device
 from ....initializer import Constant
-from ....ops import flash_attention, rope
+from ....ops import F
 
 __all__ = ["RMSNorm", "LlamaAttention", "LlamaFFN", "LlamaBlock", "LlamaModel",
            "llama_tiny", "llama_7b"]
@@ -83,10 +83,10 @@ class LlamaAttention(nn.Module):
         return t.reshape(b, s, self.num_heads * d)
 
     def forward(self, x, cos, sin):
-        q = rope(self.wq(x), cos, sin, num_heads=self.num_heads)
-        k = rope(self.wk(x), cos, sin, num_heads=self.num_kv)
+        q = F.rope(self.wq(x), cos, sin, num_heads=self.num_heads)
+        k = F.rope(self.wk(x), cos, sin, num_heads=self.num_kv)
         v = self.wv(x)
-        out = flash_attention(q, self._expand_kv(k), self._expand_kv(v),
+        out = F.flash_attention(q, self._expand_kv(k), self._expand_kv(v),
                               num_heads=self.num_heads, causal=True)
         return self.wo(out)
 

@@ -29,7 +29,7 @@ form: the JAX package cannot trace it.
 from __future__ import annotations
 
 from ....context import resolve_device
-from ....ops import flash_attention
+from ....ops import F
 from ...block import HybridBlock
 from ...nn import Dense, Dropout, LayerNorm
 
@@ -59,7 +59,7 @@ class MultiHeadAttention(HybridBlock):
 
     def forward(self, x, valid_length=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        return self.dropout(self.proj(flash_attention(
+        return self.dropout(self.proj(F.flash_attention(
             q, k, v, valid_length, num_heads=self._num_heads,
             causal=self._causal)))
 

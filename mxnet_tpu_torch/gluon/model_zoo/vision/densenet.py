@@ -6,7 +6,7 @@ that halve the width.  A layer's ``dropout`` draws its mask in training
 from the layer's ``generator`` when one is set, else from the device's
 stream (``mx.random``), which a CUDA graph over the net registers."""
 from .... import random as _random
-from ....ops import nn as _ops
+from ....ops import F as _ops
 from ...nn import (Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential, MaxPool2D)
 from ._base import ZooBlock, concat

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ... import initializer as _init
-from ...ops import nn as F
+from ...ops import F
 from ..block import HybridBlock
 
 __all__ = ["Activation", "LeakyReLU", "PReLU", "ELU", "SELU", "GELU",

@@ -25,7 +25,8 @@ from ... import autograd
 from ... import ndarray as _ndmod
 from ... import random as _random
 from ...base import MXNetError
-from ...ops import nn as F
+from ...ops import F
+from ...ops.nn import _no_mesh
 from ..block import Block, HybridBlock, _boundary_ctx
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -257,7 +258,7 @@ class SyncBatchNorm(BatchNorm):
 
     def __init__(self, in_channels=0, num_devices=None, axis_name=None,
                  **kwargs):
-        F._no_mesh(axis_name)
+        _no_mesh(axis_name)
         super().__init__(in_channels=in_channels, **kwargs)
         self._num_devices = num_devices
         self._axis_name = axis_name

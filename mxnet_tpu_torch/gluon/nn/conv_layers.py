@@ -13,8 +13,7 @@ the symbolic form that ``export`` traces.
 from __future__ import annotations
 
 from ...base import MXNetError
-from ...ops import nn as F
-from ...ops.matrix import _pad
+from ...ops import F
 from ..block import HybridBlock
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
@@ -314,7 +313,7 @@ class ReflectionPad2D(HybridBlock):
         self._padding = tuple(padding)
 
     def forward(self, x):
-        return _pad(x, mode="reflect", pad_width=self._padding)
+        return F.pad(x, mode="reflect", pad_width=self._padding)
 
     def hybrid_forward(self, F, x):
         return F.pad(x, mode="reflect", pad_width=self._padding)

@@ -19,7 +19,8 @@ import torch
 
 from ... import random as _random
 from ...ndarray import ndarray as _nd
-from ...ops import nn as F
+from ...ops import F
+from ...ops.nn import _RNN_GATES
 from ..block import HybridBlock
 
 __all__ = ["RNN", "LSTM", "GRU"]
@@ -40,7 +41,7 @@ class _RNNLayer(HybridBlock):
         self._dropout = dropout
         self._dir = 2 if bidirectional else 1
         self._input_size = input_size
-        ng, nh = F._RNN_GATES[mode], hidden_size
+        ng, nh = _RNN_GATES[mode], hidden_size
         self._names = []
         with self.name_scope():
             for i in range(num_layers):
@@ -60,7 +61,7 @@ class _RNNLayer(HybridBlock):
                         self._names.append(name)
 
     def _shape_hint(self, inputs, *args):
-        ng, nh = F._RNN_GATES[self._mode], self._hidden_size
+        ng, nh = _RNN_GATES[self._mode], self._hidden_size
         for j in ["l", "r"][:self._dir]:
             self._reg_params[f"{j}0_i2h_weight"].shape = (
                 ng * nh, inputs.shape[-1])

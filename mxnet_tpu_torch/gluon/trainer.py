@@ -6,7 +6,9 @@ set of :class:`~.parameter.Parameter` s.
 ``rescale_grad / batch_size`` (the loss's ``backward()`` gave the gradient
 of the sum over the batch), reduces the gradients through the kvstore
 (``allreduce_grads``) and updates every parameter whose ``grad_req`` is
-not ``'null'`` (``update``), in place.
+not ``'null'`` (``update``), in place.  After ``amp.init_trainer`` a
+dynamic loss scaler checks the reduced gradients first and skips the
+update of a step that overflowed (``mxnet_tpu/gluon/trainer.py:118-140``).
 
 The kvstore follows the reference's decision matrix: ``None`` or
 ``'local'`` means none; any other store engages only when it has more
@@ -125,7 +127,29 @@ class Trainer:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
-        self.update(batch_size, ignore_stale_grad)
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.dynamic:
+            # dynamic loss scaling (amp.init_trainer, amp.scale_loss): on
+            # an overflow the scale halves and this update is skipped;
+            # checked whenever the scaler is dynamic, at the 1.0 floor too
+            overflow = scaler.has_overflow([p.grad() for _, p in
+                                            self._live()])
+            scaler.update_scale(overflow)
+            if overflow:
+                self._restore_amp_scale()
+                return
+        try:
+            self.update(batch_size, ignore_stale_grad)
+        finally:
+            self._restore_amp_scale()
+
+    def _restore_amp_scale(self):
+        """Undo ``amp.scale_loss``'s folding of 1 / loss_scale into the
+        gradient rescale, so that it never compounds."""
+        orig = getattr(self, "_amp_original_scale", None)
+        if orig is not None:
+            self._scale = orig
+            self._amp_scale_folded = False
 
     def _live(self):
         return [(i, p) for i, p in enumerate(self._params)

@@ -34,6 +34,7 @@ from .. import autograd
 from ..base import (BFLOAT16, MXNetError, dtype_torch, env, narrow_source,
                     numpy_dtype)
 from ..context import Context, current_context
+from ..contrib.amp import amp as _amp
 from ..ops import registry as _registry
 
 __all__ = [
@@ -51,6 +52,9 @@ class NDArray:
                  "__weakref__")
 
     def __init__(self, data: torch.Tensor, ctx: Optional[Context] = None):
+        if ctx is not None and ctx.device_typeid == 3 and \
+                torch.cuda.is_available() and not data.is_pinned():
+            data = data.pin_memory()  # cpu_pinned: page-locked host memory
         self._data = data
         self._ctx = ctx if ctx is not None else Context.of(data.device)
         self._version = 0
@@ -476,6 +480,10 @@ def invoke(op, inputs: Sequence[Any], params: Optional[Dict[str, Any]] = None,
     recording = (autograd.is_recording() and op.differentiable
                  and any(x._data.requires_grad for x in nd_inputs))
     with torch.set_grad_enabled(recording):
+        if _amp._state["active"]:
+            # AMP autocast (mxnet_tpu/ndarray/ndarray.py:448-450); the
+            # casts are recorded, so the backward replays them
+            raw = _amp.autocast_arrays(op.name, raw)
         if recording and op.grad is not None:
             result = _OpGrad.apply(op, params, *raw)
         else:

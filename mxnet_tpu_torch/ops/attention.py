@@ -6,14 +6,20 @@ Counterpart of ``mxnet_tpu/ops/attention.py``.  The Pallas TPU kernel
 :func:`_flash_variant` from the dtype and head dim alone:
 ``csrc/flash_fwd_tf32.cu`` on the tensor cores for fp32 with D a multiple
 of 4 (three TF32 products per product keep fp32 accuracy),
-``csrc/flash_fwd_wgmma.cu`` on the tensor cores for bf16 with D a multiple
-of 8, and ``csrc/flash_fwd.cu`` on the CUDA cores for any other D.
-:func:`flash_fwd` is their wrapper, and :func:`_flash_forward_plain` is the
-plain PyTorch version of all three.  The wrapper chooses by the tensor's
-device alone: a CPU tensor gets the plain version, a CUDA tensor gets a
-kernel or an error.  Unlike the JAX dispatch gate, which falls back to a
-dense lowering unless S divides into 128-row blocks, every kernel takes any
-S, so every CUDA call launches one.
+``csrc/flash_fwd_wgmma.cu`` on the tensor cores for bf16 and fp16 with D a
+multiple of 8, and ``csrc/flash_fwd.cu`` on the CUDA cores for any other
+D.  :func:`_flash_fwd_cuda` is their wrapper, and
+:func:`_flash_forward_plain` is the plain PyTorch version of all three.
+Unlike the JAX dispatch gate, which falls back to a dense lowering unless
+S divides into 128-row blocks, every kernel takes any S, so every CUDA
+call launches one.
+
+:func:`flash_fwd`, the op's one entry, reaches the kernels through the
+kernel registry (``ops/kernels.py``), as the JAX package's reaches its
+Pallas kernel: the CUDA route is registered for ``flash_attention`` at
+priority 10, and a user kernel registered higher claims the calls its
+predicate accepts.  Where no kernel claims the call, a CPU tensor gets
+the plain version and a CUDA tensor an error.
 
 Layouts follow the JAX package: ``[B, H, S, D]``, or packed ``[B, S, H*D]``
 with ``num_heads``.  :class:`_FlashFunction` puts the forward under torch
@@ -33,23 +39,26 @@ import torch
 
 from .. import _graphs
 from ..base import MXNetError, attr_truthy
-from . import _build
+from . import _build, kernels
 from .registry import register
 
 __all__ = ["attention_reference", "flash_attention", "flash_fwd", "rope"]
 
-# Kernel launches made by flash_fwd, of any kernel, and of each
-# tensor-core kernel alone (the counts show that a run went through the
-# kernels; nothing else touches them).
+# Kernel launches made by _flash_fwd_cuda, of any kernel, and of each
+# tensor-core route alone: bf16 and fp16 on the wgmma kernel are counted
+# apart (the counts show that a run went through the kernels; nothing
+# else touches them).
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
+flash_fwd_wgmma_fp16_launches = 0
 flash_fwd_tf32_launches = 0
 # a CUDA graph's replay advances them by what its capture counted
 _graphs.count_launches(sys.modules[__name__], "flash_fwd_launches",
                         "flash_fwd_wgmma_launches",
+                        "flash_fwd_wgmma_fp16_launches",
                         "flash_fwd_tf32_launches")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK = -1e30
 
 
@@ -71,7 +80,13 @@ def _flash_forward_plain(q, k, v, causal: bool, sm_scale: float
     """Plain PyTorch version of the flash forward: ``(O, lse)`` for
     ``[..., S, D]`` inputs, lse fp32 ``[..., S_q]``.  Scores are the
     product in the input dtype cast to fp32, masked with -1e30, as in the
-    JAX package's XLA lowering."""
+    JAX package's XLA lowering.  fp16 inputs are computed in fp32 and O is
+    rounded to fp16 once, as the TPU kernel computes them (fp16 products
+    on the CPU are slow, and its scores would round to fp16 first)."""
+    if q.dtype == torch.float16:
+        out, lse = _flash_forward_plain(q.float(), k.float(), v.float(),
+                                        causal, sm_scale)
+        return out.to(torch.float16), lse
     s = torch.matmul(q, k.transpose(-1, -2)).float() * sm_scale
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
@@ -92,11 +107,11 @@ def _flash_variant(dtype, d: int) -> str:
     16-byte row strides describe the rows: ``"tf32"`` for fp32 with D a
     multiple of 4 (each product split into three TF32 products, which keep
     the reference's fp32 accuracy where one TF32 product would not) and
-    ``"wgmma"`` for bf16 with D a multiple of 8.  ``"simt"`` (CUDA cores)
-    for any other D, in either dtype."""
+    ``"wgmma"`` for bf16 or fp16 with D a multiple of 8.  ``"simt"`` (CUDA
+    cores) for any other D, in any of the three dtypes."""
     if dtype == torch.float32 and d % 4 == 0:
         return "tf32"
-    if dtype == torch.bfloat16 and d % 8 == 0:
+    if dtype in (torch.bfloat16, torch.float16) and d % 8 == 0:
         return "wgmma"
     return "simt"
 
@@ -108,15 +123,15 @@ _VARIANT_SOURCES = {"simt": "flash_fwd", "wgmma": "flash_fwd_wgmma",
 
 def _kernel_lib(variant: str):
     """The built library of a kernel variant, its C signatures declared on
-    first use: ``csrc/flash_fwd.cu`` (``"simt"``, which also takes a dtype
-    code), ``csrc/flash_fwd_wgmma.cu`` (``"wgmma"``) or
-    ``csrc/flash_fwd_tf32.cu`` (``"tf32"``)."""
+    first use: ``csrc/flash_fwd.cu`` (``"simt"``) and
+    ``csrc/flash_fwd_wgmma.cu`` (``"wgmma"``), which also take a dtype
+    code, and ``csrc/flash_fwd_tf32.cu`` (``"tf32"``)."""
     entry = _libs.get(variant)
     if entry is None:
         name = _VARIANT_SOURCES[variant]
         lib = _build.load(name)
         fn, err = getattr(lib, name), getattr(lib, f"{name}_error_string")
-        dtype_code = [ctypes.c_int] if variant == "simt" else []
+        dtype_code = [ctypes.c_int] if variant in ("simt", "wgmma") else []
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float] + dtype_code + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -133,7 +148,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
     tensor-core variant the inputs do not fit is refused, never
     replaced)."""
     global flash_fwd_launches, flash_fwd_wgmma_launches
-    global flash_fwd_tf32_launches
+    global flash_fwd_wgmma_fp16_launches, flash_fwd_tf32_launches
     if q.dim() != 3:
         raise MXNetError(f"flash_fwd takes [BH, S, D] tensors, q is "
                          f"{tuple(q.shape)}")
@@ -149,7 +164,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
         if not t.is_contiguous():
             raise MXNetError(f"flash_fwd: {name} must be contiguous")
     if q.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"flash_fwd takes float32 or bfloat16, not {q.dtype}")
+        raise MXNetError(f"flash_fwd takes float32, bfloat16 or float16, "
+                         f"not {q.dtype}")
     if not 0 < d <= 128:
         raise MXNetError(f"flash_fwd takes head dims 1..128, not {d}")
     if not (0 < bh <= 65535 and sq > 0 and sk > 0):
@@ -173,32 +189,20 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float,
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), bh, sq, sk, d, int(causal), float(sm_scale)]
-        if variant == "simt":
+        if variant in ("simt", "wgmma"):
             args.append(_DTYPE_CODES[q.dtype])
         err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise MXNetError(f"flash_fwd ({variant}) launch failed: "
                          + err_string(err).decode())
-    if variant == "wgmma":
+    if variant == "wgmma" and q.dtype == torch.float16:
+        flash_fwd_wgmma_fp16_launches += 1
+    elif variant == "wgmma":
         flash_fwd_wgmma_launches += 1
     elif variant == "tf32":
         flash_fwd_tf32_launches += 1
     flash_fwd_launches += 1
     return out, lse
-
-
-def flash_fwd(q, k, v, causal: bool, sm_scale: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash-attention forward on ``[BH, S, D]`` tensors: ``(O, lse)``, O
-    in the input dtype, lse fp32 ``[BH, S_q]``.  CUDA tensors launch the
-    kernel :func:`_flash_variant` picks (contiguous fp32/bf16, D <= 128, or
-    an error); CPU tensors run :func:`_flash_forward_plain`, and so do
-    ``meta`` tensors, which carry shapes only (``Symbol.infer_shape``)."""
-    if q.device.type in ("cpu", "meta"):
-        return _flash_forward_plain(q, k, v, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise MXNetError(f"flash_fwd: no kernel for device {q.device}")
-    return _flash_fwd_cuda(q, k, v, causal, sm_scale)
 
 
 _BWD_BLOCK_K = 128
@@ -215,13 +219,7 @@ class _FlashFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        b, h, sq, d = q.shape
-        sk = k.shape[2]
-        out, lse = flash_fwd(q.reshape(b * h, sq, d).contiguous(),
-                             k.reshape(b * h, sk, d).contiguous(),
-                             v.reshape(b * h, sk, d).contiguous(),
-                             causal, sm_scale)
-        out, lse = out.view(b, h, sq, d), lse.view(b, h, sq)
+        out, lse = flash_fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out, lse
@@ -229,6 +227,10 @@ class _FlashFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        if lse is None:
+            raise MXNetError("flash_attention: the registered kernel that "
+                             "ran the forward gave no lse, which the "
+                             "backward needs")
         dq, dk, dv = _flash_backward(q, k, v, out, lse, dout, ctx.causal,
                                      ctx.sm_scale, dlse)
         return dq, dk, dv, None, None
@@ -268,6 +270,46 @@ def _flash_backward(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
         dq += torch.matmul(ds, kj)
         dk[:, :, k0:k0 + bk] = torch.matmul(ds.transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@kernels.register_kernel("flash_attention", platform="cuda", priority=10,
+                         name="cuda_flash_fwd")
+def _cuda_impl(q, k, v, causal, sm_scale, **_):
+    """The CUDA route on ``[..., S, D]`` tensors: :func:`_flash_fwd_cuda`
+    on contiguous ``[N, S, D]`` copies (views where they are contiguous
+    already)."""
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    out, lse = _flash_fwd_cuda(q.reshape(-1, sq, d).contiguous(),
+                               k.reshape(-1, sk, d).contiguous(),
+                               v.reshape(-1, sk, d).contiguous(),
+                               causal, sm_scale)
+    return out.view(q.shape), lse.view(q.shape[:-1])
+
+
+def flash_fwd(q, k, v, causal: bool, sm_scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash-attention forward on ``[..., S, D]`` tensors (``[BH, S, D]``
+    or ``[B, H, S, D]``): ``(O, lse)``, O in the input dtype, lse fp32
+    ``[..., S_q]``.  The kernel the registry picks for this call runs it
+    (on CUDA tensors, :func:`_cuda_impl` unless a user kernel claims the
+    call: contiguous fp32/bf16/fp16, D <= 128, or an error); with no
+    kernel, CPU tensors run :func:`_flash_forward_plain`, and so do
+    ``meta`` tensors, which carry shapes only (``Symbol.infer_shape``).
+    A user kernel may return ``lse`` None."""
+    plat = kernels.current_platform(q)
+    if plat not in ("cpu", "meta", "cuda"):
+        raise MXNetError(f"flash_fwd: no kernel for device {q.device}")
+    impl = kernels.lookup_kernel(
+        "flash_attention", platform=plat,
+        dtype=str(q.dtype).replace("torch.", ""), head_dim=q.shape[-1],
+        seq_q=q.shape[-2], seq_k=k.shape[-2], causal=causal)
+    if impl is not None:
+        return impl(q, k, v, causal, sm_scale)
+    if plat == "cuda":
+        raise MXNetError(f"flash_fwd: no kernel for device {q.device}: no "
+                         "registered kernel takes the call")
+    return _flash_forward_plain(q, k, v, causal, sm_scale)
 
 
 def _forward_with_lse(q, k, v, causal: bool, sm_scale: float):

@@ -7,10 +7,13 @@ Counterpart of ``mxnet_tpu/ops/fused_conv_bn.py``.  The Pallas TPU kernel
 ``csrc/fused_conv_bn_wgmma.cu`` on the tensor cores (TMA, TF32 ``wgmma``
 with a three-product hi/lo split that keeps fp32) wherever TMA can describe
 x, and ``csrc/fused_conv_bn.cu`` on the CUDA cores for the rest.
-:func:`fused_matmul_bn_stats` is their wrapper and
-:func:`_reference_conv1x1` the plain PyTorch version of both.  The wrapper
-chooses by the tensor's device alone: a CPU tensor gets the plain version,
-a CUDA tensor gets a kernel or an error.
+:func:`_fused_cuda` is their wrapper and :func:`_reference_conv1x1` the
+plain PyTorch version of both.  :func:`fused_matmul_bn_stats`, the op's
+one entry, reaches the kernels through the kernel registry
+(``ops/kernels.py``), where the CUDA route is registered for
+``conv1x1_bn_stats`` at priority 10, as the JAX package registers its
+Pallas kernel.  Where no kernel claims the call, a CPU tensor gets the
+plain version and a CUDA tensor an error.
 
 :class:`_Conv1x1BNCore` makes the product differentiable, with the JAX
 package's backward (plain tensor ops there too), and
@@ -27,12 +30,12 @@ import torch
 
 from .. import _graphs
 from ..base import MXNetError, attr_truthy
-from . import _build
+from . import _build, kernels
 from .registry import register
 
 __all__ = ["fused_matmul_bn_stats", "conv1x1_bn_stats_op"]
 
-# Kernel launches made by fused_matmul_bn_stats, of either kernel, and of
+# Kernel launches made by _fused_cuda, of either kernel, and of
 # the tensor-core kernel alone (the counts show that a run went through the
 # kernels; nothing else touches them).  The tensor-core kernel's w-split
 # pre-kernel is part of its one launch.
@@ -100,10 +103,13 @@ def _kernel_lib(variant: str):
     return entry
 
 
+@kernels.register_kernel("conv1x1_bn_stats", platform="cuda", priority=10,
+                         name="cuda_mm_bn_stats")
 def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
                 variant: Optional[str] = None):
-    """Validate, then launch the kernel :func:`_fused_variant` picks
-    (``variant`` names one explicitly, for timing the two side by side)."""
+    """The CUDA route: validate, then launch the kernel
+    :func:`_fused_variant` picks (``variant`` names one explicitly, for
+    timing the two side by side)."""
     global fused_conv_bn_launches, fused_conv_bn_wgmma_launches
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise MXNetError(f"fused_matmul_bn_stats takes x [M, K] and w [K, N], "
@@ -184,18 +190,26 @@ def fused_matmul_bn_stats(x, w, in_scale=None, in_shift=None,
 
     x: ``[M, K]``; w: ``[K, N]``; in_scale/in_shift: fp32 ``[K]`` or None.
     Returns (y ``[M, N]`` in x's dtype, sum ``[N]`` fp32, sumsq ``[N]``
-    fp32), the statistics of the fp32 product.  CUDA tensors launch the
-    kernel :func:`_fused_variant` picks (x contiguous, fp32 or bf16, or an
-    error; a ``w`` that is not the transpose of a contiguous ``[N, K]`` is
-    copied to that layout); CPU tensors run :func:`_reference_conv1x1`, and
-    so do ``meta`` tensors, which carry shapes only
-    (``Symbol.infer_shape``)."""
-    if x.device.type in ("cpu", "meta"):
-        return _reference_conv1x1(x, w, in_scale, in_shift, relu_in)
-    if x.device.type != "cuda":
+    fp32), the statistics of the fp32 product.  The kernel the registry
+    picks for the ``conv1x1_bn_stats`` call runs it (on CUDA tensors,
+    :func:`_fused_cuda` unless a user kernel claims the call: x contiguous,
+    fp32 or bf16, or an error; a ``w`` that is not the transpose of a
+    contiguous ``[N, K]`` is copied to that layout); with no kernel, CPU
+    tensors run :func:`_reference_conv1x1`, and so do ``meta`` tensors,
+    which carry shapes only (``Symbol.infer_shape``)."""
+    plat = kernels.current_platform(x)
+    if plat not in ("cpu", "meta", "cuda"):
         raise MXNetError(f"fused_matmul_bn_stats: no kernel for device "
                          f"{x.device}")
-    return _fused_cuda(x, w, in_scale, in_shift, relu_in)
+    impl = kernels.lookup_kernel(
+        "conv1x1_bn_stats", platform=plat, m=x.shape[0], k=x.shape[1],
+        n=w.shape[1], dtype=str(x.dtype).replace("torch.", ""))
+    if impl is not None:
+        return impl(x, w, in_scale, in_shift, relu_in)
+    if plat == "cuda":
+        raise MXNetError(f"fused_matmul_bn_stats: no kernel for device "
+                         f"{x.device}: no registered kernel takes the call")
+    return _reference_conv1x1(x, w, in_scale, in_shift, relu_in)
 
 
 class _Conv1x1BNCore(torch.autograd.Function):

@@ -267,6 +267,9 @@ def _reversed_axes(x):
 def _dot(lhs, rhs, transpose_a=False, transpose_b=False):
     a = _reversed_axes(lhs) if transpose_a else lhs
     b = _reversed_axes(rhs) if transpose_b else rhs
+    # mixed operands meet in their common dtype, as jnp.dot promotes them
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
     # reference dot: contract the last axis of a with the first axis of b
     if a.ndim <= 2 and b.ndim <= 2:
         return torch.matmul(a, b)

@@ -8,10 +8,12 @@ generated from this registry (``ndarray/__init__.py``).
 """
 from __future__ import annotations
 
+import functools
 import inspect
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["Operator", "register", "get", "list_ops", "alias", "REGISTRY"]
+__all__ = ["Operator", "register", "get", "list_ops", "alias", "REGISTRY",
+           "OpNamespace"]
 
 REGISTRY: Dict[str, "Operator"] = {}
 
@@ -30,6 +32,9 @@ class Operator:
         constants).
     grad : optional custom gradient
         ``grad(params, inputs, outputs, out_grads) -> in_grads``.
+    mutates : indices of inputs that the front end writes results back
+        into (the reference's FMutateInputs; no op of the JAX package
+        declares any).
     takes_training : the op takes ``_training`` (BatchNorm, Dropout), which
         :func:`~mxnet_tpu_torch.ndarray.ndarray.invoke` sets from
         ``autograd.is_training()``.
@@ -42,13 +47,15 @@ class Operator:
 
     def __init__(self, name: str, fn: Callable, *, nin: Optional[int] = None,
                  nout: int = 1, differentiable: bool = True,
-                 grad: Optional[Callable] = None, doc: str = ""):
+                 grad: Optional[Callable] = None,
+                 mutates: Sequence[int] = (), doc: str = ""):
         self.name = name
         self.fn = fn
         self.nin = nin
         self.nout = nout
         self.differentiable = differentiable
         self.grad = grad
+        self.mutates = tuple(mutates)
         params = inspect.signature(fn).parameters
         self.takes_training = "_training" in params
         self.needs_rng = "generator" in params
@@ -79,7 +86,7 @@ def _arity(fn: Callable) -> Optional[int]:
 
 def register(name: str, *, nin="auto", nout: int = 1,
              differentiable: bool = True, grad: Optional[Callable] = None,
-             aliases=()):
+             mutates: Sequence[int] = (), aliases=()):
     """Decorator: register a function over torch tensors as an op.
 
     nin: int = fixed arity; None = variadic (fn's first arg is a list of
@@ -90,7 +97,7 @@ def register(name: str, *, nin="auto", nout: int = 1,
             raise ValueError(f"op {name!r} already registered")
         REGISTRY[name] = Operator(
             name, fn, nin=_arity(fn) if nin == "auto" else nin, nout=nout,
-            differentiable=differentiable, grad=grad)
+            differentiable=differentiable, grad=grad, mutates=mutates)
         for a in aliases:
             alias(name, a)
         return fn
@@ -114,6 +121,60 @@ def get(name: str) -> Operator:
 
 def list_ops() -> List[str]:
     return sorted(REGISTRY.keys())
+
+
+class OpNamespace:
+    """The op functions that the Gluon layers' tensor ``forward``s call
+    (``ops.F``), each one wrapped so that its positional tensor inputs are
+    cast as the AMP policy in force says for its op
+    (``contrib.amp.amp.autocast_arrays``); while AMP is off the wrapper
+    calls the function as it is.  This is where the layers cast, as the
+    JAX package's layers cast in ``invoke``, which the port's tensor
+    ``forward``s do not pass through.
+
+    An attribute is the function of that name in ``modules`` (first
+    module first), else the function of the op registered under that
+    name.  Its op is the one registered with that very function, else the
+    one registered under the attribute's name, else ``names[attr]``; an
+    attribute with no op raises, so that no layer calls an op past the
+    casts."""
+
+    def __init__(self, *modules, names: Optional[Dict[str, str]] = None):
+        self._modules = modules
+        self._names = dict(names or {})
+
+    def __getattr__(self, attr):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        home = next((m for m in self._modules if hasattr(m, attr)), None)
+        fn = getattr(home, attr) if home is not None else (
+            REGISTRY[attr].fn if attr in REGISTRY else None)
+        name = next((op.name for op in REGISTRY.values() if op.fn is fn),
+                    None)
+        if name is None:
+            name = (REGISTRY[attr].name if attr in REGISTRY
+                    else self._names.get(attr))
+        if fn is None or name is None:
+            raise AttributeError(f"ops.F.{attr}: no op function of that "
+                                 "name implements a registered op")
+        wrapped = _autocasting(name, fn, home, attr)
+        setattr(self, attr, wrapped)
+        return wrapped
+
+
+def _autocasting(op_name: str, fn: Callable, home, attr: str) -> Callable:
+    """``fn`` casting its positional tensor inputs for ``op_name`` under
+    AMP.  A module's function is looked up in ``home`` at each call, so
+    that a patched module function is the one that runs."""
+    from ..contrib.amp import amp
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if amp._state["active"]:
+            args = amp.autocast_arrays(op_name, list(args))
+        return (fn if home is None else getattr(home, attr))(*args, **kwargs)
+
+    return call
 
 
 def expose_contrib_namespace(contrib_mod, parent_mod) -> None:

@@ -22,6 +22,7 @@ the other.
 from __future__ import annotations
 
 import ast
+import contextlib
 import json
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -29,7 +30,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as _np
 import torch
 
-from .. import _graphs, autograd
+from .. import _graphs, attribute as _attribute, autograd
+from ..contrib.amp import amp as _amp
 from ..base import (MXNetError, attr_truthy, dtype_torch, narrow_source,
                     numpy_dtype)
 from ..context import current_context
@@ -198,8 +200,14 @@ class Symbol:
 
     @staticmethod
     def _public_attrs(node) -> Dict[str, str]:
-        return {k: str(v) for k, v in node.attrs.items()
-                if not k.startswith("__")}
+        """User-visible attributes: the plain keys, and the AttrScope
+        stamps kept as ``__attr_<k>__`` on op nodes."""
+        out = {k: str(v) for k, v in node.attrs.items()
+               if not k.startswith("__")}
+        for k, v in node.attrs.items():
+            if k.startswith("__attr_") and k.endswith("__"):
+                out[k[len("__attr_"):-2]] = str(v)
+        return out
 
     def list_attr(self) -> Dict[str, str]:
         return self._public_attrs(self._outputs[0][0])
@@ -348,7 +356,8 @@ class Symbol:
     def eval_with(self, bindings: Dict[str, NDArray], training: bool = False):
         """Evaluate with ``name -> NDArray`` bindings (SymbolBlock's
         forward): one output as an NDArray, several as a list."""
-        outs = _eval_graph(self._outputs, dict(bindings), training)
+        outs = _eval_graph(self._outputs, dict(bindings), training,
+                           amp_policy=getattr(self, "_amp_policy", None))
         return outs[0] if len(outs) == 1 else outs
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
@@ -442,8 +451,7 @@ def _out_name(node: _Node, idx: int) -> str:
 def var(name: str, attr=None, shape=None, dtype=None, **kwargs) -> Symbol:
     """A free variable with the user attributes ``attr``/``kwargs``;
     ``shape`` and ``dtype`` declare it for inference."""
-    attrs = dict(attr or {})
-    attrs.update(kwargs)
+    attrs = _attribute.current().get({**(attr or {}), **kwargs})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
@@ -490,6 +498,10 @@ def invoke_symbol(op_name: str, inputs: Sequence[Symbol],
     if n_group is not None:
         attrs["__num_args__"] = n_group
     nout = _resolve_nout(op, attrs)
+    # the active AttrScope's attributes, stored __attr_*__-prefixed so
+    # they never reach the op's kwargs (mxnet_tpu/symbol/symbol.py:581)
+    for k, v in _attribute.current().get(None).items():
+        attrs.setdefault(f"__attr_{k}__", v)
     node = _Node(op.name, NameManager.resolve(name, op.name), ins, attrs,
                  num_outputs=nout)
     visible = _VISIBLE_NOUT.get(op.name, nout)
@@ -521,15 +533,21 @@ def _resolve_nout(op, attrs: Dict[str, Any]) -> int:
 
 # --------------------------------------------------------------- evaluation
 def _eval_graph(outputs: Sequence[Tuple[_Node, int]],
-                bindings: Dict[str, Any], training: bool) -> List[NDArray]:
+                bindings: Dict[str, Any], training: bool,
+                amp_policy: Optional[Dict] = None) -> List[NDArray]:
     """Walk the graph through ``ndarray.invoke``, with
     ``autograd.is_training()`` set to ``training``.  In training, each
     BatchNorm node's moving statistics (bound variables at inputs 3 and 4)
     take the EMA of its batch statistics in ``bindings`` (the reference's
-    kernel mutates these aux states)."""
+    kernel mutates these aux states).  A symbol converted by
+    ``amp.convert_symbol`` evaluates inside ``amp.policy_scope`` with its
+    policy, so its op lists decide the executed precision, and the nodes
+    of ``excluded_sym_names`` run with autocast suspended."""
     values: Dict[int, List[NDArray]] = {}
+    excluded = set((amp_policy or {}).get("excluded") or ())
     prev = autograd.set_training(training)
     try:
+      with _amp.policy_scope(amp_policy):
         for node in _topo(outputs):
             if node.is_var:
                 if node.name not in bindings:
@@ -540,10 +558,12 @@ def _eval_graph(outputs: Sequence[Tuple[_Node, int]],
                 continue
             in_vals = [values[id(p)][i] for p, i in node.inputs]
             params = _params_of(node)
-            if node.attrs.get("__num_args__") is not None:
-                out = _nd_invoke(node.op, [in_vals], params)
-            else:
-                out = _nd_invoke(node.op, in_vals, params)
+            with (_amp.suspend_scope() if node.name in excluded
+                  else contextlib.nullcontext()):
+                if node.attrs.get("__num_args__") is not None:
+                    out = _nd_invoke(node.op, [in_vals], params)
+                else:
+                    out = _nd_invoke(node.op, in_vals, params)
             out = out if isinstance(out, list) else [out]
             values[id(node)] = out
             if training and node.op in _BN_STAT_OPS and len(out) >= 3 and \
@@ -676,7 +696,9 @@ class Executor:
                         for k, v in self.aux_dict.items())
         leaves = {k: bindings[k]._data for k in self.arg_dict}
         with autograd._RecordingState(is_train, None):
-            outs = _eval_graph(self._symbol._outputs, bindings, is_train)
+            outs = _eval_graph(self._symbol._outputs, bindings, is_train,
+                               amp_policy=getattr(self._symbol,
+                                                  "_amp_policy", None))
         with torch.no_grad():
             for name, arr in self.aux_dict.items():
                 new = bindings[name]._data
@@ -737,8 +759,10 @@ class Executor:
                 for a in table.values()]
 
     def _forward_card(self, is_train: bool) -> List[NDArray]:
+        # the autocast policy in force is part of what a capture records
         key = (tuple((tuple(a.shape), a._data.dtype)
-                     for a in self.arg_dict.values()), is_train)
+                     for a in self.arg_dict.values()), is_train,
+               _amp.snapshot())
         entry = self._entries.get(key)
         if entry is None:
             self._misses += 1

@@ -143,13 +143,14 @@ def test_no_fallback_on_other_devices():
         "meta", (2, 8, 16), (2, 8))
 
 
-@pytest.mark.parametrize("bad", ["float16", "noncontiguous", "head_dim_256",
+@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "head_dim_256",
                                  "rank4", "k_shape"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    """The CUDA wrapper validates before it builds or launches anything."""
+    """The CUDA wrapper validates before it builds or launches anything
+    (fp16 is a dtype the kernels take since the fp16 route)."""
     q = k = v = torch.zeros(2, 8, 16)
-    if bad == "float16":
-        q = k = v = q.half()
+    if bad == "float64":
+        q = k = v = q.double()
     elif bad == "noncontiguous":
         k = torch.zeros(2, 16, 8).transpose(1, 2)
     elif bad == "head_dim_256":
@@ -167,11 +168,14 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 36, "simt"), (torch.bfloat16, 100, "simt"),
     (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
-    (torch.float32, 36, "tf32"), (torch.float32, 30, "simt")])
+    (torch.float32, 36, "tf32"), (torch.float32, 30, "simt"),
+    (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.float16, 36, "simt"), (torch.float16, 30, "simt")])
 def test_flash_variant_by_dtype_and_head_dim(dtype, d, want):
     """Where TMA's 16-byte rows describe the rows, the tensor cores: fp32
-    with D a multiple of 4 takes the three-TF32-product kernel, bf16 with D
-    a multiple of 8 the bf16 one; any other D takes the CUDA-core kernel."""
+    with D a multiple of 4 takes the three-TF32-product kernel, bf16 and
+    fp16 with D a multiple of 8 the wgmma one; any other D takes the
+    CUDA-core kernel."""
     assert tattn._flash_variant(dtype, d) == want
 
 
@@ -528,3 +532,129 @@ def test_flash_backward_returns_each_input_dtype():
     out.float().sum().backward()
     assert out.dtype == torch.bfloat16
     assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# fp16 (amp.init("float16")): the plain version against the JAX package in
+# fp16, and the wgmma kernel's fp16 arithmetic held to chip_smoke.py's fp16
+# gate (half an fp16 ulp of the fp32 function, lse 1e-4).
+# ---------------------------------------------------------------------------
+FP16_O_REL = 2.0 ** -11
+
+
+def _fp16_qkv(shape, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_fp16_matches_jax_attention_reference(causal):
+    """fp16 in, fp16 out.  The port's plain version computes in fp32 and
+    rounds O once, as the TPU kernel does; the JAX ``attention_reference``
+    in fp16 rounds the scores and P to fp16 first, so the two differ by
+    those roundings: within 2^-8 of the largest |O| (measured 1.5e-3 of
+    it); the JAX function in fp32 on the same fp16 values, rounded once,
+    agrees to half an fp16 ulp plus 1e-5."""
+    q, k, v = _fp16_qkv((2, 2, 64, 32), seed=11)
+    sm = 1.0 / np.sqrt(32)
+    to, tl = tattn._flash_forward_plain(*(torch.from_numpy(a) for a in
+                                          (q, k, v)), causal, sm)
+    assert to.dtype == torch.float16 and tl.dtype == torch.float32
+    ref16 = np.asarray(jattn.attention_reference(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, sm_scale=sm))
+    assert ref16.dtype == np.float16
+    got = to.float().numpy()
+    assert np.abs(got - ref16.astype(np.float32)).max() <= \
+        2.0 ** -8 * np.abs(ref16.astype(np.float32)).max()
+    jo, jl = _jax_with_lse(*(a.astype(np.float32) for a in (q, k, v)),
+                           causal)
+    assert (np.abs(got - jo) <= FP16_O_REL * np.abs(jo) + 1e-5).all()
+    np.testing.assert_allclose(tl, jl, atol=ATOL_LSE)
+
+
+def test_plain_fp16_matches_jax_pallas_kernel_interpret():
+    """The JAX package's Pallas kernel on fp16 inputs (interpret mode)
+    computes in fp32 and rounds O to fp16 once, as the port's plain version
+    does: both round fp32 values that differ in their summation order, so
+    they agree to one fp16 ulp (2^-10 |O|) plus 1e-5 (6 of 32768 elements
+    measured one ulp apart); lse within 1e-5."""
+    q, k, v = _fp16_qkv((1, 2, 256, 64), seed=12)
+    sm = 1.0 / 8.0
+    jo, jl = jattn._flash_forward_pallas(*(jnp.asarray(a) for a in (q, k, v)),
+                                         True, sm, interpret=True)
+    assert jo.dtype == jnp.float16
+    to, tl = tattn._flash_forward_plain(*(torch.from_numpy(a) for a in
+                                          (q, k, v)), True, sm)
+    jo = np.asarray(jo).astype(np.float32)
+    assert (np.abs(to.float().numpy() - jo)
+            <= 2 * FP16_O_REL * np.abs(jo) + 1e-5).all()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL_LSE)
+
+
+def test_flash_attention_op_fp16_matches_jax():
+    """The op in fp16 through the kernel registry (its CPU route, the
+    plain version) against ``mx.nd.flash_attention`` in fp16 on the packed
+    layout, within the reference's own fp16 roundings (2^-8 of the largest
+    |O|)."""
+    b, s, h, d = 2, 48, 2, 16
+    q, k, v = _fp16_qkv((b, s, h * d), seed=13)
+    ref = mx.nd.flash_attention(mx.nd.array(q), mx.nd.array(k),
+                                mx.nd.array(v), num_heads=h).asnumpy()
+    out = tattn.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                num_heads=h)
+    assert out.dtype == torch.float16 and ref.dtype == np.float16
+    ref = ref.astype(np.float32)
+    assert np.abs(out.float().numpy() - ref).max() <= \
+        2.0 ** -8 * np.abs(ref).max()
+
+
+def _emulate_fp16_kernel(q, k, v, causal, sm_scale, p_scale):
+    """csrc/flash_fwd_wgmma.cu's fp16 arithmetic on fp32 tensors holding
+    fp16 values: 128-row tiles, base-2 online softmax in fp32, P times
+    ``p_scale`` split into fp16 hi and lo, O accumulated in fp32 and
+    divided by l and ``p_scale`` once, rounded to fp16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale_log2 = sm_scale * 1.4426950408889634
+    out = torch.empty(bh, sq, d)
+    h16 = lambda x: x.half().float()
+    for q0 in range(0, sq, 128):
+        rows = torch.arange(q0, min(q0 + 128, sq))
+        acc = torch.zeros(bh, len(rows), d)
+        m = torch.full((bh, len(rows), 1), -1e30)
+        l = torch.zeros(bh, len(rows), 1)
+        k_end = min(sk, q0 + 128) if causal else sk
+        for k0 in range(0, k_end, 128):
+            cols = torch.arange(k0, min(k0 + 128, sk))
+            x = torch.matmul(q[:, rows], k[:, cols].transpose(1, 2)) \
+                * scale_log2
+            if causal:
+                x = x.masked_fill(cols[None, :] > rows[:, None], -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            ps = p * p_scale
+            hi = h16(ps)
+            acc = acc * alpha + torch.matmul(hi, v[:, cols]) \
+                + torch.matmul(h16(ps - hi), v[:, cols])
+            m = m_new
+        out[:, rows] = h16(acc / (l * p_scale))
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 300, 16), (2, 256, 64), (2, 128, 64)])
+def test_fp16_split_p_keeps_the_half_ulp_gate(shape, causal):
+    """P * 2^15 = fp16 hi + fp16 lo meets chip_smoke.py's fp16 bound
+    (|o - ref| <= 2^-11 |ref| + 1e-5) against the fp32 plain version, with
+    inputs scaled so that many P fall below fp16's smallest normal
+    (2^-14), where the unscaled split goes subnormal."""
+    rng = np.random.RandomState(sum(shape) + causal)
+    q, k, v = (torch.from_numpy((rng.randn(*shape) * 3.0).astype(np.float16))
+               .float() for _ in range(3))
+    sm = 1.0 / np.sqrt(shape[-1])
+    ref, _ = tattn._flash_forward_plain(q, k, v, causal, sm)
+    o = _emulate_fp16_kernel(q, k, v, causal, sm, 2.0 ** 15)
+    ratio = ((o - ref).abs() / (FP16_O_REL * ref.abs() + 1e-5)).max()
+    assert ratio <= 1.0
