@@ -355,10 +355,13 @@ FUSED_MODES = {"plain": (False, False), "affine": (True, False),
 # values: fp32 y within 1e-4 of max |ref| (the two sum K in other orders);
 # bf16 y per element within half a bf16 ulp plus the fp32 summation order,
 # |y - ref| <= 2^-8 |ref| + 1e-5 (the kernel rounds its fp32 accumulator
-# once); the statistics of each column within 1e-5 of its sum of |y| and of
-# its sum of y^2 (800k-row sums taken in other orders).
+# once), fp16 y likewise within half an fp16 ulp, 2^-11 |ref| + 1e-5; the
+# statistics of each column within 1e-5 of its sum of |y| and of its sum of
+# y^2 (800k-row sums taken in other orders).  fp16 runs at every shape and
+# mode too (slice 24), and once with a column past 65504: y must be inf
+# exactly where the plain version's rounding is, the statistics finite.
 FUSED_TOL = {"y_fp32_rel": 1e-4, "y_bf16_rel": 2.0 ** -8,
-             "y_bf16_abs": 1e-5, "stats_rel": 1e-5}
+             "y_fp16_rel": 2.0 ** -11, "y_bf16_abs": 1e-5, "stats_rel": 1e-5}
 
 # Training: resnet50_v1 as bench.py trains it (lr 0.1, momentum 0.9, wd
 # 1e-4, images uniform in [0, 1), 1000 classes).  The parity step runs at 64
@@ -918,7 +921,9 @@ def _fused_case(torch, FC, x, w, sc, sh, relu):
             FUSED_TOL["y_fp32_rel"] * ry.abs().max().item())
     else:
         # 1 at the half-ulp bound; above 1 fails the case
-        case["y_err_ratio"] = (d / (FUSED_TOL["y_bf16_rel"] * ry.abs()
+        rel = FUSED_TOL["y_fp16_rel" if x.dtype == torch.float16
+                        else "y_bf16_rel"]
+        case["y_err_ratio"] = (d / (rel * ry.abs()
                                     + FUSED_TOL["y_bf16_abs"])).max().item()
     case["variant"] = {(1, 1): "wgmma", (1, 0): "simt"}.get(ran, str(ran))
     case["ok"] = all(case[r] <= 1.0 for r in
@@ -926,11 +931,55 @@ def _fused_case(torch, FC, x, w, sc, sh, relu):
     return case
 
 
+def _fused_overflow_case(torch, FC, gen):
+    """fp16 at FUSED_TIMED with one column of w scaled by 2^17 so most of
+    its y passes 65504: y inf exactly where the plain version's single
+    rounding puts it, finite y within half an fp16 ulp plus 1e-5 of its
+    column's RMS (the fp32 summation order, at the column's scale), the
+    statistics (of the fp32 accumulator) finite and within their
+    gates."""
+    m, k, n = FUSED_TIMED
+    x, w, _, _ = _fused_inputs(torch, gen, m, k, n, torch.float16, False)
+    w = w.t().contiguous()
+    w[5] = w[5] * 131072.0
+    w = w.t()
+    y, s1, s2 = FC.fused_matmul_bn_stats(x, w)
+    ry, r1, r2 = FC._reference_conv1x1(x.float(), w.float(), None, None,
+                                       False)
+    ref16 = ry.half()
+    finite = torch.isfinite(ref16)
+    # the fp32 summation-order slack scales with each column's size: the
+    # scaled column's terms are ~1e4, and its sums cancel to O(1) values
+    scale = ry.square().mean(dim=0).sqrt()
+    ratio = torch.where(finite, (y.float() - ry).abs() / (
+        FUSED_TOL["y_fp16_rel"] * ry.abs()
+        + FUSED_TOL["y_bf16_abs"] * scale[None, :]), torch.zeros_like(ry))
+    at = divmod(int(ratio.argmax()), n)
+    out = {"shape": [m, k, n], "dtype": "float16", "mode": "overflow",
+           "inf_count": int((~finite).sum()),
+           "inf_match": bool(torch.equal(torch.isinf(y), ~finite)),
+           "stats_finite": bool(torch.isfinite(s1).all()
+                                and torch.isfinite(s2).all()),
+           "y_err_ratio": ratio.max().item(),
+           "worst_at": {"row": at[0], "col": at[1],
+                        "y": float(y[at]), "ref": float(ry[at])},
+           "sum_err_ratio": ((s1 - r1).abs() / ry.abs().sum(0)).max().item()
+           / FUSED_TOL["stats_rel"],
+           "sumsq_err_ratio": ((s2 - r2).abs() / r2).max().item()
+           / FUSED_TOL["stats_rel"]}
+    out["ok"] = (out["inf_count"] > 0 and out["inf_match"]
+                 and out["stats_finite"] and max(
+                     out[r] for r in ("y_err_ratio", "sum_err_ratio",
+                                      "sumsq_err_ratio")) <= 1.0)
+    return out
+
+
 def phase_fused_kernel(torch, seed):
     """The fused 1x1-conv + BN-statistics kernel against its plain version
-    at every resnet50_v1 shape (batch 32) and one ragged shape, fp32 and
-    bf16, in its three modes (the model's shapes with w in the conv layout,
-    the ragged one as a direct call's contiguous [K, N]).  Each case must
+    at every resnet50_v1 shape (batch 32) and one ragged shape, fp32, bf16
+    and fp16, in its three modes (the model's shapes with w in the conv
+    layout, the ragged one as a direct call's contiguous [K, N]); fp16 also
+    at FUSED_TIMED, and there with y past fp16's range.  Each case must
     also have run on the expected kernel: the tensor cores for the model's
     shapes, the CUDA cores for the ragged one, as _fused_variant says and
     as the launch counts show."""
@@ -942,7 +991,7 @@ def phase_fused_kernel(torch, seed):
     for (m, k, n) in shapes + [FUSED_RAGGED]:
         w_nk = (m, k, n) != FUSED_RAGGED
         want = "wgmma" if w_nk else "simt"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             for mode, (affine, relu) in FUSED_MODES.items():
                 x, w, sc, sh = _fused_inputs(torch, gen, m, k, n, dtype,
                                              affine, w_nk)
@@ -954,14 +1003,28 @@ def phase_fused_kernel(torch, seed):
                               and FC._fused_variant(dtype, m, k, n) == want)
                 cases.append(case)
                 del x, w, sc, sh
-    bad = [c for c in cases if not c["ok"]]
+    x, w, _, _ = _fused_inputs(torch, gen, *FUSED_TIMED, torch.float16, False)
+    case = _fused_case(torch, FC, x, w, None, None, False)
+    case.update(shape=list(FUSED_TIMED), mode="plain", dtype="float16",
+                w_layout="nk")
+    case["ok"] = case["ok"] and case["variant"] == "wgmma"
+    cases.append(case)
+    del x, w
+    overflow = _fused_overflow_case(torch, FC, gen)
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]] + (
+        [] if overflow["ok"] else [overflow])
     emit({"phase": "fused_kernel", "ok": not bad, "tolerance": FUSED_TOL,
           "cases": len(cases),
           "variants": {v: sum(c["variant"] == v for c in cases)
                        for v in ("wgmma", "simt")},
           "worst": {r: max(c[r] for c in cases) for r in
                     ("y_err_ratio", "sum_err_ratio", "sumsq_err_ratio")},
-          "failed": bad})
+          "worst_fp16": {r: max(c[r] for c in cases
+                                if c["dtype"] == "float16")
+                         for r in ("y_err_ratio", "sum_err_ratio",
+                                   "sumsq_err_ratio")},
+          "fp16_overflow": overflow, "failed": bad})
     check(not bad, f"fused_conv_bn_stats disagrees with its plain version "
           f"or ran on the wrong kernel: {bad}")
 
@@ -1017,10 +1080,36 @@ def phase_fused_timing(torch, seed):
             del x, w
             torch.cuda.empty_cache()
     check(timed is not None, f"FUSED_TIMED {FUSED_TIMED} is not a step shape")
+    timed_fp16 = _fused_timing_fp16(torch, FC, gen)
     emit({"phase": "fused_kernel_timing", "ok": True, "tf32": _tf32(torch),
           "launches_per_step": FUSED_LAUNCHES_PER_STEP,
-          "step_sum": step, "shapes": shapes})
-    return timed
+          "step_sum": step, "shapes": shapes, "fp16": timed_fp16})
+    return timed, timed_fp16
+
+
+def _fused_timing_fp16(torch, FC, gen):
+    """The fp16 route (row 2b) at FUSED_TIMED: checked once against the
+    half-ulp gates, then timed in turns with its plain version (fp32 math
+    on the fp16 values, y rounded once) and torch.matmul in fp16 (y
+    alone); its bound is the bytes of fp16 x, w and y at the memory rate
+    (its one TF32 product is 3x shorter)."""
+    m, k, n = FUSED_TIMED
+    x, w, _, _ = _fused_inputs(torch, gen, m, k, n, torch.float16, False)
+    case = _fused_case(torch, FC, x, w, None, None, False)
+    check(case["ok"] and case["variant"] == "wgmma",
+          f"fused_conv_bn_stats fp16 at {FUSED_TIMED}: {case}")
+    best, runs = _in_turns(torch, {
+        "kernel": lambda: FC.fused_matmul_bn_stats(x, w),
+        "plain": lambda: FC._reference_conv1x1(x, w, None, None, False),
+        "library": lambda: torch.matmul(x, w)})
+    bound, bound_by = fused_bound_ms(m, k, n, 2)
+    del x, w
+    torch.cuda.empty_cache()
+    return {"shape": [m, k, n], "dtype": "float16", "mode": "plain",
+            "variant": case["variant"], "max_abs_err": case["max_abs_err"],
+            "y_err_ratio": case["y_err_ratio"], "ms": best["kernel"],
+            "plain_ms": best["plain"], "library_ms": best["library"],
+            "bound_ms": bound, "bound_by": bound_by, "runs_ms": runs}
 
 
 def _tf32(torch):
@@ -6325,6 +6414,462 @@ def phase_amp(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# slice 24: the device mesh, sequence- and expert-parallel training
+# ---------------------------------------------------------------------------
+# Every Llama here is LlamaModel at llama_7b's widths (LLAMA_7B: vocab
+# 32000, units 4096, hidden 11008, 32 heads) cut to MESH["layers"] of its
+# 32 layers, fp32, TF32 off, random weights from the seed.  Mesh positions
+# are torch.device("cuda") repeated: one card holds every position, so the
+# phase shows semantics, shapes and memory and measures no interconnect.
+#  (a) sp = 4, S = 8192, batch 1: ring and Ulysses logits against flash on
+#      the same weights, max |diff| within seq_rel of max |flash logit|
+#      (the flash kernel's three TF32 products against fp32 einsums, summed
+#      in other orders over 2 layers); at S = 2048 each parameter's
+#      gradient of one loss within grad_rel of the flash model's largest
+#      |gradient| of that tensor; 3 Adam steps of CompiledTrainStep(mesh=)
+#      per mode on one batch, the loss falling; per forward 2(n - 1)
+#      ppermutes a layer (ring: the port drops the JAX body's last
+#      rotation) and 4 all_to_alls a layer (Ulysses).
+#  (b) dp = 2 x ep = 4, 4 experts top-2 (Mixtral-style MoE FFN; about
+#      0.99 B parameters), batch 2, S = 2048: 3 Adam steps against the same
+#      model and data with no mesh, each step's loss within loss_rel (the
+#      JAX package's own test holds 2e-4, tests/test_llama.py:248); 2
+#      all_to_alls a layer per forward and one pmean a step.
+#  (c) fused resnet50_v1, batch 64, 224 px, dp = 2, 3 SGD steps (momentum
+#      0.9, wd 1e-4, lr resnet_lr) against the unmeshed step; 36 B1
+#      launches per forward per position, and 2 psums (the statistics) per
+#      fused layer.  The first loss (before any update) within resnet_rel.
+#      The later ones cannot be held to that: this random-init net's
+#      gradients move by 2.6e-2 under its kernel's 1e-6-level rounding
+#      (PR 23), and the mesh changes the statistics' summation order (at
+#      the training phase's lr 0.1 the two runs' step-2 losses parted by
+#      1.0%, at lr 1e-3 by 8.3e-4).  So a witness run, unmeshed, takes
+#      every B1 launch's statistics times (1 + 2^-23 fixed noise), a
+#      rounding-sized change, and the largest gap of the meshed losses
+#      must lie within resnet_rel, or within witness_factor times the
+#      witness's largest gap, of the unmeshed ones.
+#  (d) fused resnet50_v1 converted by amp.convert_hybrid_block(net,
+#      "float16"): each of its 36 fused blocks on fp16 input of its own
+#      shape at batch 64, recorded forward and backward (one fp16 B1 launch
+#      each, finite gradients); the whole network's forward then stops at
+#      the first convolution after a fused block with the JAX package's
+#      dtype mismatch (a fused block returns fp32; ROADMAP C, reference
+#      caveats).
+# B0 at (a)'s shape, [1, 32, 8192, 128] causal fp32, is checked against
+# its plain version and timed beside it and SDPA (fp32).
+MESH = dict(layers=2, sp=4, seq=8192, grad_seq=2048, steps=3, lr=1e-4,
+            moe_batch=2, moe_seq=2048, experts=4, top_k=2, aux_weight=0.01,
+            resnet_batch=64, resnet_lr=1e-3, seq_rel=1e-4, grad_rel=1e-4,
+            loss_rel=2e-4, resnet_rel=1e-4, witness_factor=4.0,
+            budget_s=120.0)
+MESH_FLASH = (1, 32, 8192, 128)
+
+
+def _mesh_devices(torch, n):
+    return [torch.device("cuda")] * n
+
+
+def _mesh_llama(torch, seed, **kw):
+    from mxnet_tpu_torch.gluon.model_zoo.language import LlamaModel
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    model = LlamaModel(num_layers=MESH["layers"], **{**LLAMA_7B, **kw})
+    return initialize(model, generator(seed))
+
+
+def _mesh_lm_loss(moe):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    ce = SoftmaxCrossEntropyLoss()
+    vocab = LLAMA_7B["vocab_size"]
+
+    def loss(out, y):
+        if moe:
+            logits, aux = out
+            return ce(logits.reshape(-1, vocab), y.reshape(-1)) \
+                + MESH["aux_weight"] * aux
+        return ce(out.reshape(-1, vocab), y.reshape(-1))
+    return loss
+
+
+def _mesh_tokens(torch, seed, batch, seq):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, LLAMA_7B["vocab_size"], (batch, seq),
+                           generator=gen, device="cuda")
+    return tokens, torch.roll(tokens, -1, dims=1).float()
+
+
+def _peak_gb(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _mesh_free(torch):
+    """_free, and the peak counter restarted for the next run."""
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _mesh_flash_timing(torch, seed):
+    """B0's fp32 route at [1, 32, 8192, 128] causal: checked once against
+    its plain version, then timed in turns with it and SDPA fp32.  The
+    bound is the function's operations (2·S²·D per head, causal) at the
+    TF32 tensor-core peak, or its bytes; beside it the kernel's own three
+    TF32 products and the same operations on the fp32 CUDA cores."""
+    from mxnet_tpu_torch.ops import attention as A
+    b, h, s, d = MESH_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    q, k, v = (torch.randn(b * h, s, d, generator=gen, device="cuda")
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    before = A.flash_fwd_tf32_launches
+    o, lse = A.flash_fwd(q, k, v, True, scale)
+    ran_tf32 = A.flash_fwd_tf32_launches - before == 1
+    ro, rl = A._flash_forward_plain(q, k, v, True, scale)
+    o_err = (o - ro).abs().max().item()
+    lse_err = (lse - rl).abs().max().item()
+    del o, lse, ro, rl
+    torch.cuda.empty_cache()
+    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    best, runs = _in_turns(torch, {
+        "kernel": lambda: A.flash_fwd(q, k, v, True, scale),
+        "plain": lambda: A._flash_forward_plain(q, k, v, True, scale),
+        "library": lambda: sdpa(q4, k4, v4, is_causal=True, scale=scale)},
+        iters=5)
+    bound, bound_by = flash_bound_ms(b, h, s, d, True, 4,
+                                     peak=PEAK_TF32_FLOPS)
+    tol = TOL["float32"]
+    out = {"shape": [b, h, s, d], "dtype": "float32", "causal": True,
+           "variant": A._flash_variant(torch.float32, d), "ran_tf32": ran_tf32,
+           "o_err": o_err, "lse_err": lse_err, "tolerance": tol,
+           "max_abs_err": max(o_err, lse_err), "ms": best["kernel"],
+           "plain_ms": best["plain"], "library_ms": best["library"],
+           "bound_ms": bound, "bound_by": bound_by,
+           "tf32x3_ops_ms": flash_bound_ms(b, h, s, d, True, 4, ops_factor=3,
+                                           peak=PEAK_TF32_FLOPS)[0],
+           "cuda_core_ops_ms": flash_bound_ms(b, h, s, d, True, 4)[0],
+           "runs_ms": runs}
+    out["ok"] = (ran_tf32 and o_err <= tol["o"] and lse_err <= tol["lse"])
+    del q, k, v, q4, k4, v4
+    _mesh_free(torch)
+    return out
+
+
+def _grad_gaps(ref, got, names):
+    return {n: ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+            for n, r, g in zip(names, ref, got)}
+
+
+def _mesh_seq(torch, seed):
+    """(a): ring and Ulysses against flash, then 3 meshed steps each."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.parallel import DeviceMesh, collectives as C
+    n, s, layers = MESH["sp"], MESH["seq"], MESH["layers"]
+    mesh = DeviceMesh({"sp": n}, devices=_mesh_devices(torch, n))
+    tokens, labels = _mesh_tokens(torch, seed + 1, 1, s)
+    models = {"flash": _mesh_llama(torch, seed, max_length=s)}
+    for mode in ("ring", "ulysses"):
+        models[mode] = _mesh_llama(torch, seed + 99, max_length=s,
+                                   attention=mode, mesh=mesh)
+        models[mode].load_state_dict(models["flash"].state_dict())
+    want = {"ring": ("ppermute", layers * 2 * (n - 1)),
+            "ulysses": ("all_to_all", layers * 4)}
+    out = {"forward": {}, "grads": {}, "train": {}}
+    launches = {"flash": 0, "flash_tf32": 0}
+    with torch.no_grad():
+        f0, t0 = A.flash_fwd_launches, A.flash_fwd_tf32_launches
+        ref = models["flash"](tokens)
+        launches = {"flash": A.flash_fwd_launches - f0,
+                    "flash_tf32": A.flash_fwd_tf32_launches - t0}
+        scale = ref.abs().max().item()
+        for mode in ("ring", "ulysses"):
+            C.reset_collective_counts()
+            got = models[mode](tokens)
+            counts = C.collective_counts()
+            name, per = want[mode]
+            out["forward"][mode] = {
+                "max_abs_diff": (got - ref).abs().max().item(),
+                "rel": (got - ref).abs().max().item() / scale,
+                "collectives": counts, "want": {name: per},
+                "ok": (got - ref).abs().max().item()
+                <= MESH["seq_rel"] * scale and counts[name] == per}
+            del got
+    del ref
+    # gradients of one loss at S = grad_seq
+    gs = MESH["grad_seq"]
+    loss_fn = _mesh_lm_loss(False)
+    grads = {}
+    for mode, model in models.items():
+        params = [p for p in model.parameters() if p.requires_grad]
+        loss = loss_fn(model(tokens[:, :gs]), labels[:, :gs]).mean()
+        grads[mode] = torch.autograd.grad(loss, params)
+        del loss
+    names = [k for k, p in models["flash"].named_parameters()
+             if p.requires_grad]
+    for mode in ("ring", "ulysses"):
+        gaps = _grad_gaps(grads["flash"], grads[mode], names)
+        worst = max(gaps, key=gaps.get)
+        out["grads"][mode] = {"worst": worst, "rel": gaps[worst],
+                              "ok": gaps[worst] <= MESH["grad_rel"]}
+    del grads, models["flash"]
+    _mesh_free(torch)
+    # 3 meshed steps per mode, one model at a time
+    for mode in ("ring", "ulysses"):
+        model = models.pop(mode)
+        step = CompiledTrainStep(model, loss_fn, optimizer.create(
+            "adam", learning_rate=MESH["lr"]), batch_size=1, mesh=mesh)
+        C.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(tokens, labels)) for _ in range(MESH["steps"])]
+        out["train"][mode] = {
+            "losses": losses, "seconds": time.perf_counter() - t0,
+            "collectives": C.collective_counts(),
+            "peak_mem_gb": _peak_gb(torch),
+            "ok": losses[-1] < losses[0] and all(map(math.isfinite, losses))}
+        del step, model
+        _mesh_free(torch)
+    out["launches"] = launches
+    out["ok"] = (all(v["ok"] for part in ("forward", "grads", "train")
+                     for v in out[part].values())
+                 and launches["flash_tf32"] == layers)
+    return out
+
+
+def _mesh_experts(torch, seed):
+    """(b): the MoE model over dp x ep against no mesh."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.parallel import DeviceMesh, collectives as C
+    axes = {"dp": 2, "ep": 4}
+    mesh = DeviceMesh(axes, devices=_mesh_devices(torch, 8))
+    tokens, labels = _mesh_tokens(torch, seed + 2, MESH["moe_batch"],
+                                  MESH["moe_seq"])
+    runs = {}
+    for name, m in (("mesh", mesh), ("single", None)):
+        model = _mesh_llama(torch, seed + 3, moe_experts=MESH["experts"],
+                            moe_top_k=MESH["top_k"])
+        params = sum(p.numel() for p in model.parameters())
+        step = CompiledTrainStep(model, _mesh_lm_loss(True), optimizer.create(
+            "adam", learning_rate=MESH["lr"]),
+            batch_size=MESH["moe_batch"], mesh=m)
+        C.reset_collective_counts()
+        f0 = A.flash_fwd_tf32_launches
+        t0 = time.perf_counter()
+        losses = [float(step(tokens, labels)) for _ in range(MESH["steps"])]
+        runs[name] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                      "collectives": C.collective_counts(),
+                      "flash_tf32_launches": A.flash_fwd_tf32_launches - f0,
+                      "parameters": params, "peak_mem_gb": _peak_gb(torch)}
+        if m is not None:
+            runs[name]["expert_spec"] = list(
+                step.param_specs["layers.0.ffn.expert_w1"])
+        del step, model
+        _mesh_free(torch)
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["mesh"]["losses"],
+                                               runs["single"]["losses"])]
+    steps, layers = MESH["steps"], MESH["layers"]
+    got = runs["mesh"]["collectives"]
+    want = {"all_to_all": 2 * layers * steps, "pmean": steps}
+    ok = (max(rel) <= MESH["loss_rel"]
+          and all(got[k] == v for k, v in want.items())
+          and runs["single"]["collectives"]["all_to_all"] == 0
+          and all(r["flash_tf32_launches"] == layers * steps
+                  for r in runs.values())
+          and runs["single"]["losses"][-1] < runs["single"]["losses"][0])
+    return {"runs": runs, "loss_rel": rel, "want": want, "ok": ok,
+            "launches": runs["mesh"]["flash_tf32_launches"]}
+
+
+@contextlib.contextmanager
+def _stats_witness(torch):
+    """B1's CUDA route registered again at priority 99 with its statistics
+    times (1 + 2^-23 fixed noise) on the way out; removed after."""
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    from mxnet_tpu_torch.ops import kernels
+
+    def nudged(x, w, in_scale, in_shift, relu_in, **_):
+        y, s1, s2 = FC._fused_cuda(x, w, in_scale, in_shift, relu_in)
+        return (y, s1 * (1 + 2.0 ** -23 * _pseudo_noise(torch, s1)),
+                s2 * (1 + 2.0 ** -23 * _pseudo_noise(torch, s2)))
+
+    kernels.register_kernel("conv1x1_bn_stats", platform="cuda",
+                            priority=99, name="stats_witness")(nudged)
+    try:
+        yield
+    finally:
+        kernels._KERNELS["conv1x1_bn_stats"] = [
+            e for e in kernels._KERNELS["conv1x1_bn_stats"]
+            if e.name != "stats_witness"]
+
+
+def _mesh_resnet(torch, seed):
+    """(c): fused resnet50_v1 under dp = 2 against no mesh."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    from mxnet_tpu_torch.parallel import DeviceMesh, collectives as C
+    batch, steps = MESH["resnet_batch"], MESH["steps"]
+    x, y = _images(torch, seed + 4, batch, TRAIN["px"], TRAIN["classes"])
+    mesh = DeviceMesh({"dp": 2}, devices=_mesh_devices(torch, 2))
+    runs = {}
+    for name, m in (("mesh", mesh), ("single", None), ("witness", None)):
+        net = _resnet50(torch, True, seed + 5)
+        step = CompiledTrainStep(
+            net, SoftmaxCrossEntropyLoss(), optimizer.create(
+                "sgd", learning_rate=MESH["resnet_lr"], momentum=0.9,
+                wd=1e-4),
+            batch_size=batch, mesh=m)
+        C.reset_collective_counts()
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+        with (_stats_witness(torch) if name == "witness"
+              else contextlib.nullcontext()):
+            losses = [float(step(x, y)) for _ in range(steps)]
+        torch.cuda.synchronize()
+        runs[name] = {"losses": losses,
+                      "launches": FC.fused_conv_bn_launches,
+                      "wgmma_launches": FC.fused_conv_bn_wgmma_launches,
+                      "collectives": C.collective_counts(),
+                      "peak_mem_gb": _peak_gb(torch)}
+        del step, net
+        _mesh_free(torch)
+    single = runs["single"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["mesh"]["losses"],
+                                               single)]
+    witness = [abs(a - b) / abs(b) for a, b in zip(runs["witness"]["losses"],
+                                                   single)]
+    per_fwd = FUSED_LAUNCHES_PER_STEP
+    ok = (rel[0] <= MESH["resnet_rel"]
+          and max(rel) <= max(MESH["resnet_rel"],
+                              MESH["witness_factor"] * max(witness))
+          and runs["mesh"]["launches"] == per_fwd * 2 * steps
+          and runs["single"]["launches"] == per_fwd * steps
+          and runs["mesh"]["collectives"]["psum"] == 2 * per_fwd * steps)
+    return {"runs": runs, "loss_rel": rel, "witness_rel": witness, "ok": ok,
+            "launches_per_forward_per_position":
+            runs["mesh"]["launches"] / (2 * steps),
+            "launches": runs["mesh"]["launches"]}
+
+
+def _mesh_fp16_blocks(torch, seed):
+    """(d): every fused block of the fp16-converted resnet50_v1 on fp16
+    input of its shape, then the whole network's forward."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.contrib.nn import FusedConv1x1BN
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    batch = MESH["resnet_batch"]
+    net = _resnet50(torch, True, seed + 6)
+    blocks = [mod for mod in net.modules() if isinstance(mod, FusedConv1x1BN)]
+    shapes = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args: shapes.setdefault(id(mod), tuple(args[0].shape)))
+        for blk in blocks]
+    x, y = _images(torch, seed + 7, batch, TRAIN["px"], TRAIN["classes"])
+    with torch.no_grad():
+        net.eval()(x)
+    for hk in hooks:
+        hk.remove()
+    amp.convert_hybrid_block(net, "float16")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    FC.fused_conv_bn_launches = FC.fused_conv_bn_fp16_launches = 0
+    rows, finite = [], True
+    for blk in blocks:
+        xin = torch.rand(shapes[id(blk)], generator=gen,
+                         device="cuda").half().requires_grad_()
+        out = blk.train()(xin)
+        out.float().square().mean().backward()
+        finite = finite and bool(torch.isfinite(xin.grad).all()) and bool(
+            torch.isfinite(blk.weight.grad).all())
+        rows.append({"input": list(shapes[id(blk)]),
+                     "out_dtype": str(out.dtype).replace("torch.", "")})
+        blk.weight.grad = None
+        del xin, out
+    torch.cuda.synchronize()
+    launches = {"fp16": FC.fused_conv_bn_fp16_launches,
+                "all": FC.fused_conv_bn_launches}
+    FC.fused_conv_bn_fp16_launches = 0
+    err = None
+    try:
+        net.train()(x.half())
+    except MXNetError as e:   # the kernel refused fp16 (fault C14)
+        err = ("MXNetError", str(e))
+    except RuntimeError as e:
+        err = ("RuntimeError", str(e))
+    torch.cuda.synchronize()
+    whole = {"error": err, "fp16_launches_before_it":
+             FC.fused_conv_bn_fp16_launches,
+             "peak_mem_gb": _peak_gb(torch)}
+    del net, blocks, x, y
+    _mesh_free(torch)
+    ok = (launches["fp16"] == len(rows) == FUSED_LAUNCHES_PER_STEP
+          and finite and err is not None and err[0] == "RuntimeError"
+          and "float" in err[1].lower()
+          and whole["fp16_launches_before_it"] >= 1)
+    return {"blocks": len(rows), "launches": launches,
+            "grads_finite": finite, "whole_network": whole,
+            "first_blocks": rows[:2], "ok": ok}
+
+
+def phase_mesh(torch, seed):
+    """Slice 24 (see MESH): returns B0's fp32 launches on (a) and (b), B1's
+    on (c) and its fp16 launches on (d), and B0's timing at (a)'s shape."""
+    from mxnet_tpu_torch.parallel import collectives as C
+    t0 = time.perf_counter()
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _mesh_free(torch)
+    secs, parts = {}, {}
+    for key, fn in (("flash_timing", _mesh_flash_timing),
+                    ("a_sequence", _mesh_seq), ("b_experts", _mesh_experts),
+                    ("c_resnet_dp", _mesh_resnet),
+                    ("d_resnet_fp16", _mesh_fp16_blocks)):
+        t1 = time.perf_counter()
+        parts[key] = fn(torch, seed)
+        secs[key] = time.perf_counter() - t1
+        print(f"mesh: {key} {secs[key]:.1f} s ok={parts[key]['ok']}",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    out = {"phase": "mesh", "card": card, "config": MESH,
+           "tf32": _tf32(torch), **parts, "part_seconds": secs,
+           "seconds": seconds, "budget_s": MESH["budget_s"],
+           "collective_names": sorted(C.collective_counts())}
+    out["ok"] = all(p["ok"] for p in parts.values())
+    emit(out)
+    print(f"mesh [{card}]: " + json.dumps({
+        "peak_mem_gb": {
+            "a_ring_train": parts["a_sequence"]["train"]["ring"][
+                "peak_mem_gb"],
+            "a_ulysses_train": parts["a_sequence"]["train"]["ulysses"][
+                "peak_mem_gb"],
+            "b_moe_mesh": parts["b_experts"]["runs"]["mesh"]["peak_mem_gb"],
+            "b_moe_single": parts["b_experts"]["runs"]["single"][
+                "peak_mem_gb"],
+            "c_resnet_mesh": parts["c_resnet_dp"]["runs"]["mesh"][
+                "peak_mem_gb"],
+            "d_fp16": parts["d_resnet_fp16"]["whole_network"]["peak_mem_gb"]},
+        "collectives": {
+            "a_forward": {m: v["collectives"] for m, v in
+                          parts["a_sequence"]["forward"].items()},
+            "b_mesh_3_steps": parts["b_experts"]["runs"]["mesh"][
+                "collectives"],
+            "c_mesh_3_steps": parts["c_resnet_dp"]["runs"]["mesh"][
+                "collectives"]},
+        "seconds": seconds}), flush=True)
+    check(out["ok"], "mesh gates failed: " + str(
+        [k for k, p in parts.items() if not p["ok"]]))
+    return ({"mesh_sequence": parts["a_sequence"]["launches"]["flash_tf32"],
+             "mesh_experts": parts["b_experts"]["launches"]},
+            parts["c_resnet_dp"]["launches"],
+            parts["d_resnet_fp16"]["launches"]["fp16"],
+            parts["flash_timing"])
+
+
+# ---------------------------------------------------------------------------
 # slice 15: training that survives faults
 # ---------------------------------------------------------------------------
 # Full-width BERT-base as bert_training builds it (fp32, TF32 off, seq 128,
@@ -9544,7 +10089,7 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
           "vision_zoo", "estimator", "optimizers", "ops_rnn",
-          "ndarray_rest", "amp", "serving_bert",
+          "ndarray_rest", "amp", "mesh", "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -9591,7 +10136,7 @@ def main(argv=None):
     if "fused" in only:
         phase_fused_kernel(torch, args.seed)
     if "fused_timing" in only:
-        fused = phase_fused_timing(torch, args.seed)
+        fused, fused_fp16 = phase_fused_timing(torch, args.seed)
     if "model_parity" in only:
         phase_model_parity(torch, args.seed)
     if "resnet_parity" in only:
@@ -9623,9 +10168,13 @@ def main(argv=None):
         fp16_paths["amp"], wgmma_paths["amp"], amp_b1 = phase_amp(
             torch, args.seed)
         by_path = {"amp": amp_b1, **by_path}
+    mesh_b0 = fp16_b1 = None
+    if "mesh" in only:
+        mesh_b0, mesh_b1, fp16_b1, mesh_flash = phase_mesh(torch, args.seed)
+        by_path = {"mesh": mesh_b1, **by_path}
     if by_path and "fused_timing" in only:
         # launches: the latest slice's path that ran (fused resnet50_v1
-        # under amp.init("float16"), the ImageIter
+        # under a dp = 2 mesh, under amp.init("float16"), the ImageIter
         # fine-tune loop under a CustomOp head, LARS through
         # CompiledTrainStep's graph, Estimator.fit, the input pipeline,
         # then the graph on a resident batch, then the Gluon loop)
@@ -9633,13 +10182,35 @@ def main(argv=None):
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            next(by_path[k] for k in ("amp", "ndarray_rest", "optimizers",
+            next(by_path[k] for k in ("mesh", "amp", "ndarray_rest",
+                                      "optimizers",
                                       "estimator",
                                       "input_pipeline", "training",
                                       "gluon_training")
                  if k in by_path),
             fused)
         line["launches_by_path"] = by_path
+        lines.append(line)
+    if fp16_b1 is not None and "fused_timing" in only:
+        # the fp16 route (slice 24, row 2b): every fused block of the
+        # fp16-converted resnet50_v1, timed at FUSED_TIMED
+        line = _kernel_line("fused_conv_bn_stats_fp16",
+                            "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
+                            "mxnet_tpu/ops/fused_conv_bn.py:48", fp16_b1,
+                            fused_fp16)
+        line["launches_by_path"] = {"mesh": fp16_b1}
+        line["shape"], line["dtype"] = list(FUSED_TIMED), "float16"
+        lines.append(line)
+    if mesh_b0 is not None:
+        # B0's fp32 route on the sequence- and expert-parallel path (slice
+        # 24), timed at (a)'s shape [1, 32, 8192, 128] causal
+        line = _kernel_line("flash_fwd_tf32_llama",
+                            "mxnet_tpu_torch/csrc/flash_fwd_tf32.cu",
+                            "mxnet_tpu/ops/attention.py:51",
+                            sum(mesh_b0.values()), mesh_flash)
+        line["launches_by_path"] = mesh_b0
+        line["shape"], line["dtype"] = list(MESH_FLASH), "float32"
+        line["causal"] = True
         lines.append(line)
     # llama_7b and BERT-base stay alive from their serving phases to the
     # HTTP phase, which serves them again

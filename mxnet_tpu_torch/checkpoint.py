@@ -28,7 +28,7 @@ Deliberate difference: the on-disk format is the port's own (the JAX
 package writes orbax trees).  A JAX checkpoint does not load into the
 port, nor the reverse; the layout names, ``meta.json`` and the manifest
 are the same.  The ZeRO-sharded optimizer checkpoints wait for
-``kvstore/sharded.py`` (ROADMAP A11) and raise.
+``kvstore/sharded.py`` (ROADMAP A11b) and raise.
 """
 from __future__ import annotations
 
@@ -285,15 +285,15 @@ def load_pytree(path: str, template: Optional[Any] = None,
 
 def save_sharded_optimizer(path: str, store, force: bool = False) -> str:
     """Not ported: the ZeRO-sharded optimizer state lives in
-    ``kvstore/sharded.py``, which waits for the port's device mesh."""
+    ``kvstore/sharded.py``, which is not ported yet."""
     raise MXNetError("save_sharded_optimizer: the ZeRO-sharded optimizer "
-                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11)")
+                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
 
 
 def load_sharded_optimizer(path: str, store) -> None:
     """Not ported (see :func:`save_sharded_optimizer`)."""
     raise MXNetError("load_sharded_optimizer: the ZeRO-sharded optimizer "
-                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11)")
+                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ numpy arrays keyed by their ``collect_params()`` names (for example
 ``llamamodel0_layer0_attn_wq_weight`` or ``llamamodel0_rope_cos``) and loads
 them into a :class:`~mxnet_tpu_torch.gluon.model_zoo.language.LlamaModel`.
 The port's module names follow the JAX ones, so ``layers.0.attn.wq.weight``
-is ``layer0_attn_wq_weight`` after the model's name prefix.
+is ``layer0_attn_wq_weight`` after the model's name prefix, and a MoE
+block's ``layers.0.ffn.expert_w1`` is ``layer0_moe_expert_w1``.
 
 :func:`resnet_state_dict_from_mxnet` maps by order instead: the JAX
 ResNet's names count layers per stage and type
@@ -33,7 +34,10 @@ __all__ = ["llama_state_dict_from_mxnet", "resnet_state_dict_from_mxnet",
 
 
 def _mxnet_suffix(key: str) -> str:
-    """``layers.3.ffn.w1.weight`` -> ``layer3_ffn_w1_weight``."""
+    """``layers.3.ffn.w1.weight`` -> ``layer3_ffn_w1_weight``; a MoE
+    block's ``layers.3.ffn.expert_w1`` -> ``layer3_moe_expert_w1`` (the JAX
+    block names its MoE FFN ``moe_``)."""
+    key = re.sub(r"\.ffn\.(router_weight|expert_w\d)$", r".moe.\1", key)
     return re.sub(r"^layers\.(\d+)\.", r"layer\1_", key).replace(".", "_")
 
 

@@ -1,5 +1,5 @@
 // Fused 1x1 convolution (a matrix product) + BatchNorm statistics for Hopper
-// (sm_90a), fp32 or bf16 in, fp32 math.
+// (sm_90a), fp32, bf16 or fp16 in, fp32 math.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/fused_conv_bn.py:_mm_stats_kernel
 // (called through fused_matmul_bn_stats).  Same function:
@@ -48,6 +48,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,6 +71,10 @@ template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_float<__half>(__half v) {
+  return __half2float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -78,6 +83,11 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+// rounded to nearest: beyond +-65504 the value becomes +-inf, as a cast does
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 template <typename T, bool AFFINE, bool RELU>
@@ -232,7 +242,7 @@ int launch_mode(int affine, int relu_in, const void* x, const void* w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t (0 on success).
 extern "C" int fused_conv_bn_stats(const void* x, const void* w,
                                    const float* scale, const float* shift,
                                    void* y, float* psum, float* psumsq,
@@ -250,6 +260,9 @@ extern "C" int fused_conv_bn_stats(const void* x, const void* w,
     case 1:
       return launch_mode<__nv_bfloat16>(affine, relu_in, x, w, scale, shift,
                                         y, psum, psumsq, m, k, n, st);
+    case 2:
+      return launch_mode<__half>(affine, relu_in, x, w, scale, shift, y, psum,
+                                 psumsq, m, k, n, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

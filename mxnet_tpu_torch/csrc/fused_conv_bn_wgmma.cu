@@ -1,10 +1,10 @@
 // Fused 1x1 convolution (a matrix product) + BatchNorm statistics for Hopper
-// (sm_90a) on the tensor cores: fp32 or bf16 in, fp32 kept through a
+// (sm_90a) on the tensor cores: fp32, bf16 or fp16 in, fp32 kept through a
 // three-product TF32 split, fp32 accumulation.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/fused_conv_bn.py:_mm_stats_kernel
 // (called through fused_matmul_bn_stats) wherever TMA can describe x: fp32
-// with K % 4 == 0, bf16 with K % 8 == 0 (16-byte row strides), 16-byte
+// with K % 4 == 0, bf16 or fp16 with K % 8 == 0 (16-byte row strides), 16-byte
 // aligned bases; every other input stays on the CUDA-core kernel in
 // fused_conv_bn.cu.  Same function and output contract as that kernel:
 //   y[M, N] = act(scale * x + shift)[M, K] @ w[K, N]
@@ -22,8 +22,11 @@
 // shapes (M = 802,816 at batch 256, K or N = 64..256) that is below the
 // bytes of x and y at 3.35 TB/s, so they are bound by bytes; the deeper
 // stages (K, N up to 2048 at M = 12,544) are bound by the tensor cores.
-// bf16 inputs convert to fp32 exactly and have no lo part: a bf16 call runs
-// a_hi.b_hi alone, plus a_lo.b_hi when the input affine leaves TF32.
+// bf16 and fp16 inputs convert to TF32 exactly (8 and 10 mantissa bits
+// against TF32's 10, with fp32's exponent range) and have no lo part: such a
+// call runs a_hi.b_hi alone, plus a_lo.b_hi when the input affine leaves
+// TF32.  An fp16 y beyond +-65504 rounds to +-inf, as a cast does; the
+// statistics come from the fp32 accumulator and stay finite.
 //
 // Design:
 //   * w is split once per call by a small pre-kernel into fp32 w_hi and
@@ -81,6 +84,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -121,6 +125,10 @@ template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_float<__half>(__half v) {
+  return __half2float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -129,6 +137,21 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// Two adjacent y elements, each rounded once from the accumulator.
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(__half* p, float v0, float v1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
 }
 
 // Element (r, c) of a [rows, 128 B] box written by TMA with the 128-byte
@@ -142,8 +165,8 @@ __device__ __forceinline__ float swizzled(const uint8_t* box, int r, int c) {
 }
 
 // Per-stage layout: the x box, then two [BN, 128 B] w boxes (fp32: w_hi
-// and w_lo over the same 32 columns; bf16: w_hi over columns 0-31 and
-// 32-63 of the stage's 64).
+// and w_lo over the same 32 columns; bf16 and fp16: w_hi over columns 0-31
+// and 32-63 of the stage's 64).
 template <typename T, int BN>
 struct Cfg {
   static constexpr int kKS = kRowBytes / sizeof(T);  // K columns per stage
@@ -159,7 +182,7 @@ struct Cfg {
 };
 
 // A_LO: issue a_lo . b_hi (fp32 x, or an affine that leaves TF32).  fp32
-// also issues a_hi . b_lo; bf16 w has no lo part.
+// also issues a_hi . b_lo; bf16 and fp16 w have no lo part.
 template <typename T, int BN, bool A_LO>
 __global__ void __launch_bounds__(kThreads, 1)
     mm_bn_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -275,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::kSteps; ++kk) {
-      // fp32: w_hi box, w_lo box; bf16: the w_hi box of this k8 step
+      // fp32: w_hi box, w_lo box; bf16/fp16: the w_hi box of this k8 step
       const uint32_t b = a_addr + kABytes +
                          (kFp32 ? 0 : (kk / 4) * C::kBBytes) + (kk % 4) * 32;
       const uint64_t b_hi = sw128_desc(b, 1, 64);
@@ -308,12 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int col = n0 + 8 * j + c_lane;
       const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
       if (col + 1 < n && n % 2 == 0) {
-        if constexpr (kFp32) {
-          *reinterpret_cast<float2*>(yrow + col) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
+        store2(yrow + col, v0, v1);
       } else {
         if (col < n) yrow[col] = from_float<T>(v0);
         if (col + 1 < n) yrow[col + 1] = from_float<T>(v1);
@@ -377,11 +395,11 @@ __global__ void mm_bn_stats_split_w_kernel(const T* __restrict__ w,
 // ---------------------------------------------------------------- host
 // A row-major [rows, cols] tensor as a 2-D map read in [box_rows, 128 B]
 // boxes with the 128-byte swizzle; out-of-bounds elements read as zero.
-int encode_map(CUtensorMap* map, const void* ptr, bool bf16, int64_t rows,
-               int cols, int box_rows) {
+int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+               int64_t rows, int cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int elem = bf16 ? 2 : 4;
+  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
@@ -389,10 +407,7 @@ int encode_map(CUtensorMap* map, const void* ptr, bool bf16, int64_t rows,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r =
-      fn(map,
-         bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-         2, const_cast<void*>(ptr), dims, strides, box, estr,
+      fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -417,11 +432,16 @@ int launch(const void* x, const float* w_hi, const float* w_lo,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set[dev].store(true, std::memory_order_release);
   }
-  constexpr bool bf16 = !std::is_same<T, float>::value;
+  constexpr bool kFp32 = std::is_same<T, float>::value;
+  constexpr CUtensorMapDataType kXType =
+      kFp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+            : (std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  constexpr CUtensorMapDataType kW = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap tx, thi, tlo;
-  int rc = encode_map(&tx, x, bf16, m, k, kBM);
-  if (!rc) rc = encode_map(&thi, w_hi, false, n, k, BN);
-  if (!rc) rc = encode_map(&tlo, bf16 ? w_hi : w_lo, false, n, k, BN);
+  int rc = encode_map(&tx, x, kXType, m, k, kBM);
+  if (!rc) rc = encode_map(&thi, w_hi, kW, n, k, BN);
+  if (!rc) rc = encode_map(&tlo, kFp32 ? w_lo : w_hi, kW, n, k, BN);
   if (rc) return rc;
   const int64_t blocks = (m + kBM - 1) / kBM * ((n + BN - 1) / BN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -444,7 +464,7 @@ int run(const void* x, const void* w, float* w_hi, float* w_lo,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr bool kFp32 = std::is_same<T, float>::value;
-  // bf16 inputs are TF32 already; only an affine makes a lo part
+  // bf16 and fp16 inputs are TF32 already; only an affine makes a lo part
   const bool a_lo = kFp32 || scale != nullptr;
   if (n <= 64)
     return a_lo ? launch<T, 64, true>(x, w_hi, w_lo, scale, shift, y, psum,
@@ -459,8 +479,8 @@ int run(const void* x, const void* w, float* w_hi, float* w_lo,
 
 }  // namespace
 
-// dtype: 0 = float32 (K % 4 == 0, w_lo required), 1 = bfloat16 (K % 8 == 0,
-// w_lo unused).  x, w_hi and w_lo 16-byte aligned.  Returns a cudaError_t
+// dtype: 0 = float32 (K % 4 == 0, w_lo required), 1 = bfloat16 and
+// 2 = float16 (K % 8 == 0, w_lo unused).  x, w_hi and w_lo 16-byte aligned.  Returns a cudaError_t
 // (0 on success) or kEncodeError + a CUresult.
 extern "C" int fused_conv_bn_wgmma(const void* x, const void* w, float* w_hi,
                                    float* w_lo, const float* scale,
@@ -468,7 +488,7 @@ extern "C" int fused_conv_bn_wgmma(const void* x, const void* w, float* w_hi,
                                    float* psumsq, long long m, int k, int n,
                                    int relu_in, int dtype, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || m > 0x7fffffffLL ||
-      (scale == nullptr) != (shift == nullptr) || dtype < 0 || dtype > 1 ||
+      (scale == nullptr) != (shift == nullptr) || dtype < 0 || dtype > 2 ||
       k % (dtype == 0 ? 4 : 8) || (dtype == 0 && w_lo == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {x, static_cast<const void*>(w_hi),
@@ -479,6 +499,9 @@ extern "C" int fused_conv_bn_wgmma(const void* x, const void* w, float* w_hi,
   if (dtype == 0)
     return run<float>(x, w, w_hi, w_lo, scale, shift, y, psum, psumsq, m, k,
                       n, relu_in, st);
+  if (dtype == 2)
+    return run<__half>(x, w, w_hi, nullptr, scale, shift, y, psum, psumsq, m,
+                       k, n, relu_in, st);
   return run<__nv_bfloat16>(x, w, w_hi, nullptr, scale, shift, y, psum,
                             psumsq, m, k, n, relu_in, st);
 }

@@ -68,6 +68,25 @@ count the steps and their host time past any capture.  A replay returns
 once its work is queued, so the device's time lands in whatever waits
 for it next: the health fetch, the next call's staging, or the caller.
 
+``mesh`` (a :class:`~mxnet_tpu_torch.parallel.DeviceMesh`) runs the step
+over the mesh, single-controller as the JAX package's program is: the
+net runs once in global view with the mesh entered, so the ops that have
+per-position bodies shard themselves over it (the ring and Ulysses ops
+the sequence over ``sp``, the MoE op the experts over ``ep`` and its
+tokens over ``dp`` x ``ep``, the fused conv-BN op its rows over ``dp``)
+and move data between positions through the collectives; the per-sample
+loss is split over ``data_axis`` (the batch dim, or the flattened
+batch-major tokens) and each position's mean joins the step's loss
+through :func:`~mxnet_tpu_torch.parallel.pmean`, so autograd carries the
+gradients back through that mean-reduction.  ``param_spec_fn(name,
+tensor)`` (default :func:`~mxnet_tpu_torch.parallel.auto_param_spec_fn`,
+the rule table) gives each parameter's spec (``param_specs``), which the
+sharded ops read (:func:`~mxnet_tpu_torch.parallel.mesh.layout_of`);
+positions that share a device share its tensors.  With every position on
+one card the whole step, every position's work included, is one CUDA
+graph; a mesh whose positions span several cards steps eagerly.
+``fuse_grad_buckets`` defaults to on with a mesh, as in the JAX package.
+
 Deliberate differences from the JAX package: the optimizer's per-index
 counts and ``num_update`` advance once per step (MXNet's count; the JAX
 step counts once per trace), so the skip rewinds them too; every
@@ -75,9 +94,9 @@ optimizer's step computes what its eager updates compute (the JAX step
 cannot trace LARS's host norms or SGLD's ``math.sqrt(lr)``, and freezes
 Nadam's count and schedule and LBSGD's warmup at the trace); ``donate``
 has no effect (the graph updates in place already); a signature's first
-call is eager; the returned loss is a clone.  ``mesh``,
-``param_spec_fn`` and ``shard_optimizer_state`` raise
-:class:`MXNetError` (ROADMAP A11).
+call is eager; the returned loss is a clone.  ``shard_optimizer_state``
+(or ``MXNET_KVSTORE_SHARD`` with a mesh) raises :class:`MXNetError`
+(ROADMAP A11b).
 """
 from __future__ import annotations
 
@@ -204,18 +223,30 @@ class CompiledTrainStep:
     changes no value.  ``health`` (True, a dict, a
     :class:`~mxnet_tpu_torch.observability.health.HealthConfig`; None
     defers to ``MXNET_TPU_HEALTH``) arms the watchpoints.  ``mesh``,
-    ``param_spec_fn`` and ``shard_optimizer_state`` are not ported."""
+    ``data_axis`` and ``param_spec_fn`` run the step over a device mesh
+    (see the module docstring); ``shard_optimizer_state`` is not ported
+    (ROADMAP A11b)."""
 
     def __init__(self, net, loss_fn, optimizer, batch_size: Optional[int] = None,
                  mesh=None, data_axis: str = "dp", param_spec_fn=None,
                  donate: bool = True, remat: bool = False,
                  fuse_grad_buckets: Optional[bool] = None,
                  shard_optimizer_state: Optional[bool] = None, health=None):
-        if mesh is not None or param_spec_fn is not None or \
-                shard_optimizer_state:
+        if shard_optimizer_state is None:
+            shard_optimizer_state = mesh is not None and \
+                bool(env.MXNET_KVSTORE_SHARD)
+        if shard_optimizer_state:
             raise MXNetError(
-                "CompiledTrainStep: mesh, param_spec_fn and "
-                "shard_optimizer_state are not ported yet (ROADMAP A11)")
+                "CompiledTrainStep: shard_optimizer_state (ZeRO, "
+                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
+        from .parallel.mesh import DeviceMesh
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise MXNetError(f"CompiledTrainStep: mesh must be a "
+                             f"parallel.DeviceMesh, got {type(mesh).__name__}")
+        self._mesh = mesh
+        self._data_axis = data_axis
+        if fuse_grad_buckets is None:
+            fuse_grad_buckets = mesh is not None
         if health is None:
             health = bool(env.MXNET_TPU_HEALTH)
         cfg = _health.HealthConfig.coerce(health)
@@ -243,6 +274,19 @@ class CompiledTrainStep:
                                   if self._grad_buckets
                                   else len(self._learnable))
         self._names = _health.param_names(net, self._learnable)
+        self.param_specs = {}
+        self._layouts = {}
+        if mesh is not None:
+            from .parallel.rules import auto_param_spec_fn
+            spec_fn = param_spec_fn or auto_param_spec_fn(mesh)
+            for name, p in net.named_parameters():
+                if p.requires_grad:
+                    spec = spec_fn(name, p)
+                    self.param_specs[name] = spec
+                    self._layouts[id(p)] = spec
+        # positions on several cards cannot share one CUDA graph
+        self._eager_only = mesh is not None and len(
+            {d for d in mesh.devices if d.type == "cuda"}) > 1
         self._num_update = 0
         self._compile_seconds = 0.0
         self._trace_id: Optional[int] = None
@@ -295,9 +339,25 @@ class CompiledTrainStep:
         t.fill_(self._num_update + 1)
 
     # -------------------------------------------------------------- step
+    def _mean_over_mesh(self, out, y) -> torch.Tensor:
+        """The mean loss, each ``data_axis`` position's mean of its share
+        of the per-sample losses joined by a pmean (a plain mean when the
+        mesh lacks the axis or the samples do not split over it)."""
+        from .parallel import collectives
+        per = self._loss_fn(out, y)
+        dp = self._mesh.axis_size(self._data_axis)
+        if dp < 2 or per.dim() == 0 or per.shape[0] % dp:
+            return per.mean()
+        return collectives.pmean([c.mean() for c in per.chunk(dp)],
+                                 self._data_axis)[0]
+
     def _loss(self, xs, y):
         def fwd(*a):
-            return self._loss_fn(self._net(*a), y).mean()
+            if self._mesh is None:
+                return self._loss_fn(self._net(*a), y).mean()
+            from .parallel.mesh import param_layouts
+            with self._mesh, param_layouts(self._layouts):
+                return self._mean_over_mesh(self._net(*a), y)
         if not self._remat:
             return fwd(*xs)
         from torch.utils.checkpoint import checkpoint
@@ -374,7 +434,7 @@ class CompiledTrainStep:
         replay's stats are the graph's outputs, valid until the next
         replay)."""
         ledger = _goodput.train()
-        if xs[0].device.type != "cuda":
+        if xs[0].device.type != "cuda" or self._eager_only:
             with _tracing.span("trainstep.execute",
                                attrs={"step": self._num_update + 1}) as sp, \
                     ledger.timed("device_compute"):

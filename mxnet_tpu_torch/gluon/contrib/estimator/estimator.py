@@ -24,7 +24,8 @@ loop restores ``trainer.snapshot()``, the fused driver runs under
 :class:`~mxnet_tpu_torch.io.DevicePrefetchIter` onto the Estimator's
 ``context``, the card by default), ``health`` (in-graph watchpoints on
 the fused driver, a :class:`.event_handler.TrainingHealthHandler` on the
-eager loop).  ``elastic`` raises: it needs a device mesh (ROADMAP A11).
+eager loop).  ``elastic`` raises: it needs the elastic trainer (ROADMAP
+A11b).
 
 Deliberate difference from the JAX package: the fused driver runs
 whenever ``steps_per_call`` is given, 1 included, or
@@ -259,8 +260,9 @@ class Estimator:
         docstring for the drivers and the options.  Returns the
         Estimator."""
         if elastic:
-            raise MXNetError("Estimator.fit(elastic=...) needs a device mesh, "
-                             "which the port does not have yet (ROADMAP A11)")
+            raise MXNetError("Estimator.fit(elastic=...) needs the elastic "
+                             "trainer, which is not ported yet (ROADMAP "
+                             "A11b)")
         resume_on_fault = 2 if resume_on_fault is True \
             else int(resume_on_fault)
         fused = steps_per_call is not None or \

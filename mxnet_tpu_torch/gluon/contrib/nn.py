@@ -2,8 +2,14 @@
 ``Concurrent`` and ``HybridConcurrent`` (one input to every child, the
 outputs concatenated along ``axis``), ``Identity``, ``SyncBatchNorm``
 (``gluon.nn.SyncBatchNorm``), ``PixelShuffle1D/2D/3D`` and
-``FusedConv1x1BN``.  ``SparseEmbedding`` waits for row-sparse data
-(ROADMAP A15) and ``MoEFFN`` for a device mesh (A11).
+``FusedConv1x1BN`` and ``MoEFFN``.  ``SparseEmbedding`` waits for
+row-sparse data (ROADMAP A15).
+
+``MoEFFN`` is the Mixture-of-Experts FFN over the registry's ``_moe_ffn``
+(``ops/moe.py``): a replicated ``router_weight`` ``(units, E)`` and the
+stacked experts ``expert_w1`` ``(E, units, hidden)`` and ``expert_w2``
+``(E, hidden, units)``, which shard over a mesh's ``ep`` axis; its
+forward returns ``(y, aux_loss)``.
 
 ``FusedConv1x1BN`` is a 1x1 convolution + BatchNorm (+ ReLU) through the
 CUDA matmul-with-statistics kernel, a
@@ -42,7 +48,7 @@ from ..nn.basic_layers import (HybridSequential, Sequential, SyncBatchNorm,
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
            "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D",
-           "FusedConv1x1BN"]
+           "FusedConv1x1BN", "MoEFFN"]
 
 
 def _concat(outs, axis):
@@ -128,6 +134,48 @@ class PixelShuffle3D(_PixelShuffle):
     """``[N, C·fd·fh·fw, D, H, W]`` -> ``[N, C, D·fd, H·fh, W·fw]``."""
 
     _ndim = 3
+
+
+class MoEFFN(HybridBlock):
+    """Mixture-of-Experts FFN with top-k routing; ``forward(x) -> (y,
+    aux_loss)``, ``aux_loss`` the Switch load-balance term (add
+    ``aux_weight * aux_loss`` to the loss).  A token past an expert's
+    capacity (``ceil(T / E * capacity_factor)``) is dropped from it.
+    ``mesh`` (default: the one entered when it runs) shards the experts
+    over its ``ep`` axis."""
+
+    def __init__(self, units, hidden, num_experts, top_k=2,
+                 capacity_factor=1.25, weight_initializer=None, mesh=None,
+                 dtype="float32", device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        if top_k > num_experts:
+            raise ValueError(f"top_k={top_k} exceeds num_experts="
+                             f"{num_experts}")
+        self._kwargs = {"top_k": int(top_k),
+                        "capacity_factor": float(capacity_factor),
+                        "num_experts": int(num_experts)}
+        self._mesh = mesh
+        with self.name_scope():
+            # "router", not "gate": the sharding rules column-shard
+            # gate_weight (gated FFNs), and the router stays replicated
+            self.router_weight = self.params.get(
+                "router_weight", shape=(units, num_experts), dtype=dtype,
+                init=weight_initializer)
+            self.expert_w1 = self.params.get(
+                "expert_w1", shape=(num_experts, units, hidden), dtype=dtype,
+                init=weight_initializer)
+            self.expert_w2 = self.params.get(
+                "expert_w2", shape=(num_experts, hidden, units), dtype=dtype,
+                init=weight_initializer)
+
+    def forward(self, x):
+        return _ops._moe_ffn(x, self.router_weight, self.expert_w1,
+                             self.expert_w2, mesh=self._mesh, **self._kwargs)
+
+    def hybrid_forward(self, F, x, router_weight=None, expert_w1=None,
+                       expert_w2=None):
+        return F._moe_ffn(x, router_weight, expert_w1, expert_w2,
+                          **self._kwargs)
 
 
 class FusedConv1x1BN(HybridBlock):

@@ -9,9 +9,15 @@ on the card), and the paged-KV :meth:`LlamaModel.cache_forward` attends
 with plain tensor ops, as the JAX package does.  The RoPE tables are built
 in numpy exactly as there, so both packages hold the same bits.
 
-Ring/Ulysses sequence parallelism and the MoE blocks wait for the
-device mesh (ROADMAP A11): both shard over its axes, and the JAX MoE
-model's ``(logits, aux)`` output serves neither generation engine.
+``attention="ring"`` or ``"ulysses"`` routes the core attention through
+the sequence-parallel ops of :mod:`~mxnet_tpu_torch.parallel.ring_attention`
+over the ``sp`` axis of ``mesh`` (default: the mesh entered when the model
+runs), with K/V at ``num_kv_heads``.  ``moe_experts > 0`` replaces each
+SwiGLU FFN by a :class:`~mxnet_tpu_torch.gluon.contrib.nn.MoEFFN` (its
+parameters ``layers.<i>.ffn.router_weight``/``expert_w1``/``expert_w2``,
+the JAX package's ``layer<i>_moe_*``); such a model returns ``(logits,
+mean aux loss)``, so it trains and serves neither generation engine
+(:meth:`LlamaModel.cache_forward` refuses it, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -47,15 +53,22 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """Causal self-attention with RoPE through the flash op.
+    """Causal self-attention with RoPE through the flash op, or the ring or
+    Ulysses op over ``mesh``'s ``sp`` axis.
 
     ``num_kv_heads < num_heads`` is grouped-query attention: K/V project to
-    ``num_kv_heads`` heads, each serving a contiguous group of query heads,
-    and are expanded before the kernel."""
+    ``num_kv_heads`` heads, each serving a contiguous group of query heads;
+    they are expanded before the flash kernel and travel the
+    sequence-parallel collectives at ``num_kv_heads``."""
 
     def __init__(self, units, num_heads, num_kv_heads=None, device=None,
-                 dtype=None):
+                 dtype=None, attention="flash", mesh=None):
         super().__init__()
+        if attention not in ("flash", "ring", "ulysses"):
+            raise ValueError(f"attention must be flash, ring or ulysses, got "
+                             f"{attention!r}")
+        self.attention = attention
+        self.mesh = mesh
         if units % num_heads:
             raise ValueError(f"units {units} % heads {num_heads} != 0")
         self.units = units
@@ -86,9 +99,20 @@ class LlamaAttention(nn.Module):
         q = F.rope(self.wq(x), cos, sin, num_heads=self.num_heads)
         k = F.rope(self.wk(x), cos, sin, num_heads=self.num_kv)
         v = self.wv(x)
-        out = F.flash_attention(q, self._expand_kv(k), self._expand_kv(v),
-                              num_heads=self.num_heads, causal=True)
-        return self.wo(out)
+        if self.attention == "flash":
+            out = F.flash_attention(q, self._expand_kv(k), self._expand_kv(v),
+                                    num_heads=self.num_heads, causal=True)
+            return self.wo(out)
+        from ....parallel import ring_attention, ulysses_attention
+        b, s = x.shape[0], x.shape[1]
+        d = self.units // self.num_heads
+        fn = ring_attention if self.attention == "ring" else ulysses_attention
+
+        def heads(t, n):
+            return t.reshape(b, s, n, d).transpose(1, 2)
+        out = fn(heads(q, self.num_heads), heads(k, self.num_kv),
+                 heads(v, self.num_kv), self.mesh, causal=True)
+        return self.wo(out.transpose(1, 2).reshape(b, s, self.units))
 
 
 def _rope_rotate(x, cos, sin):
@@ -128,40 +152,64 @@ class LlamaFFN(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    """One decoder layer; with ``moe_experts > 0`` its FFN is a
+    Mixtral-style MoE and the block returns ``(x, aux)``."""
+
     def __init__(self, units, num_heads, hidden, num_kv_heads=None,
-                 layer_norm_eps=1e-5, device=None, dtype=None):
+                 layer_norm_eps=1e-5, device=None, dtype=None,
+                 attention="flash", mesh=None, moe_experts=0, moe_top_k=2):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.moe = moe_experts > 0
         self.attn_norm = RMSNorm(units, layer_norm_eps, **kw)
-        self.attn = LlamaAttention(units, num_heads, num_kv_heads, **kw)
+        self.attn = LlamaAttention(units, num_heads, num_kv_heads, **kw,
+                                   attention=attention, mesh=mesh)
         self.ffn_norm = RMSNorm(units, layer_norm_eps, **kw)
-        self.ffn = LlamaFFN(units, hidden, **kw)
+        if self.moe:
+            from ...contrib.nn import MoEFFN
+            self.ffn = MoEFFN(units, hidden, num_experts=moe_experts,
+                              top_k=moe_top_k, mesh=mesh, prefix="moe_",
+                              device=device,
+                              dtype=str(dtype or torch.float32).replace(
+                                  "torch.", ""))
+        else:
+            self.ffn = LlamaFFN(units, hidden, **kw)
 
     def forward(self, x, cos, sin):
         x = x + self.attn(self.attn_norm(x), cos, sin)
+        if self.moe:
+            y, aux = self.ffn(self.ffn_norm(x))
+            return x + y, aux
         return x + self.ffn(self.ffn_norm(x))
 
 
 class LlamaModel(nn.Module):
     """Decoder-only LM: tokens ``[B, S]`` -> logits ``[B, S, vocab]``
-    (causal).  Built on ``device`` (default ``cuda``; raises without CUDA)
-    with weights in ``dtype``; the RoPE tables stay float32.  Weights hold
+    (causal); with ``moe_experts > 0``, ``(logits, mean aux loss)``.
+    Built on ``device`` (default ``cuda``; raises without CUDA) with
+    weights in ``dtype``; the RoPE tables stay float32.  Weights hold
     PyTorch's default values until :func:`~mxnet_tpu_torch.initializer.
-    initialize` or a state dict fills them."""
+    initialize` or a state dict fills them.  ``attention`` is ``"flash"``,
+    ``"ring"`` or ``"ulysses"`` (the latter two over ``mesh``'s ``sp``
+    axis)."""
 
     def __init__(self, vocab_size=32000, units=4096, hidden=11008,
                  num_layers=32, num_heads=32, max_length=2048,
                  tie_embeddings=True, rope_theta=10000.0, num_kv_heads=None,
                  device: Optional[Union[str, torch.device]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attention="flash",
+                 mesh=None, moe_experts=0, moe_top_k=2):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.units = units
         self.tie = tie_embeddings
+        self.moe = moe_experts > 0
         self.tok_embed = nn.Embedding(vocab_size, units, **kw)
         self.layers = nn.ModuleList(
-            LlamaBlock(units, num_heads, hidden, num_kv_heads, **kw)
+            LlamaBlock(units, num_heads, hidden, num_kv_heads, **kw,
+                       attention=attention, mesh=mesh,
+                       moe_experts=moe_experts, moe_top_k=moe_top_k)
             for _ in range(num_layers))
         self.norm = RMSNorm(units, **kw)
         if not tie_embeddings:
@@ -194,8 +242,15 @@ class LlamaModel(nn.Module):
         s = tokens.shape[1]
         cos, sin = self.rope_cos[:s], self.rope_sin[:s]
         x = self.tok_embed(tokens)
+        aux_total = None
         for blk in self.layers:
-            x = blk(x, cos, sin)
+            if self.moe:
+                x, aux = blk(x, cos, sin)
+                aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                x = blk(x, cos, sin)
+        if self.moe:
+            return self._logits(x), aux_total / len(self.layers)
         return self._logits(x)
 
     # ------------------------------------------------------------- KV cache
@@ -224,7 +279,10 @@ class LlamaModel(nn.Module):
         v_new)``: the chunk's post-RoPE K/V, which the caller writes into
         the pools.  For real rows the window + causal mask reproduces the
         dense causal forward's support, and the softmax follows the flash
-        op's plain formula (fp32 scores, -1e30 mask)."""
+        op's plain formula (fp32 scores, -1e30 mask).  A MoE model has
+        none (``ValueError``, as in the JAX package)."""
+        if self.moe:
+            raise ValueError("cache_forward does not support MoE blocks")
         b, c = tokens.shape
         dev = tokens.device
         w = int(page_table.shape[1]) * int(k_pool.shape[2])

@@ -250,11 +250,11 @@ class BatchNorm(HybridBlock):
 
 class SyncBatchNorm(BatchNorm):
     """Cross-device BatchNorm (``gluon.contrib.nn.SyncBatchNorm`` is the
-    same class).  The port has no device mesh yet, so without
-    ``axis_name`` it is BatchNorm on the one device, as the JAX layer is
-    outside ``shard_map``, with the ``_contrib_SyncBatchNorm`` op's
-    unclamped one-pass variance; an ``axis_name`` raises
-    :class:`~mxnet_tpu_torch.MXNetError` (ROADMAP A11)."""
+    same class).  Without ``axis_name`` it is BatchNorm on the one
+    device, as the JAX layer is outside ``shard_map``, with the
+    ``_contrib_SyncBatchNorm`` op's unclamped one-pass variance; an
+    ``axis_name`` (statistics reduced over a mesh axis) raises
+    :class:`~mxnet_tpu_torch.MXNetError` (ROADMAP A11b)."""
 
     def __init__(self, in_channels=0, num_devices=None, axis_name=None,
                  **kwargs):

@@ -20,7 +20,7 @@ when ``update_on_kvstore`` (default ``MXNET_UPDATE_ON_KVSTORE``) is true:
 ``allreduce_grads`` then pushes every gradient in one list-form push and
 ``update`` pulls every weight; otherwise it pushpulls the gradients and
 the Trainer's own updater applies them.  Optimizer-state sharding is not
-ported (ROADMAP A11, the rest) and raises.
+ported (ROADMAP A11b) and raises.
 
 ``update`` passes the ``execute`` fault site once per parameter (the
 eager loop is not atomic: a fault there leaves the model half-stepped),
@@ -59,8 +59,7 @@ class Trainer:
         if optimizer_state_sharding:
             raise MXNetError(
                 "Trainer: optimizer_state_sharding (ZeRO, the JAX package's "
-                "kvstore/sharded.py) is not ported yet (ROADMAP A11, the "
-                "rest)")
+                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
         self._compression_params = compression_params
         self._kvstore_kind = kvstore
         self._update_on_kvstore = update_on_kvstore

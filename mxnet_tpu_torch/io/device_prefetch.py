@@ -134,16 +134,16 @@ class DevicePrefetchIter(DataIter):
         bounds what the input pipeline keeps on the card.
     ctx : the context to stage to, ``mx.gpu(0)`` by default; ``mx.cpu()``
         makes the copy a no-op.
-    mesh, data_axis : sharding over a device mesh, which the port does not
-        have yet (ROADMAP A11): a mesh raises.
+    mesh, data_axis : staging each batch sharded over a device mesh, not
+        ported yet (ROADMAP A11b): a mesh raises.
     """
 
     def __init__(self, source, queue_size: Optional[int] = None, mesh=None,
                  data_axis: str = "dp", ctx: Optional[Context] = None):
         super().__init__(getattr(source, "batch_size", 0))
         if mesh is not None:
-            raise MXNetError("DevicePrefetchIter(mesh=...): the port has no "
-                             "device mesh yet (ROADMAP A11)")
+            raise MXNetError("DevicePrefetchIter(mesh=...): staging over a "
+                             "mesh is not ported yet (ROADMAP A11b)")
         if queue_size is None:
             queue_size = int(_env.MXNET_IO_DEVICE_QUEUE)
         if queue_size < 1:
@@ -328,8 +328,8 @@ class DevicePrefetchIter(DataIter):
         self._loop.start()
 
     def reshard(self, mesh) -> None:
-        raise MXNetError("DevicePrefetchIter.reshard: the port has no device "
-                         "mesh yet (ROADMAP A11)")
+        raise MXNetError("DevicePrefetchIter.reshard: staging over a mesh "
+                         "is not ported yet (ROADMAP A11b)")
 
     def close(self):
         """Stop the producer and drop the staged batches (idempotent)."""

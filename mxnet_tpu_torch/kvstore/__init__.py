@@ -108,8 +108,7 @@ class DeviceKVStore(KVStore):
         if self.optimizer_state_sharding:
             raise MXNetError(
                 "kvstore: optimizer-state sharding (MXNET_KVSTORE_SHARD, "
-                "kvstore/sharded.py) is not ported yet (ROADMAP A11, the "
-                "rest)")
+                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
         for k, _vals, _p in groups:
             if self._key(k) not in self._store:
                 raise MXNetError(f"key {k} has not been initialized")

@@ -15,8 +15,7 @@ queued work; the dist stores (``kvstore/__init__.py``) span processes.
 
 Not ported yet, and an error rather than a different result:
 ``row_sparse_pull`` (the row-sparse arrays, ROADMAP A15) and
-optimizer-state sharding (``kvstore/sharded.py``, ROADMAP A11, the
-rest).
+optimizer-state sharding (``kvstore/sharded.py``, ROADMAP A11b).
 """
 from __future__ import annotations
 

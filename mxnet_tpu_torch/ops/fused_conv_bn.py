@@ -37,15 +37,17 @@ __all__ = ["fused_matmul_bn_stats", "conv1x1_bn_stats_op"]
 
 # Kernel launches made by _fused_cuda, of either kernel, and of
 # the tensor-core kernel alone (the counts show that a run went through the
-# kernels; nothing else touches them).  The tensor-core kernel's w-split
-# pre-kernel is part of its one launch.
+# kernels; nothing else touches them), and of either kernel on fp16 input.
+# The tensor-core kernel's w-split pre-kernel is part of its one launch.
 fused_conv_bn_launches = 0
 fused_conv_bn_wgmma_launches = 0
+fused_conv_bn_fp16_launches = 0
 # a CUDA graph's replay advances them by what its capture counted
 _graphs.count_launches(sys.modules[__name__], "fused_conv_bn_launches",
-                        "fused_conv_bn_wgmma_launches")
+                        "fused_conv_bn_wgmma_launches",
+                        "fused_conv_bn_fp16_launches")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _reference_conv1x1(x, w, in_scale, in_shift, relu_in: bool):
@@ -67,11 +69,12 @@ _libs = {}
 def _fused_variant(dtype, m: int, k: int, n: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores, TMA) where
     TMA can describe x, whose rows need 16-byte strides (fp32 with
-    K % 4 == 0, bf16 with K % 8 == 0) and whose M rows fit TMA's 32-bit
-    coordinates; ``"simt"`` (CUDA cores) for everything else.  The choice
-    depends on the dtype and shapes only; the wrapper also needs a 16-byte
-    aligned x for ``"wgmma"`` and raises without one."""
-    per_row = {torch.float32: 4, torch.bfloat16: 8}.get(dtype)
+    K % 4 == 0, bf16 or fp16 with K % 8 == 0) and whose M rows fit TMA's
+    32-bit coordinates; ``"simt"`` (CUDA cores) for everything else.  The
+    choice depends on the dtype and shapes only; the wrapper also needs a
+    16-byte aligned x for ``"wgmma"`` and raises without one."""
+    per_row = {torch.float32: 4, torch.bfloat16: 8,
+               torch.float16: 8}.get(dtype)
     return "wgmma" if per_row and k % per_row == 0 and m < 2 ** 31 else "simt"
 
 
@@ -110,15 +113,17 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
     """The CUDA route: validate, then launch the kernel
     :func:`_fused_variant` picks (``variant`` names one explicitly, for
     timing the two side by side)."""
-    global fused_conv_bn_launches, fused_conv_bn_wgmma_launches
+    global fused_conv_bn_launches, fused_conv_bn_wgmma_launches, \
+        fused_conv_bn_fp16_launches
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise MXNetError(f"fused_matmul_bn_stats takes x [M, K] and w [K, N], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     m, k = x.shape
     n = w.shape[1]
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise MXNetError(f"fused_matmul_bn_stats takes x and w both float32 "
-                         f"or both bfloat16, got {x.dtype} and {w.dtype}")
+        raise MXNetError(f"fused_matmul_bn_stats takes x and w both float32, "
+                         f"both bfloat16 or both float16, got {x.dtype} and "
+                         f"{w.dtype}")
     if w.device != x.device:
         raise MXNetError(f"fused_matmul_bn_stats: w is on {w.device}, x on "
                          f"{x.device}")
@@ -141,8 +146,8 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
     if variant == "wgmma":
         if _fused_variant(x.dtype, m, k, n) != "wgmma":
             raise MXNetError(f"fused_matmul_bn_stats: the tensor-core kernel "
-                             f"takes float32 with K % 4 == 0 or bfloat16 with "
-                             f"K % 8 == 0, not {x.dtype} K={k}")
+                             f"takes float32 with K % 4 == 0 or bfloat16/"
+                             f"float16 with K % 8 == 0, not {x.dtype} K={k}")
         if x.data_ptr() % 16:
             raise MXNetError("fused_matmul_bn_stats: x must be 16-byte "
                              "aligned for the tensor-core kernel")
@@ -162,7 +167,7 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
         args = [x.data_ptr(), w_nk.data_ptr()]
         if variant == "wgmma":
             # fp32 w_hi and w_lo [N, K], split from w by the kernel's
-            # pre-pass; bf16 w has no lo part
+            # pre-pass; bf16 and fp16 w have no lo part
             w_hi = torch.empty((n, k), dtype=torch.float32, device=x.device)
             w_lo = (torch.empty_like(w_hi) if x.dtype == torch.float32
                     else None)
@@ -179,6 +184,8 @@ def _fused_cuda(x, w, in_scale, in_shift, relu_in: bool,
                          + err_string(err).decode())
     if variant == "wgmma":
         fused_conv_bn_wgmma_launches += 1
+    if x.dtype == torch.float16:
+        fused_conv_bn_fp16_launches += 1
     fused_conv_bn_launches += 1
     return y, psum.sum(dim=0), psumsq.sum(dim=0)
 
@@ -193,7 +200,7 @@ def fused_matmul_bn_stats(x, w, in_scale=None, in_shift=None,
     fp32), the statistics of the fp32 product.  The kernel the registry
     picks for the ``conv1x1_bn_stats`` call runs it (on CUDA tensors,
     :func:`_fused_cuda` unless a user kernel claims the call: x contiguous,
-    fp32 or bf16, or an error; a ``w`` that is not the transpose of a
+    fp32, bf16 or fp16, or an error; a ``w`` that is not the transpose of a
     contiguous ``[N, K]`` is copied to that layout); with no kernel, CPU
     tensors run :func:`_reference_conv1x1`, and so do ``meta`` tensors,
     which carry shapes only (``Symbol.infer_shape``)."""
@@ -269,7 +276,11 @@ def conv1x1_bn_stats_op(x, w, stride: int = 1, relu_in: bool = False,
     ``[Cin, Cout]``.  Returns (y ``[N, H', W', Cout]``, sum ``[Cout]``,
     sumsq ``[Cout]``), H' and W' after the stride's subsampling.
     ``with_stats=False`` (inference, BN folded into ``w``) is a plain
-    matrix product with zero statistics.  Registered as the JAX package's
+    matrix product with zero statistics.  Under an entered mesh with a
+    ``dp`` axis that divides the batch, each ``dp`` position runs the
+    kernel on its share of the rows and the statistics are summed over
+    ``dp`` with :func:`~mxnet_tpu_torch.parallel.psum` (the reduction the
+    JAX package's partitioner inserts).  Registered as the JAX package's
     ``_contrib_conv1x1_bn_stats`` op; flags may arrive as the strings of a
     loaded symbol JSON."""
     relu_in, with_stats = attr_truthy(relu_in), attr_truthy(with_stats)
@@ -285,8 +296,23 @@ def conv1x1_bn_stats_op(x, w, stride: int = 1, relu_in: bool = False,
         y = (xf @ w2d.float()).to(x.dtype).reshape(n, h, ww, w2d.shape[1])
         z = torch.zeros(w2d.shape[1], dtype=torch.float32, device=x.device)
         return y, z, z
-    # the kernel takes a contiguous [M, K]: the NCHW -> NHWC transpose and
-    # the strided subsample are copied here, once
-    y, s1, s2 = _Conv1x1BNCore.apply(x.reshape(-1, c).contiguous(), w2d,
-                                     None, None, bool(relu_in))
-    return y.reshape(n, h, ww, w2d.shape[1]), s1, s2
+    def stats(x4, w):
+        # the kernel takes a contiguous [M, K]: the NCHW -> NHWC transpose
+        # and the strided subsample are copied here, once
+        y, s1, s2 = _Conv1x1BNCore.apply(
+            x4.reshape(-1, c).contiguous(), w, None, None, bool(relu_in))
+        return y.reshape(x4.shape[:3] + (w.shape[1],)), s1, s2
+
+    from ..parallel.mesh import current_mesh
+    mesh = current_mesh()
+    dp = mesh.axis_size("dp") if mesh is not None else 1
+    if dp < 2 or n % dp:
+        return stats(x, w2d)
+    from ..parallel import collectives as C
+    from ..parallel.mesh import PartitionSpec as P
+
+    def body(xs, ws):
+        ys, s1s, s2s = zip(*(stats(a, b) for a, b in zip(xs, ws)))
+        return list(ys), C.psum(s1s, "dp"), C.psum(s2s, "dp")
+    return C.shard_map(body, mesh, (P("dp"), P()), (P("dp"), P(), P()))(
+        x, w2d)

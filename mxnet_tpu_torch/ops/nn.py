@@ -504,8 +504,8 @@ def _group_norm_op(data, gamma, beta, num_groups=1, eps=1e-5):
 
 def _no_mesh(axis_name):
     if axis_name not in (None, "", "None"):
-        raise MXNetError("SyncBatchNorm: axis_name needs a device mesh, "
-                         "which the port does not have yet (ROADMAP A11)")
+        raise MXNetError("SyncBatchNorm: a reduction over a mesh axis "
+                         "(axis_name) is not ported yet (ROADMAP A11b)")
 
 
 @register("_contrib_SyncBatchNorm", nin=5, nout=3, aliases=["SyncBatchNorm"])

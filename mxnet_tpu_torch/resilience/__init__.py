@@ -28,7 +28,7 @@ the call, so a retried replay never follows a half-run one.
   stream, written off the train thread, published atomically with an
   integrity manifest), :func:`~elastic.load_elastic_checkpoint`;
   :class:`ElasticTrainStep`, which reforms the
-  mesh on rank loss, waits for the device mesh (ROADMAP A11) and raises.
+  mesh on rank loss, is not ported yet (ROADMAP A11b) and raises.
 
 The counters export through ``profiler.register_stats_provider`` as the
 ``resilience`` section, and as ``mxnet_tpu_resilience_*`` metrics.

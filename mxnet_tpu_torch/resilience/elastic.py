@@ -21,8 +21,8 @@
   random streams and the optimizer's counts.
 
 :class:`ElasticTrainStep`, which reforms the mesh on rank loss, rebuilds a
-data-parallel mesh on the surviving ranks; the port has no device mesh
-yet (ROADMAP A11), so it raises :class:`MXNetError` naming that item.
+data-parallel mesh on the surviving ranks; it is not ported yet (ROADMAP
+A11b), so it raises :class:`MXNetError` naming that item.
 Its configuration (``ElasticConfig``, the reformation budget and the
 smallest world) and its rank-loss classifier come with it.
 
@@ -382,12 +382,12 @@ class AsyncCheckpointer:
 # ---------------------------------------------------------------------------
 class ElasticTrainStep:
     """Mesh reformation on rank loss: not ported.  It rebuilds a
-    data-parallel device mesh on the surviving ranks, and the port has no
-    mesh yet; :class:`AsyncCheckpointer` and
-    :func:`load_elastic_checkpoint` are its checkpoint half."""
+    data-parallel device mesh on the surviving ranks;
+    :class:`AsyncCheckpointer` and :func:`load_elastic_checkpoint` are its
+    checkpoint half."""
 
     def __init__(self, *args, **kwargs):
         raise MXNetError(
-            "ElasticTrainStep: mesh reformation needs the port's device mesh "
-            "(parallel/mesh.py), which is not ported yet (ROADMAP A11); "
-            "AsyncCheckpointer and load_elastic_checkpoint are ported")
+            "ElasticTrainStep: mesh reformation on rank loss is not ported "
+            "yet (ROADMAP A11b); AsyncCheckpointer and "
+            "load_elastic_checkpoint are ported")

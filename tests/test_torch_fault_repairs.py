@@ -29,6 +29,16 @@
 - C13: after a bare ``import mxnet_tpu_torch as mx`` in a fresh process,
   every submodule of the JAX package's ``_SUBMODULES`` list that the port
   has resolves as ``mx.<name>``, as it does in the JAX package.
+- C14, the fused 1x1 conv + BN statistics op in fp16: the CUDA route takes
+  fp16 (dtype code 2, the tensor-core kernel for K % 8 == 0, both kernel
+  sources templated over ``__half``) and the registry hands it fp16 calls;
+  on the CPU its plain version is held to the JAX package's in fp16 (y
+  rounded once to fp16 from the fp32 product, within one fp16 ulp of each
+  value; the statistics of the fp32 product within 1e-5), with a
+  ``y`` past 65504 that becomes inf in both while the statistics stay
+  finite; and a fused block converted by ``amp.convert_hybrid_block(net,
+  "float16")`` gives the JAX block's training forward within 2^-10 (one
+  fp16 rounding of y, then fp32).
 """
 import pickle
 import subprocess
@@ -453,3 +463,84 @@ def test_submodules_resolve_after_import(package):
               "resilience"):
         assert n in names
     _attrs_resolve(package, names)
+
+
+# ---------------------------------------------------------------- C14
+def test_fp16_conv_bn_cuda_route_exists_and_dispatches():
+    from mxnet_tpu_torch.ops import fused_conv_bn as FCB
+    from mxnet_tpu_torch.ops import kernels
+    root = Path(__file__).resolve().parents[1] / "mxnet_tpu_torch" / "csrc"
+    assert FCB._DTYPE_CODES[torch.float16] == 2
+    assert FCB._fused_variant(torch.float16, 1024, 64, 64) == "wgmma"
+    assert FCB._fused_variant(torch.float16, 1024, 36, 64) == "simt"
+    for src in ("fused_conv_bn.cu", "fused_conv_bn_wgmma.cu"):
+        text = (root / src).read_text()
+        assert "run<__half>" in text or "launch_mode<__half>" in text, src
+    impl = kernels.lookup_kernel("conv1x1_bn_stats", platform="cuda",
+                                 m=1024, k=64, n=64, dtype="float16")
+    assert impl is FCB._fused_cuda
+    # on the CPU the op takes fp16 and runs the plain version
+    x = torch.randn(8, 16).half()
+    w = torch.randn(16, 4).half()
+    y, s1, s2 = FCB.fused_matmul_bn_stats(x, w)
+    assert y.dtype == torch.float16 and s1.dtype == torch.float32
+
+
+@pytest.mark.parametrize("affine,relu", [(False, False), (True, True)])
+def test_fp16_conv_bn_plain_matches_jax(affine, relu):
+    import jax.numpy as jnp
+    from mxnet_tpu.ops import fused_conv_bn as JFCB
+    from mxnet_tpu_torch.ops import fused_conv_bn as FCB
+    rng = np.random.RandomState(14 + affine)
+    x = rng.randn(300, 64).astype(np.float16)
+    w = (rng.randn(64, 24) * 0.2).astype(np.float16)
+    x[3, :] = 60.0   # row 3's products pass 65504: inf in fp16
+    w[:, 5] = 60.0
+    sc = rng.rand(64).astype(np.float32) + 0.5 if affine else None
+    sh = rng.randn(64).astype(np.float32) * 0.1 if affine else None
+    jy, js1, js2 = JFCB._reference_conv1x1(
+        jnp.asarray(x), jnp.asarray(w), None if sc is None else
+        jnp.asarray(sc), None if sh is None else jnp.asarray(sh), relu)
+    ty, ts1, ts2 = FCB.fused_matmul_bn_stats(
+        torch.tensor(x), torch.tensor(w),
+        None if sc is None else torch.tensor(sc),
+        None if sh is None else torch.tensor(sh), relu)
+    jy = np.asarray(jy)
+    assert ty.dtype == torch.float16
+    assert np.array_equal(np.isinf(ty.numpy()), np.isinf(jy))
+    assert np.isinf(jy).any() and np.isfinite(ts2.numpy()).all()
+    fin = np.isfinite(jy)
+    got = ty.numpy().astype(np.float32)[fin]
+    ref = jy.astype(np.float32)[fin]
+    # one fp16 ulp: each rounds its fp32 product once, and the two fp32
+    # sums (in other orders) may fall either side of a rounding boundary
+    assert np.all(np.abs(got - ref) <= np.abs(ref) * 2.0 ** -10 + 2.0 ** -24)
+    np.testing.assert_allclose(ts1.numpy(), np.asarray(js1), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(js1).max()))
+    np.testing.assert_allclose(ts2.numpy(), np.asarray(js2), rtol=1e-5)
+
+
+def test_fp16_converted_fused_block_forward_matches_jax():
+    from mxnet_tpu.contrib import amp as jamp
+    from mxnet_tpu.gluon.contrib.nn import FusedConv1x1BN as JFused
+    from mxnet_tpu_torch.contrib import amp as tamp
+    from mxnet_tpu_torch.gluon.contrib.nn import FusedConv1x1BN
+    jmx.random.seed(3)
+    jnet = JFused(16, in_channels=8, relu=True, prefix="f_")
+    jnet.collect_params().initialize()
+    tnet = FusedConv1x1BN(16, in_channels=8, relu=True, prefix="f_",
+                          device="cpu")
+    tnet.initialize()
+    params_from_mxnet({k: p.data().asnumpy()
+                       for k, p in jnet.collect_params().items()}, tnet)
+    jamp.convert_hybrid_block(jnet, "float16")
+    tamp.convert_hybrid_block(tnet, "float16")
+    assert tnet.weight.dtype == torch.float16
+    x = np.random.RandomState(4).randn(4, 8, 5, 5).astype(np.float16)
+    with jag.record():
+        jout = jnet(jnd.array(x, dtype="float16")).asnumpy()
+    tout = tnet.train()(torch.tensor(x))
+    assert str(tout.dtype).replace("torch.", "") == str(jout.dtype)
+    np.testing.assert_allclose(tout.detach().float().numpy(),
+                               jout.astype(np.float32), rtol=2.0 ** -10,
+                               atol=2.0 ** -10)

@@ -250,10 +250,12 @@ def test_fused_variant_resnet_shapes_and_ragged(shape, dtype):
     (torch.float32, 130, "simt"), (torch.bfloat16, 8, "wgmma"),
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 136, "wgmma"),
     (torch.bfloat16, 4, "simt"), (torch.bfloat16, 12, "simt"),
-    (torch.bfloat16, 132, "simt"), (torch.float16, 64, "simt")])
+    (torch.bfloat16, 132, "simt"), (torch.float16, 64, "wgmma"),
+    (torch.float16, 12, "simt")])
 def test_fused_variant_k_edges(dtype, k, want):
     """TMA needs 16-byte row strides: K % 4 == 0 in fp32, K % 8 == 0 in
-    bf16.  M and N do not matter."""
+    bf16 and fp16 (fp16 took the CUDA cores before its tensor-core route
+    came).  M and N do not matter."""
     for m, n in ((1, 1), (300, 70), (802816, 64)):
         assert tf._fused_variant(dtype, m, k, n) == want
 

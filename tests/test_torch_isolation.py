@@ -49,6 +49,9 @@ import mxnet_tpu_torch.ndarray._internal, mxnet_tpu_torch.symbol.contrib
 import mxnet_tpu_torch.symbol.linalg, mxnet_tpu_torch.ops.linalg
 import mxnet_tpu_torch.ops.control_flow, mxnet_tpu_torch.ops.image
 import mxnet_tpu_torch.ops.contrib_ops
+import mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.rules
+import mxnet_tpu_torch.parallel.pipeline
+import mxnet_tpu_torch.parallel.ring_attention, mxnet_tpu_torch.ops.moe
 sys.path.insert(0, "tools")
 import serve_torch, chaos_torch
 print("\\n".join(sorted(set(sys.modules) - before)))
@@ -133,6 +136,11 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.ops.control_flow",
                  "mxnet_tpu_torch.ops.image",
                  "mxnet_tpu_torch.ops.contrib_ops",
+                 "mxnet_tpu_torch.parallel.mesh",
+                 "mxnet_tpu_torch.parallel.rules",
+                 "mxnet_tpu_torch.parallel.pipeline",
+                 "mxnet_tpu_torch.parallel.ring_attention",
+                 "mxnet_tpu_torch.ops.moe",
                  "serve_torch", "chaos_torch"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]

@@ -162,3 +162,17 @@ def test_registry_has_every_a3_name():
         assert callable(getattr(tmx.nd, n)), n
         if hasattr(jmx.sym, n):
             assert callable(getattr(tmx.sym, n)), n
+
+
+def test_registry_has_the_mesh_ops():
+    """The sequence-parallel attention ops and the MoE FFN are in the
+    port's registry and on its ``mx.nd`` and ``mx.sym`` as in the JAX
+    package, with the JAX package's arities."""
+    from mxnet_tpu.ops import registry as jreg
+    for name in ("_ring_attention", "_ulysses_attention", "_moe_ffn"):
+        assert name in jreg.REGISTRY and name in treg.REGISTRY, name
+        assert treg.REGISTRY[name].nin == jreg.REGISTRY[name].nin, name
+        assert treg.REGISTRY[name].nout == jreg.REGISTRY[name].nout, name
+        assert callable(getattr(tmx.nd, name)), name
+        if hasattr(jmx.sym, name):
+            assert callable(getattr(tmx.sym, name)), name
