@@ -234,17 +234,28 @@ beside its bound, then drives the port's paths:
   calls, ``MXNET_KERNEL_BACKEND=torch`` refused on a CUDA tensor) and the
   config layer's card values.  Each step ms beside the same model's fp32
   step.
+- the device mesh (slice 24, ``mesh``) and ZeRO with elastic training
+  (slice 25, ``zero_elastic``): full-width BERT-base through
+  ``CompiledTrainStep(mesh=dp 4, shard_optimizer_state=True)`` and
+  through the sharded Gluon ``Trainer``, bit for bit their replicated
+  twins, the sharded optimizer checkpoint reloaded onto dp = 2; an
+  elastic ``Estimator.fit`` on fused resnet50_v1 that loses a rank
+  (dp 4 → 2), bit for bit a cold restart; ``SyncBatchNorm`` over 4
+  positions against the CPU.  Every position is on the one card.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code.  ``--only a,b`` runs only the named phases (build,
 device, graph_semantics, train_step_graphs, flash (or kernels),
 flash_timing, fused, fused_timing, model_parity, serving,
 resnet_parity, training, gluon_training, input_pipeline, vision_zoo,
-estimator, optimizers, ops_rnn, ndarray_rest, amp, serving_bert,
+estimator, optimizers, ops_rnn, ndarray_rest, amp, mesh, zero_elastic,
+serving_bert,
 serving_http, speculative, fleet, serving_resnet_export, module_fit,
 dist_training, rtc_kernels, rtc_ffn, bert_flash, bert_parity,
 bert_training, embedding_bwd, resilient_training), for a short call while
-a kernel is brought up; ``--only build,amp,kernels,flash_timing`` runs
+a kernel is brought up; ``--only build,zero_elastic`` runs slice 25
+(add ``bert_flash,fused_timing`` for its kernel lines);
+``--only build,amp,kernels,flash_timing`` runs
 slice 23 (the fp16 flash cases, the amp phase and the fp16 route's
 kernel line; add ``fused_timing`` for B1's line);
 ``--only build,ndarray_rest,fused_timing``
@@ -6870,6 +6881,520 @@ def phase_mesh(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# slice 25: ZeRO optimizer-state sharding and elastic mesh reformation
+# ---------------------------------------------------------------------------
+# One H100, TF32 off, seed 0, every mesh position on the one card
+# ([cuda] * n): the positions' shards share its memory, so these runs show
+# the partition, the accounting and the mix of collectives, not memory
+# saved or an interconnect.
+# (a) Full-width BERT-base pretraining as bert_training builds it (fp32,
+#     seq 128, batch 64, Adam lr 1e-4, dropout 0.1 from the net's own
+#     generator) through CompiledTrainStep(mesh=dp 4) with
+#     shard_optimizer_state True and False, from the same weights and
+#     random streams, 3 calls each (the eager first call and its capture,
+#     then replays).  Gates: losses, every parameter and every optimizer
+#     slot (the shards gathered) equal bit for bit; a position's slot
+#     bytes <= ceil(replicated / 4) + max(bucket capacity, 4096) (the JAX
+#     package's budget); per step one reduce_scatter and one all_gather
+#     per bucket and no psum (the loss's one pmean is the forward's); 12
+#     B0 TF32 launches per forward and no other flash variant.
+# (b) The same BERT-base through the Gluon loop (record, backward,
+#     Trainer.step(1)) under a dp = 4 mesh: Trainer(kvstore="device",
+#     optimizer_state_sharding=True) against the replicated Trainer, 3
+#     steps, bit for bit; then save_sharded_optimizer after step 2,
+#     load_sharded_optimizer into a fresh sharded Trainer under dp = 2 from
+#     the step-2 weights and streams, and its step 3 bit for bit the
+#     uninterrupted step 3.
+# (c) Estimator.fit(elastic=...) on fused resnet50_v1 (224 px, batch 64,
+#     SGD momentum 0.9, lr 1e-3) from a DataLoader staged by a
+#     DevicePrefetchIter made under a dp = 4 mesh (queue 1), with
+#     MXNET_KVSTORE_SHARD=1, steps_per_call 2, a checkpoint every 2 steps;
+#     a FaultPlan kills a rank at the third call's allreduce probe, the mesh
+#     reforms to dp = 2 and the fit finishes 5 calls.  Gates: parameters,
+#     moving statistics and optimizer states bit for bit a cold restart
+#     from the same checkpoint on dp = 2 fed the same batches; one
+#     reformation and the lost steps as metered; 144 B1 launches per
+#     forward before the fault (36 x 4 positions) and 72 after; the
+#     iterator's staging retargeted at the reformed mesh (it stages two
+#     batches ahead, so the fifth call's are staged for dp = 2).
+# (d) SyncBatchNorm(axis_name="dp") in a shard_map body over 4 positions at
+#     a ResNet stage's [64, 256, 56, 56] fp32: outputs, moments and the
+#     gradients of x, gamma and beta within ZERO["sbn_rel"] of the same
+#     body on the CPU (relative to each tensor's largest |value|).
+# Deterministic algorithms are on in (a)-(c), as in the estimator phase.
+ZERO = dict(dp=4, dp_after=2, steps=3, resnet_batch=64, resnet_lr=1e-3,
+            momentum=0.9, calls=5, steps_per_call=2, every=2, fault_call=2,
+            sbn_shape=(64, 256, 56, 56), sbn_rel=1e-5, budget_s=120.0)
+
+
+def _zero_mesh(torch, n):
+    from mxnet_tpu_torch.parallel import DeviceMesh
+    return DeviceMesh({"dp": n}, devices=_mesh_devices(torch, n))
+
+
+def _zero_bert(torch, seed):
+    """Full-width BERT-base on the card (bert_training's build, no step)
+    and a restore function that writes its initial weights and random
+    streams back."""
+    from mxnet_tpu_torch.cached_op import generators_of
+    from mxnet_tpu_torch.gluon.model_zoo.language import BERTForPretraining
+    from mxnet_tpu_torch.initializer import initialize
+    from mxnet_tpu_torch.random import generator
+    net = BERTForPretraining(vocab_size=BERT["vocab_size"],
+                             max_length=BERT["max_length"],
+                             generator=generator(seed + 1, "cuda"),
+                             device="cuda")
+    initialize(net, generator(seed, "cuda"))
+    return net, _net_snapshot(torch, net, generators_of(net, "cuda"))
+
+
+def _net_snapshot(torch, net, gens):
+    """A function that writes the net's tensors and ``gens``' states, as
+    they are now, back in place."""
+    tensors = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    states = [g.get_state() for g in gens]
+
+    def restore():
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                v.copy_(tensors[k])
+        for g, s in zip(gens, states):
+            g.set_state(s)
+    return restore
+
+
+def _flash_zero():
+    from mxnet_tpu_torch.ops import attention as A
+    A.flash_fwd_launches = A.flash_fwd_tf32_launches = 0
+    A.flash_fwd_wgmma_launches = A.flash_fwd_wgmma_fp16_launches = 0
+
+
+def _flash_read():
+    from mxnet_tpu_torch.ops import attention as A
+    return {"flash_fwd_launches": A.flash_fwd_launches,
+            "flash_fwd_tf32_launches": A.flash_fwd_tf32_launches,
+            "other": A.flash_fwd_wgmma_launches
+            + A.flash_fwd_wgmma_fp16_launches}
+
+
+def _state_leaves(torch, states):
+    """The tensors of per-parameter optimizer states (None, a tensor or a
+    tuple each), cloned."""
+    return [t.detach().clone() for st in states for t in
+            ((st,) if isinstance(st, torch.Tensor) else (st or ()))]
+
+
+def _bitwise(torch, got, ref):
+    return len(got) == len(ref) and all(torch.equal(a, b)
+                                        for a, b in zip(got, ref))
+
+
+def _zero_graph(torch, seed, net, restore):
+    """(a): the sharded and the replicated step on dp = 4."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.executor import CompiledTrainStep
+    from mxnet_tpu_torch.kvstore.bucketing import bucket_capacity_bytes
+    from mxnet_tpu_torch.parallel import collectives as C
+    vocab = BERT["vocab_size"]
+    x, y = _bert_batch(torch, seed + 7, vocab, BERT["batch"], BERT["seq"],
+                       "cuda")
+    runs = {}
+    for shard in (False, True):
+        restore()
+        _mesh_free(torch)
+        step = CompiledTrainStep(
+            net, _bert_loss(vocab),
+            optimizer.create("adam", learning_rate=BERT["lr"]),
+            batch_size=BERT["batch"], mesh=_zero_mesh(torch, ZERO["dp"]),
+            shard_optimizer_state=shard)
+        _flash_zero()
+        C.reset_collective_counts()
+        losses, ms = [], []
+        for _ in range(ZERO["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs[shard] = {
+            "losses": losses, "call_ms": ms,
+            "step_ms": sum(ms[1:]) / len(ms[1:]),
+            "peak_mem_gb": _peak_gb(torch),
+            "collectives": C.collective_counts(), **_flash_read(),
+            "state_bytes": step.optimizer_state_bytes(),
+            "buckets": step.grad_bucket_count,
+            "captures": step._captures, "replays": step._replays,
+            "params": [p.detach().clone() for p in net.parameters()],
+            "states": _state_leaves(torch, step.optimizer_states())}
+        del step
+    rep, sh = runs[False], runs[True]
+    cap = bucket_capacity_bytes()
+    bound = -(-rep["state_bytes"][0] // ZERO["dp"]) + max(cap, 4096)
+    steps, layers = ZERO["steps"], 12
+    gates = {
+        "losses_bitwise": rep["losses"] == sh["losses"],
+        "params_bitwise": _bitwise(torch, sh["params"], rep["params"]),
+        "states_bitwise": _bitwise(torch, sh["states"], rep["states"]),
+        "state_bytes_within_budget": sh["state_bytes"][1] <= bound,
+        "collectives": sh["collectives"]["reduce_scatter"]
+        == sh["collectives"]["all_gather"] == steps * sh["buckets"]
+        and sh["collectives"]["psum"] == 0
+        and sh["collectives"]["pmean"] == steps,
+        "replicated_no_scatter": rep["collectives"]["reduce_scatter"] == 0,
+        "b0_launches": all(r["flash_fwd_tf32_launches"]
+                           == r["flash_fwd_launches"] == layers * steps
+                           and r["other"] == 0 for r in (rep, sh)),
+        "graph": sh["captures"] == 1 and sh["replays"] == steps - 1}
+    for r in runs.values():
+        del r["params"], r["states"]
+    _mesh_free(torch)
+    return {"runs": {"replicated": rep, "sharded": sh},
+            "state_bytes_bound": bound, "bucket_capacity": cap,
+            "gates": gates, "ok": all(gates.values()),
+            "launches": rep["flash_fwd_tf32_launches"]
+            + sh["flash_fwd_tf32_launches"]}
+
+
+def _zero_batches(torch, seed, n):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    out = []
+    for i in range(n):
+        (tok, typ), y = _bert_batch(torch, seed + 60 + i, BERT["vocab_size"],
+                                    BERT["batch"], BERT["seq"], "cuda")
+        out.append(((NDArray(tok.int(), mx.gpu(0)),
+                     NDArray(typ.int(), mx.gpu(0))), NDArray(y, mx.gpu(0))))
+    return out
+
+
+def _gluon_step(mx, net, trainer, x, y):
+    with mx.autograd.record():
+        loss = _amp_bert_loss(net, x, y)
+    loss.backward()
+    trainer.step(1)
+    return float(loss.asscalar())
+
+
+def _zero_kvstore(torch, seed, net, restore, tmp):
+    """(b): the Gluon loop through the sharded kvstore, and the dp 4 → 2
+    reload of its optimizer checkpoint."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.cached_op import generators_of
+    from mxnet_tpu_torch.checkpoint import (load_sharded_optimizer,
+                                            save_sharded_optimizer)
+    batches = _zero_batches(torch, seed, ZERO["steps"])
+    runs, mid = {}, None
+    for shard in (False, True):
+        restore()
+        _mesh_free(torch)
+        _flash_zero()
+        with _zero_mesh(torch, ZERO["dp"]):
+            trainer = mx.gluon.Trainer(
+                net.collect_params(), "adam", {"learning_rate": BERT["lr"]},
+                kvstore="device", optimizer_state_sharding=shard)
+            losses, ms = [], []
+            for i, (x, y) in enumerate(batches):
+                if shard and i == ZERO["steps"] - 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    path = save_sharded_optimizer(f"{tmp}/zero_opt",
+                                                  trainer._kvstore)
+                    save_s = time.perf_counter() - t0
+                    mid = _net_snapshot(torch, net,
+                                        generators_of(net, "cuda"))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(_gluon_step(mx, net, trainer, x, y))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        eng = trainer._kvstore._shard_engine if shard else None
+        runs[shard] = {"losses": losses, "step_ms": ms,
+                       "peak_mem_gb": _peak_gb(torch), **_flash_read(),
+                       "store": trainer._kvstore is not None,
+                       "state_bytes": eng.state_bytes() if eng else None,
+                       "params": [p.detach().clone()
+                                  for p in net.parameters()]}
+        del trainer, eng
+    # the reload: step 3 again from the step-2 weights, streams and the
+    # saved slots, in a fresh sharded Trainer under dp = 2
+    mid()
+    _mesh_free(torch)
+    with _zero_mesh(torch, ZERO["dp_after"]):
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "adam", {"learning_rate": BERT["lr"]},
+            kvstore="device", optimizer_state_sharding=True)
+        trainer._init_kvstore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_sharded_optimizer(path, trainer._kvstore)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        x, y = batches[-1]
+        reload_loss = _gluon_step(mx, net, trainer, x, y)
+        dp_after = trainer._kvstore._shard_engine.dp
+    reloaded = [p.detach().clone() for p in net.parameters()]
+    files = [os.path.join(r, f) for r, _d, fs in os.walk(path) for f in fs]
+    rep, sh = runs[False], runs[True]
+    gates = {
+        "sharded_store_engaged": sh["store"] and not rep["store"],
+        "losses_bitwise": rep["losses"] == sh["losses"],
+        "params_bitwise": _bitwise(torch, sh["params"], rep["params"]),
+        "reload_bitwise": _bitwise(torch, reloaded, sh["params"])
+        and reload_loss == sh["losses"][-1] and dp_after == ZERO["dp_after"],
+        "state_bytes_one_nth": sh["state_bytes"][1] * ZERO["dp"]
+        == sh["state_bytes"][0],
+        "b0_launches": all(r["flash_fwd_tf32_launches"] == 12 * ZERO["steps"]
+                           and r["other"] == 0 for r in (rep, sh))}
+    for r in runs.values():
+        del r["params"]
+    del reloaded, trainer
+    _mesh_free(torch)
+    return {"runs": {"replicated": rep, "sharded": sh},
+            "checkpoint": {"save_s": save_s, "load_s": load_s,
+                           "bytes": sum(os.path.getsize(f) for f in files),
+                           "files": len(files), "dp_saved": ZERO["dp"],
+                           "dp_loaded": dp_after},
+            "gates": gates, "ok": all(gates.values())}
+
+
+def _zero_elastic_fit(torch, seed, tmp):
+    """(c): Estimator.fit(elastic=...) on fused resnet50_v1, a rank lost at
+    the third call, against a cold restart on dp = 2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, optimizer
+    from mxnet_tpu_torch import resilience as rs
+    from mxnet_tpu_torch.executor import MultiStepTrainStep, stack_batches
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.io import DevicePrefetchIter
+    from mxnet_tpu_torch.observability import metrics
+    from mxnet_tpu_torch.ops import fused_conv_bn as FC
+    from mxnet_tpu_torch.resilience.elastic import load_elastic_checkpoint
+    z, k = ZERO, ZERO["steps_per_call"]
+    n = z["calls"] * k
+    b = z["resnet_batch"]
+    gen = torch.Generator().manual_seed(seed + 25)
+    x = torch.rand(n * b, 3, TRAIN["px"], TRAIN["px"], generator=gen).numpy()
+    y = torch.randint(0, TRAIN["classes"], (n * b,),
+                      generator=gen).float().numpy()
+    net = _resnet50(torch, True, seed + 26)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": z["resnet_lr"],
+                             "momentum": z["momentum"]})
+    est = E.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      trainer=trainer, context=mx.gpu(0))
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(x, y),
+                                   batch_size=b)
+    calls = []
+
+    class Calls(E.BatchEnd):
+        def batch_end(self, estimator, *a, **kw):
+            (w,) = estimator._fused_steps.values()
+            calls.append({"world": w.world_size, "num_update":
+                          w.step._num_update,
+                          "b1": FC.fused_conv_bn_launches,
+                          "b1_wgmma": FC.fused_conv_bn_wgmma_launches})
+
+    reg = metrics.registry()
+    lost0 = reg.get("mxnet_tpu_elastic_lost_steps_total").value
+    os.environ["MXNET_KVSTORE_SHARD"] = "1"
+    _mesh_free(torch)
+    try:
+        with _zero_mesh(torch, z["dp"]):
+            pf = DevicePrefetchIter(loader, queue_size=1)
+        FC.fused_conv_bn_launches = FC.fused_conv_bn_wgmma_launches = 0
+        t0 = time.perf_counter()
+        try:
+            with rs.FaultPlan({"allreduce": ["ok"] * z["fault_call"]
+                               + ["fatal"]}):
+                est.fit(pf, epochs=1, event_handlers=[Calls()],
+                        prefetch_to_device=True, steps_per_call=k,
+                        elastic={"directory": f"{tmp}/elastic",
+                                 "every": z["every"]})
+            torch.cuda.synchronize()
+        finally:
+            pf.close()
+        fit_s = time.perf_counter() - t0
+        (wrapper,) = est._fused_steps.values()
+        wrapper.finish()
+        window = est.last_goodput
+        launches = FC.fused_conv_bn_launches
+        peak = _peak_gb(torch)
+        lost = reg.get("mxnet_tpu_elastic_lost_steps_total").value - lost0
+        writes = [dict(w) for w in wrapper.checkpointer.writes]
+        waits = list(wrapper.checkpointer.waits)
+        elastic_step = wrapper.step
+        got = ([t.detach().clone() for t in net.state_dict().values()]
+               + _state_leaves(torch, elastic_step.optimizer_states()))
+        restored_from = z["fault_call"] * k
+        wrapper.close()
+        # the oracle: a net from another seed, a dp = 2 step, the
+        # checkpoint the reformation restored, the same remaining batches
+        del est, wrapper, elastic_step, trainer
+        _mesh_free(torch)
+        other = _resnet50(torch, True, seed + 99)
+        cold = MultiStepTrainStep(
+            other, gluon.loss.SoftmaxCrossEntropyLoss(),
+            optimizer.create("sgd", learning_rate=z["resnet_lr"],
+                             momentum=z["momentum"]),
+            steps_per_call=k, mesh=_zero_mesh(torch, z["dp_after"]))
+        load_elastic_checkpoint(
+            f"{tmp}/elastic/step-{restored_from:08d}", cold)
+        for c in range(z["fault_call"], z["calls"]):
+            rows = range(c * k * b, (c + 1) * k * b, b)
+            xs, ys = stack_batches([(torch.from_numpy(x[r:r + b]).cuda(),
+                                     torch.from_numpy(y[r:r + b]).cuda())
+                                    for r in rows])
+            cold(xs, ys)
+        want = ([t.detach().clone() for t in other.state_dict().values()]
+                + _state_leaves(torch, cold.optimizer_states()))
+        cold_sharded = cold._zero is not None
+        del cold, other
+    finally:
+        del os.environ["MXNET_KVSTORE_SHARD"]
+    per_fwd = []
+    prev = 0
+    for c in calls:
+        per_fwd.append((c["world"], (c["b1"] - prev) / k))
+        prev = c["b1"]
+    fpp = FUSED_LAUNCHES_PER_STEP
+    before = [f for w, f in per_fwd if w == z["dp"]]
+    after = [f for w, f in per_fwd if w == z["dp_after"]]
+    gates = {
+        "bitwise_vs_cold_restart": _bitwise(torch, got, want),
+        "one_reformation": [c["world"] for c in calls]
+        == [z["dp"]] * z["fault_call"]
+        + [z["dp_after"]] * (z["calls"] - z["fault_call"]),
+        "every_step_trained": calls[-1]["num_update"] == n,
+        "lost_steps_metered": lost == 0,
+        "b1_per_forward": before == [fpp * z["dp"]] * z["fault_call"]
+        and after == [fpp * z["dp_after"]] * (z["calls"] - z["fault_call"])
+        and calls[-1]["b1_wgmma"] == calls[-1]["b1"] == launches,
+        "staging_followed": pf.mesh.axis_size("dp") == z["dp_after"]
+        and sum(pf.staged_by_dp.values()) == n
+        and pf.staged_by_dp.get(z["dp_after"], 0) > 0,
+        "sharded_states": cold_sharded}
+    del got, want
+    _mesh_free(torch)
+    return {"fit_s": fit_s, "reform_s": window["buckets"].get("reform", 0.0),
+            "checkpoint": {"writes": writes, "waits_s": waits},
+            "calls": calls, "b1_per_forward": per_fwd,
+            "staged_by_dp": dict(pf.staged_by_dp), "lost_steps": lost,
+            "peak_mem_gb": peak, "goodput_buckets": window["buckets"],
+            "gates": gates, "ok": all(gates.values()), "launches": launches}
+
+
+def _zero_sync_bn(torch, seed):
+    """(d): SyncBatchNorm(axis_name="dp") over 4 positions on the card
+    against the same body on the CPU."""
+    from mxnet_tpu_torch.ops import nn as N
+    from mxnet_tpu_torch.parallel import DeviceMesh, PartitionSpec as P
+    from mxnet_tpu_torch.parallel import collectives as C
+    shape = ZERO["sbn_shape"]
+    c = shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    x = torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+    w = torch.randn(shape, generator=gen, device="cuda")
+    gamma = torch.rand(c, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(c, generator=gen, device="cuda")
+
+    def run(device):
+        mesh = DeviceMesh({"dp": 4}, devices=[torch.device(device)] * 4)
+        ts = [t.detach().to(device, copy=True).requires_grad_()
+              for t in (x, gamma, beta)]
+
+        def body(xs, gs, bs):
+            return N.sync_batch_norm(xs, gs, bs, torch.zeros(c, device=device),
+                                     torch.ones(c, device=device), 1e-3,
+                                     False, True, axis_name="dp")
+        out, mean, var = C.shard_map(body, mesh, (P("dp"), P(), P()),
+                                     (P("dp"), P(), P()))(*ts)
+        (out * w.to(device)).sum().backward()
+        return [t.detach().cpu() for t in (out, mean, var)] + [
+            t.grad.cpu() for t in ts]
+
+    t0 = time.perf_counter()
+    card = run("cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = run("cpu")
+    names = ("out", "mean", "var", "grad_x", "grad_gamma", "grad_beta")
+    rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for n, a, b in zip(names, card, host)}
+    del x, w, card, host
+    _mesh_free(torch)
+    return {"shape": list(shape), "rel": rel, "worst_rel": max(rel.values()),
+            "tolerance": ZERO["sbn_rel"], "card_s": card_s,
+            "ok": max(rel.values()) <= ZERO["sbn_rel"]}
+
+
+def _zero_progress(key, seconds, part):
+    """One line a part, with its failed gates."""
+    failed = [g for g, v in part.get("gates", {}).items() if not v]
+    print(f"zero_elastic: {key} {seconds:.1f} s ok={part['ok']}"
+          + (f" failed={failed}" if failed else ""), flush=True)
+    if failed:
+        print(json.dumps({k: v for k, v in part.items() if k != "runs"},
+                         default=str)[:6000], flush=True)
+
+
+def phase_zero_elastic(torch, seed):
+    """Slice 25 (see ZERO): returns B0's fp32 launches on (a) and B1's on
+    (c)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="zero_elastic_")
+    secs, parts = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        net, restore = _zero_bert(torch, seed)
+        for key, fn in (("a_zero_graph", lambda: _zero_graph(
+                             torch, seed, net, restore)),
+                        ("b_zero_kvstore", lambda: _zero_kvstore(
+                            torch, seed, net, restore, tmp))):
+            t1 = time.perf_counter()
+            parts[key] = fn()
+            secs[key] = time.perf_counter() - t1
+            _zero_progress(key, secs[key], parts[key])
+        del net, restore
+        _mesh_free(torch)
+        t1 = time.perf_counter()
+        parts["c_elastic_fit"] = _zero_elastic_fit(torch, seed, tmp)
+        secs["c_elastic_fit"] = time.perf_counter() - t1
+        _zero_progress("c_elastic_fit", secs["c_elastic_fit"],
+                       parts["c_elastic_fit"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    parts["d_sync_bn"] = _zero_sync_bn(torch, seed)
+    secs["d_sync_bn"] = time.perf_counter() - t1
+    seconds = time.perf_counter() - t0
+    out = {"phase": "zero_elastic", "card": card, "config": ZERO,
+           "tf32": _tf32(torch), **parts, "part_seconds": secs,
+           "seconds": seconds, "budget_s": ZERO["budget_s"],
+           "launches_by_path": {
+               "a_flash_fwd_tf32": parts["a_zero_graph"]["launches"],
+               "c_fused_conv_bn": parts["c_elastic_fit"]["launches"]}}
+    out["ok"] = all(p["ok"] for p in parts.values())
+    emit(out)
+    a, bk, c = (parts["a_zero_graph"], parts["b_zero_kvstore"],
+                parts["c_elastic_fit"])
+    print(f"zero_elastic [{card}]: " + json.dumps({
+        "a_step_ms": {r: v["step_ms"] for r, v in a["runs"].items()},
+        "a_peak_mem_gb": {r: v["peak_mem_gb"] for r, v in a["runs"].items()},
+        "a_state_bytes": {r: v["state_bytes"] for r, v in a["runs"].items()},
+        "b_checkpoint": bk["checkpoint"], "c_fit_s": c["fit_s"],
+        "c_reform_s": c["reform_s"], "d_worst_rel":
+        parts["d_sync_bn"]["worst_rel"], "seconds": seconds}), flush=True)
+    check(out["ok"], "zero_elastic gates failed: " + str(
+        {k: p.get("gates") for k, p in parts.items() if not p["ok"]}))
+    return a["launches"], c["launches"]
+
+
+# ---------------------------------------------------------------------------
 # slice 15: training that survives faults
 # ---------------------------------------------------------------------------
 # Full-width BERT-base as bert_training builds it (fp32, TF32 off, seq 128,
@@ -7825,10 +8350,11 @@ def phase_train_step_graphs(torch, seed):
 # for the timed eager run and the traced busy shares (`chip_profile.py
 # --model zoo` traces these steps): the parity pair under deterministic
 # algorithms (the graph's first 2 steps against the eager twin's), then
-# 3 + 10 graph steps.  Dropout layers draw from one generator of seed +
-# 1.  Each model is freed before the next is built.
+# 2 + 5 graph steps (3 + 10 until slice 25, when the whole script ran
+# past 1050 s).  Dropout layers draw from one generator of seed + 1.
+# Each model is freed before the next is built.
 ZOO = dict(classes=1000, px=224, inception_px=299, fwd_batch=32,
-           train_batch=64, warmup=3, steps=10, export_rel=1e-5, fwd_timed=5)
+           train_batch=64, warmup=2, steps=5, export_rel=1e-5, fwd_timed=5)
 ZOO_FORWARD = ("resnet50_v2", "mobilenet1_0", "mobilenet_v2_1_0",
                "densenet121", "inception_v3", "vgg16_bn", "squeezenet1_1",
                "alexnet")
@@ -10089,7 +10615,7 @@ PHASES = ("build", "device", "graph_semantics", "train_step_graphs",
           "fused_timing", "model_parity", "serving",
           "resnet_parity", "training", "gluon_training", "input_pipeline",
           "vision_zoo", "estimator", "optimizers", "ops_rnn",
-          "ndarray_rest", "amp", "mesh", "serving_bert",
+          "ndarray_rest", "amp", "mesh", "zero_elastic", "serving_bert",
           "serving_http", "speculative", "fleet", "serving_resnet_export",
           "module_fit",
           "dist_training",
@@ -10172,9 +10698,15 @@ def main(argv=None):
     if "mesh" in only:
         mesh_b0, mesh_b1, fp16_b1, mesh_flash = phase_mesh(torch, args.seed)
         by_path = {"mesh": mesh_b1, **by_path}
+    bert_paths = {}
+    if "zero_elastic" in only:
+        bert_paths["zero_elastic"], zero_b1 = phase_zero_elastic(torch,
+                                                                 args.seed)
+        by_path = {"zero_elastic": zero_b1, **by_path}
     if by_path and "fused_timing" in only:
-        # launches: the latest slice's path that ran (fused resnet50_v1
-        # under a dp = 2 mesh, under amp.init("float16"), the ImageIter
+        # launches: the latest slice's path that ran (the elastic
+        # Estimator.fit on fused resnet50_v1 under dp = 4 then 2, under a
+        # dp = 2 mesh, under amp.init("float16"), the ImageIter
         # fine-tune loop under a CustomOp head, LARS through
         # CompiledTrainStep's graph, Estimator.fit, the input pipeline,
         # then the graph on a resident batch, then the Gluon loop)
@@ -10182,7 +10714,8 @@ def main(argv=None):
             "fused_conv_bn_stats",
             "mxnet_tpu_torch/csrc/fused_conv_bn_wgmma.cu",
             "mxnet_tpu/ops/fused_conv_bn.py:48",
-            next(by_path[k] for k in ("mesh", "amp", "ndarray_rest",
+            next(by_path[k] for k in ("zero_elastic", "mesh", "amp",
+                                      "ndarray_rest",
                                       "optimizers",
                                       "estimator",
                                       "input_pipeline", "training",
@@ -10214,7 +10747,7 @@ def main(argv=None):
         lines.append(line)
     # llama_7b and BERT-base stay alive from their serving phases to the
     # HTTP phase, which serves them again
-    bert_paths, llama, bert = {}, None, None
+    llama, bert = None, None
     emb_paths = {}
     if ops_rnn_emb is not None:
         emb_paths["ops_rnn"] = ops_rnn_emb
@@ -10286,9 +10819,11 @@ def main(argv=None):
         bert_paths["resilient_training"], emb_paths["resilient_training"] = \
             phase_resilient_training(torch, args.seed)
     if bert_paths and "bert_flash" in only:
-        # launches: the latest slice's path that ran (BERT-base under
-        # LAMB and AdamW through the graph, then the fleet, ...)
-        main_path = next((bert_paths[k] for k in ("optimizers", "fleet",
+        # launches: the latest slice's path that ran (BERT-base's ZeRO
+        # step on a dp = 4 mesh, under LAMB and AdamW through the graph,
+        # then the fleet, ...)
+        main_path = next((bert_paths[k] for k in ("zero_elastic",
+                                                   "optimizers", "fleet",
                                                    "module_fit_prefetch",
                                                    "resilient_training",
                                                    "serving_http",

@@ -186,9 +186,14 @@ env.declare("MXNET_KVSTORE_BUCKET_KB", 4096, int,
             "size and each bucket is reduced once (the results equal the "
             "per-key path bit for bit).  0 = one reduction per key.")
 env.declare("MXNET_KVSTORE_SHARD", False, bool,
-            "Optimizer-state sharding of the bucketed push (ZeRO, the JAX "
-            "package's kvstore/sharded.py).  Not ported: a store asked "
-            "for it raises at its push.")
+            "ZeRO-style optimizer-state sharding for dense kvstore training "
+            "(kvstore/sharded.py): each fusion bucket's gradient is reduce-"
+            "scattered over the dp axis, the optimizer updates only the "
+            "position's 1/N shard (per-position optimizer state drops ~Nx), "
+            "and updated params all-gather back, bitwise-identical to "
+            "replicated training.  Trainer(optimizer_state_sharding=) and "
+            "CompiledTrainStep(shard_optimizer_state=) override per "
+            "instance.")
 env.declare("MXNET_KVSTORE_OVERLAP", True, bool,
             "Issue a bucket's all-reduce (async) the moment it fills, while "
             "later keys are still staged; off, every bucket waits for the "
@@ -322,6 +327,15 @@ env.declare("MXNET_TPU_ELASTIC_CKPT_STEPS", 8, int,
             "points loses at most one window of steps (a cadence point "
             "waits for a still-in-flight write instead of skipping).  0 "
             "disables cadence saves.")
+env.declare("MXNET_TPU_ELASTIC_MAX_REFORMS", 2, int,
+            "Mesh reformations an elastic job may perform before a rank "
+            "failure becomes fatal (each reformation halves-or-less the dp "
+            "world; unlimited retries would grind a disintegrating fleet "
+            "to dp=1 silently).")
+env.declare("MXNET_TPU_ELASTIC_MIN_DP", 1, int,
+            "Smallest data-parallel world an elastic reformation may "
+            "continue on; fewer survivors than this fails the job instead "
+            "of limping (throughput below this is worse than a restart).")
 
 
 # -- observability (mxnet_tpu/base.py:469-545; observability/)

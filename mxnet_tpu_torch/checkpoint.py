@@ -17,7 +17,16 @@ Two layers, as in the JAX package:
   ``opt_state/p{i}``, ``num_update``).  :meth:`~TrainStepCheckpoint.restore`
   writes every tensor back **in place** (``copy_``), so a step's CUDA
   graph keeps its addresses and the next step replays with no new
-  capture.
+  capture.  A step with ZeRO-sharded optimizer states stores each state
+  at its parameter's global shape (gathered from the shards), so a
+  restore onto another ``dp`` only re-slices: global shapes are
+  mesh-independent.
+* :func:`save_sharded_optimizer` / :func:`load_sharded_optimizer` — a
+  kvstore's ZeRO-sharded optimizer state (``kvstore/sharded.py``): each
+  bucket's flat slot buffers at their save-time padding, ``meta.json``
+  with the JAX package's keys (``dp``, ``signatures``, ``none``,
+  ``counts``, ``num_update``); the load re-partitions for the mesh
+  entered now.
 
 Every directory carries the manifest :data:`MANIFEST_NAME`: size and
 sha256 of each file, written last and atomically, so a torn or corrupt
@@ -27,13 +36,13 @@ of loading garbage.
 Deliberate difference: the on-disk format is the port's own (the JAX
 package writes orbax trees).  A JAX checkpoint does not load into the
 port, nor the reverse; the layout names, ``meta.json`` and the manifest
-are the same.  The ZeRO-sharded optimizer checkpoints wait for
-``kvstore/sharded.py`` (ROADMAP A11b) and raise.
+are the same.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
 from typing import Any, Callable, Dict, Optional
@@ -283,17 +292,159 @@ def load_pytree(path: str, template: Optional[Any] = None,
     return _decode(index["tree"], path, template)
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-sharded optimizer state (kvstore/sharded.py engines)
+# ---------------------------------------------------------------------------
+def _sig_to_json(sig):
+    """Bucket signature ((dtype, nslots), (sk, shape), ...) -> json."""
+    return [[sig[0][0], sig[0][1]]] + [[sk, list(shape)]
+                                       for sk, shape in sig[1:]]
+
+
+def _sig_from_json(enc):
+    return ((enc[0][0], int(enc[0][1])),) + tuple(
+        (sk, tuple(int(d) for d in shape)) for sk, shape in enc[1:])
+
+
+def _sig_payload_elems(sig) -> int:
+    """Unpadded element count of a bucket: the layout its signature
+    records (the padding past it is zeros, whose updates are zero, so a
+    re-partition strips it and pads again freely)."""
+    return sum(math.prod(shape) for _sk, shape in sig[1:])
+
+
+def _listify_state(shards):
+    """A list of position trees (each None, a tensor or a tuple) -> the
+    checkpoint's form: each slot's shards joined into its flat buffer."""
+    first = shards[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([t.to(first.device) for t in shards])
+    return [_listify_state([s[i] for s in shards])
+            for i in range(len(first))]
+
+
+def _rewrap_state(raw, n_payload: int, devices):
+    """Saved flat buffers -> position trees for the mesh entered now:
+    the save-time padding stripped, padded again to a multiple of this
+    ``dp``, split in shards on their positions' devices."""
+    dp = len(devices)
+    if isinstance(raw, (list, tuple)):
+        per = [_rewrap_state(r, n_payload, devices) for r in raw]
+        return [tuple(p[r] for p in per) for r in range(dp)]
+    flat = raw[:n_payload]
+    pad = (-n_payload) % dp
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return [c.to(d).clone() for c, d in zip(flat.chunk(dp), devices)]
+
+
 def save_sharded_optimizer(path: str, store, force: bool = False) -> str:
-    """Not ported: the ZeRO-sharded optimizer state lives in
-    ``kvstore/sharded.py``, which is not ported yet."""
-    raise MXNetError("save_sharded_optimizer: the ZeRO-sharded optimizer "
-                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
+    """Write a kvstore's ZeRO-sharded optimizer state: each bucket's slot
+    buffers (the positions' shards joined, save-time padding kept) and
+    ``meta.json`` with the bucket signatures, the save-time ``dp`` and the
+    optimizer's per-key update counts (Adam's bias correction resumes from
+    the true step, the contract of ``Updater.get_states``).
+
+    Torn-write hardening: the tree and ``meta.json`` are written into a
+    temporary directory, the manifest last, and one ``os.replace``
+    publishes it.  An existing checkpoint at ``path`` is moved aside only
+    after the new one is complete (never deleted first), so a crash at any
+    point leaves a loadable checkpoint, the old one or the new one.  The
+    ``.meta.json`` beside the directory is an unverified copy for tools;
+    the one that counts lives inside the tree."""
+    engine = getattr(store, "_shard_engine", None)
+    if engine is None or not engine._states:
+        raise MXNetError("no sharded optimizer state on this kvstore — "
+                         "sharded training has not stepped yet")
+    opt = store._optimizer
+    tree, sigs, none_idx = {}, [], []
+    for i, (sig, st) in enumerate(engine._states.items()):
+        sigs.append(_sig_to_json(sig))
+        if st is None or st[0] is None:
+            none_idx.append(i)
+        else:
+            tree[f"s{i}"] = _listify_state(st)
+    path = os.path.abspath(path)
+    if os.path.exists(path) and not force:
+        raise MXNetError(f"checkpoint path {path} exists; pass force=True "
+                         "to overwrite")
+    tmp = f"{path}.tmp-{os.getpid()}"
+    save_pytree(tmp, tree or {"empty": torch.zeros(1)}, force=True,
+                manifest=False)
+    meta = {"dp": engine.dp, "signatures": sigs, "none": none_idx,
+            "counts": [[k, v] for k, v in opt._index_update_count.items()],
+            "num_update": opt.num_update}
+    _atomic_write_json(os.path.join(tmp, "meta.json"), meta)
+    write_manifest(tmp)
+    aside = None
+    if os.path.exists(path):
+        aside = f"{path}.old-{os.getpid()}"
+        if os.path.exists(aside):
+            shutil.rmtree(aside)
+        os.rename(path, aside)
+    os.replace(tmp, path)
+    if aside is not None:
+        shutil.rmtree(aside)
+    _atomic_write_json(path + ".meta.json", meta)
+    return path
 
 
 def load_sharded_optimizer(path: str, store) -> None:
-    """Not ported (see :func:`save_sharded_optimizer`)."""
-    raise MXNetError("load_sharded_optimizer: the ZeRO-sharded optimizer "
-                     "(kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
+    """Restore a :func:`save_sharded_optimizer` checkpoint onto ``store``,
+    re-partitioned for the mesh entered now: when ``dp`` changed, each
+    slot buffer is stripped of its save-time padding and padded and split
+    again for the new axis (the layout is the signature's, so each shard
+    lands where the new partition needs it).
+
+    The integrity manifest is required and verified (the shards and the
+    ``meta.json`` inside the tree): a torn save, a truncated shard or a
+    tampered sidecar raises :class:`CheckpointCorruptError` naming the
+    file."""
+    from .kvstore.sharded import ShardedOptimizerEngine, axis_devices
+    from .parallel.mesh import default_mesh
+    if store._optimizer is None:
+        raise MXNetError("set_optimizer() before load_sharded_optimizer "
+                         "(the restored slots belong to the optimizer)")
+    path = os.path.abspath(path)
+    verify_manifest(path, required=True)
+    meta_path = os.path.join(path, "meta.json")
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+    except (ValueError, OSError) as e:
+        raise CheckpointCorruptError(
+            f"sharded-optimizer sidecar {meta_path} is unreadable: {e}"
+        ) from e
+    tree = load_pytree(path, verify=False)
+    mesh = default_mesh()
+    devices = axis_devices(mesh)
+    device = next(iter(store._store.values()))._data.device \
+        if store._store else devices[0]
+    engine = getattr(store, "_shard_engine", None)
+    if engine is None:
+        engine = store._shard_engine = ShardedOptimizerEngine(store)
+    engine._mesh = mesh
+    engine._states.clear()
+    none_idx = set(meta.get("none", ()))
+    for i, enc in enumerate(meta["signatures"]):
+        sig = _sig_from_json(enc)
+        if i in none_idx:
+            engine._states[sig] = [None] * len(devices)
+        else:
+            raw = _to_device(tree[f"s{i}"], device)
+            engine._states[sig] = _rewrap_state(
+                raw, _sig_payload_elems(sig), devices)
+    opt = store._optimizer
+    opt._index_update_count.clear()
+    for k, v in meta.get("counts", ()):
+        opt._index_update_count[k] = int(v)
+    opt.num_update = int(meta.get("num_update", opt.num_update))
+
+
+def _to_device(node, device):
+    if isinstance(node, list):
+        return [_to_device(n, device) for n in node]
+    return node.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +499,7 @@ class TrainStepCheckpoint:
             "params": {f"p{i}": keep(p) for i, p in enumerate(s._learnable)},
             "aux": {f"a{i}": keep(t) for i, t in enumerate(s._aux)},
             "opt_state": {f"p{i}": _listify(st, keep)
-                          for i, st in enumerate(s._states)},
+                          for i, st in enumerate(s.optimizer_states())},
             "num_update": int(s._num_update),
         }
 
@@ -372,6 +523,9 @@ class TrainStepCheckpoint:
             _copy_into(p, restored["params"][f"p{i}"], f"params/p{i}")
         for i, t in enumerate(s._aux):
             _copy_into(t, restored["aux"][f"a{i}"], f"aux/a{i}")
-        for i, st in enumerate(s._states):
+        states = s.optimizer_states()
+        for i, st in enumerate(states):
             _copy_into(st, restored["opt_state"][f"p{i}"], f"opt_state/p{i}")
+        if s._zero is not None:
+            s.load_optimizer_states(states)
         s._num_update = int(restored["num_update"])

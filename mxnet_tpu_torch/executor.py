@@ -94,9 +94,25 @@ optimizer's step computes what its eager updates compute (the JAX step
 cannot trace LARS's host norms or SGLD's ``math.sqrt(lr)``, and freezes
 Nadam's count and schedule and LBSGD's warmup at the trace); ``donate``
 has no effect (the graph updates in place already); a signature's first
-call is eager; the returned loss is a clone.  ``shard_optimizer_state``
-(or ``MXNET_KVSTORE_SHARD`` with a mesh) raises :class:`MXNetError`
-(ROADMAP A11b).
+call is eager; the returned loss is a clone.
+
+``shard_optimizer_state`` (None defers to ``MXNET_KVSTORE_SHARD``; no
+effect without a mesh, or on a mesh whose ``data_axis`` has one position)
+is ZeRO inside the step (:class:`~mxnet_tpu_torch.kvstore.sharded.
+FlatShardedState`): the optimizer states are flat buffers per gradient
+bucket, each split in ``data_axis`` shards on their positions' devices;
+each step slices the bucket's whole gradient (the global view's gradient
+is the sum already: the "reduce-scatter" is a slice of it, never a second
+sum), updates each position's shard with its slots through the per-key
+update functions, and all-gathers the shards back into the parameters in
+place.  Bit for bit the replicated step.  The JAX package pins each
+parameter's slots dp-sharded in its program and lets the partitioner
+schedule the same moves; an optimizer without a flat update (anything
+but SGD, Adam and AdamW in single precision) warns once and keeps its
+states replicated, where the JAX partitioner shards any slot.
+:class:`MultiStepTrainStep` replays the sharded one-step graph K times,
+so its states stay sharded inside the K window (the JAX variant holds
+them replicated there and re-shards at the call's end).
 """
 from __future__ import annotations
 
@@ -224,8 +240,8 @@ class CompiledTrainStep:
     :class:`~mxnet_tpu_torch.observability.health.HealthConfig`; None
     defers to ``MXNET_TPU_HEALTH``) arms the watchpoints.  ``mesh``,
     ``data_axis`` and ``param_spec_fn`` run the step over a device mesh
-    (see the module docstring); ``shard_optimizer_state`` is not ported
-    (ROADMAP A11b)."""
+    (see the module docstring), ``shard_optimizer_state`` shards the
+    optimizer states over ``data_axis`` (ZeRO, the module docstring)."""
 
     def __init__(self, net, loss_fn, optimizer, batch_size: Optional[int] = None,
                  mesh=None, data_axis: str = "dp", param_spec_fn=None,
@@ -235,10 +251,8 @@ class CompiledTrainStep:
         if shard_optimizer_state is None:
             shard_optimizer_state = mesh is not None and \
                 bool(env.MXNET_KVSTORE_SHARD)
-        if shard_optimizer_state:
-            raise MXNetError(
-                "CompiledTrainStep: shard_optimizer_state (ZeRO, "
-                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
+        self.shard_optimizer_state = bool(shard_optimizer_state) and \
+            mesh is not None
         from .parallel.mesh import DeviceMesh
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise MXNetError(f"CompiledTrainStep: mesh must be a "
@@ -261,18 +275,39 @@ class CompiledTrainStep:
         self.batch_size = batch_size
         self._remat = remat
         self._learnable = [p for p in net.parameters() if p.requires_grad]
-        self._states = [optimizer.create_state_multi_precision(i, p)
-                        for i, p in enumerate(self._learnable)]
         self._grad_buckets: Optional[List[List[int]]] = None
         cap = max(int(env.MXNET_KVSTORE_BUCKET_KB), 0) * 1024
-        if fuse_grad_buckets and cap > 0 and len(self._learnable) > 1:
-            from .kvstore.bucketing import partition_bucket_indices
-            self._grad_buckets = partition_bucket_indices(
+        from .kvstore.bucketing import partition_bucket_indices
+
+        def buckets():
+            return partition_bucket_indices(
                 [p.numel() * p.element_size() for p in self._learnable],
                 [str(p.dtype) for p in self._learnable], cap)
+        if fuse_grad_buckets and cap > 0 and len(self._learnable) > 1:
+            self._grad_buckets = buckets()
         self.grad_bucket_count = (len(self._grad_buckets)
                                   if self._grad_buckets
                                   else len(self._learnable))
+        # ZeRO: the states as dp shards of flat bucket buffers
+        self._zero = None
+        if self.shard_optimizer_state and \
+                mesh.axis_size(data_axis) > 1 and self._learnable:
+            from .kvstore.sharded import FlatShardedState, supports_optimizer
+            if supports_optimizer(optimizer):
+                self._zero = FlatShardedState(
+                    optimizer, self._learnable,
+                    self._grad_buckets or buckets(), mesh, data_axis)
+                self.grad_bucket_count = len(self._zero.buckets)
+            else:
+                import warnings
+                warnings.warn(
+                    "mxnet_tpu: shard_optimizer_state requested but "
+                    f"{type(optimizer).__name__} has no flat-shard update "
+                    "(SGD/Adam/AdamW, single precision): its states stay "
+                    "replicated")
+        self._states = (self._zero.states if self._zero is not None else
+                        [optimizer.create_state_multi_precision(i, p)
+                         for i, p in enumerate(self._learnable)])
         self._names = _health.param_names(net, self._learnable)
         self.param_specs = {}
         self._layouts = {}
@@ -313,10 +348,40 @@ class CompiledTrainStep:
 
     def live_bytes(self) -> int:
         """Bytes of the parameters, buffers and optimizer states the step
-        holds (the memory ledger's ``trainstep:`` component)."""
+        holds, every position's shard included (the memory ledger's
+        ``trainstep:`` component)."""
         return sum(t.numel() * t.element_size() for t in (
             list(self._net.parameters()) + list(self._net.buffers())
             + [t for s in self._states for t in _leaves(s)]))
+
+    def optimizer_state_bytes(self) -> Tuple[int, int]:
+        """(replicated-equivalent, one position's) optimizer-state bytes:
+        with sharded states the second is 1/N of the first (padding
+        included in both); replicated, the two are equal."""
+        if self._zero is not None:
+            return self._zero.state_bytes()
+        n = sum(t.numel() * t.element_size()
+                for s in self._states for t in _leaves(s))
+        return n, n
+
+    def optimizer_states(self) -> list:
+        """Each learnable parameter's optimizer state at the parameter's
+        shape: the live tensors, or with sharded states new tensors
+        gathered from the shards (what a checkpoint stores)."""
+        if self._zero is not None:
+            return self._zero.gather(self._learnable)
+        return list(self._states)
+
+    def load_optimizer_states(self, states) -> None:
+        """Write per-parameter states (:meth:`optimizer_states`' layout)
+        into the live ones in place; sharded states re-slice them for this
+        step's mesh."""
+        if self._zero is not None:
+            self._zero.scatter(states)
+            return
+        from .checkpoint import _copy_into
+        for i, (live, st) in enumerate(zip(self._states, states)):
+            _copy_into(live, st, f"opt_state/p{i}")
 
     # ------------------------------------------------------------ scalars
     def _lr_at(self, i: int) -> float:
@@ -385,7 +450,7 @@ class CompiledTrainStep:
             net.train(was_training)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._learnable, grads)]
-        if self._grad_buckets is not None:
+        if self._grad_buckets is not None and self._zero is None:
             grads = _fuse_grad_buckets(grads, self._grad_buckets)
         # the update's delta needs the parameters it started from, which
         # the updates overwrite in place
@@ -397,9 +462,14 @@ class CompiledTrainStep:
         for n, v in zip(names, (lr, None, 1.0, t, {})):
             setattr(opt, n, v)
         try:
-            for i, (p, g, state) in enumerate(zip(self._learnable, grads,
-                                                  self._states)):
-                opt.update_multi_precision(i, p.data, g, state)
+            if self._zero is not None:
+                for i in range(len(self._learnable)):
+                    opt._update_count(i)
+                self._zero.step(opt, self._learnable, grads)
+            else:
+                for i, (p, g, state) in enumerate(zip(
+                        self._learnable, grads, self._states)):
+                    opt.update_multi_precision(i, p.data, g, state)
         finally:
             for n, v in zip(names, saved):
                 setattr(opt, n, v)

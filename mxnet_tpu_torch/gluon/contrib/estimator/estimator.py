@@ -24,8 +24,16 @@ loop restores ``trainer.snapshot()``, the fused driver runs under
 :class:`~mxnet_tpu_torch.io.DevicePrefetchIter` onto the Estimator's
 ``context``, the card by default), ``health`` (in-graph watchpoints on
 the fused driver, a :class:`.event_handler.TrainingHealthHandler` on the
-eager loop).  ``elastic`` raises: it needs the elastic trainer (ROADMAP
-A11b).
+eager loop), ``elastic`` (True, a dict or an
+:class:`~mxnet_tpu_torch.resilience.ElasticConfig`: the fused driver,
+forced even at K = 1, runs under
+:class:`~mxnet_tpu_torch.resilience.ElasticTrainStep`, so a rank loss
+reforms the ``dp`` mesh on the survivors and the fit goes on; a
+``DevicePrefetchIter`` input follows the reformed mesh through
+``on_reform``).  The fused driver takes a mesh, resolved once per fit:
+the ``DevicePrefetchIter``'s, else the one entered, else with
+``elastic`` every visible device on ``dp``; the mesh keys the cache of
+fused steps, so a multi-epoch fit reuses its driver.
 
 Deliberate difference from the JAX package: the fused driver runs
 whenever ``steps_per_call`` is given, 1 included, or
@@ -39,7 +47,7 @@ from typing import List, Optional
 
 from .... import autograd
 from .... import metric as metric_mod
-from ....base import MXNetError, env
+from ....base import env
 from ...loss import Loss
 from ...trainer import Trainer
 from .event_handler import (BatchBegin, BatchEnd, EpochBegin, EpochEnd,
@@ -164,15 +172,21 @@ class Estimator:
                 snap.restore()
 
     # -------------------------------------------------------- fused driver
-    def _fused_step(self, steps_per_call: int):
+    def _fused_step(self, steps_per_call: int, mesh=None, elastic_cfg=None):
         """The step of the fused driver for K = ``steps_per_call``, built
-        once per K and health setting (watchpoints change the graph);
-        a cached step takes the fit's other health knobs in place, keeping
-        its optimizer states."""
+        once per K, mesh, elastic mode and health setting (watchpoints
+        change the graph); a cached step takes the fit's other health knobs
+        in place, keeping its optimizer states.  With ``elastic_cfg`` it is
+        an :class:`~mxnet_tpu_torch.resilience.ElasticTrainStep` whose
+        ``build(mesh)`` makes the step for each world."""
         health_cfg = self._health_cfg
         armed = (health_cfg.watchpoints if health_cfg is not None
                  else bool(env.MXNET_TPU_HEALTH))
         key = (steps_per_call, armed)
+        if mesh is not None:
+            key += (id(mesh),)
+        if elastic_cfg is not None:
+            key += ("elastic",)
         step = self._fused_steps.get(key)
         if step is not None:
             if step._hmon is not None:
@@ -186,13 +200,22 @@ class Estimator:
                 "for this Estimator: its optimizer states start from zero "
                 "on the current parameters", steps_per_call)
         from ....executor import MultiStepTrainStep
-        step = MultiStepTrainStep(self.net, self.loss, self.trainer.optimizer,
-                                  steps_per_call=steps_per_call,
-                                  health=health_cfg)
+
+        def build(m):
+            return MultiStepTrainStep(self.net, self.loss,
+                                      self.trainer.optimizer,
+                                      steps_per_call=steps_per_call, mesh=m,
+                                      health=health_cfg)
+        if elastic_cfg is not None:
+            from ....resilience import ElasticTrainStep
+            step = ElasticTrainStep(build, mesh=mesh, config=elastic_cfg)
+        else:
+            step = build(mesh)
         self._fused_steps[key] = step
         return step
 
-    def _run_fused_group(self, group, steps_per_call, resume_on_fault):
+    def _run_fused_group(self, group, steps_per_call, resume_on_fault,
+                         mesh=None, elastic_cfg=None, train_data=None):
         """One fused call over the ``(data, label)`` pairs of ``group``;
         the per-step losses (an array of ``len(group)``)."""
         if any(not p._allocated() for p in
@@ -200,7 +223,13 @@ class Estimator:
             # the step takes the net's tensors: let a forward allocate
             # the deferred ones first
             self.net(group[0][0])
-        step = self._fused_step(steps_per_call)
+        step = self._fused_step(steps_per_call, mesh, elastic_cfg)
+        if elastic_cfg is not None:
+            from ....io import DevicePrefetchIter
+            # a reformed mesh retargets the input pipeline too
+            step.on_reform = ([train_data.reshard]
+                              if isinstance(train_data, DevicePrefetchIter)
+                              else [])
         if resume_on_fault:
             ft = self._fused_ft
             if ft is None or ft._step is not step or \
@@ -213,14 +242,15 @@ class Estimator:
         return step(*stack_batches(group))
 
     def _epoch_fused(self, train_data, phase, stopping, steps_per_call,
-                     resume_on_fault):
+                     resume_on_fault, mesh=None, elastic_cfg=None):
         """One epoch of the fused driver: K batches a group, ``batch_end``
         once per group with its losses; a batch whose shape differs from
         the open group's (an epoch's short tail) closes the group first,
         and no group runs past a ``batches`` budget."""
         def flush(group, batch):
             losses = self._run_fused_group(group, steps_per_call,
-                                           resume_on_fault)
+                                           resume_on_fault, mesh,
+                                           elastic_cfg, train_data)
             samples = sum(int(_leaf(p).shape[0]) for p in group)
             phase(BatchEnd, "batch_end", batch=batch, pred=None, label=None,
                   loss=losses, num_batches=len(group), num_samples=samples)
@@ -259,13 +289,13 @@ class Estimator:
         """Train for ``epochs`` (default 1) or ``batches``; see the module
         docstring for the drivers and the options.  Returns the
         Estimator."""
+        elastic_cfg = None
         if elastic:
-            raise MXNetError("Estimator.fit(elastic=...) needs the elastic "
-                             "trainer, which is not ported yet (ROADMAP "
-                             "A11b)")
+            from ....resilience import ElasticConfig
+            elastic_cfg = ElasticConfig.coerce(elastic)
         resume_on_fault = 2 if resume_on_fault is True \
             else int(resume_on_fault)
-        fused = steps_per_call is not None or \
+        fused = steps_per_call is not None or elastic_cfg is not None or \
             int(env.MXNET_TPU_STEPS_PER_CALL) > 1
         if steps_per_call is None:
             steps_per_call = int(env.MXNET_TPU_STEPS_PER_CALL)
@@ -290,7 +320,8 @@ class Estimator:
             with _goodput.train().window("fit") as report:
                 out = self._fit_loop(train_data, val_data, epochs, batches,
                                      event_handlers, resume_on_fault,
-                                     steps_per_call if fused else None)
+                                     steps_per_call if fused else None,
+                                     elastic_cfg)
             self.last_goodput = report
             return out
         finally:
@@ -298,7 +329,8 @@ class Estimator:
                 own_prefetch.close()
 
     def _fit_loop(self, train_data, val_data, epochs, batches,
-                  event_handlers, resume_on_fault, steps_per_call):
+                  event_handlers, resume_on_fault, steps_per_call,
+                  elastic_cfg=None):
         """The epochs; ``steps_per_call`` None runs the eager loop."""
         if epochs is None and batches is None:
             epochs = 1
@@ -323,13 +355,30 @@ class Estimator:
                 if isinstance(h, cls):
                     getattr(h, method)(self, *args, **kw)
 
+        fused_mesh = None
+        if steps_per_call is not None:
+            # resolved once per fit: the mesh keys the fused-step cache,
+            # and a new mesh each epoch would restart the optimizer states
+            from ....io import DevicePrefetchIter
+            if isinstance(train_data, DevicePrefetchIter):
+                fused_mesh = train_data.mesh
+            if fused_mesh is None:
+                from ....parallel import current_mesh
+                fused_mesh = current_mesh()
+            if fused_mesh is None and elastic_cfg is not None:
+                # reformation is a dp-axis operation: elastic mode always
+                # runs on a mesh (every visible device on dp by default)
+                from ....parallel import make_mesh
+                fused_mesh = make_mesh()
+
         phase(TrainBegin, "train_begin")
         while not stopping.stop_training:
             phase(EpochBegin, "epoch_begin")
             self._fresh_epoch(train_data)
             if steps_per_call is not None:
                 self._epoch_fused(train_data, phase, stopping,
-                                  steps_per_call, resume_on_fault)
+                                  steps_per_call, resume_on_fault,
+                                  fused_mesh, elastic_cfg)
             else:
                 for batch in train_data:
                     phase(BatchBegin, "batch_begin", batch=batch)

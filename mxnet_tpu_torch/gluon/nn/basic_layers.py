@@ -26,7 +26,6 @@ from ... import ndarray as _ndmod
 from ... import random as _random
 from ...base import MXNetError
 from ...ops import F
-from ...ops.nn import _no_mesh
 from ..block import Block, HybridBlock, _boundary_ctx
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -250,26 +249,37 @@ class BatchNorm(HybridBlock):
 
 class SyncBatchNorm(BatchNorm):
     """Cross-device BatchNorm (``gluon.contrib.nn.SyncBatchNorm`` is the
-    same class).  Without ``axis_name`` it is BatchNorm on the one
-    device, as the JAX layer is outside ``shard_map``, with the
-    ``_contrib_SyncBatchNorm`` op's unclamped one-pass variance; an
-    ``axis_name`` (statistics reduced over a mesh axis) raises
-    :class:`~mxnet_tpu_torch.MXNetError` (ROADMAP A11b)."""
+    same class), with the ``_contrib_SyncBatchNorm`` op's unclamped
+    one-pass variance.  Without ``axis_name`` it is BatchNorm on the one
+    device, as the JAX layer is outside ``shard_map``.  With
+    ``axis_name`` the moments are averaged over that mesh axis: called
+    with the positions' list inside a ``shard_map`` body it returns their
+    list, and under a mesh with that axis (a meshed ``CompiledTrainStep``)
+    it splits the batch over the axis itself (:func:`~mxnet_tpu_torch.ops.
+    nn.sync_batch_norm`).  The moving statistics take the averaged
+    moments, the same at every position."""
 
     def __init__(self, in_channels=0, num_devices=None, axis_name=None,
                  **kwargs):
-        _no_mesh(axis_name)
         super().__init__(in_channels=in_channels, **kwargs)
         self._num_devices = num_devices
         self._axis_name = axis_name
+
+    def _shape_hint(self, x, *args):
+        super()._shape_hint(x[0] if isinstance(x, (list, tuple)) else x,
+                            *args)
 
     def forward(self, x):
         training = self.training and not self._use_global_stats
         out, mean, var = F.sync_batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, fix_gamma=not self._scale, training=training)
+            eps=self._epsilon, fix_gamma=not self._scale, training=training,
+            axis_name=self._axis_name)
         if training:
-            _update_running(self, mean, var)
+            if isinstance(mean, list):
+                mean, var = mean[0], var[0]
+            _update_running(self, mean.to(self.running_mean.device),
+                            var.to(self.running_var.device))
         return out
 
     def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,

@@ -19,8 +19,19 @@ go to ``set_gradient_compression``, and the optimizer runs on the store
 when ``update_on_kvstore`` (default ``MXNET_UPDATE_ON_KVSTORE``) is true:
 ``allreduce_grads`` then pushes every gradient in one list-form push and
 ``update`` pulls every weight; otherwise it pushpulls the gradients and
-the Trainer's own updater applies them.  Optimizer-state sharding is not
-ported (ROADMAP A11b) and raises.
+the Trainer's own updater applies them.
+
+``optimizer_state_sharding`` (None defers to ``MXNET_KVSTORE_SHARD``)
+runs the store's push as ZeRO (``kvstore/sharded.py``): each bucket's
+gradient reduce-scattered over the active mesh's ``dp`` axis, each
+position's shard of the optimizer states updated, the parameters
+all-gathered back, bit for bit the replicated update.  It forces
+``update_on_kvstore`` (True with ``update_on_kvstore=False`` raises
+``ValueError``).  A store counts one worker in one process, so a sharded
+Trainer also engages its store when the mesh entered at its first step
+has ``dp`` > 1 (the JAX package's stores count the mesh's ``dp``
+positions as workers); without such a mesh there is nothing to shard
+over and it keeps the decision matrix above.
 
 ``update`` passes the ``execute`` fault site once per parameter (the
 eager loop is not atomic: a fault there leaves the model half-stepped),
@@ -34,10 +45,17 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .. import optimizer as opt
-from ..base import MXNetError, env
+from ..base import env
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
+
+
+def _mesh_dp() -> int:
+    """The ``dp`` size of the mesh entered on this thread (1 without)."""
+    from ..parallel.mesh import current_mesh
+    mesh = current_mesh()
+    return mesh.axis_size("dp") if mesh is not None else 1
 
 
 class Trainer:
@@ -56,10 +74,11 @@ class Trainer:
                 raise ValueError(f"expected Parameter, got {type(p)}")
             self._param2idx[p.name] = i
             self._params.append(p)
-        if optimizer_state_sharding:
-            raise MXNetError(
-                "Trainer: optimizer_state_sharding (ZeRO, the JAX package's "
-                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
+        if optimizer_state_sharding and update_on_kvstore is False:
+            raise ValueError("optimizer_state_sharding=True requires the "
+                             "optimizer to run on the kvstore "
+                             "(update_on_kvstore must not be False)")
+        self._optimizer_state_sharding = optimizer_state_sharding
         self._compression_params = compression_params
         self._kvstore_kind = kvstore
         self._update_on_kvstore = update_on_kvstore
@@ -91,13 +110,21 @@ class Trainer:
             return
         from .. import kvstore as kv_mod
         kv = kv_mod.create(kind) if isinstance(kind, str) else kind
-        if kv.num_workers == 1 and not kv.force_use:
+        sharding = self._optimizer_state_sharding
+        if sharding is None:
+            sharding = bool(env.MXNET_KVSTORE_SHARD)
+        if kv.num_workers == 1 and not kv.force_use and not (
+                sharding and _mesh_dp() > 1):
             return
         self._kvstore = kv
         if self._compression_params:
             kv.set_gradient_compression(self._compression_params)
         if self._update_on_kvstore is None:
             self._update_on_kvstore = bool(env.MXNET_UPDATE_ON_KVSTORE)
+        if sharding:
+            self._update_on_kvstore = True  # the shard lives with the update
+        if self._optimizer_state_sharding is not None:
+            kv._shard_optimizer_state = bool(self._optimizer_state_sharding)
         for i, p in enumerate(self._params):
             if p._allocated():
                 kv.init(i, p.data())

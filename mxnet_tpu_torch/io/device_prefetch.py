@@ -26,6 +26,15 @@ How a batch crosses, on a CUDA context:
 
 On a CPU context the copy is a no-op and the leaves pass through.
 
+Over a device mesh (``mesh=``, by default the mesh entered on the
+constructing thread) each batch is staged on the device of the mesh's
+first ``data_axis`` position: on one card, one copy on the card, which a
+meshed ``CompiledTrainStep`` splits over the positions itself (the port's
+step takes its batch in global view).  :meth:`DevicePrefetchIter.reshard`
+retargets the staging at another mesh (an elastic reformation), from the
+next staged batch on; ``staged_by_dp`` counts the batches staged per
+``dp`` size.
+
 Starvation is telemetry: a ``next()`` that finds the queue empty while
 the producer runs is a starved step (``mxnet_tpu_io_starved_steps_total``),
 the queue depth is ``mxnet_tpu_io_device_queue_depth``, and
@@ -134,21 +143,29 @@ class DevicePrefetchIter(DataIter):
         bounds what the input pipeline keeps on the card.
     ctx : the context to stage to, ``mx.gpu(0)`` by default; ``mx.cpu()``
         makes the copy a no-op.
-    mesh, data_axis : staging each batch sharded over a device mesh, not
-        ported yet (ROADMAP A11b): a mesh raises.
+    mesh, data_axis : a :class:`~mxnet_tpu_torch.parallel.DeviceMesh` to
+        stage each batch over (default: the mesh entered on the
+        constructing thread; the producer thread has none of its own),
+        and the axis the batch dimension splits over.  A mesh's devices
+        take the place of ``ctx``.
     """
 
     def __init__(self, source, queue_size: Optional[int] = None, mesh=None,
                  data_axis: str = "dp", ctx: Optional[Context] = None):
         super().__init__(getattr(source, "batch_size", 0))
-        if mesh is not None:
-            raise MXNetError("DevicePrefetchIter(mesh=...): staging over a "
-                             "mesh is not ported yet (ROADMAP A11b)")
+        if mesh is None:
+            from ..parallel.mesh import current_mesh
+            mesh = current_mesh()
+        self._mesh = mesh
+        self._data_axis = data_axis
+        self.staged_by_dp: Dict[int, int] = {}
         if queue_size is None:
             queue_size = int(_env.MXNET_IO_DEVICE_QUEUE)
         if queue_size < 1:
             raise MXNetError(
                 f"DevicePrefetchIter needs queue_size >= 1, got {queue_size}")
+        if mesh is not None:
+            ctx = Context.of(mesh.devices[0])
         self._ctx = ctx if ctx is not None else gpu(0)
         self._device = self._ctx.torch_device()
         self._stream = None
@@ -190,11 +207,12 @@ class DevicePrefetchIter(DataIter):
         return next(self._epoch_iter)
 
     def _stage_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        device = self._batch_device
         if self._stream is None or t.device.type == "cuda":
-            return t.to(self._device, non_blocking=True)
+            return t.to(device, non_blocking=True)
         slot = self._ring.take(t.shape, t.dtype)
         slot[0].copy_(t)
-        dev = torch.empty(t.shape, dtype=t.dtype, device=self._device)
+        dev = torch.empty(t.shape, dtype=t.dtype, device=device)
         dev.copy_(slot[0], non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record(self._stream)
@@ -214,6 +232,13 @@ class DevicePrefetchIter(DataIter):
         return value
 
     def _stage_batch(self, batch):
+        mesh = self._mesh  # one read per batch: reshard may swap it
+        self._batch_device = self._device
+        if mesh is not None:
+            from ..kvstore.sharded import axis_devices
+            self._batch_device = axis_devices(mesh, self._data_axis)[0]
+            dp = mesh.axis_size(self._data_axis)
+            self.staged_by_dp[dp] = self.staged_by_dp.get(dp, 0) + 1
         if isinstance(batch, DataBatch):
             batch.data = self._stage(batch.data)
             batch.label = self._stage(batch.label)
@@ -327,9 +352,18 @@ class DevicePrefetchIter(DataIter):
         _M_QUEUE_DEPTH.set(0)
         self._loop.start()
 
+    @property
+    def mesh(self):
+        """The mesh batches are staged for (None: ``ctx``)."""
+        return self._mesh
+
     def reshard(self, mesh) -> None:
-        raise MXNetError("DevicePrefetchIter.reshard: staging over a mesh "
-                         "is not ported yet (ROADMAP A11b)")
+        """Retarget the staging at ``mesh`` (an elastic reformation):
+        batches staged from here on follow it; batches already staged keep
+        their placement, which a meshed step splits again itself, so
+        nothing staged is thrown away when the world shrinks.  One
+        reference write, which the producer reads once per batch."""
+        self._mesh = mesh
 
     def close(self):
         """Stop the producer and drop the staged batches (idempotent)."""

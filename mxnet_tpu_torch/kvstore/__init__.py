@@ -100,15 +100,37 @@ class DeviceKVStore(KVStore):
             self._compression.reset()
         self._comp_layout = layout
 
+    def _push_group_sharded(self, groups):
+        """ZeRO push: the keys reduce-scatter per bucket, the optimizer
+        updates each position's shard, the updated parameters all-gather
+        back into the store (``kvstore/sharded.py``)."""
+        from .sharded import ShardedOptimizerEngine
+        if self._shard_engine is None:
+            self._shard_engine = ShardedOptimizerEngine(self)
+        dense = []
+        for k, vals, prio in groups:
+            sk = self._key(k)
+            if sk not in self._store:
+                raise MXNetError(f"key {k} has not been initialized")
+            dense.append((k, sk, vals, prio))
+        self._shard_engine.step(dense)
+
     def _push_group(self, groups):
         from .bucketing import GradientBucketer, bucket_capacity_bytes
+        if self._fuse_dense_push and self.optimizer_state_sharding:
+            from .sharded import sharded_push_supported
+            reason = sharded_push_supported(self)
+            if reason is None:
+                self._check_compression_layout(groups)
+                return self._push_group_sharded(groups)
+            if not getattr(self, "_shard_fallback_warned", False):
+                import warnings
+                warnings.warn("mxnet_tpu: optimizer-state sharding requested"
+                              f" but falling back to replicated push: {reason}")
+                self._shard_fallback_warned = True
         if not (self._fuse_dense_push and bucket_capacity_bytes() > 0
                 and len(groups) > 1):
             return super()._push_group(groups)
-        if self.optimizer_state_sharding:
-            raise MXNetError(
-                "kvstore: optimizer-state sharding (MXNET_KVSTORE_SHARD, "
-                "kvstore/sharded.py) is not ported yet (ROADMAP A11b)")
         for k, _vals, _p in groups:
             if self._key(k) not in self._store:
                 raise MXNetError(f"key {k} has not been initialized")
@@ -201,6 +223,13 @@ class DistSyncKVStore(DeviceKVStore):
         _M_COLLECTIVES.labels(kind=kind).inc()
         _M_COLLECTIVE_SECONDS.observe(time.perf_counter() - t0)
         return out
+
+    def _shard_collective(self, what: str, fn):
+        """The sharded engine's reduce-scatter and all-gather run under the
+        same guard as the all-reduce path: one guarded
+        ``kvstore.reduce_scatter`` / ``kvstore.all_gather`` round per
+        bucket."""
+        return self._collective(what, fn)
 
     def divergence_round(self, named):
         """One cross-rank divergence-checksum round over ``named`` (key ->

@@ -13,9 +13,11 @@ value is quantized first.  The stores of this file live in one process:
 ``rank`` is 0, ``num_workers`` 1, and ``barrier`` waits for the card's
 queued work; the dist stores (``kvstore/__init__.py``) span processes.
 
-Not ported yet, and an error rather than a different result:
-``row_sparse_pull`` (the row-sparse arrays, ROADMAP A15) and
-optimizer-state sharding (``kvstore/sharded.py``, ROADMAP A11b).
+Optimizer-state sharding (ZeRO, :mod:`.sharded`) runs a bucketed push
+as reduce-scatter, a per-position update and all-gather when
+:attr:`KVStoreBase.optimizer_state_sharding` is on.  Not ported yet, and
+an error rather than a different result: ``row_sparse_pull`` (the
+row-sparse arrays, ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -51,6 +53,11 @@ class KVStoreBase:
         self._compression = None
         # engage the store in a Trainer even with one worker
         self.force_use = False
+        # ZeRO optimizer-state sharding (sharded.py): None defers to
+        # MXNET_KVSTORE_SHARD at push time; Trainer(...,
+        # optimizer_state_sharding=) writes an explicit bool here
+        self._shard_optimizer_state: Optional[bool] = None
+        self._shard_engine = None
 
     # ------------------------------------------------------------- identity
     @property
@@ -72,10 +79,18 @@ class KVStoreBase:
 
     @property
     def optimizer_state_sharding(self) -> bool:
-        """Whether a bucketed push should shard the optimizer states
-        (``MXNET_KVSTORE_SHARD``); the port has no sharded push yet, and
-        a store asked for one raises at its push."""
-        return bool(env.MXNET_KVSTORE_SHARD)
+        """Whether dense batched pushes run the ZeRO scatter→update→gather
+        schedule (``kvstore/sharded.py``) instead of the replicated
+        reduction and per-key update; ``MXNET_KVSTORE_SHARD`` unless a
+        Trainer set it."""
+        if self._shard_optimizer_state is None:
+            return bool(env.MXNET_KVSTORE_SHARD)
+        return bool(self._shard_optimizer_state)
+
+    def _shard_collective(self, what: str, fn):
+        """Guard hook for the sharded engine's reduce-scatter and
+        all-gather; the dist store runs them under its collective guard."""
+        return fn()
 
     # ------------------------------------------------------------- helpers
     @staticmethod

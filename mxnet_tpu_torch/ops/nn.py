@@ -359,11 +359,60 @@ def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
 
 
 def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
-                    fix_gamma=True, training=True):
-    """``(out, mean, var)`` of ``_contrib_SyncBatchNorm`` on one device:
-    BatchNorm over axis 1 whose batch variance is ``E[x²] − E[x]²``
-    unclamped, whatever ``MXNET_TPU_FAST_VARIANCE`` says, as the JAX op
-    computes it before its cross-device mean."""
+                    fix_gamma=True, training=True, axis_name=None):
+    """``(out, mean, var)`` of ``_contrib_SyncBatchNorm``: BatchNorm over
+    axis 1 whose batch variance is ``E[x²] − E[x]²`` unclamped, whatever
+    ``MXNET_TPU_FAST_VARIANCE`` says, as the JAX op computes it.
+
+    With ``axis_name`` the per-position moments (``E[x]`` and ``E[x²]``)
+    are averaged over that mesh axis with
+    :func:`~mxnet_tpu_torch.parallel.pmean`, as the JAX op's ``lax.pmean``:
+    inside a ``shard_map`` body every argument is the positions' list and
+    so are the results; outside one, under an entered mesh with that
+    axis, the op splits the batch over the axis itself (a meshed
+    ``CompiledTrainStep``'s forward) and returns whole tensors.  With
+    neither it raises, as ``lax.pmean`` does with an unbound axis."""
+    if axis_name in (None, "", "None"):
+        return _sync_bn_local(data, gamma, beta, moving_mean, moving_var,
+                              eps, fix_gamma, training)
+    from ..parallel import collectives as C
+
+    def body(xs, gs, bs, mms, mvs):
+        if not training:
+            outs = [_sync_bn_local(*a, eps, fix_gamma, False)
+                    for a in zip(xs, gs, bs, mms, mvs)]
+            return tuple(list(o) for o in zip(*outs))
+        red = tuple(i for i in range(xs[0].dim()) if i != 1)
+        means = C.pmean([x.float().mean(dim=red) for x in xs], axis_name)
+        sqs = C.pmean([x.float().square().mean(dim=red) for x in xs],
+                      axis_name)
+        outs, ms, vs = [], [], []
+        for x, g, b, mm, mv, m, sq in zip(xs, gs, bs, mms, mvs, means, sqs):
+            var = sq - m.square()
+            out, _, _ = batch_norm(x, g, b, m, var, eps, fix_gamma, 1, False)
+            outs.append(out)
+            ms.append(m.to(mm.dtype))
+            vs.append(var.to(mv.dtype))
+        return outs, ms, vs
+
+    if isinstance(data, (list, tuple)):
+        return body(list(data), *(
+            list(a) if isinstance(a, (list, tuple)) else [a] * len(data)
+            for a in (gamma, beta, moving_mean, moving_var)))
+    from ..parallel.mesh import PartitionSpec as P, current_mesh
+    mesh = current_mesh()
+    if mesh is None or axis_name not in mesh.axis_names:
+        raise MXNetError(
+            f"SyncBatchNorm: unbound axis name {axis_name!r}: call it inside "
+            "a shard_map body or under a mesh with that axis")
+    return C.shard_map(body, mesh, (P(axis_name), P(), P(), P(), P()),
+                       (P(axis_name), P(), P()))(
+        data, gamma, beta, moving_mean, moving_var)
+
+
+def _sync_bn_local(data, gamma, beta, moving_mean, moving_var, eps,
+                   fix_gamma, training):
+    """:func:`sync_batch_norm` on one device (no axis)."""
     if training:
         red = tuple(i for i in range(data.dim()) if i != 1)
         x32 = data.float()
@@ -502,23 +551,17 @@ def _group_norm_op(data, gamma, beta, num_groups=1, eps=1e-5):
     return group_norm(data, gamma, beta, int(num_groups), float(eps))
 
 
-def _no_mesh(axis_name):
-    if axis_name not in (None, "", "None"):
-        raise MXNetError("SyncBatchNorm: a reduction over a mesh axis "
-                         "(axis_name) is not ported yet (ROADMAP A11b)")
-
-
 @register("_contrib_SyncBatchNorm", nin=5, nout=3, aliases=["SyncBatchNorm"])
 def _sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                         momentum=0.9, fix_gamma=True, use_global_stats=False,
                         output_mean_var=False, ndev=1, key=None,
                         axis_name=None, _training=True):
-    """``(out, mean, var)``: local BatchNorm on one device (see
-    :func:`sync_batch_norm`); an ``axis_name`` raises."""
-    _no_mesh(axis_name)
+    """``(out, mean, var)`` (see :func:`sync_batch_norm`); ``key`` and
+    ``ndev`` are accepted for the reference's signature."""
     return sync_batch_norm(data, gamma, beta, moving_mean, moving_var,
                            float(eps), attr_truthy(fix_gamma),
-                           _training and not attr_truthy(use_global_stats))
+                           _training and not attr_truthy(use_global_stats),
+                           axis_name=axis_name)
 
 
 @register("CTCLoss", nin=None, aliases=["ctc_loss"])

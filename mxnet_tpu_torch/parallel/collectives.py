@@ -404,9 +404,11 @@ def reduce_scatter_flat(flats: Sequence[torch.Tensor],
                         axis: str = "dp") -> List[torch.Tensor]:
     """N per-slot flat buffers to their sum laid out over ``axis``: the
     list of its shards, shard r at rank r.  N equal to the axis size runs
-    one :func:`reduce_scatter`; one buffer (already the sum) or any other
-    N is summed pairwise and split where it is.  The length must be a
-    multiple of the axis size."""
+    one :func:`reduce_scatter`; one buffer (already the sum, as a global-
+    view step's gradient is) or any other N is summed pairwise and split
+    where it is, which counts as the axis's ``reduce_scatter`` when the
+    axis has more than one position.  The length must be a multiple of
+    the axis size."""
     mesh = mesh or default_mesh()
     size = mesh.axis_size(axis)
     n = len(flats)
@@ -416,6 +418,8 @@ def reduce_scatter_flat(flats: Sequence[torch.Tensor],
     if flat.shape[0] % size:
         raise ValueError(f"reduce_scatter_flat: length {flat.shape[0]} does "
                          f"not split over {axis} ({size} ways)")
+    if size > 1:
+        _bump("reduce_scatter")
     return list(flat.chunk(size))
 
 

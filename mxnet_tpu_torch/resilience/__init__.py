@@ -26,9 +26,10 @@ the call, so a retried replay never follows a half-run one.
   in place (the step's graphs replay with no new capture);
 * :mod:`elastic` — :class:`AsyncCheckpointer` (device copies on a side
   stream, written off the train thread, published atomically with an
-  integrity manifest), :func:`~elastic.load_elastic_checkpoint`;
-  :class:`ElasticTrainStep`, which reforms the
-  mesh on rank loss, is not ported yet (ROADMAP A11b) and raises.
+  integrity manifest), :func:`~elastic.load_elastic_checkpoint`, and
+  :class:`ElasticTrainStep` (with :class:`ElasticConfig`), which reforms
+  the ``dp`` mesh on the survivors after a rank loss and replays from the
+  last durable checkpoint.
 
 The counters export through ``profiler.register_stats_provider`` as the
 ``resilience`` section, and as ``mxnet_tpu_resilience_*`` metrics.
@@ -145,7 +146,7 @@ __all__ = [
     "DeadlineExceededError", "RankFailureError", "OverloadedError",
     "ServerClosedError", "RequestCancelledError", "faults", "policy",
     "training", "elastic", "FaultTolerantStep", "TrainerSnapshot",
-    "AsyncCheckpointer", "ElasticTrainStep",
+    "AsyncCheckpointer", "ElasticConfig", "ElasticTrainStep",
 ]
 
 # ---------------------------------------------------------------------------
@@ -255,4 +256,5 @@ _profiler.register_stats_provider("resilience", _stats_provider)
 from . import training  # noqa: E402  (imports policy/faults above)
 from .training import FaultTolerantStep, TrainerSnapshot  # noqa: E402
 from . import elastic  # noqa: E402
-from .elastic import AsyncCheckpointer, ElasticTrainStep  # noqa: E402
+from .elastic import (AsyncCheckpointer, ElasticConfig,  # noqa: E402
+                      ElasticTrainStep)

@@ -1,5 +1,6 @@
-"""Elastic training, the checkpoint half (counterpart of
-``mxnet_tpu/resilience/elastic.py``).
+"""Elastic training (counterpart of ``mxnet_tpu/resilience/elastic.py``):
+async checkpoints off the critical path, mesh reformation on rank loss,
+continue on the survivors.
 
 * :class:`AsyncCheckpointer` — every ``MXNET_TPU_ELASTIC_CKPT_STEPS``
   steps, ``save(step)`` takes **device copies** of the training step's
@@ -18,17 +19,28 @@
 * :func:`latest_checkpoint` / :func:`load_elastic_checkpoint` — the
   newest durable ``step-NNNNNNNN`` directory, and its restore into a step
   (in place, so the step's graphs replay without a new capture) with its
-  random streams and the optimizer's counts.
+  random streams and the optimizer's counts.  Global shapes are
+  mesh-independent, so a step built for another mesh restores the same
+  checkpoint (its sharded optimizer states re-slice).
+* :class:`ElasticTrainStep` — drives a step so the job survives rank
+  loss: a rank-loss-shaped failure (:func:`elastic_recoverable`) reforms
+  the ``dp`` mesh on the survivors, rebuilds the step for it, restores
+  the last durable checkpoint and replays the batches fed since, so the
+  recovered trajectory is bit for bit a cold restart's from that
+  checkpoint.  :class:`ElasticConfig` holds its knobs.
 
-:class:`ElasticTrainStep`, which reforms the mesh on rank loss, rebuilds a
-data-parallel mesh on the surviving ranks; it is not ported yet (ROADMAP
-A11b), so it raises :class:`MXNetError` naming that item.
-Its configuration (``ElasticConfig``, the reformation budget and the
-smallest world) and its rank-loss classifier come with it.
+The port's mesh is single-controller: a mesh position is a device, and
+several positions may share one card.  A rank's death is modeled at the
+``allreduce`` and ``execute`` fault sites by a
+:class:`~mxnet_tpu_torch.resilience.FaultPlan`, as the JAX package's
+tier-1 gate models it; the reformed mesh takes the survivors' positions
+from the old mesh's ``devices``.
 
 Metrics: ``mxnet_tpu_elastic_*`` (checkpoints, write and wait seconds,
-queue depth, last checkpoint step and time; the reformation counters and
-the world size come with ElasticTrainStep); span ``elastic.checkpoint``.
+queue depth, last checkpoint step and time, reformations, lost steps,
+world size); spans ``elastic.checkpoint`` and ``elastic.reform``; the
+reformation is the train goodput ledger's ``reform`` bucket and two
+flight-recorder events (``elastic.pre_reform``, ``elastic.reformed``).
 """
 from __future__ import annotations
 
@@ -45,9 +57,23 @@ import torch
 
 from ..base import MXNetError, env
 from ..observability import metrics as _metrics, tracing as _tracing
+from .faults import FaultInjected, maybe_fault
+from .policy import RankFailureError, call_with_timeout
 
-__all__ = ["AsyncCheckpointer", "ElasticTrainStep", "latest_checkpoint",
+__all__ = ["AsyncCheckpointer", "ElasticConfig", "ElasticTrainStep",
+           "elastic_recoverable", "latest_checkpoint",
            "load_elastic_checkpoint"]
+
+_M_REFORMS = _metrics.registry().counter(
+    "mxnet_tpu_elastic_reformations_total",
+    "Mesh reformations completed after a rank loss: survivors agreed on a "
+    "new world, re-sharded state from the last durable checkpoint, and "
+    "training continued on N-1 ranks.")
+_M_LOST = _metrics.registry().counter(
+    "mxnet_tpu_elastic_lost_steps_total",
+    "Training steps rolled back to the restored checkpoint by reformations "
+    "(replayed from the driver's batch buffer when it still holds them; "
+    "truly lost after a process crash).")
 
 _M_CKPTS = _metrics.registry().counter(
     "mxnet_tpu_elastic_checkpoints_total",
@@ -72,6 +98,10 @@ _M_LAST_STEP = _metrics.registry().gauge(
 _M_LAST_TIME = _metrics.registry().gauge(
     "mxnet_tpu_elastic_last_checkpoint_unixtime",
     "Unix time the last elastic checkpoint became durable.")
+_M_WORLD = _metrics.registry().gauge(
+    "mxnet_tpu_elastic_world_size",
+    "Current data-parallel world size of the elastic training job "
+    "(drops when a reformation continues on the survivors).")
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +189,8 @@ def _capture_meta(step) -> dict:
         "rng_states": [g.get_state().tolist() for g in _generators(step)],
         "opt_num_update": int(opt.num_update),
         "opt_counts": [[k, int(v)] for k, v in opt._index_update_count.items()],
-        "world_dp": 1,
+        "world_dp": (step._mesh.axis_size("dp")
+                     if step._mesh is not None else 1),
     }
 
 
@@ -380,14 +411,239 @@ class AsyncCheckpointer:
 # ---------------------------------------------------------------------------
 # mesh reformation
 # ---------------------------------------------------------------------------
-class ElasticTrainStep:
-    """Mesh reformation on rank loss: not ported.  It rebuilds a
-    data-parallel device mesh on the surviving ranks;
-    :class:`AsyncCheckpointer` and :func:`load_elastic_checkpoint` are its
-    checkpoint half."""
+class ElasticConfig:
+    """Knobs for :class:`ElasticTrainStep`; every default reads the env
+    registry (``MXNET_TPU_ELASTIC_DIR``, ``MXNET_TPU_ELASTIC_CKPT_STEPS``,
+    ``MXNET_TPU_ELASTIC_MAX_REFORMS``, ``MXNET_TPU_ELASTIC_MIN_DP``) so a
+    launcher can arm elasticity without touching training code."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(
-            "ElasticTrainStep: mesh reformation on rank loss is not ported "
-            "yet (ROADMAP A11b); AsyncCheckpointer and "
-            "load_elastic_checkpoint are ported")
+    def __init__(self, directory: Optional[str] = None,
+                 every: Optional[int] = None,
+                 max_reforms: Optional[int] = None,
+                 min_dp: Optional[int] = None):
+        self.directory = (str(env.MXNET_TPU_ELASTIC_DIR)
+                          if directory is None else directory)
+        self.every = (int(env.MXNET_TPU_ELASTIC_CKPT_STEPS)
+                      if every is None else int(every))
+        self.max_reforms = (int(env.MXNET_TPU_ELASTIC_MAX_REFORMS)
+                            if max_reforms is None else int(max_reforms))
+        self.min_dp = max(1, int(env.MXNET_TPU_ELASTIC_MIN_DP)
+                          if min_dp is None else int(min_dp))
+
+    @classmethod
+    def coerce(cls, value) -> "ElasticConfig":
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, dict):
+            return cls(**value)
+        return cls()  # True or anything truthy: the env defaults
+
+
+def elastic_recoverable(exc: BaseException) -> bool:
+    """Rank-loss classification: :class:`RankFailureError` (a collective
+    timed out on a dead peer), any injected fault at the ``allreduce``
+    site, a non-transient injected fault at ``execute`` (a rank dying
+    inside the step), or a divergence-checksum mismatch naming a rank (its
+    state is corrupt: evict it as if dead).  Not recoverable by
+    reformation: transient backend errors (the inner retry ladder owns
+    those), :class:`BackendUnavailableError` (the whole backend is gone,
+    not one rank), and programming errors."""
+    if isinstance(exc, RankFailureError):
+        return True
+    if isinstance(exc, FaultInjected):
+        return exc.site == "allreduce" or \
+            (exc.site == "execute" and not exc.transient)
+    from ..observability.health import NumericsError
+    return isinstance(exc, NumericsError) and \
+        exc.diverging_rank is not None
+
+
+class ElasticTrainStep:
+    """Drive a training step so the job survives rank loss.
+
+    ``build_step(mesh)`` makes the step (a ``CompiledTrainStep`` or a
+    ``MultiStepTrainStep``); it is called once up front and once per
+    reformation (a smaller world is another step, with its own graphs).
+    ``mesh`` is the initial mesh (default: every visible device on
+    ``dp``); ``config`` an :class:`ElasticConfig`; ``checkpointer`` an
+    :class:`AsyncCheckpointer` to use instead of the config's.
+
+    Call it as the step it wraps (``loss = estep(x, y)``); attribute
+    access falls through to the live step.  The batches fed since the
+    last durable checkpoint are buffered (bounded by the cadence), so a
+    reformation replays them on the new mesh.  ``on_reform`` callbacks
+    (``fn(new_mesh)``) let the surrounding pipeline follow
+    (``DevicePrefetchIter.reshard``).
+    """
+
+    def __init__(self, build_step, mesh=None,
+                 config: Optional[ElasticConfig] = None, checkpointer=None):
+        from ..parallel.mesh import make_mesh
+        self._build = build_step
+        self._cfg = config or ElasticConfig()
+        self._mesh = mesh if mesh is not None else make_mesh()
+        self._step = build_step(self._mesh)
+        self._world = max(self._mesh.axis_size("dp"), 1)
+        self._ckpt = checkpointer or AsyncCheckpointer(
+            self._cfg.directory, every=self._cfg.every)
+        self._buffer: List[Tuple] = []
+        self._executed = 0
+        self._anchored = False
+        self.reformations = 0
+        self.on_reform: List = []
+        _M_WORLD.set(self._world)
+
+    # ------------------------------------------------------------- accessors
+    @property
+    def step(self):
+        """The live inner step (rebuilt by each reformation)."""
+        return self._step
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def world_size(self) -> int:
+        return self._world
+
+    @property
+    def checkpointer(self) -> AsyncCheckpointer:
+        return self._ckpt
+
+    def __getattr__(self, name):
+        if name.startswith("__") or "_step" not in self.__dict__:
+            raise AttributeError(name)
+        return getattr(self._step, name)
+
+    # ------------------------------------------------------------- stepping
+    def _probe_collective(self) -> None:
+        """The per-step rank-liveness seam: the ``allreduce`` fault site
+        under ``MXNET_KVSTORE_TIMEOUT``, which turns a hang into
+        :class:`RankFailureError`, the protection the dist kvstore's
+        collective guard gives (the step's own gradient reduction is
+        inside its graph)."""
+        timeout = float(env.MXNET_KVSTORE_TIMEOUT)
+        desc = (f"elastic step collective (step {self._step._num_update}, "
+                f"world dp={self._world})")
+
+        def rank_failure(m):
+            from . import _flight_notify
+            exc = RankFailureError(
+                m + "; a peer rank is dead or wedged — reforming the mesh "
+                    "on the survivors")
+            _flight_notify(exc, "allreduce", context={
+                "collective": desc, "world_size": self._world,
+                "num_update": int(self._step._num_update)})
+            return exc
+
+        call_with_timeout(lambda: maybe_fault("allreduce"), timeout, desc,
+                          error=rank_failure)
+
+    def __call__(self, x, y):
+        if not self._anchored:
+            # the step-0 anchor: recovery needs a durable snapshot even
+            # before the first cadence point
+            self._ckpt.save(self._step)
+            self._anchored = True
+        self._buffer.append((x, y))
+        while True:
+            try:
+                loss = None
+                while self._executed < len(self._buffer):
+                    bx, by = self._buffer[self._executed]
+                    self._probe_collective()
+                    loss = self._step(bx, by)
+                    self._executed += 1
+                    if self._ckpt.due(self._step._num_update):
+                        self._ckpt.save(self._step)
+                        del self._buffer[:self._executed]
+                        self._executed = 0
+                    elif self._ckpt.every <= 0:
+                        # no cadence: a reformation restores the step-0
+                        # anchor and the rolled-back steps are lost (and
+                        # metered); holding their batches would pin the
+                        # whole run's inputs
+                        del self._buffer[:self._executed]
+                        self._executed = 0
+                return loss
+            except Exception as e:  # noqa: BLE001 - the classifier decides
+                if not elastic_recoverable(e):
+                    raise
+                self._reform(e)
+
+    def finish(self) -> None:
+        """Drain the async writer (end of training, before evaluation)."""
+        self._ckpt.wait()
+
+    def close(self) -> None:
+        self._ckpt.close()
+
+    # ------------------------------------------------------------- reformation
+    def _agree_world(self, survivors: int) -> int:
+        """Agreement on the world after a failure.  Across processes each
+        survivor adds 1 to a bounded all-reduce (the seam the dist stores
+        collect on) and the smaller view wins; in one process, where the
+        dead rank is modeled by a FaultPlan, it is the local decision."""
+        from .. import distributed
+        if distributed.process_count() > 1:
+            from ..parallel.collectives import cross_process_allreduce
+            alive = call_with_timeout(
+                lambda: cross_process_allreduce(torch.ones(1)),
+                float(env.MXNET_KVSTORE_TIMEOUT) or 30.0,
+                "elastic world agreement")
+            return min(survivors, int(alive[0]))
+        return survivors
+
+    def _reform(self, exc: BaseException) -> None:
+        from ..observability import flight_recorder as _fr
+        from ..observability import goodput as _goodput
+        from ..parallel.mesh import make_mesh
+        if self.reformations >= self._cfg.max_reforms:
+            raise MXNetError(
+                f"elastic reformation budget exhausted "
+                f"({self._cfg.max_reforms}); last rank failure: {exc}"
+            ) from exc
+        prev_step = int(self._step._num_update)
+        # the world we came from goes to the flight ring first: if the
+        # recovery itself dies, the post-mortem still shows it
+        _fr.record_event("elastic.pre_reform",
+                         world_size=self._world, num_update=prev_step,
+                         reformations=self.reformations,
+                         failure=f"{type(exc).__name__}: {exc}")
+        with _tracing.span("elastic.reform",
+                           attrs={"from_world": self._world,
+                                  "failure": type(exc).__name__}), \
+                _goodput.train().timed("reform"):
+            self._ckpt.wait()  # an in-flight capture becomes durable first
+            found = self._ckpt.latest()
+            if found is None:
+                raise MXNetError(
+                    "mesh reformation needs a durable elastic checkpoint "
+                    f"and none exists under {self._ckpt.directory}"
+                ) from exc
+            path, ckpt_step = found
+            survivors = self._agree_world(self._world - 1)
+            new_dp = 1 << max(survivors.bit_length() - 1, 0)
+            if survivors < 1 or new_dp < self._cfg.min_dp:
+                raise MXNetError(
+                    f"cannot reform below min_dp={self._cfg.min_dp} "
+                    f"(survivors={survivors}); last rank failure: {exc}"
+                ) from exc
+            # the survivors' positions: the old mesh's first new_dp
+            # devices (several positions may share one card)
+            new_mesh = make_mesh({"dp": new_dp},
+                                 devices=self._mesh.devices[:new_dp])
+            self._step = self._build(new_mesh)
+            load_elastic_checkpoint(path, self._step)
+            self._mesh, self._world = new_mesh, new_dp
+            self._executed = 0  # replay every buffered batch on the new mesh
+            self.reformations += 1
+            _M_REFORMS.inc()
+            _M_LOST.inc(max(prev_step - ckpt_step, 0))
+            _M_WORLD.set(new_dp)
+            for cb in self.on_reform:
+                cb(new_mesh)
+        _fr.record_event("elastic.reformed",
+                         world_size=new_dp, restored_step=ckpt_step,
+                         replaying=len(self._buffer))

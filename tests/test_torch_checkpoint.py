@@ -10,8 +10,9 @@ within 1e-6 of each tensor's largest |value| of the JAX package's
 four-step trajectory from the same weights and batches).  The restore
 writes in place: every tensor keeps its address.  The layout names are the
 JAX package's; the manifest catches a truncated file (naming it) and a
-flipped bit; ``force`` keeps its meaning; the ZeRO-sharded functions raise
-naming ROADMAP A11.
+flipped bit; ``force`` keeps its meaning; the ZeRO-sharded functions need
+a stepped store (their round trips are in
+``test_torch_checkpoint_sharded.py``).
 """
 import json
 import os
@@ -229,8 +230,13 @@ def test_restore_refuses_another_architecture(tmp_path):
         TrainStepCheckpoint(b).restore(str(tmp_path / "ck"))
 
 
-def test_sharded_optimizer_raises_naming_a11(tmp_path):
-    with pytest.raises(MXNetError, match="A11"):
-        save_sharded_optimizer(str(tmp_path / "s"), None)
-    with pytest.raises(MXNetError, match="A11"):
-        load_sharded_optimizer(str(tmp_path / "s"), None)
+def test_sharded_optimizer_needs_a_stepped_store(tmp_path):
+    """A store that has not run a sharded step has nothing to save, and a
+    load needs the optimizer the slots belong to (the round trips are in
+    ``test_torch_checkpoint_sharded.py``)."""
+    from mxnet_tpu_torch import kvstore
+    kv = kvstore.create("device")
+    with pytest.raises(MXNetError, match="has not stepped"):
+        save_sharded_optimizer(str(tmp_path / "s"), kv)
+    with pytest.raises(MXNetError, match="set_optimizer"):
+        load_sharded_optimizer(str(tmp_path / "s"), kv)

@@ -31,12 +31,11 @@ from mxnet_tpu_torch import util as tutil
 from mxnet_tpu_torch.ops import registry as tops_registry
 from mxnet_tpu_torch.symbol.symbol import NameManager as TNames
 
-# knobs whose modules wait for later slices: the compile cache (ROADMAP
-# A14) and the elastic trainer (A11)
+# knobs whose modules wait for a later slice: the compile cache (ROADMAP
+# A14)
 LATER = {"MXNET_COMPILE_CACHE", "MXNET_COMPILE_CACHE_GB",
          "MXNET_COMPILE_CACHE_MIN_S", "MXNET_COMPILE_CACHE_SALT",
-         "MXNET_COMPILE_CACHE_SIGMAP", "MXNET_COMPILE_CACHE_VERIFY",
-         "MXNET_TPU_ELASTIC_MAX_REFORMS", "MXNET_TPU_ELASTIC_MIN_DP"}
+         "MXNET_COMPILE_CACHE_SIGMAP", "MXNET_COMPILE_CACHE_VERIFY"}
 JAX_KNOBS = sorted(set(re.findall(
     r'env\.declare\(\s*"([A-Z_0-9]+)"',
     (Path(jbase.__file__)).read_text())))

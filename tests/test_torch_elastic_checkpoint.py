@@ -13,8 +13,8 @@ trajectory without dropout; the write is off the critical path (a
 slowed writer does not slow the steps between cadence points, and the
 wait at a cadence point is the goodput ``checkpoint`` bucket); torn,
 truncated and bit-flipped checkpoints are never loaded or selected;
-cadence rounding and a zero cadence; ``ElasticTrainStep`` raises naming
-ROADMAP A11.
+cadence rounding and a zero cadence; ``ElasticTrainStep`` needs a
+directory (its reformations are in ``test_torch_elastic.py``).
 """
 import json
 import os
@@ -272,9 +272,15 @@ def test_failed_write_surfaces_on_the_train_thread(tmp_path):
         ck.close()
 
 
-def test_elastic_train_step_raises_naming_a11(tmp_path):
-    with pytest.raises(MXNetError, match="A11"):
-        ElasticTrainStep(lambda mesh: None)
+def test_elastic_train_step_needs_a_directory(monkeypatch):
+    """ElasticTrainStep's checkpointer needs a directory (here or in
+    MXNET_TPU_ELASTIC_DIR), as AsyncCheckpointer does; the reformations
+    are in ``test_torch_elastic.py``."""
+    from mxnet_tpu_torch.resilience import ElasticConfig
+    monkeypatch.delenv("MXNET_TPU_ELASTIC_DIR", raising=False)
+    with pytest.raises(MXNetError, match="directory"):
+        ElasticTrainStep(lambda mesh: _step(_net(dropout=0)),
+                         config=ElasticConfig(every=2))
     with pytest.raises(MXNetError, match="directory"):
         AsyncCheckpointer("")
 

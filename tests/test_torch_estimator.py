@@ -31,7 +31,6 @@ from mxnet_tpu import resilience as jrs
 from mxnet_tpu.gluon.contrib import estimator as jest
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import resilience as rs
 from mxnet_tpu_torch.convert import params_from_mxnet
 from mxnet_tpu_torch.gluon.contrib import estimator as test_
@@ -348,10 +347,19 @@ def test_resume_on_fault_replays_to_the_same_bits(k, monkeypatch):
     _close_params(faulted, je)
 
 
-def test_elastic_raises_naming_a11():
+def test_elastic_fit_runs_the_fused_driver(tmp_path):
+    """``fit(elastic=...)`` runs the fused driver under ElasticTrainStep
+    (K = 1 included) on a mesh of the visible devices and trains every
+    batch, with the step-0 anchor and the cadence points durable."""
     _, te = _pair()
-    with pytest.raises(MXNetError, match="A11"):
-        te.fit(_data(tmx), elastic=True)
+    te.fit(_data(tmx), elastic={"directory": str(tmp_path / "ck"),
+                                "every": 2})
+    (wrapper,) = te._fused_steps.values()
+    assert isinstance(wrapper, rs.ElasticTrainStep)
+    assert wrapper.step._num_update == 4 and wrapper.reformations == 0
+    wrapper.finish()
+    assert wrapper.checkpointer.latest()[1] == 4
+    wrapper.close()
 
 
 def test_logging_and_gradient_update_handlers(caplog):

@@ -435,23 +435,33 @@ def test_remat_and_grad_buckets_change_no_bit(option, opt_name, monkeypatch):
         assert torch.equal(plain[key], other[key]), key
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": "dp2", "shard_optimizer_state": True}, "A11b"),
-    ({"shard_optimizer_state": True}, "A11b"),
-    ({"mesh": "dp2", "param_spec_fn": lambda n, p: None,
-      "shard_optimizer_state": True}, "A11b"),
-    ({"mesh": "dp2", "health": True, "shard_optimizer_state": True},
-     "A11b")])
-def test_unported_options_raise_naming_the_roadmap(kwargs, item):
-    """ZeRO optimizer-state sharding is the one option of the step still
-    to port (the mesh came in its own slice)."""
-    from mxnet_tpu_torch.base import MXNetError
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": "dp2"}, {}, {"mesh": "dp2", "param_spec_fn": lambda n, p: None},
+    {"mesh": "dp2", "health": True}], ids=["dp2", "no_mesh", "spec_fn",
+                                           "health"])
+def test_shard_optimizer_state_changes_no_bit(kwargs):
+    """``shard_optimizer_state=True`` (ZeRO: SGD's momentum as two dp
+    shards of a flat buffer) gives the replicated step's weights and
+    momenta bit for bit over 3 steps; without a mesh it does nothing, as
+    in the JAX package."""
     from mxnet_tpu_torch.parallel import DeviceMesh
     if kwargs.get("mesh") == "dp2":
         kwargs = dict(kwargs, mesh=DeviceMesh({"dp": 2}, devices=["cpu"] * 2))
-    _, tnet = _dense_pair()
-    with pytest.raises(MXNetError, match=item):
-        CompiledTrainStep(tnet, _sq_loss_t, topt.create("sgd"), **kwargs)
+    out = []
+    for shard in (False, True):
+        _, tnet = _dense_pair()
+        step = CompiledTrainStep(tnet, _sq_loss_t, topt.create(
+            "sgd", learning_rate=0.1, momentum=0.9),
+            shard_optimizer_state=shard, **kwargs)
+        for _ in range(3):
+            step(torch.ones(2, 4), torch.zeros(2, 3))
+        out.append((tnet.weight.detach().clone(), step))
+    (w0, s0), (w1, s1) = out
+    assert torch.equal(w0, w1)
+    assert s1.shard_optimizer_state == ("mesh" in kwargs)
+    assert (s1._zero is not None) == ("mesh" in kwargs)
+    for a, b in zip(s0.optimizer_states(), s1.optimizer_states()):
+        assert torch.equal(a, b)
 
 
 def test_donate_is_accepted_and_changes_nothing():

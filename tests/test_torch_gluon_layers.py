@@ -395,10 +395,16 @@ def test_sync_batch_norm_is_local_batch_norm_like_jax(scale, tmp_path):
     _export_pair(jb, tb, [x], tmp_path, json_equal=False)
 
 
-def test_sync_batch_norm_with_axis_name_raises_naming_a11():
-    with pytest.raises(MXNetError, match="A11"):
-        tnn.SyncBatchNorm(axis_name="dp")
-    with pytest.raises(MXNetError, match="A11"):
+def test_sync_batch_norm_axis_name_outside_a_body_raises():
+    """With ``axis_name`` and neither a shard_map body nor a mesh with
+    that axis the moments have nothing to average over: it raises, as
+    ``lax.pmean`` does with an unbound axis (the reduction itself is in
+    ``test_torch_sync_batch_norm.py``)."""
+    layer = tnn.SyncBatchNorm(axis_name="dp", in_channels=3)
+    layer.initialize(ctx=tmx.cpu())
+    with pytest.raises(MXNetError, match="unbound axis"):
+        layer(torch.ones(2, 3, 2, 2))
+    with pytest.raises(MXNetError, match="unbound axis"):
         tmx.nd._contrib_SyncBatchNorm(
             *[tmx.nd.ones(s) for s in ((2, 3, 2, 2), (3,), (3,), (3,),
                                        (3,))], axis_name="dp")

@@ -1,7 +1,7 @@
 """Port parity for the pipelined input path, on the CPU: the JAX
 package's ``tests/test_io_pipeline.py`` run on the port's
 ``DevicePrefetchIter(ctx=mx.cpu())``, ``PrefetchingIter`` and
-``ImageRecordIter`` (the mesh test becomes "a mesh raises naming A11"),
+``ImageRecordIter`` (the mesh test stages over a CPU mesh and reshards),
 and ``Module.fit(prefetch_to_device=True)`` against the JAX package's
 weights after one epoch.
 
@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 
@@ -70,12 +71,26 @@ def test_device_prefetch_yields_all_batches_in_order():
     _ended(it)
 
 
-def test_device_prefetch_mesh_raises_naming_a11():
-    with pytest.raises(MXNetError, match="A11"):
-        _prefetch(_seq_iter(), queue_size=2, mesh=object())
-    it = _prefetch(_seq_iter(), queue_size=2)
-    with pytest.raises(MXNetError, match="A11"):
-        it.reshard(object())
+def test_device_prefetch_mesh_stages_and_reshards():
+    """Over a mesh (given, or the one entered at construction) each batch
+    is staged on the mesh's positions' device, the same values; reshard
+    retargets the batches staged after it (``staged_by_dp``)."""
+    from mxnet_tpu_torch.parallel import DeviceMesh
+    cpu = [torch.device("cpu")] * 4
+    m4, m2 = DeviceMesh({"dp": 4}, devices=cpu), DeviceMesh({"dp": 2},
+                                                             devices=cpu[:2])
+    with m4:
+        it = _prefetch(_seq_iter(), queue_size=1)
+    assert it.mesh is m4
+    first = it.next()
+    assert first.label[0].asnumpy()[0] == 0.0
+    assert first.data[0].context == mx.cpu()
+    it.reshard(m2)
+    rest = list(it)
+    assert [b.label[0].asnumpy()[0] for b in rest] == [8.0, 16.0, 24.0]
+    assert it.mesh is m2
+    assert set(it.staged_by_dp) == {4, 2} and sum(
+        it.staged_by_dp.values()) == 4
     _ended(it)
 
 

@@ -52,6 +52,7 @@ import mxnet_tpu_torch.ops.contrib_ops
 import mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.rules
 import mxnet_tpu_torch.parallel.pipeline
 import mxnet_tpu_torch.parallel.ring_attention, mxnet_tpu_torch.ops.moe
+import mxnet_tpu_torch.kvstore.sharded
 sys.path.insert(0, "tools")
 import serve_torch, chaos_torch
 print("\\n".join(sorted(set(sys.modules) - before)))
@@ -141,6 +142,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "mxnet_tpu_torch.parallel.pipeline",
                  "mxnet_tpu_torch.parallel.ring_attention",
                  "mxnet_tpu_torch.ops.moe",
+                 "mxnet_tpu_torch.kvstore.sharded",
                  "serve_torch", "chaos_torch"):
         assert name in loaded
     bad = [m for m in loaded if FORBIDDEN.search(m) or m.startswith("triton")]

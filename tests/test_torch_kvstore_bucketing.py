@@ -38,7 +38,6 @@ from mxnet_tpu.parallel import make_mesh
 
 import mxnet_tpu_torch as tmx
 import torch
-from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import kvstore as tkv
 from mxnet_tpu_torch.kvstore import gradient_compression as tgc
 from mxnet_tpu_torch.kvstore.bucketing import GradientBucketer as TBucketer
@@ -568,13 +567,24 @@ def test_trainer_compression_params_reach_the_store():
     np.testing.assert_allclose(step, 0.5 / 2, rtol=1e-6)   # 1/batch of 0.5
 
 
-def test_trainer_optimizer_state_sharding_raises(monkeypatch):
+def test_trainer_optimizer_state_sharding_needs_a_mesh(monkeypatch):
+    """A sharded Trainer with no mesh to shard over engages no store (one
+    worker, as the replicated Trainer); ``MXNET_KVSTORE_SHARD`` sends a
+    device store's push through the ZeRO engine, with the replicated
+    store's result."""
     net = _dense(tmx)
-    with pytest.raises(MXNetError, match="A11"):
-        tmx.gluon.Trainer(net.collect_params(), "sgd",
-                          optimizer_state_sharding=True)
-    monkeypatch.setenv("MXNET_KVSTORE_SHARD", "1")
-    kv = tkv.create("device")
-    kv.init([0, 1], [tmx.nd.zeros((2,)), tmx.nd.zeros((2,))])
-    with pytest.raises(MXNetError, match="A11"):
-        kv.push([0, 1], [tmx.nd.ones((2,)), tmx.nd.ones((2,))])
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                optimizer_state_sharding=True)
+    trainer.allreduce_grads()
+    assert trainer._kvstore is None
+    out = []
+    for shard in ("0", "1"):
+        monkeypatch.setenv("MXNET_KVSTORE_SHARD", shard)
+        kv = tkv.create("device")
+        kv.set_optimizer(tmx.optimizer.create("sgd", learning_rate=0.5))
+        kv.init([0, 1], [tmx.nd.zeros((2,)), tmx.nd.zeros((2,))])
+        kv.push([0, 1], [tmx.nd.ones((2,)), tmx.nd.ones((2,)) * 3])
+        assert (kv._shard_engine is not None) == (shard == "1")
+        out.append([kv.pull(k).asnumpy() for k in (0, 1)])
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
